@@ -5,18 +5,27 @@
 
 Phases (any failure exits non-zero; nothing is caught):
   1. the card's name and power limit, torch and CUDA versions;
-  2. build the four CUDA kernels from iqtree_torch/engine/kernels/csrc;
+  2. build the six CUDA kernels from iqtree_torch/engine/kernels/csrc (five
+     ported TPU kernels and the stepwise-addition parsimony scorer);
   3. at the main path's shapes (bench_data.npz: 1000 taxa x 10k sites,
      GTR+G4) run each kernel and its plain PyTorch twin on the card,
      hold them together, time both; check the custom-autograd gradient
      against autograd through the plain pass; check the golden lnL of the
-     44-taxon example;
-  4. the main path through the CLI entry point: `-s ALN -te TREE -m GTR+G`
-     on cuda, with every kernel's launch count read around that run;
+     44-taxon example; score every NNI of the true tree on the kernels'
+     passes and on the twins' passes;
+  4. the fixed-topology path through the CLI entry point:
+     `-s ALN -te TREE -m GTR+G` on cuda, with the launch counts of its
+     four kernels read around that run;
   5. the same fit once more under torch.profiler: device time by kernel
-     and the card's busy share of the fit.
-Prints the kernels' JSON line, then as its last line
-{"ok": true, "device": {...}}.
+     and the card's busy share of the fit;
+  6. the default search through the CLI entry point:
+     `-s ALN -m GTR+G -n 5 -ninit 8 -ntop 3 -seed 1` on cuda (the flags of
+     the reference binary's recorded run), with all six kernels' launch
+     counts read around it, its per-phase profile and its score checked;
+  7. one NNI hill climb from the ML-distance BIONJ tree under
+     torch.profiler: device time by kernel, busy share.
+Prints the kernels' JSON line (launches from the search), then as its
+last line {"ok": true, "device": {...}}.
 """
 
 import json
@@ -29,6 +38,9 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 REF_OPTIMUM = -2656751.0  # IQ-TREE 1.4.3 binary, same -te fit (ROADMAP.md)
 JAX_LNL = -2656736.32  # the JAX package's result on the same fit
+REF_SEARCH_LNL = -2657075.925  # the binary's -n 5 search (bench_baseline.json)
+JAX_SEARCH_LNL = -2656903.31  # the JAX package's search, float32 (BENCH_r05.json)
+SEARCH_FLAGS = ["-m", "GTR+G", "-n", "5", "-ninit", "8", "-ntop", "3", "-seed", "1"]
 GOLDEN_LNL = -17848.038178  # tests/test_golden.py
 PEAK_F32 = 67e12  # H100 SXM float32 outside the tensor cores, FLOP/s
 PEAK_BW = 3.35e12  # H100 SXM HBM3, bytes/s
@@ -65,6 +77,31 @@ def bound(bytes_, flops):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
+def partial_tree(tree, N):
+    """The layout of `tree` without its last taxon, for scoring where that
+    taxon goes back: (leaf, present taxa, layout)."""
+    from iqtree_torch.engine import parsimony as pars
+
+    adj = {v: [] for v in range(tree.n_nodes - 1)}
+    R = tree.root
+    for v in range(tree.n_nodes - 1):
+        p = int(tree.parent[v])
+        if p == R:
+            continue
+        adj[v].append(p)
+        adj[p].append(v)
+    c = int(tree.children[R, 1] if tree.children[R, 0] == 0 else tree.children[R, 0])
+    adj[0].append(c)
+    adj[c].append(0)
+    leaf = N - 1
+    (w,) = adj.pop(leaf)
+    x, y = [u for u in adj.pop(w) if u != leaf]
+    adj[x] = [y if u == w else u for u in adj[x]]
+    adj[y] = [x if u == w else u for u in adj[y]]
+    present = [v for v in adj if v < N]
+    return leaf, present, pars._partial_layout(adj, 0, N)
+
+
 def load_bench():
     import numpy as np
 
@@ -72,9 +109,9 @@ def load_bench():
     return [str(n) for n in z["names"]], [str(s) for s in z["seqs"]], str(z["tree"])
 
 
-def write_inputs(tmp, names, seqs, tree_nwk):
-    """The main path's CLI arguments, its alignment and tree written to
-    `tmp`: (argv, output prefix)."""
+def write_inputs(tmp, names, seqs, tree_nwk, search=False):
+    """The CLI arguments of the fixed-topology fit (or of the search), its
+    alignment and tree written to `tmp`: (argv, output prefix)."""
     aln_path = os.path.join(tmp, "bench.phy")
     with open(aln_path, "w") as f:
         f.write(f"{len(names)} {len(seqs[0])}\n")
@@ -83,39 +120,85 @@ def write_inputs(tmp, names, seqs, tree_nwk):
     with open(tree_path, "w") as f:
         f.write(tree_nwk + "\n")
     prefix = os.path.join(tmp, "bench")
-    return ["-s", aln_path, "-te", tree_path, "-m", "GTR+G", "-pre", prefix,
-            "-device", "cuda", "-redo"], prefix
+    common = ["-pre", prefix, "-device", "cuda", "-redo"]
+    if search:
+        return ["-s", aln_path, *SEARCH_FLAGS, *common], prefix
+    return ["-s", aln_path, "-te", tree_path, "-m", "GTR+G", *common], prefix
 
 
-def profile_fit(cli_main, args, wall):
-    """Run the fit under torch.profiler; print the device time by kernel,
-    the host ops that launched the most of it, and the card's busy share
-    of the unprofiled fit's wall time."""
+def profile_run(fn, wall, what):
+    """Run fn() under torch.profiler; print the device time by kernel, the
+    host ops that launched the most of it, and the card's busy share of
+    the unprofiled run's wall time `wall`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        rc = cli_main(args)
+        fn()
         torch.cuda.synchronize()
         p_wall = time.time() - t0
-    check(rc == 0, f"profiled CLI run exited {rc}")
     # device-side events (kernels, copies) hold the device time once; a host
     # op's self device time repeats that of the kernels it launched
     avgs = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     dev = [e for e in avgs if e.device_type == DeviceType.CUDA]
     host = [e for e in avgs if e.device_type != DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in dev) / 1e6
-    print(f"profiled fit: {p_wall:.2f} s wall under the profiler; device busy "
+    print(f"profiled {what}: {p_wall:.2f} s wall under the profiler; device busy "
           f"{busy:.3f} s = {busy / wall:.1%} of the unprofiled {wall:.2f} s wall "
           f"({busy / p_wall:.1%} of the profiled)")
     for title, rows in (("device time by kernel", dev),
                         ("host ops by the device time they launched", host)):
         print(f"{title}:")
-        for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
+        for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:10]:
             print(f"  {e.self_device_time_total / 1e3:10.1f} ms  {e.count:6d} x  "
                   f"{e.key[:90]}")
+
+
+def run_cli(cli_main, args, counters):
+    """One CLI run with every launch count set to 0 just before it: (wall
+    seconds, launches by kernel, log lines, written tree text)."""
+    import torch
+
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    rc = cli_main(args)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    check(rc == 0, f"CLI exited {rc}")
+    prefix = args[args.index("-pre") + 1]
+    with open(prefix + ".log") as f:
+        log = f.read().splitlines()
+    with open(prefix + ".treefile") as f:
+        nwk = f.read()
+    return wall, launches, log, nwk
+
+
+def logged(log, key):
+    """The value after `key` on the last log line that starts with it."""
+    return [l for l in log if l.startswith(key)][-1][len(key):].strip()
+
+
+def reevaluate(nwk, model_str, aln, dev):
+    """The written tree and model, evaluated in float64 by the plain pass:
+    (lnL, tree arrays with blen as a leaf, autograd d lnL/d blen)."""
+    import torch
+    from iqtree_torch.engine.likelihood import (ModelArrays, SiteData, TreeArrays,
+                                                compute_loglik)
+    from iqtree_torch.models.factory import parse_model_string
+    from iqtree_torch.trees.tree import PhyloTree
+
+    s64, r64 = parse_model_string(model_str, aln)
+    ta = TreeArrays.from_tree(PhyloTree.from_newick(nwk, aln.names), dev)
+    blen = ta.blen.clone().requires_grad_()
+    lnl, _ = compute_loglik(ta.with_blen(blen), ModelArrays.from_model(s64, r64, dev),
+                            SiteData.from_alignment(aln, dev, torch.float64))
+    g = torch.autograd.grad(lnl, blen)[0]
+    return float(lnl.detach()), ta.with_blen(blen.detach()), g
 
 
 def main():
@@ -263,7 +346,85 @@ def main():
            cuda_ms(lambda: csk._newton_plain(steps, mats, props, freq, wp, invar,
                                              up_k, usc_k), 2),
            rev_bytes + 4 * R * 3 * CSS, 2 * (N - 1) * P * (8 * CSS + 12 * CS))
-    del up_k, usc_k, d_p
+    del d_p
+
+    # outside-partial store: O in [0, 1] absolutely, osc relative to its largest
+    out_k, osc_k = csk.fused_down_store_cs(steps, n_slots, trans, up_k, usc_k, freq)
+    out_p, osc_p = csk._down_store_plain(steps, trans, up_k, usc_k, freq)
+    rows = torch.arange(R - 1, device=dev)
+    rows = rows[rows != R - 2]  # every node but the root (never written)
+    err = max(float((out_k[rows] - out_p[rows]).abs().max()),
+              float((osc_k[rows] - osc_p[rows]).abs().max()
+                    / osc_p[rows].abs().max()))
+    record("down_store", "iqtree_torch/engine/kernels/csrc/down_store.cu",
+           "iqtree_tpu/engine/kernels/cs_kernels.py:734", err, 1e-4,
+           cuda_ms(lambda: csk.fused_down_store_cs(steps, n_slots, trans, up_k, usc_k,
+                                                   freq), 5),
+           cuda_ms(lambda: csk._down_store_plain(steps, trans, up_k, usc_k, freq), 2),
+           4 * (2 * R * (CS + 1) * P + R * CSS + 6 * (N - 1) + CS),
+           P * (2 * (N - 1) * (2 * CSS + 3 * CS) + (N - 2) * 2 * CSS))
+    del up_k, usc_k, out_k, osc_k, out_p, osc_p
+
+    # stepwise-addition parsimony: the last insertion of a full tree (the
+    # bench tree without one taxon); integer pattern weights, exact sums.
+    # Bound: tips, weights and walk orders read once, costs written once;
+    # ~14 integer operations a node and pattern, at the float32 rate
+    from iqtree_torch.engine import parsimony as pars
+
+    leaf, present, layout = partial_tree(tree, N)
+    masks = torch.as_tensor(pars.pack_tip_masks(aln), device=dev)
+    masks8 = masks[:, 0].to(torch.uint8).contiguous()
+    pfreq = torch.as_tensor(aln.pattern_freq, dtype=torch.float64, device=dev)
+    scratch = tuple(torch.empty(R, P, dtype=torch.uint8, device=dev) for _ in range(2))
+    cost_k = pars.insertion_costs(masks, masks8, pfreq, leaf, layout, present, scratch)
+    cost_p = pars._edge_costs(
+        pars._insertion_costs_plain(masks, pfreq, leaf, layout, present), layout)
+    fin = np.isfinite(cost_p)
+    check(np.array_equal(np.isfinite(cost_k), fin), "parsimony: the same edges")
+    record("pars_insert", "iqtree_torch/engine/kernels/csrc/pars_insert.cu",
+           "iqtree_tpu/engine/parsimony.py:168 (plain XLA, no Pallas kernel)",
+           float(np.abs(cost_k[fin] - cost_p[fin]).max()), 0.0,
+           cuda_ms(lambda: pars.insertion_costs(masks, masks8, pfreq, leaf, layout,
+                                                present, scratch), 5),
+           cuda_ms(lambda: pars._insertion_costs_plain(masks, pfreq, leaf, layout,
+                                                       present), 2),
+           N * P + 8 * P + 4 * 6 * R + 8 * R, 14 * R * P)
+    del masks, masks8, scratch
+
+    # every NNI of the true tree, on the kernels' passes and on the twins':
+    # the two sum in other orders in float32, and the per-edge biases that
+    # float32 puts into both cancel in the paired deltas, which the JAX
+    # package measured within 0.2 of float64 at this size (README.md)
+    from iqtree_torch.engine.banner import decide_engine
+    from iqtree_torch.engine.nni import evaluate_nnis
+
+    chunk = decide_engine(N, C, S, P, dev, torch.float32, search=True).nni_chunk
+    edges = ta.h2d.cpu().numpy()[tree.internal_edges()]
+    up_p, usc_p = pk.upward_plain(steps, trans, tips)
+    csk.fill_tip_rows_cs(up_p, usc_p, tips, C)
+    plain = (up_p, usc_p, *csk._down_store_plain(steps, trans, up_p, usc_p, freq))
+    with torch.no_grad():
+        def nni_eval(passes=None):
+            ev = evaluate_nnis(ta, model, site, edges, steps, n_slots, paired=True,
+                               edge_chunk=chunk, passes=passes)
+            return (ev.lnl - ev.base_lnl[:, None]).cpu()
+
+        d_k = nni_eval()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        d_k = nni_eval()
+        eval_s = time.time() - t0
+        d_p = nni_eval(plain)
+    del plain, up_p, usc_p
+    diff = (d_k - d_p).abs()
+    err = float(diff.max())
+    pos = (d_k > 1e-3) | (d_p > 1e-3)
+    print(f"NNI evaluator ({len(edges)} edges x 3 swaps, {chunk} edges a chunk): "
+          f"{eval_s:.3f} s; paired deltas on kernel vs plain passes differ by "
+          f"{err:.3e} at most (tol 0.2), {float(diff.quantile(0.99)):.3e} at the 99th "
+          f"percentile, {float(diff[pos].max()) if bool(pos.any()) else 0.0:.3e} at "
+          f"most over the {int(pos.sum())} positive NNIs")
+    check(err < 0.2, "paired NNI deltas on the kernels' passes vs the twins'")
 
     # gradient: autograd.Function vs autograd through the plain pass
     def grads(fn):
@@ -305,65 +466,95 @@ def main():
     del trans, tips, model, site, ta
     torch.cuda.empty_cache()
 
-    phase("4. main path: -te fit through the CLI on cuda")
+    phase("4. fixed-topology path: -te fit through the CLI on cuda")
     from iqtree_torch.cli import main as cli_main
 
     counters = {"forward": pk.fused_site_lnl, "store": csk.fused_upward_store_cs,
-                "tbar": csk.fused_tbar_cs, "newton": csk.newton_sweep}
+                "tbar": csk.fused_tbar_cs, "newton": csk.newton_sweep,
+                "down_store": csk.fused_down_store_cs,
+                "pars_insert": pars.insertion_costs}
     with tempfile.TemporaryDirectory() as tmp:
-        args, prefix = write_inputs(tmp, names, seqs, tree_nwk)
-        for fn in counters.values():
-            fn.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.time()
-        rc = cli_main(args)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        launches = {k: fn.launches for k, fn in counters.items()}
-        check(rc == 0, f"CLI exited {rc}")
-        with open(prefix + ".log") as f:
-            log = f.read().splitlines()
-        with open(prefix + ".treefile") as f:
-            out_tree = PhyloTree.from_newick(f.read(), aln.names)
-    fit_lnl = float([l for l in log if l.startswith("Optimal log-likelihood:")][-1]
-                    .split(":")[1])
-    fitted = [l for l in log if l.startswith("Best-fit model parameters:")][-1]
-    # the written tree and model, re-evaluated in float64 by the plain pass
-    s64, r64 = parse_model_string(fitted.split(":", 1)[1].strip(), aln)
-    ta_fit = TreeArrays.from_tree(out_tree, dev)
-    blen = ta_fit.blen.clone().requires_grad_()
-    lnl64, _ = compute_loglik(ta_fit.with_blen(blen),
-                              ModelArrays.from_model(s64, r64, dev),
-                              SiteData.from_alignment(aln, dev, torch.float64))
-    g = torch.autograd.grad(lnl64, blen)[0]
-    lnl64 = float(lnl64.detach())
+        args = write_inputs(tmp, names, seqs, tree_nwk)[0]
+        wall, launches, log, nwk = run_cli(cli_main, args, counters)
+    fit_lnl = float(logged(log, "Optimal log-likelihood:"))
+    lnl64, ta_fit, g = reevaluate(nwk, logged(log, "Best-fit model parameters:"),
+                                  aln, dev)
     print(f"fitted tree and model re-evaluated in float64 (plain pass): {lnl64:.4f}")
     check(abs(lnl64 - fit_lnl) < 1.0, "float32 fit lnL vs its float64 re-evaluation")
     # stationarity in the branch lengths: free branches off the lower bound
     free = optimize_branch_mask(ta_fit)
-    off = free & (blen.detach() > 2 * MIN_BLEN)
+    off = free & (ta_fit.blen > 2 * MIN_BLEN)
     at = free & ~off
     print(f"float64 d lnL/dt at the fit: max |g| {float(g[off].abs().max()):.4g} over "
           f"{int(off.sum())} free branches off the bound; {int(at.sum())} at the "
           f"{MIN_BLEN:g} bound" + (f" (largest g there {float(g[at].max()):.4g})"
                                    if bool(at.any()) else ""))
-    print(f"main path lnL {fit_lnl:.4f}; reference binary optimum {REF_OPTIMUM}; "
+    print(f"-te fit lnL {fit_lnl:.4f}; reference binary optimum {REF_OPTIMUM}; "
           f"gap to the JAX package's {JAX_LNL}: {fit_lnl - JAX_LNL:+.4f}")
-    print(f"main path wall time {wall:.2f} s on {card}")
-    print(f"main path launches: {launches}")
+    print(f"-te fit wall time {wall:.2f} s on {card}")
+    print(f"-te fit launches: {launches}")
     k_ms = sum(results[k]["ms"] * n for k, n in launches.items())
-    print(f"kernel time on the main path, estimated as launches x phase-3 kernel ms: "
+    print(f"kernel time of the fit, estimated as launches x phase-3 kernel ms: "
           f"{k_ms / 1e3:.3f} s of {wall:.2f} s wall")
     check(fit_lnl > REF_OPTIMUM, "fit ends above the reference binary's optimum")
+    out_tree = PhyloTree.from_newick(nwk, aln.names)
     check(bool(np.all(np.isfinite(out_tree.blen))) and out_tree.n_taxa == N,
           "finite branch lengths of the written tree")
-    for k, n in launches.items():
-        check(n > 0, f"kernel {k} launched on the main path")
-        results[k]["launches"] = n
+    for k in ("forward", "store", "tbar", "newton"):
+        check(launches[k] > 0, f"kernel {k} launched on the -te path")
 
     phase("5. the fit again under torch.profiler")
     with tempfile.TemporaryDirectory() as tmp:
-        profile_fit(cli_main, write_inputs(tmp, names, seqs, tree_nwk)[0], wall)
+        args = write_inputs(tmp, names, seqs, tree_nwk)[0]
+        profile_run(lambda: check(cli_main(args) == 0, "profiled CLI run"), wall,
+                    "fit")
+
+    phase("6. main path: the default search through the CLI on cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        args = write_inputs(tmp, names, seqs, tree_nwk, search=True)[0]
+        print("iqtree-torch " + " ".join(SEARCH_FLAGS))
+        s_wall, launches, log, nwk = run_cli(cli_main, args, counters)
+    best = float(logged(log, "BEST SCORE FOUND :"))
+    model_str = logged(log, "Best-fit model parameters:")
+    check(any(l.startswith("search profile") for l in log),
+          "the search logged its per-phase profile")
+    lnl64, _, _ = reevaluate(nwk, model_str, aln, dev)
+    out_tree = PhyloTree.from_newick(nwk, aln.names)
+    print(f"search: {s_wall:.2f} s wall on {card}; BEST SCORE FOUND {best:.4f}; "
+          f"float64 re-evaluation of the written tree and model {lnl64:.4f}; "
+          f"reference binary {REF_SEARCH_LNL} (same flags); for information, the "
+          f"JAX package's float32 run on a TPU {JAX_SEARCH_LNL}")
+    print(f"search launches: {launches}")
+    k_ms = sum(results[k]["ms"] * n for k, n in launches.items())
+    print(f"kernel time of the search, estimated as launches x phase-3 kernel ms: "
+          f"{k_ms / 1e3:.3f} s of {s_wall:.2f} s wall")
+    check(bool(np.all(np.isfinite(out_tree.blen))) and out_tree.n_taxa == N,
+          "a written 1000-taxon tree with finite lengths")
+    check(abs(lnl64 - best) < 1.0, "search lnL vs its float64 re-evaluation")
+    check(best > REF_SEARCH_LNL, "search ends above the reference binary's score")
+    for k, n in launches.items():
+        check(n > 0, f"kernel {k} launched on the search")
+        results[k]["launches"] = n
+
+    phase("7. one NNI hill climb from the ML-distance BIONJ tree, profiled")
+    from iqtree_torch.engine.distances import ml_distances
+    from iqtree_torch.search.nni_search import NNIEngine
+    from iqtree_torch.trees.bionj import bionj_tree
+
+    s_fit, r_fit = parse_model_string(model_str, aln)
+    site = SiteData.from_alignment(aln, dev, torch.float32)
+    model = ModelArrays.from_model(s_fit, r_fit, dev)
+    with torch.no_grad():
+        start = bionj_tree(ml_distances(model, site))
+    engine = NNIEngine(model, site, edge_chunk=chunk)
+    t0 = time.time()
+    res = engine.hill_climb(start.copy())
+    torch.cuda.synchronize()
+    c_wall = time.time() - t0
+    print(f"hill climb: {c_wall:.2f} s wall, {res.steps} steps, {res.nni_count} NNIs, "
+          f"lnL {res.lnl:.4f}")
+    print(engine.profile_summary())
+    profile_run(lambda: engine.hill_climb(start.copy()), c_wall, "hill climb")
 
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {

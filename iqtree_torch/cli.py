@@ -1,15 +1,20 @@
-"""Command-line entry: the fixed-topology (-te) model and branch fit.
+"""Command-line entry: the default tree search, or the fixed-topology
+(-te) model and branch fit.
 
-    python -m iqtree_torch -s ALN -te TREE -m GTR+G [-pre P] [-blfix]
-                           [-seed N] [-redo] [-device cuda|cpu]
+    python -m iqtree_torch -s ALN [-m MODEL] [-t TREE | -starttree BIONJ|PARS]
+                           [-n N] [-nstop N] [-ninit N] [-ntop N] [-pers X]
+                           [-maxtime MIN] [-keep-ident] [-pre P] [-seed N]
+                           [-redo] [-device cuda|cpu]
+    python -m iqtree_torch -s ALN -te TREE -m MODEL [-blfix] ...
 
-Writes PREFIX.treefile (the tree with fitted branch lengths) and
-PREFIX.log (the screen log, with the `Optimal log-likelihood:` line).
+Writes PREFIX.treefile (the best tree), PREFIX.iqtree (the report) and
+PREFIX.log (the screen log, with `BEST SCORE FOUND :`).
 """
 
 from __future__ import annotations
 
 import os
+import re
 import sys
 import time
 from typing import List, Optional
@@ -37,20 +42,45 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     t0 = time.time()
     device = resolve_device(cfg.device)
-    log(f"IQ-TREE-torch {__version__} starting: iqtree-torch {' '.join(argv)}")
+    command = f"iqtree-torch {' '.join(argv)}"
+    log(f"IQ-TREE-torch {__version__} starting: {command}")
     log(f"Device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
                                if device.type == "cuda" else ""))
     from .io.alignment import read_alignment
+    from .io.report import write_report
+    from .models.factory import default_model
 
     aln = read_alignment(cfg.aln_file)
     log(f"Alignment: {aln.n_taxa} sequences, {aln.n_sites} sites, "
         f"{aln.n_patterns} patterns ({aln.states.seq_type})")
-    tree, lnl, model_name = run_fixed_topology(cfg, aln, device, log)
-    log(f"Best-fit model parameters: {model_name}")
+    model_str = cfg.model or default_model(aln)
+    ident_pairs = []
+    if cfg.fixed_tree:
+        tree, lnl, subst, rate = run_fixed_topology(cfg, aln, model_str, device, log)
+        iterations = 0
+    else:
+        if not cfg.keep_identical:
+            keep, ident_pairs = aln.identical_groups()
+            if ident_pairs:
+                log(f"NOTE: {len(ident_pairs)} identical sequences will be "
+                    "ignored during the analysis and re-inserted at the end")
+                for r, t in ident_pairs:
+                    log(f"NOTE: {r} (identical to {t}) is ignored")
+                aln = aln.subset_taxa(keep)
+        tree, lnl, subst, rate, iterations = run_tree_search(
+            cfg, aln, model_str, device, log)
+    log(f"Best-fit model parameters: {model_name(subst, rate)}")
+    nwk = tree.to_newick(aln.names)
+    if ident_pairs:
+        nwk = graft_identical(nwk, ident_pairs)
+    with open(prefix + ".treefile", "w") as f:
+        f.write(nwk + "\n")
+    write_report(prefix + ".iqtree", aln, subst, rate, tree, lnl, command,
+                 time.time() - t0, iterations=iterations)
     log(f"BEST SCORE FOUND : {lnl:.4f}")
     log(f"Total wall-clock time used: {time.time() - t0:.3f} sec")
-    with open(prefix + ".treefile", "w") as f:
-        f.write(tree.to_newick(aln.names) + "\n")
+    log("")
+    log(f"  IQ-TREE report:                {prefix}.iqtree")
     log(f"  Maximum-likelihood tree:       {prefix}.treefile")
     log(f"  Screen log file:               {prefix}.log")
     with open(prefix + ".log", "w") as f:
@@ -58,9 +88,56 @@ def main(argv: Optional[List[str]] = None) -> int:
     return 0
 
 
-def run_fixed_topology(cfg, aln, device: torch.device, log):
+def model_name(subst, rate) -> str:
+    """The fitted model as a model string with every parameter pinned."""
+    rates = ",".join(f"{r:.6f}" for r in subst.group_rates[1:])
+    freqs = ",".join(f"{x:.6f}" for x in subst.state_freq)
+    name = f"{subst.name}{{{rates}}}+F{{{freqs}}}" if rates else \
+        f"{subst.name}+F{{{freqs}}}"
+    if rate.has_invar:
+        name += f"+I{{{rate.p_invar:.6f}}}"
+    if rate.has_gamma:
+        name += f"+G{rate.ncat}{{{rate.alpha:.6f}}}"
+    return name
+
+
+def graft_identical(nwk: str, pairs) -> str:
+    """Re-insert removed duplicate taxa next to their twins: the twin leaf
+    "T:len" becomes "(T:0,R:0):len"."""
+    for removed, twin in pairs:
+        m = re.search(r"([(,])" + re.escape(twin) + r":([0-9eE.+-]+)", nwk)
+        if m:
+            nwk = (nwk[: m.start()] + m.group(1) + "(" + twin + ":0,"
+                   + removed + ":0):" + m.group(2) + nwk[m.end():])
+            continue
+        # the twin was grafted already: attach to its zero-length edge
+        m = re.search(r"([(,])" + re.escape(twin) + r":0", nwk)
+        if m:
+            nwk = (nwk[: m.start()] + m.group(1) + "(" + twin + ":0,"
+                   + removed + ":0):0" + nwk[m.end():])
+    return nwk
+
+
+def run_tree_search(cfg, aln, model_str: str, device: torch.device, log):
+    """The default search.  Returns (tree, lnL, subst, rate, iterations)."""
+    from .search.driver import SearchParams, run_search
+
+    start = None
+    if cfg.start_tree:
+        with open(cfg.start_tree) as f:
+            start = f.read()
+    res = run_search(aln, SearchParams(
+        device=device, model=model_str, seed=cfg.seed,
+        n_init_trees=cfg.n_init_trees, n_top_init=cfg.n_top_init, pers=cfg.pers,
+        unsuccess_iteration=cfg.unsuccess_iteration,
+        fixed_iterations=cfg.n_iterations, max_seconds=cfg.max_seconds,
+        start_tree=start, start_tree_mode=cfg.start_tree_mode, log=log))
+    return res.best_tree, res.best_lnl, res.subst, res.rate, res.iterations
+
+
+def run_fixed_topology(cfg, aln, model_str: str, device: torch.device, log):
     """-te: fixed topology; fit the model (and the branch lengths unless
-    -blfix).  Returns (tree, lnL, fitted model string)."""
+    -blfix).  Returns (tree, lnL, subst, rate)."""
     from .engine.banner import decide_engine, engine_banner
     from .engine.kernels.pruning import device_slot_schedule
     from .engine.likelihood import SiteData, TreeArrays
@@ -70,9 +147,9 @@ def run_fixed_topology(cfg, aln, device: torch.device, log):
     from .trees.tree import PhyloTree
 
     rng = np.random.default_rng(cfg.seed)
-    with open(cfg.user_tree) as f:
+    with open(cfg.fixed_tree) as f:
         tree = PhyloTree.from_newick(f.read(), aln.names, rng=rng)
-    subst, rate = parse_model_string(cfg.model or "HKY+G", aln)
+    subst, rate = parse_model_string(model_str, aln)
     dt = work_dtype(device)
     site = SiteData.from_alignment(aln, device, dt)
     ta = TreeArrays.from_tree(tree, device)
@@ -93,11 +170,4 @@ def run_fixed_topology(cfg, aln, device: torch.device, log):
         tree.blen = ta.host_blen()
     log(f"Optimal log-likelihood: {lnl:.4f}")
     subst, rate = opt.unpack(params)
-    rates = ",".join(f"{r:.6f}" for r in subst.group_rates[1:])
-    freqs = ",".join(f"{x:.6f}" for x in subst.state_freq)
-    name = f"{subst.name}{{{rates}}}+F{{{freqs}}}"
-    if rate.has_invar:
-        name += f"+I{{{rate.p_invar:.6f}}}"
-    if rate.has_gamma:
-        name += f"+G{rate.ncat}{{{rate.alpha:.6f}}}"
-    return tree, lnl, name
+    return tree, lnl, subst, rate

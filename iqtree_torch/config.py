@@ -1,4 +1,5 @@
-"""Command-line configuration of the port's fixed-topology path."""
+"""Command-line configuration of the port: the fixed-topology fit (-te)
+and the default tree search."""
 
 from __future__ import annotations
 
@@ -6,20 +7,30 @@ import argparse
 from dataclasses import dataclass
 from typing import Optional
 
-PORTED_FLAGS = ("-s", "-te", "-m", "-pre", "-seed", "-blfix", "-redo",
-                "-device")
+PORTED_FLAGS = ("-s", "-te", "-t", "-m", "-pre", "-seed", "-blfix", "-redo",
+                "-device", "-n", "-nstop", "-ninit", "-ntop", "-pers", "-maxtime",
+                "-starttree", "-keep-ident", "-keep_ident")
 
 
 @dataclass
 class RunConfig:
     aln_file: str
-    user_tree: str
+    fixed_tree: Optional[str]  # -te: fit on this topology, no search
+    start_tree: Optional[str]  # -t: the search's start tree
     model: Optional[str]
     prefix: Optional[str]
     seed: int
     fix_branch_lengths: bool
     redo: bool
     device: Optional[str]
+    n_iterations: Optional[int] = None
+    unsuccess_iteration: int = 100
+    n_init_trees: int = 20
+    n_top_init: int = 5
+    pers: float = 0.5
+    max_seconds: Optional[float] = None
+    start_tree_mode: str = "BIONJ"
+    keep_identical: bool = False
 
     @property
     def out_prefix(self) -> str:
@@ -36,27 +47,55 @@ def parse_args(argv) -> RunConfig:
     for a in argv:
         if a.startswith("-") and a not in PORTED_FLAGS and not _is_number(a):
             raise SystemExit(
-                f"iqtree-torch: option {a} is not ported yet; this version "
-                f"runs the fixed-topology fit ({' '.join(PORTED_FLAGS)})")
+                f"iqtree-torch: option {a} is not ported yet; this version runs "
+                f"the fixed-topology fit and the default search "
+                f"({' '.join(PORTED_FLAGS)})")
     p = _Parser(prog="iqtree-torch",
-                description="IQ-TREE fixed-topology model and branch-length "
-                            "fit on PyTorch and hand-written CUDA kernels")
+                description="IQ-TREE tree search and fixed-topology fit on "
+                            "PyTorch and hand-written CUDA kernels")
     p.add_argument("-s", dest="aln_file", required=True, help="alignment file")
-    p.add_argument("-te", dest="user_tree", required=True,
-                   help="user tree file (fixed topology)")
+    p.add_argument("-te", dest="fixed_tree", default=None,
+                   help="user tree file: fit on this fixed topology, no search")
+    p.add_argument("-t", dest="start_tree", default=None,
+                   help="start tree file of the search")
     p.add_argument("-m", dest="model", default=None,
                    help="model string, e.g. GTR+G, HKY+I+G (default HKY+G)")
     p.add_argument("-pre", dest="prefix", default=None, help="output prefix")
     p.add_argument("-seed", dest="seed", type=int, default=1)
     p.add_argument("-blfix", dest="fix_branch_lengths", action="store_true",
-                   help="fix branch lengths of the user tree")
+                   help="fix branch lengths of the -te tree")
     p.add_argument("-redo", dest="redo", action="store_true",
                    help="overwrite the outputs of an earlier run")
     p.add_argument("-device", dest="device", default=None,
                    help="cuda (default) or cpu")
+    p.add_argument("-n", dest="n_iterations", type=int, default=None,
+                   help="fixed number of search iterations")
+    p.add_argument("-nstop", dest="unsuccess", type=int, default=100,
+                   help="stop after this many unsuccessful iterations")
+    p.add_argument("-ninit", dest="ninit", type=int, default=20,
+                   help="initial candidate trees")
+    p.add_argument("-ntop", dest="ntop", type=int, default=5,
+                   help="initial candidates that are NNI-climbed")
+    p.add_argument("-pers", dest="pers", type=float, default=0.5,
+                   help="perturbation strength")
+    p.add_argument("-maxtime", dest="maxtime", type=float, default=None,
+                   help="max wall time in minutes")
+    p.add_argument("-starttree", dest="starttree", default="BIONJ",
+                   choices=["BIONJ", "PARS"],
+                   help="start tree: BIONJ (ML distances) or PARS "
+                        "(randomized stepwise-addition parsimony)")
+    p.add_argument("-keep-ident", "-keep_ident", dest="keep_ident",
+                   action="store_true",
+                   help="keep identical sequences during the search")
     a = p.parse_args(argv)
-    return RunConfig(a.aln_file, a.user_tree, a.model, a.prefix, a.seed,
-                     a.fix_branch_lengths, a.redo, a.device)
+    if a.fixed_tree and a.start_tree:
+        p.error("-te and -t exclude each other")
+    return RunConfig(
+        a.aln_file, a.fixed_tree, a.start_tree, a.model, a.prefix, a.seed,
+        a.fix_branch_lengths, a.redo, a.device, n_iterations=a.n_iterations,
+        unsuccess_iteration=a.unsuccess, n_init_trees=a.ninit, n_top_init=a.ntop,
+        pers=a.pers, max_seconds=a.maxtime * 60 if a.maxtime else None,
+        start_tree_mode=a.starttree, keep_identical=a.keep_ident)
 
 
 def _is_number(s: str) -> bool:

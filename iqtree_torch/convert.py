@@ -14,10 +14,19 @@ import numpy as np
 import torch
 
 from .engine.likelihood import ModelArrays, SiteData, TreeArrays
+from .trees.tree import PhyloTree
 
 
 def _np(x) -> np.ndarray:
     return np.asarray(x)
+
+
+def phylo_tree(src) -> PhyloTree:
+    """The port's host tree from an object with n_taxa, children [2N-1, 2],
+    parent [2N-1] and blen [2N-1] (the host encoding both packages share)."""
+    return PhyloTree(int(src.n_taxa), _np(src.parent).astype(np.int32).copy(),
+                     _np(src.children).astype(np.int32).copy(),
+                     _np(src.blen).astype(np.float64).copy())
 
 
 def tree_arrays(src, device, dtype=torch.float64) -> TreeArrays:

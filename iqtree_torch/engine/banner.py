@@ -3,7 +3,8 @@
 Names the path the run really takes -- the CUDA kernels on the card, or
 the kernels' plain PyTorch twins on the CPU -- and checks the stored
 partials the reverse sweeps need against the card's free memory before
-anything is allocated.
+anything is allocated.  A tree search also holds the outside partials,
+and sizes the NNI evaluator's edge chunks from what is left.
 """
 
 from __future__ import annotations
@@ -16,8 +17,16 @@ import torch
 class EngineDecision(NamedTuple):
     device: torch.device
     kernels: bool  # CUDA kernels (else the plain twins on the CPU)
-    store_bytes: int  # the upward store's partials + scales
+    store_bytes: int  # the stored partials + scales (up, and out for a search)
     mem_cap: int  # usable device memory
+    nni_chunk: int  # edges whose NNI candidates are evaluated at once
+
+
+# live [C, S, P] tensors per NNI candidate in engine/nni.py evaluate_nnis
+# (gathered messages, their transforms, the local partials and thetas)
+NNI_LIVE_TENSORS = 24
+# the evaluator's working memory on the CPU
+HOST_NNI_BUDGET = 2 << 30
 
 
 def parse_mem(s: str) -> int:
@@ -42,14 +51,16 @@ def memory_capacity(device: torch.device) -> int:
 
 
 def decide_engine(n_taxa: int, ncat: int, num_states: int, n_patterns: int,
-                  device: torch.device, dtype: torch.dtype) -> EngineDecision:
+                  device: torch.device, dtype: torch.dtype,
+                  search: bool = False) -> EngineDecision:
     """The path for this problem and its device-memory footprint.  Raises
     when the card cannot hold the stored partials, or the shape has no
-    kernel yet; never falls back to the CPU."""
+    kernel yet; never falls back to the CPU or to another engine."""
     n_rows = 2 * n_taxa
     item = torch.finfo(dtype).bits // 8
-    # up [2N, C*S, P] + usc [2N, P]
-    store = n_rows * (ncat * num_states + 1) * n_patterns * item
+    CS = ncat * num_states
+    # up [2N, C*S, P] + usc [2N, P]; a search also stores out + osc
+    store = n_rows * (CS + 1) * n_patterns * item * (2 if search else 1)
     cap = memory_capacity(device)
     kernels = device.type == "cuda"
     if kernels:
@@ -61,11 +72,14 @@ def decide_engine(n_taxa: int, ncat: int, num_states: int, n_patterns: int,
             raise MemoryError(
                 f"stored partials need ~{store / 2**30:.1f} GB, the card has "
                 f"{cap / 2**30:.1f} GB usable")
-    return EngineDecision(device, kernels, store, cap)
+    per_edge = 3 * NNI_LIVE_TENSORS * CS * n_patterns * item  # 3 swaps (paired)
+    budget = (cap - store) // 2 if kernels else HOST_NNI_BUDGET
+    chunk = max(1, min(n_taxa, budget // per_edge))
+    return EngineDecision(device, kernels, store, cap, chunk)
 
 
 def engine_banner(dec: EngineDecision, n_taxa: int, ncat: int, num_states: int,
-                  n_patterns: int) -> str:
+                  n_patterns: int, search: bool = False) -> str:
     """Human-readable engine/memory report (logged at startup)."""
     if dec.kernels:
         name = torch.cuda.get_device_name(dec.device)
@@ -77,9 +91,16 @@ def engine_banner(dec: EngineDecision, n_taxa: int, ncat: int, num_states: int,
         path = "plain PyTorch twins of the kernels on the CPU (float64)"
         newton = "plain twin of the branch-Newton sweep"
         budget = "host memory"
-    return "\n".join([
-        f"Likelihood engine: {path}",
-        f"Branch optimization: {newton}",
-        f"Memory: stored partials ~{dec.store_bytes / 2**20:.0f} MB for "
-        f"{n_taxa} taxa x {n_patterns} patterns x {ncat}x{num_states} ({budget})",
-    ])
+    lines = [f"Likelihood engine: {path}", f"Branch optimization: {newton}"]
+    if search:
+        lines.append(
+            "Tree search: batched NNI evaluator on the upward store and the "
+            + ("outside-partial store kernel" if dec.kernels else
+               "plain twin of the outside-partial store")
+            + f", {dec.nni_chunk} edges per evaluator chunk "
+            f"(of {n_taxa - 3} internal edges)")
+    what = "up and outside partials" if search else "stored partials"
+    lines.append(f"Memory: {what} ~{dec.store_bytes / 2**20:.0f} MB for "
+                 f"{n_taxa} taxa x {n_patterns} patterns x {ncat}x{num_states} "
+                 f"({budget})")
+    return "\n".join(lines)

@@ -22,7 +22,7 @@ import torch
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_ROOT = Path(__file__).with_name("build")
-SOURCES = ("forward", "store", "tbar", "newton")
+SOURCES = ("forward", "store", "tbar", "newton", "down_store", "pars_insert")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -33,6 +33,10 @@ SIGNATURES = {
     "iqt_store": [P_, I_, P_, P_, I_, P_, P_, I_, I_, I_, P_],
     "iqt_tbar": [P_, I_, P_, P_, P_, P_, P_, P_, I_, I_, P_, P_, I_, I_, I_, P_],
     "iqt_newton": [P_, I_, P_, P_, P_, P_, P_, P_, I_, I_, P_, P_, I_, I_, I_, P_],
+    "iqt_down_store": [P_, I_, P_, P_, P_, P_, I_, P_, P_, I_, I_, I_, P_],
+    # (post, n_post, pre, n_pre, tips, n_taxa, leaf, freq, P, up, rest, cost,
+    #  tile, stream)
+    "iqt_pars_insert": [P_, I_, P_, I_, P_, I_, I_, P_, I_, P_, P_, P_, I_, P_],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -13,6 +13,9 @@ partials up [2N, CS, P]:
 * `newton_sweep` -- reverse sweep giving d lnL/dt and d2 lnL/dt2 for
   every branch at once (csrc/newton.cu); `fused_newton_derivs` runs the
   store and this sweep from a model and branch lengths.
+* `fused_down_store_cs` -- reverse sweep storing every node's outside
+  partial and log-scale (csrc/down_store.cu); `fused_nni_passes_cs` runs
+  the store and this sweep for the NNI evaluator (engine/nni.py).
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain twin
 for CPU tensors.  The reverse sweeps read child partials from `up` with
@@ -92,6 +95,50 @@ def fused_tbar_cs(steps, n_slots, trans, tips, props, state_freq, lnl_raw, w_p,
 
 
 fused_tbar_cs.launches = 0
+
+
+def _down_store_plain(steps, trans, up, usc, state_freq):
+    """Plain twin of the outside-partial store: the level-batched
+    downward pass over the tree the schedule walks."""
+    n_rows, C, S = trans.shape[:3]
+    levels, children = schedule_tree(steps, n_rows)
+    out, osc = downward_pass(levels, children, trans, up.reshape(n_rows, C, S, -1),
+                             usc, state_freq)
+    return out.reshape(n_rows, C * S, -1), osc
+
+
+def fused_down_store_cs(steps, n_slots, trans, up, usc, state_freq):
+    """(out [2N, CS, P], osc [2N, P]): every non-root node's normalized
+    outside partial (at the parent end of its edge) and log-scale, from
+    the upward store's up/usc with the tip rows filled.  The root seed is
+    the bare state_freq [C, S]; the root and dummy rows are 0."""
+    if not trans.is_cuda:
+        return _down_store_plain(steps, trans, up, usc, state_freq)
+    n_rows, C, S = trans.shape[:3]
+    P = up.shape[2]
+    rootd = state_freq.reshape(-1).float().contiguous()
+    build.check_inputs(C, S, steps, trans, rootd, up, usc)
+    out = torch.empty(n_rows, C * S, P, dtype=torch.float32, device=trans.device)
+    osc = torch.empty(n_rows, P, dtype=torch.float32, device=trans.device)
+    root = n_rows - 2  # the device numbering puts the root last, then the dummy
+    out[root:].zero_()
+    osc[root:].zero_()
+    build.launch("down_store", steps, steps.shape[0], trans, rootd, up, usc, P,
+                 out, osc, C, n_slots, DEFAULT_TILE)
+    fused_down_store_cs.launches += 1
+    return out, osc
+
+
+fused_down_store_cs.launches = 0
+
+
+def fused_nni_passes_cs(steps, n_slots, trans, tips, state_freq):
+    """(up, usc, out, osc): the two global passes of the NNI evaluator --
+    the upward store (tip rows filled) and the outside-partial store."""
+    up, usc = fused_upward_store_cs(steps, n_slots, trans, tips)
+    fill_tip_rows_cs(up, usc, tips, trans.shape[1])
+    out, osc = fused_down_store_cs(steps, n_slots, trans, up, usc, state_freq)
+    return up, usc, out, osc
 
 
 def stacked_deriv_mats(model, blen: torch.Tensor) -> torch.Tensor:

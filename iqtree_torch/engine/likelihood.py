@@ -20,8 +20,8 @@ Layouts:
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
-from typing import List, Tuple
+from dataclasses import dataclass, field, replace
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -181,6 +181,10 @@ class SiteData:
     pattern_freq: torch.Tensor  # [P]
     const_state: torch.Tensor  # [P] long: -1 | state | S (all-unknown)
     asc_mask: torch.Tensor  # [P] 1.0 on appended unobserved-constant patterns
+    # tip_partials' result, built at first use: the tips never change
+    # during a fit or a search, and the gather costs as much as a kernel
+    _tips: Optional[torch.Tensor] = field(default=None, init=False, repr=False,
+                                          compare=False)
 
     @classmethod
     def from_arrays(cls, tip_codes, code_masks, pattern_freq, const_state,
@@ -216,8 +220,11 @@ def branch_transition_mats(model: ModelArrays, blen: torch.Tensor) -> torch.Tens
 
 
 def tip_partials(site: SiteData) -> torch.Tensor:
-    """[N_taxa, S, P] state-indicator partials from integer codes."""
-    return site.code_masks[site.tip_codes].transpose(1, 2)
+    """[N_taxa, S, P] state-indicator partials from integer codes
+    (contiguous; gathered once per SiteData)."""
+    if site._tips is None:
+        site._tips = site.code_masks[site.tip_codes].transpose(1, 2).contiguous()
+    return site._tips
 
 
 def ptn_invar(model: ModelArrays, site: SiteData) -> torch.Tensor:

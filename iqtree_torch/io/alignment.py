@@ -165,6 +165,52 @@ class Alignment:
         freq[np.argmax(freq)] += 1.0 - freq.sum()
         return freq
 
+    def frac_const_sites(self) -> float:
+        """Share of sites whose pattern is constant (or all unknown)."""
+        return float(self.pattern_freq[self.const_state >= 0].sum()
+                     / self.pattern_freq.sum())
+
+    def num_informative_sites(self) -> int:
+        """Parsimony-informative sites: at least two states that each
+        appear in at least two taxa (an ambiguous character counts toward
+        every state it allows; an all-unknown one toward none)."""
+        masks = self.states.code_masks[self.patterns]  # [taxa, ptn, S]
+        known = masks.sum(axis=2) < self.num_states
+        app = (masks * known[:, :, None]).sum(axis=0)  # [ptn, S]
+        informative = (app >= 2).sum(axis=1) >= 2
+        return int(self.pattern_freq[informative].sum())
+
+    def identical_groups(self):
+        """(keep, removed_pairs): the taxon indices to analyse, and
+        (removed_name, twin_name) for each sequence identical to an
+        earlier one."""
+        seen = {}
+        keep = []
+        pairs = []
+        for i in range(self.n_taxa):
+            key = self.patterns[i].tobytes()
+            j = seen.get(key)
+            if j is None:
+                seen[key] = i
+                keep.append(i)
+            else:
+                pairs.append((self.names[i], self.names[j]))
+        return keep, pairs
+
+    def subset_taxa(self, keep) -> "Alignment":
+        """The alignment of the given taxa (patterns re-compressed:
+        dropping rows can merge columns)."""
+        cols = self.patterns[np.ix_(keep, self.site_to_pattern)]
+        uniq, s2p, counts = np.unique(
+            np.ascontiguousarray(cols.T), axis=0,
+            return_inverse=True, return_counts=True)
+        return Alignment(
+            names=[self.names[i] for i in keep],
+            patterns=np.ascontiguousarray(uniq.T).astype(np.int32),
+            pattern_freq=counts.astype(np.float64),
+            site_to_pattern=s2p.reshape(-1).astype(np.int32),
+            states=self.states)
+
     @classmethod
     def from_sequences(
         cls,

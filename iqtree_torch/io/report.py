@@ -1,0 +1,92 @@
+"""The .iqtree analysis report for DNA models: alignment summary, the
+substitution model, rate heterogeneity, the maximum-likelihood tree and
+run information, in the reference report's sections."""
+
+from __future__ import annotations
+
+import time
+from typing import List
+
+import numpy as np
+
+from .. import __version__
+from ..models.subst import (FREQ_EMPIRICAL, FREQ_EQUAL, FREQ_ESTIMATE,
+                            FREQ_USER, pair_index)
+
+STATES = "ACGT"
+FREQ_DESC = {
+    FREQ_EMPIRICAL: "empirical counts from alignment",
+    FREQ_EQUAL: "equal frequencies",
+    FREQ_ESTIMATE: "estimated with maximum likelihood",
+    FREQ_USER: "user-defined",
+}
+
+
+def rate_name_suffix(rate) -> str:
+    return ("+I" if rate.has_invar else "") + (f"+G{rate.ncat}" if rate.has_gamma else "")
+
+
+def write_report(path: str, aln, subst, rate, tree, lnl: float, command: str,
+                 wall_time: float, iterations: int = 0) -> None:
+    L: List[str] = [
+        f"IQ-TREE-torch {__version__} -- maximum-likelihood phylogenetic "
+        "inference on PyTorch and CUDA",
+        "",
+        f"Command: {command}",
+        f"Date: {time.strftime('%a %b %d %H:%M:%S %Y')}",
+        "",
+        "SEQUENCE ALIGNMENT",
+        "------------------",
+        f"Input data: {aln.n_taxa} sequences with {aln.n_sites} nucleotide sites",
+        f"Number of distinct site patterns: {aln.n_patterns}",
+        f"Number of constant sites: "
+        f"{int(round(aln.frac_const_sites() * aln.n_sites))} "
+        f"(= {aln.frac_const_sites() * 100:.4g}% of all sites)",
+        f"Number of parsimony informative sites: {aln.num_informative_sites()}",
+        "",
+        "SUBSTITUTION PROCESS",
+        "--------------------",
+        f"Model of substitution: {subst.name}{rate_name_suffix(rate)}",
+        "",
+        "Rate parameter R:",
+        "",
+    ]
+    S = subst.num_states
+    r = np.zeros((S, S))
+    for (i, j), g in zip(pair_index(S), subst.rate_groups):
+        r[i, j] = subst.group_rates[g]
+        L.append(f"  {STATES[i]}-{STATES[j]}: {r[i, j]:.4f}")
+    L += ["", f"State frequencies: ({FREQ_DESC.get(subst.freq_type, subst.freq_type)})", ""]
+    L += [f"  pi({n}) = {f:.4g}" for n, f in zip(STATES, subst.state_freq)]
+    L += ["", "Rate matrix Q:", ""]
+    q = subst.rate_matrix()
+    L += [f"  {STATES[i]}  " + "  ".join(f"{q[i, j]:8.4f}" for j in range(S))
+          for i in range(S)]
+    L += ["", "RATE HETEROGENEITY", "------------------"]
+    if rate.has_gamma:
+        L.append(f"Model of rate heterogeneity: "
+                 f"{'Invar+' if rate.has_invar else ''}Gamma with {rate.ncat} categories")
+        L.append(f"Gamma shape alpha: {rate.alpha:.4g}")
+    elif rate.has_invar:
+        L.append("Model of rate heterogeneity: Invariable sites")
+    else:
+        L.append("Model of rate heterogeneity: Uniform")
+    if rate.has_invar:
+        L.append(f"Proportion of invariable sites: {rate.p_invar:.4g}")
+    rates, props = rate.category_rates()
+    if len(rates) > 1 or rate.has_invar:
+        L += ["", " Category  Relative_rate  Proportion"]
+        if rate.has_invar:
+            L.append(f"  0         0              {rate.p_invar:.4g}")
+        L += [f"  {i}         {r_:.4g}         {w_:.4g}"
+              for i, (r_, w_) in enumerate(zip(rates, props), 1)]
+    total_len = float(np.sum(tree.blen)) - float(tree.blen[tree.root])
+    L += ["", "MAXIMUM LIKELIHOOD TREE", "-----------------------", "",
+          f"Log-likelihood of the tree: {lnl:.4f}",
+          f"Total tree length (sum of branch lengths): {total_len:.4f}", "",
+          "Tree in newick format:", "", tree.to_newick(aln.names), "",
+          "ANALYSIS INFO", "-------------",
+          f"Search iterations: {iterations}",
+          f"Wall-clock time used: {wall_time:.3f} sec", ""]
+    with open(path, "w") as f:
+        f.write("\n".join(L))

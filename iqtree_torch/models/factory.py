@@ -64,6 +64,13 @@ def _not_ported(what: str, slice_name: str):
     raise NotImplementedError(f"{what} is not ported yet ({slice_name})")
 
 
+def default_model(aln: Alignment) -> str:
+    """The model when -m is omitted: HKY+G for DNA."""
+    if aln.states.seq_type != SEQ_DNA:
+        _not_ported(f"the default {aln.states.seq_type} model", "wide-shape slice")
+    return "HKY+G"
+
+
 def parse_model_string(model_str: str, aln: Alignment):
     """Returns (ReversibleModel, RateModel)."""
     if aln.states.seq_type != SEQ_DNA:

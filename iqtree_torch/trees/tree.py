@@ -50,6 +50,83 @@ class PhyloTree:
     def root(self) -> int:
         return 2 * self.n_taxa - 2
 
+    def copy(self) -> "PhyloTree":
+        return PhyloTree(self.n_taxa, self.parent.copy(), self.children.copy(),
+                         self.blen.copy())
+
+    def canonical(self) -> "PhyloTree":
+        """Deterministic renumbering through a Newick round trip: trees
+        equal as (topology, branch lengths) get identical arrays, so the
+        numbering-dependent moves (internal_edges, apply_nni) draw the
+        same NNIs from the same seed.  %.17g round-trips float64."""
+        names = [str(i) for i in range(self.n_taxa)]
+        return PhyloTree.from_newick(self.to_newick(names, precision=17), names)
+
+    def internal_edges(self) -> np.ndarray:
+        """Nodes v whose parent edge is an internal (NNI-able) edge."""
+        N = self.n_taxa
+        vs = np.arange(N, self.n_nodes - 1, dtype=np.int32)
+        ok = (self.parent[vs] >= N) & (self.parent[vs] != self.root)
+        return vs[ok]
+
+    def check(self) -> None:
+        """Raise ValueError unless the arrays encode a valid rooted view."""
+        N, R = self.n_taxa, self.root
+
+        def need(ok, what):
+            if not ok:
+                raise ValueError(f"malformed tree: {what}")
+
+        need(self.parent[R] == -1, "the virtual root has a parent")
+        for v in range(self.n_nodes - 1):
+            p = self.parent[v]
+            need(p >= N and v in self.children[p], f"node {v} and its parent {p}")
+        for v in range(N, self.n_nodes):
+            l, r = self.children[v]
+            need(self.parent[l] == v and self.parent[r] == v, f"children of {v}")
+        po = self.postorder()
+        need(len(po) == N - 1 and po[-1] == R, "post-order")
+        need(0 in self.children[R], "tip 0 under the virtual root")
+        c = int(self.children[R, 0] if self.children[R, 1] == 0 else self.children[R, 1])
+        need(self.blen[c] == 0.0, "the pinned half-edge has a length")
+
+    def apply_nni(self, v: int, swap_child: int) -> None:
+        """NNI around the internal edge (v, parent[v]): exchange
+        children[v, swap_child] with v's sibling."""
+        u = int(self.parent[v])
+        if u < self.n_taxa or u == self.root:
+            raise ValueError(f"the edge above {v} is not internal")
+        w_slot = 0 if self.children[u, 0] == v else 1
+        sib = int(self.children[u, 1 - w_slot])
+        x = int(self.children[v, swap_child])
+        self.children[u, 1 - w_slot] = x
+        self.parent[x] = u
+        self.children[v, swap_child] = sib
+        self.parent[sib] = v
+
+    def splits_key(self) -> frozenset:
+        """Topology id: the set of nontrivial splits, each the taxon set on
+        the side that holds taxon 0."""
+        N = self.n_taxa
+        below: Dict[int, frozenset] = {}
+        all_taxa = frozenset(range(N))
+        for v in self.postorder():
+            l, r = self.children[v]
+            sl = below.get(int(l), frozenset([int(l)]) if l < N else frozenset())
+            sr = below.get(int(r), frozenset([int(r)]) if r < N else frozenset())
+            below[int(v)] = sl | sr
+        splits = set()
+        for v in self.internal_edges():
+            s = below[int(v)]
+            if 0 not in s:
+                s = all_taxa - s
+            if 1 < len(s) < N - 1:
+                splits.add(s)
+        return frozenset(splits)
+
+    def robinson_foulds(self, other: "PhyloTree") -> int:
+        return len(self.splits_key() ^ other.splits_key())
+
     def device_numbering(self):
         """Level-contiguous device numbering of the nodes.
 

@@ -101,3 +101,59 @@ def test_gradient_on_card_matches_plain_autograd(card):
     want = grads(lambda t, m: compute_loglik(t, m, site))
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-3 * float(w.abs().max()))
+
+
+@pytest.mark.cuda
+def test_down_store_and_nni_evaluator_on_card(card):
+    """The outside-partial store kernel against its twin, and the NNI
+    evaluator on the kernels' passes against the twins' passes: float32
+    both, so the paired deltas (whose shared per-edge bias cancels) are
+    compared."""
+    from iqtree_torch.engine.nni import evaluate_nnis
+
+    ta, model, site = card["tree"], card["model"], card["site"]
+    st, ns = card["steps"], card["n_slots"]
+    trans = branch_transition_mats(model, ta.blen).float().contiguous()
+    tips = tip_partials(site)
+    freq = model.state_freq.float()
+    up, usc, out, osc = cs_kernels.fused_nni_passes_cs(st, ns, trans, tips, freq)
+    launches = cs_kernels.fused_down_store_cs.launches
+    out_p, osc_p = cs_kernels._down_store_plain(st, trans, up, usc, freq)
+    assert cs_kernels.fused_down_store_cs.launches == launches
+    rows = [v for v in range(2 * ta.n_taxa - 1) if v != ta.root]
+    torch.testing.assert_close(out[rows], out_p[rows], rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(osc[rows], osc_p[rows], rtol=1e-5, atol=1e-4)
+    parent = ta.parent.cpu().numpy()
+    edges = np.array([v for v in range(ta.n_taxa, ta.root) if parent[v] != ta.root])
+    up_p, usc_p = pruning.upward_plain(st, trans, tips)
+    cs_kernels.fill_tip_rows_cs(up_p, usc_p, tips, 4)
+    plain = (up_p, usc_p, *cs_kernels._down_store_plain(st, trans, up_p, usc_p, freq))
+    with torch.no_grad():
+        got = evaluate_nnis(ta, model, site, edges, st, ns, paired=True)
+        want = evaluate_nnis(ta, model, site, edges, st, ns, paired=True,
+                             passes=plain)
+    torch.testing.assert_close(got.lnl - got.base_lnl[:, None],
+                               want.lnl - want.base_lnl[:, None], rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_parsimony_kernel_builds_the_plain_twins_tree():
+    """Stepwise addition with the insertion-cost kernel on the card and with
+    its plain twin on the CPU: integer costs, so the same draws and the
+    same tree."""
+    from iqtree_torch.engine import parsimony as pars
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(5)
+    n = 40
+    seqs = ["".join(rng.choice(list("ACGT-"), 300)) for _ in range(n)]
+    aln = Alignment.from_sequences([f"t{i}" for i in range(n)], seqs, "DNA")
+    before = pars.insertion_costs.launches
+    got = pars.parsimony_stepwise_tree(aln, np.random.default_rng(1),
+                                       torch.device("cuda"))
+    assert pars.insertion_costs.launches - before == n - 3
+    want = pars.parsimony_stepwise_tree(aln, np.random.default_rng(1),
+                                        torch.device("cpu"))
+    np.testing.assert_array_equal(got.children, want.children)
+    np.testing.assert_array_equal(got.blen, want.blen)

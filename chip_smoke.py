@@ -23,9 +23,18 @@ Phases (any failure exits non-zero; nothing is caught):
      the reference binary's recorded run), with all six kernels' launch
      counts read around it, its per-phase profile and its score checked;
   7. one NNI hill climb from the ML-distance BIONJ tree under
-     torch.profiler: device time by kernel, busy share.
-Prints the kernels' JSON line (launches from the search), then as its
-last line {"ok": true, "device": {...}}.
+     torch.profiler: device time by kernel, busy share;
+  8. at the protein path's shapes (bench_data_protein.npz: 300 taxa x
+     2 000 aa, 1 958 patterns, LG+G4) the four wide kernels against their
+     twins, timed with their tile sweep; the custom-autograd gradient
+     against autograd through the plain pass;
+  9. the protein fixed-topology path through the CLI entry point:
+     `-s ALN -te TREE -m LG+G` on cuda, with the wide kernels' launch
+     counts read around that run;
+ 10. the same fit once more under torch.profiler.
+Prints the kernels' JSON line (the DNA kernels' launches from the search,
+the wide kernels' from the protein fit), then as its last line
+{"ok": true, "device": {...}}.
 """
 
 import json
@@ -42,6 +51,8 @@ REF_SEARCH_LNL = -2657075.925  # the binary's -n 5 search (bench_baseline.json)
 JAX_SEARCH_LNL = -2656903.31  # the JAX package's search, float32 (BENCH_r05.json)
 SEARCH_FLAGS = ["-m", "GTR+G", "-n", "5", "-ninit", "8", "-ntop", "3", "-seed", "1"]
 GOLDEN_LNL = -17848.038178  # tests/test_golden.py
+REF_PROTEIN_LNL = -237898.106  # the binary's -te LG+G fit (bench_baseline.json)
+JAX_PROTEIN_LNL = -237897.36  # the JAX package's float32 fit on a TPU (BENCH_r05.json)
 PEAK_F32 = 67e12  # H100 SXM float32 outside the tensor cores, FLOP/s
 PEAK_BW = 3.35e12  # H100 SXM HBM3, bytes/s
 
@@ -77,6 +88,31 @@ def bound(bytes_, flops):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
+def tbar_flops(N, P, CS, CSS):
+    """Operations of the gradient sweep: per step both child messages and
+    both cotangent blocks, and the push P^T O into each of the N-2 internal
+    non-root children (a multiply-add counts 2)."""
+    return 2 * P * ((N - 1) * (4 * CSS + 6 * CS) + (N - 2) * CSS)
+
+
+def newton_flops(N, P, CS, CSS):
+    """Operations of the branch-Newton sweep: per step (P, P', P'') U for
+    both children, and the push P^T O into each internal non-root child."""
+    return 2 * P * ((N - 1) * (6 * CSS + 12 * CS) + (N - 2) * CSS)
+
+
+def param_grads(fn, ta, opt, params):
+    """(lnL, d lnL / d(branch lengths, each optimizer parameter)) of
+    fn(tree arrays, model arrays) at `params`."""
+    import torch
+
+    leaves = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+    blen = ta.blen.detach().clone().requires_grad_()
+    total = fn(ta.with_blen(blen), opt.build(leaves))
+    g = torch.autograd.grad(total, [blen, *leaves.values()])
+    return float(total.detach()), g
+
+
 def partial_tree(tree, N):
     """The layout of `tree` without its last taxon, for scoring where that
     taxon goes back: (leaf, present taxa, layout)."""
@@ -102,16 +138,17 @@ def partial_tree(tree, N):
     return leaf, present, pars._partial_layout(adj, 0, N)
 
 
-def load_bench():
+def load_bench(name="bench_data.npz"):
     import numpy as np
 
-    z = np.load(os.path.join(HERE, "bench_data.npz"), allow_pickle=True)
+    z = np.load(os.path.join(HERE, name), allow_pickle=True)
     return [str(n) for n in z["names"]], [str(s) for s in z["seqs"]], str(z["tree"])
 
 
-def write_inputs(tmp, names, seqs, tree_nwk, search=False):
-    """The CLI arguments of the fixed-topology fit (or of the search), its
-    alignment and tree written to `tmp`: (argv, output prefix)."""
+def write_inputs(tmp, names, seqs, tree_nwk, search=False, model="GTR+G"):
+    """The CLI arguments of the fixed-topology fit of `model` (or of the
+    search), its alignment and tree written to `tmp`: (argv, output
+    prefix)."""
     aln_path = os.path.join(tmp, "bench.phy")
     with open(aln_path, "w") as f:
         f.write(f"{len(names)} {len(seqs[0])}\n")
@@ -123,7 +160,7 @@ def write_inputs(tmp, names, seqs, tree_nwk, search=False):
     common = ["-pre", prefix, "-device", "cuda", "-redo"]
     if search:
         return ["-s", aln_path, *SEARCH_FLAGS, *common], prefix
-    return ["-s", aln_path, "-te", tree_path, "-m", "GTR+G", *common], prefix
+    return ["-s", aln_path, "-te", tree_path, "-m", model, *common], prefix
 
 
 def profile_run(fn, wall, what):
@@ -232,12 +269,13 @@ def main():
     t0 = time.time()
     bdir = build.build_all()
     print(f"built {len(build.SOURCES)} kernels in {time.time() - t0:.1f} s -> {bdir}")
-    for n in build.SOURCES:  # ptxas report of the C=4 (DNA+G4) instances
+    for n in build.SOURCES:  # ptxas report of the DNA C=4 and protein S=20 instances
         fn = ""
         for line in (bdir / f"{n}.log").read_text().splitlines():
             if "Function properties for" in line:
                 fn = line.split("for")[-1].strip()
-            elif "ILi4E" in fn and ("registers" in line or "spill" in line):
+            elif (("ILi4E" in fn or "ILi20E" in fn) and
+                  ("registers" in line or "spill" in line)):
                 print(f"  {n}: {line.split(':', 1)[-1].strip()}")
 
     phase("3. kernels against their plain twins (1000 taxa x 10k sites)")
@@ -332,7 +370,7 @@ def main():
                                              freq, lnl, wp, up=up_k, usc=usc_k), 5),
            cuda_ms(lambda: csk._tbar_plain(steps, trans, props, freq, lnl, wp,
                                            up_k, usc_k), 2),
-           rev_bytes, 2 * (N - 1) * P * (6 * CSS + 6 * CS))
+           rev_bytes, tbar_flops(N, P, CS, CSS))
     del tb_p
 
     mats = csk.stacked_deriv_mats(model, ta.blen).float().contiguous()
@@ -345,7 +383,7 @@ def main():
                                             invar, up_k, usc_k), 5),
            cuda_ms(lambda: csk._newton_plain(steps, mats, props, freq, wp, invar,
                                              up_k, usc_k), 2),
-           rev_bytes + 4 * R * 3 * CSS, 2 * (N - 1) * P * (8 * CSS + 12 * CS))
+           rev_bytes + 4 * R * 3 * CSS, newton_flops(N, P, CS, CSS))
     del d_p
 
     # outside-partial store: O in [0, 1] absolutely, osc relative to its largest
@@ -427,15 +465,9 @@ def main():
     check(err < 0.2, "paired NNI deltas on the kernels' passes vs the twins'")
 
     # gradient: autograd.Function vs autograd through the plain pass
-    def grads(fn):
-        leaves = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
-        blen = ta.blen.detach().clone().requires_grad_()
-        total = fn(ta.with_blen(blen), opt.build(leaves))
-        g = torch.autograd.grad(total, [blen, *leaves.values()])
-        return float(total.detach()), g
-
-    l_k, g_k = grads(lambda t, m: grad_mod.loglik(t, m, site, steps, n_slots)[0])
-    l_p, g_p = grads(lambda t, m: compute_loglik(t, m, site)[0])
+    l_k, g_k = param_grads(
+        lambda t, m: grad_mod.loglik(t, m, site, steps, n_slots)[0], ta, opt, params)
+    l_p, g_p = param_grads(lambda t, m: compute_loglik(t, m, site)[0], ta, opt, params)
     g_err = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(g_k, g_p))
     print(f"gradient (blen + {len(params)} model params): lnL {l_k:.4f} vs plain "
           f"{l_p:.4f}, max relative error {g_err:.3e} (tol 1e-3)")
@@ -555,12 +587,181 @@ def main():
           f"lnL {res.lnl:.4f}")
     print(engine.profile_summary())
     profile_run(lambda: engine.hill_climb(start.copy()), c_wall, "hill climb")
+    del engine, model, site
+    torch.cuda.empty_cache()
+
+    protein_phases(dev, card, record, results, cli_main)
 
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def protein_phases(dev, card, record, results, cli_main):
+    """Phases 8-10: the wide kernels (S=20) at the protein path's shapes,
+    and the protein -te fit through the CLI, plain and profiled."""
+    import numpy as np
+    import torch
+    from iqtree_torch.engine import grad as grad_mod
+    from iqtree_torch.engine.kernels import cs_kernels as csk
+    from iqtree_torch.engine.kernels import pruning as pk
+    from iqtree_torch.engine.likelihood import (
+        SiteData, TreeArrays, branch_transition_mats, compute_loglik, ptn_invar,
+        tip_partials)
+    from iqtree_torch.io.alignment import Alignment
+    from iqtree_torch.models.factory import parse_model_string
+    from iqtree_torch.models.optimize import ModelOptimizer
+    from iqtree_torch.trees.tree import PhyloTree
+
+    phase("8. wide kernels against their plain twins (protein: 300 taxa x 2 000 aa)")
+    names, seqs, tree_nwk = load_bench("bench_data_protein.npz")
+    aln = Alignment.from_sequences(names, seqs, "AA")
+    tree = PhyloTree.from_newick(tree_nwk, aln.names)
+    subst, rate = parse_model_string("LG+G", aln)
+    opt = ModelOptimizer(subst, rate, dev)
+    rng = np.random.default_rng(8)
+    params = {k: v + torch.as_tensor(rng.normal(0, 0.3, v.shape), device=dev)
+              for k, v in opt.init_params().items()}
+    model = opt.build(params)
+    site = SiteData.from_alignment(aln, dev, torch.float32)
+    ta = TreeArrays.from_tree(tree, dev)
+    steps_np, n_slots = pk.device_slot_schedule(tree, ta)
+    steps = torch.as_tensor(steps_np, device=dev)
+    N, P = aln.n_taxa, aln.n_patterns
+    C, S = rate.ncat, subst.num_states
+    CS, CSS, R = C * S, C * S * S, 2 * N
+    print(f"{N} taxa, {P} patterns, C={C}, S={S}, {n_slots} slots; alpha "
+          f"{float(opt._alpha(params)):.4f} (perturbed)")
+    trans = branch_transition_mats(model, ta.blen).float().contiguous()
+    tips = tip_partials(site).contiguous()
+    invar = ptn_invar(model, site).float().contiguous()
+    props, freq = model.props.float(), model.state_freq.float()
+
+    for tile in (8, 16, 32):
+        ms = cuda_ms(lambda: pk.wide_site_lnl(steps, n_slots, trans, tips, props, freq,
+                                              invar, tile=tile), 10)
+        st_ms = cuda_ms(lambda: pk.fused_upward_store(steps, n_slots, trans, tips,
+                                                      tile=tile), 10)
+        print(f"wide tile {tile}: forward {ms:.3f} ms, store {st_ms:.3f} ms")
+    k_out = pk.fused_site_lnl(steps, n_slots, trans, tips, props, freq, invar)
+    p_out = pk._site_lnl_plain(steps, trans, tips, props, freq, invar)
+    fwd_flops = (N - 1) * P * (4 * CSS + 3 * CS) + 2 * CS * P
+    record("wide_forward", "iqtree_torch/engine/kernels/csrc/wide_forward.cu",
+           "iqtree_tpu/engine/kernels/pruning.py:34",
+           float((k_out - p_out).abs().max()), 1e-3,
+           cuda_ms(lambda: pk.wide_site_lnl(steps, n_slots, trans, tips, props, freq,
+                                            invar), 20),
+           cuda_ms(lambda: pk._site_lnl_plain(steps, trans, tips, props, freq, invar), 3),
+           4 * (N * S * P + R * CSS + 6 * (N - 1) + CS + 2 * P), fwd_flops)
+
+    up_k, usc_k = pk.fused_upward_store(steps, n_slots, trans, tips)
+    up_p, usc_p = pk.upward_plain(steps, trans, tips)
+    inner = slice(N, 2 * N - 1)
+    err = max(float((up_k[inner] - up_p[inner]).abs().max()),
+              float((usc_k[inner] - usc_p[inner]).abs().max()
+                    / usc_p[inner].abs().max()))
+    record("wide_store", "iqtree_torch/engine/kernels/csrc/wide_store.cu",
+           "iqtree_tpu/engine/kernels/pruning.py:822", err, 1e-4,
+           cuda_ms(lambda: pk.fused_upward_store(steps, n_slots, trans, tips), 10),
+           cuda_ms(lambda: pk.upward_plain(steps, trans, tips), 3),
+           4 * (N * S * P + R * CSS + 6 * (N - 1) + (N - 1) * (CS + 1) * P),
+           fwd_flops)
+    del up_p, usc_p
+
+    lnl = k_out.contiguous()
+    wp = site.pattern_freq.contiguous()
+    csk.fill_tip_rows_cs(up_k, usc_k, tips, C)
+    mats = csk.stacked_deriv_mats(model, ta.blen).float().contiguous()
+    for tile in (8, 16, 32):
+        tb_ms = cuda_ms(lambda: csk.fused_downward_tbar(
+            steps, n_slots, trans, tips, props, freq, lnl, wp, up=up_k, usc=usc_k,
+            tile=tile), 5)
+        nt_ms = cuda_ms(lambda: csk.wide_newton_sweep(
+            steps, n_slots, mats, props, freq, wp, invar, up_k, usc_k, tile=tile), 5)
+        print(f"wide tile {tile}: tbar {tb_ms:.3f} ms, newton {nt_ms:.3f} ms")
+    tb_k = csk.fused_downward_tbar(steps, n_slots, trans, tips, props, freq, lnl, wp,
+                                   up=up_k, usc=usc_k)
+    tb_p = csk._tbar_plain(steps, trans, props, freq, lnl, wp, up_k, usc_k)
+    rev_bytes = 4 * (R * (CS + 1) * P + 2 * P + 2 * R * CSS)
+    record("wide_tbar", "iqtree_torch/engine/kernels/csrc/wide_tbar.cu",
+           "iqtree_tpu/engine/kernels/pruning.py:1144",
+           float((tb_k - tb_p).abs().max() / tb_p.abs().max()), 1e-4,
+           cuda_ms(lambda: csk.fused_downward_tbar(steps, n_slots, trans, tips, props,
+                                                   freq, lnl, wp, up=up_k, usc=usc_k), 5),
+           cuda_ms(lambda: csk._tbar_plain(steps, trans, props, freq, lnl, wp, up_k,
+                                           usc_k), 3),
+           rev_bytes, tbar_flops(N, P, CS, CSS))
+    del tb_p
+
+    d_k = csk.wide_newton_sweep(steps, n_slots, mats, props, freq, wp, invar, up_k,
+                                usc_k)
+    d_p = csk._newton_plain(steps, mats, props, freq, wp, invar, up_k, usc_k)
+    err = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(d_k, d_p))
+    record("wide_newton", "iqtree_torch/engine/kernels/csrc/wide_newton.cu",
+           "iqtree_tpu/engine/kernels/cs_kernels.py:300", err, 1e-4,
+           cuda_ms(lambda: csk.wide_newton_sweep(steps, n_slots, mats, props, freq, wp,
+                                                 invar, up_k, usc_k), 5),
+           cuda_ms(lambda: csk._newton_plain(steps, mats, props, freq, wp, invar, up_k,
+                                             usc_k), 3),
+           4 * (R * (CS + 1) * P + 3 * P + 3 * R * CSS + 2 * R),
+           newton_flops(N, P, CS, CSS))
+    del d_p, up_k, usc_k, mats
+
+    # gradient: autograd.Function (wide store + gradient sweep) vs autograd
+    # through the plain pass, in the branch lengths and alpha
+    before = csk.fused_downward_tbar.launches
+    l_k, g_k = param_grads(
+        lambda t, m: grad_mod.loglik(t, m, site, steps, n_slots)[0], ta, opt, params)
+    check(csk.fused_downward_tbar.launches == before + 1,
+          "the gradient ran the wide gradient sweep")
+    l_p, g_p = param_grads(lambda t, m: compute_loglik(t, m, site)[0], ta, opt, params)
+    g_err = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(g_k, g_p))
+    print(f"gradient (blen + {len(params)} model param): lnL {l_k:.4f} vs plain "
+          f"{l_p:.4f}, max relative error {g_err:.3e} (tol 1e-3)")
+    check(abs(l_k - l_p) < 1.0 and g_err < 1e-3, "custom gradient vs plain autograd")
+    del trans, tips, model, site, ta
+    torch.cuda.empty_cache()
+
+    phase("9. protein fixed-topology path: -te LG+G fit through the CLI on cuda")
+    counters = {"wide_forward": pk.wide_site_lnl, "wide_store": pk.fused_upward_store,
+                "wide_tbar": csk.fused_downward_tbar,
+                "wide_newton": csk.wide_newton_sweep, "forward": pk.fused_site_lnl,
+                "store": csk.fused_upward_store_cs, "tbar": csk.fused_tbar_cs,
+                "newton": csk.newton_sweep}
+    with tempfile.TemporaryDirectory() as tmp:
+        args = write_inputs(tmp, names, seqs, tree_nwk, model="LG+G")[0]
+        wall, launches, log, nwk = run_cli(cli_main, args, counters)
+    fit_lnl = float(logged(log, "Optimal log-likelihood:"))
+    model_str = logged(log, "Best-fit model parameters:")
+    lnl64, _, _ = reevaluate(nwk, model_str, aln, dev)
+    print(f"fitted model {model_str[:12]}...{model_str[-20:]}")
+    print(f"fitted tree and model re-evaluated in float64 (plain pass): {lnl64:.4f}")
+    print(f"-te LG+G fit lnL {fit_lnl:.4f}; reference binary {REF_PROTEIN_LNL}; "
+          f"for information, the JAX package's float32 run on a TPU "
+          f"{JAX_PROTEIN_LNL} (gap {fit_lnl - JAX_PROTEIN_LNL:+.4f})")
+    print(f"-te LG+G fit wall time {wall:.2f} s on {card}")
+    print(f"-te LG+G fit launches: {launches}")
+    k_ms = sum(results[k]["ms"] * n for k, n in launches.items())
+    print(f"kernel time of the fit, estimated as launches x phase-8/3 kernel ms: "
+          f"{k_ms / 1e3:.3f} s of {wall:.2f} s wall")
+    check(abs(lnl64 - fit_lnl) < 1.0, "float32 fit lnL vs its float64 re-evaluation")
+    check(fit_lnl > REF_PROTEIN_LNL, "fit ends above the reference binary's optimum")
+    out_tree = PhyloTree.from_newick(nwk, aln.names)
+    check(bool(np.all(np.isfinite(out_tree.blen))) and out_tree.n_taxa == N,
+          "finite branch lengths of the written tree")
+    for k in ("wide_forward", "wide_store", "wide_tbar", "wide_newton"):
+        check(launches[k] > 0, f"kernel {k} launched on the protein -te path")
+        results[k]["launches"] = launches[k]
+    for k in ("forward", "store", "tbar", "newton"):
+        check(launches[k] == 0, f"the CS-packed kernel {k} stays off the S=20 path")
+
+    phase("10. the protein fit again under torch.profiler")
+    with tempfile.TemporaryDirectory() as tmp:
+        args = write_inputs(tmp, names, seqs, tree_nwk, model="LG+G")[0]
+        profile_run(lambda: check(cli_main(args) == 0, "profiled CLI run"), wall,
+                    "protein fit")
 
 
 if __name__ == "__main__":

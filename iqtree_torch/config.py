@@ -1,5 +1,5 @@
-"""Command-line configuration of the port: the fixed-topology fit (-te)
-and the default tree search."""
+"""Command-line configuration of the port: the fixed-topology fit (-te,
+DNA and protein) and the default tree search (DNA)."""
 
 from __future__ import annotations
 
@@ -7,7 +7,7 @@ import argparse
 from dataclasses import dataclass
 from typing import Optional
 
-PORTED_FLAGS = ("-s", "-te", "-t", "-m", "-pre", "-seed", "-blfix", "-redo",
+PORTED_FLAGS = ("-s", "-st", "-te", "-t", "-m", "-pre", "-seed", "-blfix", "-redo",
                 "-device", "-n", "-nstop", "-ninit", "-ntop", "-pers", "-maxtime",
                 "-starttree", "-keep-ident", "-keep_ident")
 
@@ -31,6 +31,7 @@ class RunConfig:
     max_seconds: Optional[float] = None
     start_tree_mode: str = "BIONJ"
     keep_identical: bool = False
+    seq_type: Optional[str] = None  # -st DNA|AA; None = detected
 
     @property
     def out_prefix(self) -> str:
@@ -54,12 +55,16 @@ def parse_args(argv) -> RunConfig:
                 description="IQ-TREE tree search and fixed-topology fit on "
                             "PyTorch and hand-written CUDA kernels")
     p.add_argument("-s", dest="aln_file", required=True, help="alignment file")
+    p.add_argument("-st", dest="seq_type", default=None, type=str.upper,
+                   help="sequence type DNA or AA (default: detected from "
+                        "the characters)")
     p.add_argument("-te", dest="fixed_tree", default=None,
                    help="user tree file: fit on this fixed topology, no search")
     p.add_argument("-t", dest="start_tree", default=None,
                    help="start tree file of the search")
     p.add_argument("-m", dest="model", default=None,
-                   help="model string, e.g. GTR+G, HKY+I+G (default HKY+G)")
+                   help="model string, e.g. GTR+G, HKY+I+G, LG+G (default HKY+G "
+                        "for DNA, LG+G for protein)")
     p.add_argument("-pre", dest="prefix", default=None, help="output prefix")
     p.add_argument("-seed", dest="seed", type=int, default=1)
     p.add_argument("-blfix", dest="fix_branch_lengths", action="store_true",
@@ -90,12 +95,18 @@ def parse_args(argv) -> RunConfig:
     a = p.parse_args(argv)
     if a.fixed_tree and a.start_tree:
         p.error("-te and -t exclude each other")
+    if a.seq_type not in (None, "DNA", "AA"):
+        raise SystemExit(
+            f"iqtree-torch: -st {a.seq_type} is not ported yet; this version "
+            "reads DNA and AA (codon, binary and morphology come with later "
+            "slices)")
     return RunConfig(
         a.aln_file, a.fixed_tree, a.start_tree, a.model, a.prefix, a.seed,
         a.fix_branch_lengths, a.redo, a.device, n_iterations=a.n_iterations,
         unsuccess_iteration=a.unsuccess, n_init_trees=a.ninit, n_top_init=a.ntop,
         pers=a.pers, max_seconds=a.maxtime * 60 if a.maxtime else None,
-        start_tree_mode=a.starttree, keep_identical=a.keep_ident)
+        start_tree_mode=a.starttree, keep_identical=a.keep_ident,
+        seq_type=a.seq_type)
 
 
 def _is_number(s: str) -> bool:

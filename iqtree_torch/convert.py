@@ -39,7 +39,8 @@ def tree_arrays(src, device, dtype=torch.float64) -> TreeArrays:
 
 def model_arrays(src, device, dtype=torch.float64) -> ModelArrays:
     """From an object with eigenvalues, eigvec, inv_eigvec, state_freq,
-    rates, props and p_invar fields (reversible models only)."""
+    rates, props and p_invar fields, at any state count (DNA S=4, protein
+    S=20; reversible models only)."""
     if getattr(src, "qmat", None) is not None:
         raise NotImplementedError("non-reversible models are not ported yet")
     t = lambda a: torch.tensor(_np(a).astype(np.float64), dtype=dtype,

@@ -13,6 +13,8 @@ from typing import NamedTuple
 
 import torch
 
+from .kernels.build import check_shape
+
 
 class EngineDecision(NamedTuple):
     device: torch.device
@@ -63,11 +65,12 @@ def decide_engine(n_taxa: int, ncat: int, num_states: int, n_patterns: int,
     store = n_rows * (CS + 1) * n_patterns * item * (2 if search else 1)
     cap = memory_capacity(device)
     kernels = device.type == "cuda"
+    if search and num_states != 4:
+        raise NotImplementedError(
+            f"the tree search at {num_states} states is not ported yet (the "
+            "protein search comes with _kernel_down_store, next slice)")
     if kernels:
-        if num_states != 4 or not 1 <= ncat <= 8:
-            raise NotImplementedError(
-                f"no CUDA kernel for {ncat} categories x {num_states} states yet "
-                "(the wide-shape slice of the port)")
+        check_shape(ncat, num_states)
         if store > cap:
             raise MemoryError(
                 f"stored partials need ~{store / 2**30:.1f} GB, the card has "
@@ -83,8 +86,10 @@ def engine_banner(dec: EngineDecision, n_taxa: int, ncat: int, num_states: int,
     """Human-readable engine/memory report (logged at startup)."""
     if dec.kernels:
         name = torch.cuda.get_device_name(dec.device)
-        path = (f"CUDA kernels on {name} (forward, upward store, gradient "
-                f"sweep, branch-Newton sweep; CS={ncat * num_states})")
+        shape = ("CS-packed" if num_states == 4 else
+                 f"wide [C,S,S] x [C,S,tile], S={num_states}")
+        path = (f"CUDA kernels on {name} ({shape} forward, upward store, "
+                f"gradient sweep, branch-Newton sweep; CS={ncat * num_states})")
         newton = "branch-Newton sweep kernel"
         budget = f"budget {dec.mem_cap / 2**30:.1f} GB"
     else:

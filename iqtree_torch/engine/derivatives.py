@@ -1,8 +1,9 @@
 """Batched branch-length Newton on every branch at once.
 
 One upward store and one reverse sweep (the branch-Newton kernel,
-kernels/cs_kernels.py fused_newton_derivs) give d lnL/dt and d2 lnL/dt2
-for all 2N-3 branches; Newton then moves every branch simultaneously
+kernels/cs_kernels.py fused_newton_derivs: the CS-packed kernels for DNA,
+the wide ones for protein, the plain twins on the CPU) give d lnL/dt and
+d2 lnL/dt2 for all 2N-3 branches; Newton then moves every branch simultaneously
 (Jacobi-style sweeps rather than one branch at a time).  Plain Jacobi
 steps oscillate, because neighbouring branches overshoot jointly, so each
 sweep backtracks on the joint step until the lnL does not drop.
@@ -69,7 +70,7 @@ def optimize_all_branches(
     Returns (tree with the new blen, lnL)."""
     if bool((site.asc_mask != 0).any()):
         raise NotImplementedError(
-            "branch Newton with +ASC is not ported yet (slice B of the port)")
+            "branch Newton with +ASC is not ported yet (the ascertainment-bias slice)")
     mask = optimize_branch_mask(tree)
     dt = site.code_masks.dtype
     tips = tip_partials(site).contiguous()

@@ -22,7 +22,8 @@ import torch
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_ROOT = Path(__file__).with_name("build")
-SOURCES = ("forward", "store", "tbar", "newton", "down_store", "pars_insert")
+SOURCES = ("forward", "store", "tbar", "newton", "down_store", "pars_insert",
+           "wide_forward", "wide_store", "wide_tbar", "wide_newton")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -37,7 +38,24 @@ SIGNATURES = {
     # (post, n_post, pre, n_pre, tips, n_taxa, leaf, freq, P, up, rest, cost,
     #  tile, stream)
     "iqt_pars_insert": [P_, I_, P_, I_, P_, I_, I_, P_, I_, P_, P_, P_, I_, P_],
+    # wide kernels: (steps, n_steps, ...inputs..., C, S, n_slots, tile, stream)
+    "iqt_wide_forward": [P_, I_, P_, P_, I_, P_, P_, P_, I_, I_, I_, I_, P_],
+    "iqt_wide_store": [P_, I_, P_, P_, I_, P_, P_, I_, I_, I_, I_, P_],
+    # (..., P, n_nodes, part, part_blocks, tbar, C, S, n_slots, tile, stream)
+    "iqt_wide_tbar": [P_, I_, P_, P_, P_, P_, P_, P_, I_, I_, P_, I_, P_, I_, I_,
+                      I_, I_, P_],
+    "iqt_wide_newton": [P_, I_, P_, P_, P_, P_, P_, P_, I_, I_, P_, P_, I_, I_, I_,
+                        I_, P_],
 }
+
+# State counts with a kernel instance: the CS-packed DNA kernels (S=4) and
+# the wide kernels (S=20, protein); 1..8 rate categories.
+PACKED_STATES = (4,)
+WIDE_STATES = (20,)
+MAX_CATEGORIES = 8
+# the slice of the port that brings the kernels of a state count not served
+LATER_SLICES = {61: "the codon slice (S=61)",
+                2: "the binary/morphology slice"}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -120,13 +138,27 @@ def launch(name: str, *args) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed: {msg} ({rc})")
 
 
-def check_inputs(C: int, S: int, steps: torch.Tensor, *tensors: torch.Tensor) -> None:
-    """The kernels take contiguous CUDA tensors: an int32 [R, 6] schedule,
-    float32 data, S = 4 states and 1..8 rate categories."""
-    if S != 4 or not 1 <= C <= 8:
+def check_shape(C: int, S: int, states=PACKED_STATES + WIDE_STATES) -> None:
+    """Raise NotImplementedError unless a kernel of `states` (default: any
+    kernel of the port) serves C categories x S states."""
+    if S in states and 1 <= C <= MAX_CATEGORIES:
+        return
+    if S in PACKED_STATES + WIDE_STATES and 1 <= C <= MAX_CATEGORIES:
         raise NotImplementedError(
-            f"the CUDA kernels serve DNA shapes (S=4, C<=8), got C={C}, S={S}; "
-            "wider shapes come with the wide-shape slice of the port")
+            f"this kernel has instances for S in {states}, got S={S}")
+    later = LATER_SLICES.get(S, "a later slice")
+    raise NotImplementedError(
+        f"no CUDA kernel for C={C} categories x S={S} states: the port serves "
+        f"DNA (S=4) and protein (S=20) with C<={MAX_CATEGORIES}; this shape is "
+        f"not ported yet ({later})")
+
+
+def check_inputs(C: int, S: int, steps: torch.Tensor, *tensors: torch.Tensor,
+                 states=PACKED_STATES) -> None:
+    """The kernels take contiguous CUDA tensors: an int32 [R, 6] schedule,
+    float32 data, S in `states` (the kernel's instances) and 1..8 rate
+    categories."""
+    check_shape(C, S, states)
     if steps.dtype != torch.int32 or steps.dim() != 2 or steps.shape[1] != 6:
         raise ValueError("the slot schedule must be an int32 [n_steps, 6] tensor")
     for t in (steps, *tensors):

@@ -17,6 +17,14 @@ partials up [2N, CS, P]:
   partial and log-scale (csrc/down_store.cu); `fused_nni_passes_cs` runs
   the store and this sweep for the NNI evaluator (engine/nni.py).
 
+The same sweeps at the wide protein shapes (S=20, the general [C,S,S]
+layout), on the same plain twins; the wrappers above pass S=20 on to them,
+as pruning.fused_site_lnl does, so a caller makes one call at any shape:
+
+* `pruning.fused_upward_store` -- the upward store (csrc/wide_store.cu);
+* `fused_downward_tbar` -- the gradient sweep (csrc/wide_tbar.cu);
+* `wide_newton_sweep` -- the branch-Newton sweep (csrc/wide_newton.cu).
+
 Each wrapper launches its kernel for CUDA tensors and runs its plain twin
 for CPU tensors.  The reverse sweeps read child partials from `up` with
 the tip rows filled (fill_tip_rows_cs).
@@ -27,16 +35,20 @@ from __future__ import annotations
 import torch
 
 from . import build
-from .pruning import DEFAULT_TILE, schedule_tree, upward_plain
+from .pruning import (DEFAULT_TILE, WIDE_TILE, fused_upward_store, schedule_tree,
+                      upward_plain)
 from ..likelihood import SCALE_TINY, branch_transition_mats, downward_pass
 
 
 def fused_upward_store_cs(steps, n_slots, trans, tips):
     """(up [2N, CS, P], usc [2N, P]) -- every internal node's normalized
-    partial and log-scale.  Tip rows are left for fill_tip_rows_cs."""
+    partial and log-scale.  Tip rows are left for fill_tip_rows_cs.  The
+    wide shapes (S=20) run pruning.fused_upward_store."""
     if not trans.is_cuda:
         return upward_plain(steps, trans, tips)
     n_rows, C, S = trans.shape[:3]
+    if S not in build.PACKED_STATES:
+        return fused_upward_store(steps, n_slots, trans, tips)
     P = tips.shape[2]
     build.check_inputs(C, S, steps, trans, tips)
     up = torch.empty(n_rows, C * S, P, dtype=torch.float32, device=trans.device)
@@ -74,8 +86,12 @@ def fused_tbar_cs(steps, n_slots, trans, tips, props, state_freq, lnl_raw, w_p,
     """[2N, C, S, S] transition-matrix cotangents:
         tbar[e,c,s,t] = sum_p O_e[c,s,p] U_e[c,t,p] exp(osc+usc-lnl_p) w_p
     with the class weights folded into the root seed.  `up`/`usc` may be
-    passed from a prior upward store (tip rows are filled here)."""
+    passed from a prior upward store (tip rows are filled here).  The wide
+    shapes (S=20) run fused_downward_tbar."""
     n_rows, C, S = trans.shape[:3]
+    if S not in build.PACKED_STATES:
+        return fused_downward_tbar(steps, n_slots, trans, tips, props, state_freq,
+                                   lnl_raw, w_p, up, usc)
     if up is None:
         up, usc = fused_upward_store_cs(steps, n_slots, trans, tips)
     fill_tip_rows_cs(up, usc, tips, C)
@@ -95,6 +111,49 @@ def fused_tbar_cs(steps, n_slots, trans, tips, props, state_freq, lnl_raw, w_p,
 
 
 fused_tbar_cs.launches = 0
+
+# Share of the card's free memory the wide gradient sweep's per-block sums
+# may take; past it the sweep runs in chunks of blocks.
+PART_MEMORY_SHARE = 0.25
+
+
+def fused_downward_tbar(steps, n_slots, trans, tips, props, state_freq, lnl_raw,
+                        w_p, up=None, usc=None, tile=None, part_blocks=None):
+    """fused_tbar_cs at the wide shapes (S=20): [2N, C, S, S] cotangents
+    through csrc/wide_tbar.cu for CUDA tensors, the plain twin _tbar_plain
+    for CPU tensors.  The per-block sums [part_blocks, 2N, C, S, S] are
+    sized to PART_MEMORY_SHARE of the free memory unless `part_blocks` is
+    given; with fewer than the sweep's blocks the kernel runs in chunks of
+    blocks and adds the chunks in a fixed order.  `tile` and `part_blocks`
+    are for measuring and testing the kernel."""
+    n_rows, C, S = trans.shape[:3]
+    if up is None:
+        up, usc = fused_upward_store(steps, n_slots, trans, tips)
+    fill_tip_rows_cs(up, usc, tips, C)
+    if not trans.is_cuda:
+        return _tbar_plain(steps, trans, props, state_freq, lnl_raw, w_p, up, usc)
+    P = tips.shape[2]
+    T = tile or WIDE_TILE
+    rootd = (props[:, None] * state_freq).reshape(-1).float().contiguous()
+    build.check_inputs(C, S, steps, trans, rootd, lnl_raw, w_p, up, usc,
+                       states=build.WIDE_STATES)
+    n_blocks = -(-P // T)
+    if part_blocks is None:
+        per_block = n_rows * C * S * S * 4
+        free = torch.cuda.mem_get_info(trans.device)[0]
+        part_blocks = int(free * PART_MEMORY_SHARE) // per_block
+    part_blocks = max(1, min(n_blocks, part_blocks))
+    part = torch.empty(part_blocks, n_rows, C, S, S, dtype=torch.float32,
+                       device=trans.device)
+    part[:, n_rows - 2:].zero_()  # the root and dummy rows are never written
+    tbar = torch.empty(n_rows, C, S, S, dtype=torch.float32, device=trans.device)
+    build.launch("wide_tbar", steps, steps.shape[0], trans, rootd, lnl_raw, w_p, up,
+                 usc, P, n_rows, part, part_blocks, tbar, C, S, n_slots, T)
+    fused_downward_tbar.launches += 1
+    return tbar
+
+
+fused_downward_tbar.launches = 0
 
 
 def _down_store_plain(steps, trans, up, usc, state_freq):
@@ -168,10 +227,14 @@ def _newton_plain(steps, mats, props, state_freq, wp, invar, up, usc):
 
 def newton_sweep(steps, n_slots, mats, props, state_freq, wp, invar, up, usc):
     """(d1 [2N], d2 [2N]) from the stored partials (tip rows filled) and the
-    stacked derivative matrices mats [2N, 3, C, S, S]."""
+    stacked derivative matrices mats [2N, 3, C, S, S].  The wide shapes
+    (S=20) run wide_newton_sweep."""
     if not mats.is_cuda:
         return _newton_plain(steps, mats, props, state_freq, wp, invar, up, usc)
     n_rows, _, C, S = mats.shape[:4]
+    if S not in build.PACKED_STATES:
+        return wide_newton_sweep(steps, n_slots, mats, props, state_freq, wp, invar,
+                                 up, usc)
     P = up.shape[2]
     rootd = (props[:, None] * state_freq).reshape(-1).float().contiguous()
     build.check_inputs(C, S, steps, mats, rootd, wp, invar, up, usc)
@@ -187,10 +250,35 @@ def newton_sweep(steps, n_slots, mats, props, state_freq, wp, invar, up, usc):
 newton_sweep.launches = 0
 
 
+def wide_newton_sweep(steps, n_slots, mats, props, state_freq, wp, invar, up, usc,
+                      tile=None):
+    """newton_sweep at the wide shapes (S=20): csrc/wide_newton.cu for CUDA
+    tensors, the plain twin _newton_plain for CPU tensors.  Each step
+    stages its children's per-category (P, P', P'') blocks of `mats`."""
+    if not mats.is_cuda:
+        return _newton_plain(steps, mats, props, state_freq, wp, invar, up, usc)
+    n_rows, _, C, S = mats.shape[:4]
+    P = up.shape[2]
+    T = tile or WIDE_TILE
+    rootd = (props[:, None] * state_freq).reshape(-1).float().contiguous()
+    build.check_inputs(C, S, steps, mats, rootd, wp, invar, up, usc,
+                       states=build.WIDE_STATES)
+    part = torch.zeros(-(-P // T), n_rows, 2, dtype=torch.float32, device=mats.device)
+    d12 = torch.empty(n_rows, 2, dtype=torch.float32, device=mats.device)
+    build.launch("wide_newton", steps, steps.shape[0], mats, rootd, wp, invar, up, usc,
+                 P, n_rows, part, d12, C, S, n_slots, T)
+    wide_newton_sweep.launches += 1
+    return d12[:, 0], d12[:, 1]
+
+
+wide_newton_sweep.launches = 0
+
+
 def fused_newton_derivs(steps, n_slots, model, blen, tips, pattern_freq, invar):
     """(d1 [2N], d2 [2N]): d lnL/dt and d2 lnL/dt2 of every edge (entry v =
     the edge above v; root and dummy rows are 0) from one upward store and
-    one reverse sweep.  The denominator includes the invariant class."""
+    one reverse sweep -- the CS-packed kernels at S=4, the wide store and
+    sweep at S=20.  The denominator includes the invariant class."""
     dt = tips.dtype
     trans = branch_transition_mats(model, blen).to(dt).contiguous()
     up, usc = fused_upward_store_cs(steps, n_slots, trans, tips)

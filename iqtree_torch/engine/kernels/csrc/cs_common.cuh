@@ -175,19 +175,21 @@ __device__ __forceinline__ float outside(const float (&d)[C][S], const float (&m
 
 // Second, deterministic pass of a reverse sweep: out[i] = sum over blocks
 // of part[b][i] (per-block partial sums; the blocks of the sweep run in
-// no order, so they cannot accumulate into one buffer in sequence).
+// no order, so they cannot accumulate into one buffer in sequence).  With
+// `add` the sum goes onto out[i]: a sweep run in chunks of blocks adds
+// each chunk onto the earlier ones, still in block order.
 __global__ void reduce_blocks(const float* __restrict__ part, float* __restrict__ out,
-                              int n_blocks, int n) {
+                              int n_blocks, int n, int add) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  float acc = 0.f;
+  float acc = add ? out[i] : 0.f;
   for (int b = 0; b < n_blocks; ++b) acc += part[(size_t)b * n + i];
   out[i] = acc;
 }
 
 inline cudaError_t launch_reduce(const float* part, float* out, int n_blocks, int n,
-                                 cudaStream_t stream) {
-  reduce_blocks<<<(n + 255) / 256, 256, 0, stream>>>(part, out, n_blocks, n);
+                                 int add, cudaStream_t stream) {
+  reduce_blocks<<<(n + 255) / 256, 256, 0, stream>>>(part, out, n_blocks, n, add);
   return cudaGetLastError();
 }
 

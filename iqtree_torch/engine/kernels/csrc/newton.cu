@@ -161,5 +161,5 @@ extern "C" int iqt_newton(const int* steps, int n_steps, const float* mats,
   if (e != cudaSuccess) return (int)e;
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  return (int)launch_reduce(part, d12, n_blocks, n_nodes * 2, (cudaStream_t)stream);
+  return (int)launch_reduce(part, d12, n_blocks, n_nodes * 2, 0, (cudaStream_t)stream);
 }

@@ -129,6 +129,6 @@ extern "C" int iqt_tbar(const int* steps, int n_steps, const float* trans,
   if (e != cudaSuccess) return (int)e;
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  return (int)launch_reduce(part, tbar, n_blocks, n_nodes * C * SS,
+  return (int)launch_reduce(part, tbar, n_blocks, n_nodes * C * SS, 0,
                             (cudaStream_t)stream);
 }

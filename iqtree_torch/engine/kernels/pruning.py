@@ -1,9 +1,12 @@
 """Fused forward likelihood: whole-tree site log-likelihoods in one kernel.
 
-`fused_site_lnl` launches the hand-written CUDA kernel (csrc/forward.cu)
-for a CUDA tensor and runs its plain twin for a CPU tensor.  The kernel
-evaluates the entire post-order for a tile of patterns with the live
-partials in a shared-memory slot pool:
+`fused_site_lnl` launches a hand-written CUDA kernel for a CUDA tensor --
+csrc/forward.cu at the CS-packed DNA shapes (S=4), csrc/wide_forward.cu
+(`wide_site_lnl`) at the wide protein shapes (S=20) -- and runs its plain
+twin for a CPU tensor.  `fused_upward_store` is the wide upward store
+(csrc/wide_store.cu): the same sweep, storing every internal partial for
+the reverse sweeps.  The kernels evaluate the entire post-order for a
+tile of patterns with the live partials in a shared-memory slot pool:
 
   * topology arrives as a Sethi-Ullman slot schedule (schedule.py), so at
     most ceil(log2 N)+1 partials are live per pattern;
@@ -39,6 +42,9 @@ from ..likelihood import (
 # of a 1000-taxon tree (11 slots) under the 48 KB default shared memory
 # and gives ~160 blocks for 10k patterns on the 132 SMs.
 DEFAULT_TILE = 64
+# Patterns per block of the wide kernels: 16 patterns x C*4 row groups of
+# 5 states (256 threads at C=4); ~123 blocks for 1 958 patterns.
+WIDE_TILE = 16
 
 
 def device_slot_schedule(tree_host, tree_arrays) -> Tuple[np.ndarray, int]:
@@ -104,12 +110,15 @@ def fused_site_lnl(steps, n_slots, trans, tips, props, state_freq, invar,
 
     steps [N-1, 6] int32, trans [2N, C, S, S], tips [N, S, P],
     props [C], state_freq [C, S], invar [P] (the invariant-class
-    likelihood).  CUDA tensors launch csrc/forward.cu; CPU tensors run
-    the plain twin.  `tile` (patterns per block, default DEFAULT_TILE) is
-    for measuring the kernel."""
+    likelihood).  CUDA tensors launch csrc/forward.cu at S=4 and
+    csrc/wide_forward.cu (wide_site_lnl) at S=20; CPU tensors run the
+    plain twin.  `tile` (patterns per block) is for measuring the kernel."""
     if not trans.is_cuda:
         return _site_lnl_plain(steps, trans, tips, props, state_freq, invar)
     C, S = trans.shape[1], trans.shape[2]
+    if S not in build.PACKED_STATES:
+        return wide_site_lnl(steps, n_slots, trans, tips, props, state_freq, invar,
+                             tile)
     P = tips.shape[2]
     rootw = (props[:, None] * state_freq).reshape(-1).float().contiguous()
     build.check_inputs(C, S, steps, trans, tips, rootw, invar)
@@ -121,6 +130,49 @@ def fused_site_lnl(steps, n_slots, trans, tips, props, state_freq, invar,
 
 
 fused_site_lnl.launches = 0
+
+
+def wide_site_lnl(steps, n_slots, trans, tips, props, state_freq, invar,
+                  tile=None) -> torch.Tensor:
+    """fused_site_lnl at the wide shapes (S=20): csrc/wide_forward.cu for
+    CUDA tensors, the plain twin for CPU tensors.  `tile` (patterns per
+    block, default WIDE_TILE) is for measuring the kernel."""
+    if not trans.is_cuda:
+        return _site_lnl_plain(steps, trans, tips, props, state_freq, invar)
+    C, S = trans.shape[1], trans.shape[2]
+    P = tips.shape[2]
+    rootw = (props[:, None] * state_freq).reshape(-1).float().contiguous()
+    build.check_inputs(C, S, steps, trans, tips, rootw, invar,
+                       states=build.WIDE_STATES)
+    out = torch.empty(P, dtype=torch.float32, device=trans.device)
+    build.launch("wide_forward", steps, steps.shape[0], trans, tips, P, rootw,
+                 invar, out, C, S, n_slots, tile or WIDE_TILE)
+    wide_site_lnl.launches += 1
+    return out
+
+
+wide_site_lnl.launches = 0
+
+
+def fused_upward_store(steps, n_slots, trans, tips, tile=None):
+    """(up [2N, CS, P], usc [2N, P]) at the wide shapes (S=20): every
+    internal node's normalized partial and log-scale, through
+    csrc/wide_store.cu for CUDA tensors and the plain twin upward_plain
+    for CPU tensors.  Tip rows are left for fill_tip_rows_cs."""
+    if not trans.is_cuda:
+        return upward_plain(steps, trans, tips)
+    n_rows, C, S = trans.shape[:3]
+    P = tips.shape[2]
+    build.check_inputs(C, S, steps, trans, tips, states=build.WIDE_STATES)
+    up = torch.empty(n_rows, C * S, P, dtype=torch.float32, device=trans.device)
+    usc = torch.zeros(n_rows, P, dtype=torch.float32, device=trans.device)
+    build.launch("wide_store", steps, steps.shape[0], trans, tips, P, up, usc, C, S,
+                 n_slots, tile or WIDE_TILE)
+    fused_upward_store.launches += 1
+    return up, usc
+
+
+fused_upward_store.launches = 0
 
 
 def fused_compute_loglik(tree, model, site, steps, n_slots):

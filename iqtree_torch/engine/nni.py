@@ -171,7 +171,7 @@ def evaluate_nnis(
     their plain twins)."""
     if bool((site.asc_mask != 0).any()):
         raise NotImplementedError(
-            "NNI evaluation with +ASC is not ported yet (slice B of the port)")
+            "NNI evaluation with +ASC is not ported yet (the ascertainment-bias slice)")
     if passes is None:
         passes = nni_passes(tree, model, site, steps, n_slots)
     up, usc, out, osc = passes

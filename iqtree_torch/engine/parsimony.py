@@ -258,7 +258,7 @@ def parsimony_stepwise_tree(aln: Alignment, rng: np.random.Generator, device,
         if aln.num_states > 8:
             raise NotImplementedError(
                 "the parsimony kernel takes up to 8 states (one byte a set); "
-                "wider alphabets come with the wide-shape slice of the port")
+                "wider alphabets come with the protein search, the next slice")
         tips8 = tips[:, 0].to(torch.uint8).contiguous()
         scratch = tuple(torch.empty(2 * N, tips8.shape[1], dtype=torch.uint8,
                                     device=device) for _ in range(2))

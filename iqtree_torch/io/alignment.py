@@ -5,8 +5,8 @@ patterns; ambiguity codes are kept as integer codes >= num_states with a
 code -> state indicator table, so a tip partial is one gather of that
 table by the tip codes.
 
-This slice reads DNA only; protein, binary, morphology and codon data
-come with the wide-shape slice of the port.
+The port reads DNA (4 states) and protein (20 states); binary,
+morphology and codon data are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,6 +18,14 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 SEQ_DNA = "DNA"
+SEQ_PROTEIN = "AA"
+SEQ_BINARY = "BIN"
+SEQ_MORPH = "MORPH"
+SEQ_CODON = "CODON"
+# the slice of the port that reads each type not read yet
+NOT_PORTED = {SEQ_CODON: "the codon slice (S=61)",
+              SEQ_BINARY: "the binary/morphology slice",
+              SEQ_MORPH: "the binary/morphology slice"}
 
 # DNA: states 0..3 = A,C,G,T; ambiguity codes are extra integer codes
 # (R=A|G, Y=C|T, W=A|T, S=C|G, M=A|C, K=G|T, B/H/D/V, N/?/-=any).
@@ -29,6 +37,19 @@ _DNA_CODES: Dict[str, Tuple[int, ...]] = {
     "N": (0, 1, 2, 3), "X": (0, 1, 2, 3), "O": (0, 1, 2, 3),
     "?": (0, 1, 2, 3), "-": (0, 1, 2, 3), ".": (0, 1, 2, 3), "~": (0, 1, 2, 3),
 }
+
+# Protein: the 20 states in the reference's order; B=N|D, Z=Q|E, J=I|L,
+# U (selenocysteine) as C, X/*/gaps = any.
+AA_ORDER = "ARNDCQEGHILKMFPSTWYV"
+_AA_CODES: Dict[str, Tuple[int, ...]] = {c: (i,) for i, c in enumerate(AA_ORDER)}
+_AA_CODES.update({
+    "B": (AA_ORDER.index("N"), AA_ORDER.index("D")),
+    "Z": (AA_ORDER.index("Q"), AA_ORDER.index("E")),
+    "J": (AA_ORDER.index("I"), AA_ORDER.index("L")),
+    "U": (AA_ORDER.index("C"),),
+    **{c: tuple(range(20)) for c in "X*?-.~"},
+})
+_TABLES = {SEQ_DNA: (_DNA_CODES, 4), SEQ_PROTEIN: (_AA_CODES, 20)}
 
 
 @dataclass
@@ -47,16 +68,17 @@ class StateSpace:
 
     @classmethod
     def make(cls, seq_type: str) -> "StateSpace":
-        if seq_type != SEQ_DNA:
+        if seq_type not in _TABLES:
             raise NotImplementedError(
                 f"sequence type {seq_type} is not ported yet (the port reads "
-                "DNA; other types come with the wide-shape slice)")
-        ns = 4
+                f"DNA and protein; {seq_type} comes with "
+                f"{NOT_PORTED.get(seq_type, 'a later slice')})")
+        table, ns = _TABLES[seq_type]
         # definite states first, then one code per distinct ambiguity set
         set_to_code: Dict[Tuple[int, ...], int] = {(i,): i for i in range(ns)}
         masks: List[Tuple[int, ...]] = [(i,) for i in range(ns)]
         char_to_code: Dict[str, int] = {}
-        for c, states in _DNA_CODES.items():
+        for c, states in table.items():
             key = tuple(sorted(states))
             if key not in set_to_code:
                 set_to_code[key] = len(masks)
@@ -79,8 +101,9 @@ class StateSpace:
 
 
 def detect_seq_type(seqs: List[str]) -> str:
-    """Nucleotide share heuristic: DNA when more than 85% of the definite
-    characters are A/C/G/T/U."""
+    """Character-share heuristic: binary (0/1) or morphology (digits) above
+    90% of the definite characters, DNA when more than 85% are A/C/G/T/U,
+    else protein."""
     counts: Dict[str, int] = {}
     total = 0
     for s in seqs:
@@ -92,7 +115,11 @@ def detect_seq_type(seqs: List[str]) -> str:
     if total == 0:
         return SEQ_DNA
     dna = sum(counts.get(c, 0) for c in "ACGTU")
-    return SEQ_DNA if dna / total > 0.85 else "AA"
+    if sum(counts.get(c, 0) for c in "01") / total > 0.9:
+        return SEQ_BINARY
+    if sum(counts.get(c, 0) for c in "0123456789") / total > 0.9:
+        return SEQ_MORPH
+    return SEQ_DNA if dna / total > 0.85 else SEQ_PROTEIN
 
 
 @dataclass

@@ -1,6 +1,7 @@
-"""The .iqtree analysis report for DNA models: alignment summary, the
-substitution model, rate heterogeneity, the maximum-likelihood tree and
-run information, in the reference report's sections."""
+"""The .iqtree analysis report for DNA and protein models: alignment
+summary, the substitution model, rate heterogeneity, the
+maximum-likelihood tree and run information, in the reference report's
+sections."""
 
 from __future__ import annotations
 
@@ -10,10 +11,12 @@ from typing import List
 import numpy as np
 
 from .. import __version__
+from ..io.alignment import AA_ORDER
 from ..models.subst import (FREQ_EMPIRICAL, FREQ_EQUAL, FREQ_ESTIMATE,
                             FREQ_USER, pair_index)
 
-STATES = "ACGT"
+STATE_NAMES = {4: "ACGT", 20: AA_ORDER}
+SITE_KIND = {4: "nucleotide", 20: "amino-acid"}
 FREQ_DESC = {
     FREQ_EMPIRICAL: "empirical counts from alignment",
     FREQ_EQUAL: "equal frequencies",
@@ -37,7 +40,8 @@ def write_report(path: str, aln, subst, rate, tree, lnl: float, command: str,
         "",
         "SEQUENCE ALIGNMENT",
         "------------------",
-        f"Input data: {aln.n_taxa} sequences with {aln.n_sites} nucleotide sites",
+        f"Input data: {aln.n_taxa} sequences with {aln.n_sites} "
+        f"{SITE_KIND[aln.num_states]} sites",
         f"Number of distinct site patterns: {aln.n_patterns}",
         f"Number of constant sites: "
         f"{int(round(aln.frac_const_sites() * aln.n_sites))} "
@@ -48,19 +52,19 @@ def write_report(path: str, aln, subst, rate, tree, lnl: float, command: str,
         "--------------------",
         f"Model of substitution: {subst.name}{rate_name_suffix(rate)}",
         "",
-        "Rate parameter R:",
-        "",
     ]
     S = subst.num_states
-    r = np.zeros((S, S))
-    for (i, j), g in zip(pair_index(S), subst.rate_groups):
-        r[i, j] = subst.group_rates[g]
-        L.append(f"  {STATES[i]}-{STATES[j]}: {r[i, j]:.4f}")
-    L += ["", f"State frequencies: ({FREQ_DESC.get(subst.freq_type, subst.freq_type)})", ""]
-    L += [f"  pi({n}) = {f:.4g}" for n, f in zip(STATES, subst.state_freq)]
+    names = STATE_NAMES[S]
+    if subst.rate_groups is not None:  # group-coded (DNA) exchangeabilities
+        r = subst.sym_rates()
+        L += ["Rate parameter R:", ""]
+        L += [f"  {names[i]}-{names[j]}: {r[i, j]:.4f}" for i, j in pair_index(S)]
+        L.append("")
+    L += [f"State frequencies: ({FREQ_DESC.get(subst.freq_type, subst.freq_type)})", ""]
+    L += [f"  pi({n}) = {f:.4g}" for n, f in zip(names, subst.state_freq)]
     L += ["", "Rate matrix Q:", ""]
     q = subst.rate_matrix()
-    L += [f"  {STATES[i]}  " + "  ".join(f"{q[i, j]:8.4f}" for j in range(S))
+    L += [f"  {names[i]}  " + "  ".join(f"{q[i, j]:8.4f}" for j in range(S))
           for i in range(S)]
     L += ["", "RATE HETEROGENEITY", "------------------"]
     if rate.has_gamma:

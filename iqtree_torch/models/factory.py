@@ -1,7 +1,10 @@
-"""Model-string parsing for the DNA models of this slice.
+"""Model-string parsing for the DNA and protein models the port serves.
 
-Parses IQ-TREE-style model strings like "GTR+G4+I", "HKY+F{.3,.2,.2,.3}"
-or "GTR{1.5,2,0.8,1.2,3}+G{0.5}" into a (ReversibleModel, RateModel) pair.
+Parses IQ-TREE-style model strings like "GTR+G4+I", "HKY+F{.3,.2,.2,.3}",
+"GTR{1.5,2,0.8,1.2,3}+G{0.5}" or "LG+F+I+G" into a (ReversibleModel,
+RateModel) pair.  The protein names are the empirical matrices of
+models/protein.py, with their published frequencies unless a +F suffix
+says otherwise.
 
 Supported suffixes:
   +F    empirical (counted) frequencies
@@ -21,8 +24,9 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from ..io.alignment import SEQ_DNA, Alignment
+from ..io.alignment import SEQ_DNA, SEQ_PROTEIN, Alignment
 from .dna import create_dna_model
+from .protein import create_protein_model
 from .rates import RateModel
 from .subst import FREQ_EMPIRICAL, FREQ_EQUAL, FREQ_ESTIMATE, FREQ_USER
 
@@ -64,25 +68,29 @@ def _not_ported(what: str, slice_name: str):
     raise NotImplementedError(f"{what} is not ported yet ({slice_name})")
 
 
+DEFAULT_MODELS = {SEQ_DNA: "HKY+G", SEQ_PROTEIN: "LG+G"}
+
+
 def default_model(aln: Alignment) -> str:
-    """The model when -m is omitted: HKY+G for DNA."""
-    if aln.states.seq_type != SEQ_DNA:
-        _not_ported(f"the default {aln.states.seq_type} model", "wide-shape slice")
-    return "HKY+G"
+    """The model when -m is omitted: HKY+G for DNA, LG+G for protein."""
+    return DEFAULT_MODELS[aln.states.seq_type]
 
 
 def parse_model_string(model_str: str, aln: Alignment):
     """Returns (ReversibleModel, RateModel)."""
-    if aln.states.seq_type != SEQ_DNA:
-        _not_ported(f"{aln.states.seq_type} models", "wide-shape slice")
     base_tok, suffixes = _split_suffixes(model_str.strip())
     bname, bparams = _parse_braces(base_tok)
     upper = bname.upper()
     if upper == "UNREST":
-        _not_ported("UNREST", "wide-shape slice: non-reversible models")
+        _not_ported("UNREST", "the non-reversible slice")
     if upper.startswith("MIX") or "*" in bname:
-        _not_ported("mixture models", "wide-shape slice: mixtures")
-    subst = create_dna_model(bname)
+        _not_ported("mixture models", "the mixture slice")
+    if aln.states.seq_type == SEQ_PROTEIN:
+        subst = create_protein_model(bname)
+        if bparams is not None:
+            raise ModelParseError(f"{bname} takes no rate parameters")
+    else:
+        subst = create_dna_model(bname)
     if bparams is not None:
         ngroups = int(subst.rate_groups.max()) + 1
         if len(bparams) != ngroups - 1:
@@ -128,9 +136,11 @@ def parse_model_string(model_str: str, aln: Alignment):
             if vals:
                 alpha, fix_alpha = vals[0], True
         elif up.startswith(("R", "K")) and (len(up) == 1 or up[1:].isdigit()):
-            _not_ported(f"+{name}", "wide-shape slice: FreeRate models")
-        elif up == "ASC" or up.startswith(("FMIX", "GM")):
-            _not_ported(f"+{name}", "slice B of the port")
+            _not_ported(f"+{name}", "the FreeRate slice")
+        elif up == "ASC":
+            _not_ported("+ASC", "the ascertainment-bias slice")
+        elif up.startswith(("FMIX", "GM")):
+            _not_ported(f"+{name}", "the mixture slice")
         else:
             raise ModelParseError(f"unknown model suffix +{name}")
 

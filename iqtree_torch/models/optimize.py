@@ -52,10 +52,11 @@ class ModelOptimizer:
         self.max_pinv = 0.999
         self.opt_freq = s.freq_type == FREQ_ESTIMATE
         self.opt_rates = s.n_rate_params > 0
-        pairs = torch.tensor(pair_index(s.num_states), device=self.device)
-        self._pairs = (pairs[:, 0], pairs[:, 1])
-        self._groups = torch.tensor(s.rate_groups, dtype=torch.long,
-                                    device=self.device)
+        if s.rate_groups is not None:
+            pairs = torch.tensor(pair_index(s.num_states), device=self.device)
+            self._pairs = (pairs[:, 0], pairs[:, 1])
+            self._groups = torch.tensor(s.rate_groups, dtype=torch.long,
+                                        device=self.device)
 
     def _t(self, a) -> torch.Tensor:
         return torch.tensor(np.asarray(a, dtype=np.float64), device=self.device)
@@ -95,13 +96,20 @@ class ModelOptimizer:
             return self._t(self.rate.p_invar)
         return torch.sigmoid(params["logit_pinv"]) * self.max_pinv
 
-    def build(self, params: Dict[str, torch.Tensor]) -> ModelArrays:
+    def _exchange_matrix(self, params) -> torch.Tensor:
+        """[S, S] symmetric exchangeabilities: fixed (an empirical matrix,
+        or rates pinned in the model string) or from the free rates."""
+        if not self.opt_rates:
+            return self._t(self.subst.sym_rates())
         S = self.subst.num_states
-        group_rates = (torch.cat([self._t([1.0]), torch.exp(params["log_rates"])])
-                       if self.opt_rates else self._t(self.subst.group_rates))
+        group_rates = torch.cat([self._t([1.0]), torch.exp(params["log_rates"])])
         sym = torch.zeros(S, S, dtype=torch.float64, device=self.device)
         sym = sym.index_put(self._pairs, group_rates[self._groups])
-        sym = sym + sym.T
+        return sym + sym.T
+
+    def build(self, params: Dict[str, torch.Tensor]) -> ModelArrays:
+        S = self.subst.num_states
+        sym = self._exchange_matrix(params)
         freq = self._freq(params)
         lam, v, vinv = eigen_reversible(sym, freq)
         pinv = self._pinv(params)

@@ -7,7 +7,7 @@ Conventions:
   * +I:    one category, rate 1, prop = (1 - p_inv)
   * +I+G:  rates = gamma rates / (1 - p_inv), prop = (1 - p_inv)/K
 
-FreeRate (+R) and +K come with the wide-shape slice of the port.
+FreeRate (+R) and +K come with the FreeRate slice of the port.
 """
 
 from __future__ import annotations

@@ -1,10 +1,11 @@
 """Reversible substitution models (host-side parameter containers).
 
 A reversible model is defined by:
-  * `rate_groups`: for each unordered state pair (i<j, row-major order:
-    (0,1),(0,2)... so DNA order is AC,AG,AT,CG,CT,GT), an integer group id.
-    All pairs in a group share one exchangeability; group 0 is pinned to
-    1.0 (IQ-TREE's rate-code strings like "010010" for HKY).
+  * either `rate_groups`: for each unordered state pair (i<j, row-major
+    order: (0,1),(0,2)... so DNA order is AC,AG,AT,CG,CT,GT), an integer
+    group id.  All pairs in a group share one exchangeability; group 0 is
+    pinned to 1.0 (IQ-TREE's rate-code strings like "010010" for HKY);
+  * or a fixed `exchange` matrix [S, S] (the empirical protein models);
   * state frequencies with a frequency policy (equal/empirical/estimated/
     user).
 
@@ -33,33 +34,46 @@ def pair_index(num_states: int) -> List[Tuple[int, int]]:
 class ReversibleModel:
     name: str
     num_states: int
-    rate_groups: np.ndarray  # [n_pairs] int
+    rate_groups: Optional[np.ndarray] = None  # [n_pairs] int
     group_rates: Optional[np.ndarray] = None  # [n_groups] float, [0]==1.0
+    exchange: Optional[np.ndarray] = None  # [S, S] symmetric, fixed
     freq_type: str = FREQ_EQUAL
     state_freq: Optional[np.ndarray] = None  # [S]
-    fixed_rates: bool = False  # rates pinned in the model string
+    fixed_rates: bool = False  # rates pinned (model string or empirical matrix)
 
     def __post_init__(self):
         S = self.num_states
         if self.state_freq is None:
             self.state_freq = np.full(S, 1.0 / S)
-        self.rate_groups = np.asarray(self.rate_groups, dtype=np.int32)
-        if self.group_rates is None:
-            self.group_rates = np.ones(int(self.rate_groups.max()) + 1)
+        if self.rate_groups is not None:
+            self.rate_groups = np.asarray(self.rate_groups, dtype=np.int32)
+            if self.group_rates is None:
+                self.group_rates = np.ones(int(self.rate_groups.max()) + 1)
 
     @property
     def n_rate_params(self) -> int:
-        return 0 if self.fixed_rates else int(self.rate_groups.max())
+        if self.fixed_rates or self.rate_groups is None:
+            return 0
+        return int(self.rate_groups.max())
 
     def set_rate_param_vector(self, v: np.ndarray) -> None:
         self.group_rates = np.concatenate([[1.0], np.asarray(v, dtype=np.float64)])
 
-    def rate_matrix(self) -> np.ndarray:
-        """Normalized Q (mean rate 1) as float64 NumPy."""
+    def sym_rates(self) -> np.ndarray:
+        """The symmetric exchangeability matrix R [S, S] (diagonal 0)."""
         S = self.num_states
+        if self.exchange is not None:
+            r = np.array(self.exchange, dtype=np.float64)
+            np.fill_diagonal(r, 0.0)
+            return r
         r = np.zeros((S, S))
         for (i, j), g in zip(pair_index(S), self.rate_groups):
             r[i, j] = r[j, i] = self.group_rates[g]
+        return r
+
+    def rate_matrix(self) -> np.ndarray:
+        """Normalized Q (mean rate 1) as float64 NumPy."""
+        r = self.sym_rates()
         pi = self.state_freq
         q = r * pi[None, :]
         np.fill_diagonal(q, 0.0)

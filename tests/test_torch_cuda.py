@@ -6,8 +6,9 @@ PyTorch and the CUDA toolkit:
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
 Without a CUDA device they skip.  Inputs: a random 40-taxon DNA alignment
-(700 sites, a numpy seed), GTR+G4+I.  Tolerances are float32 ones: the
-kernels and the twins sum in different orders.
+(700 sites, a numpy seed), GTR+G4+I, and for the wide kernels a random
+30-taxon protein alignment (300 sites), LG+G4+I.  Tolerances are float32
+ones: the kernels and the twins sum in different orders.
 """
 
 import numpy as np
@@ -27,6 +28,7 @@ from iqtree_torch.engine.likelihood import (
 )
 from iqtree_torch.io.alignment import Alignment
 from iqtree_torch.models.dna import create_dna_model
+from iqtree_torch.models.factory import parse_model_string
 from iqtree_torch.models.rates import RateModel
 from iqtree_torch.trees.tree import random_tree
 
@@ -157,3 +159,106 @@ def test_parsimony_kernel_builds_the_plain_twins_tree():
                                         torch.device("cpu"))
     np.testing.assert_array_equal(got.children, want.children)
     np.testing.assert_array_equal(got.blen, want.blen)
+
+
+@pytest.fixture
+def protein_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(22)
+    n = 30
+    seqs = ["".join(rng.choice(list("ARNDCQEGHILKMFPSTWYV-XB"), 300)) for _ in range(n)]
+    aln = Alignment.from_sequences([f"t{i}" for i in range(n)], seqs, "AA")
+    subst, rate = parse_model_string("LG+I+G", aln)
+    rate.p_invar, rate.alpha = 0.1, 0.6
+    tree = random_tree(n, rng)
+    ta = TreeArrays.from_tree(tree, dev)
+    steps, n_slots = pruning.device_slot_schedule(tree, ta)
+    return dict(tree=ta, model=ModelArrays.from_model(subst, rate, dev),
+                site=SiteData.from_alignment(aln, dev, torch.float32),
+                steps=torch.as_tensor(steps, device=dev), n_slots=n_slots)
+
+
+@pytest.mark.cuda
+def test_wide_kernels_match_twins_on_card(protein_card):
+    """The four wide kernels (S=20) against their twins, each launched."""
+    ta, model, site = protein_card["tree"], protein_card["model"], protein_card["site"]
+    st, ns = protein_card["steps"], protein_card["n_slots"]
+    trans = branch_transition_mats(model, ta.blen).float().contiguous()
+    tips = tip_partials(site).contiguous()
+    inv = ptn_invar(model, site).float().contiguous()
+    props, freq = model.props.float(), model.state_freq.float()
+    wrappers = (pruning.wide_site_lnl, pruning.fused_upward_store,
+                cs_kernels.fused_downward_tbar, cs_kernels.wide_newton_sweep)
+    before = [w.launches for w in wrappers]
+    want = pruning._site_lnl_plain(st, trans, tips, props, freq, inv)
+    for tile in (8, 16, 32):
+        lnl = pruning.fused_site_lnl(st, ns, trans, tips, props, freq, inv, tile=tile)
+        torch.testing.assert_close(lnl, want, rtol=1e-5, atol=1e-4)
+    up, usc = pruning.fused_upward_store(st, ns, trans, tips)
+    up_p, usc_p = pruning.upward_plain(st, trans, tips)
+    inner = slice(ta.n_taxa, 2 * ta.n_taxa - 1)
+    torch.testing.assert_close(up[inner], up_p[inner], rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(usc[inner], usc_p[inner], rtol=1e-5, atol=1e-4)
+    cs_kernels.fill_tip_rows_cs(up, usc, tips, 4)
+    wp = site.pattern_freq.contiguous()
+    tb = cs_kernels.fused_downward_tbar(st, ns, trans, tips, props, freq, lnl, wp,
+                                        up=up, usc=usc)
+    tb_p = cs_kernels._tbar_plain(st, trans, props, freq, lnl, wp, up, usc)
+    torch.testing.assert_close(tb, tb_p, rtol=1e-4,
+                               atol=1e-4 * float(tb_p.abs().max()))
+    mats = cs_kernels.stacked_deriv_mats(model, ta.blen).float().contiguous()
+    got = cs_kernels.wide_newton_sweep(st, ns, mats, props, freq, wp, inv, up, usc)
+    want = cs_kernels._newton_plain(st, mats, props, freq, wp, inv, up, usc)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4 * float(w.abs().max()))
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [3, 1, 1, 1]
+
+
+@pytest.mark.cuda
+def test_wide_gradient_on_card_matches_plain_autograd(protein_card):
+    """The kernel-backed gradient at S=20 against autograd through the
+    plain pass, both with float32 partials on the card."""
+    ta, model, site = protein_card["tree"], protein_card["model"], protein_card["site"]
+    fields = ("eigenvalues", "eigvec", "inv_eigvec", "state_freq", "rates",
+              "props", "p_invar")
+
+    def grads(fn):
+        leaves = [ta.blen.clone().requires_grad_()]
+        leaves += [getattr(model, f).clone().requires_grad_() for f in fields]
+        total, _ = fn(ta.with_blen(leaves[0]), ModelArrays(*leaves[1:]))
+        return torch.autograd.grad(total, leaves)
+
+    before = cs_kernels.fused_downward_tbar.launches
+    got = grads(lambda t, m: loglik(t, m, site, protein_card["steps"],
+                                    protein_card["n_slots"]))
+    assert cs_kernels.fused_downward_tbar.launches == before + 1
+    want = grads(lambda t, m: compute_loglik(t, m, site))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-3 * float(w.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("part_blocks", [1, 2])
+def test_wide_tbar_in_chunks_of_blocks_matches_twin(protein_card, part_blocks):
+    """The gradient sweep with per-block sums for fewer blocks than the
+    sweep has: the kernel runs in chunks of blocks (the last one ragged)
+    and adds each chunk's sums onto the earlier ones."""
+    ta, model, site = protein_card["tree"], protein_card["model"], protein_card["site"]
+    st, ns = protein_card["steps"], protein_card["n_slots"]
+    trans = branch_transition_mats(model, ta.blen).float().contiguous()
+    tips = tip_partials(site).contiguous()
+    inv = ptn_invar(model, site).float().contiguous()
+    props, freq = model.props.float(), model.state_freq.float()
+    lnl = pruning.fused_site_lnl(st, ns, trans, tips, props, freq, inv)
+    up, usc = pruning.fused_upward_store(st, ns, trans, tips)
+    cs_kernels.fill_tip_rows_cs(up, usc, tips, 4)
+    wp = site.pattern_freq.contiguous()
+    n_blocks = -(-tips.shape[2] // pruning.WIDE_TILE)
+    assert n_blocks > 2 and n_blocks % 2 == 1
+    tb = cs_kernels.fused_downward_tbar(st, ns, trans, tips, props, freq, lnl, wp,
+                                        up=up, usc=usc, part_blocks=part_blocks)
+    tb_p = cs_kernels._tbar_plain(st, trans, props, freq, lnl, wp, up, usc)
+    torch.testing.assert_close(tb, tb_p, rtol=1e-4,
+                               atol=1e-4 * float(tb_p.abs().max()))

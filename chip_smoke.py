@@ -5,8 +5,9 @@
 
 Phases (any failure exits non-zero; nothing is caught):
   1. the card's name and power limit, torch and CUDA versions;
-  2. build the six CUDA kernels from iqtree_torch/engine/kernels/csrc (five
-     ported TPU kernels and the stepwise-addition parsimony scorer);
+  2. build the CUDA kernels from iqtree_torch/engine/kernels/csrc, one nvcc
+     per source, all at once (ten ported TPU kernels and the
+     stepwise-addition parsimony scorer);
   3. at the main path's shapes (bench_data.npz: 1000 taxa x 10k sites,
      GTR+G4) run each kernel and its plain PyTorch twin on the card,
      hold them together, time both; check the custom-autograd gradient
@@ -31,14 +32,24 @@ Phases (any failure exits non-zero; nothing is caught):
   9. the protein fixed-topology path through the CLI entry point:
      `-s ALN -te TREE -m LG+G` on cuda, with the wide kernels' launch
      counts read around that run;
- 10. the same fit once more under torch.profiler.
-Prints the kernels' JSON line (the DNA kernels' launches from the search,
-the wide kernels' from the protein fit), then as its last line
-{"ok": true, "device": {...}}.
+ 10. the same fit once more under torch.profiler;
+ 11. at the protein search's shapes the wide outside-partial store against
+     its twin, timed with its tile sweep, and the parsimony scorer's 32-bit
+     instance against its twin on a partial protein tree (exact);
+ 12. the protein search with ultrafast bootstrap through the CLI entry
+     point: `-s ALN -m LG+G -n 2 -ninit 4 -ntop 2 -seed 1 -bb 1000 -wbt` on
+     cuda, with the launch counts of the five wide kernels and the
+     parsimony scorer read around it, its score re-evaluated in float64,
+     its bootstrap outputs checked; then one protein hill climb from the
+     ML-distance BIONJ tree under torch.profiler.
+Prints the kernels' JSON line (the DNA kernels' launches from the DNA
+search, the wide kernels' and the 32-bit parsimony scorer's from the
+protein search), then as its last line {"ok": true, "device": {...}}.
 """
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -53,6 +64,10 @@ SEARCH_FLAGS = ["-m", "GTR+G", "-n", "5", "-ninit", "8", "-ntop", "3", "-seed", 
 GOLDEN_LNL = -17848.038178  # tests/test_golden.py
 REF_PROTEIN_LNL = -237898.106  # the binary's -te LG+G fit (bench_baseline.json)
 JAX_PROTEIN_LNL = -237897.36  # the JAX package's float32 fit on a TPU (BENCH_r05.json)
+PROTEIN_SEARCH_FLAGS = ["-m", "LG+G", "-n", "2", "-ninit", "4", "-ntop", "2", "-seed",
+                        "1", "-bb", "1000", "-wbt"]
+JAX_PROTEIN_SEARCH_LNL = -237901.3  # the JAX package's search without -bb, float32,
+#                                     on a TPU (README.md)
 PEAK_F32 = 67e12  # H100 SXM float32 outside the tensor cores, FLOP/s
 PEAK_BW = 3.35e12  # H100 SXM HBM3, bytes/s
 
@@ -145,10 +160,10 @@ def load_bench(name="bench_data.npz"):
     return [str(n) for n in z["names"]], [str(s) for s in z["seqs"]], str(z["tree"])
 
 
-def write_inputs(tmp, names, seqs, tree_nwk, search=False, model="GTR+G"):
+def write_inputs(tmp, names, seqs, tree_nwk, search=None, model="GTR+G"):
     """The CLI arguments of the fixed-topology fit of `model` (or of the
-    search), its alignment and tree written to `tmp`: (argv, output
-    prefix)."""
+    search with the flags `search`), its alignment and tree written to
+    `tmp`: (argv, output prefix)."""
     aln_path = os.path.join(tmp, "bench.phy")
     with open(aln_path, "w") as f:
         f.write(f"{len(names)} {len(seqs[0])}\n")
@@ -159,7 +174,7 @@ def write_inputs(tmp, names, seqs, tree_nwk, search=False, model="GTR+G"):
     prefix = os.path.join(tmp, "bench")
     common = ["-pre", prefix, "-device", "cuda", "-redo"]
     if search:
-        return ["-s", aln_path, *SEARCH_FLAGS, *common], prefix
+        return ["-s", aln_path, *search, *common], prefix
     return ["-s", aln_path, "-te", tree_path, "-m", model, *common], prefix
 
 
@@ -274,7 +289,7 @@ def main():
         for line in (bdir / f"{n}.log").read_text().splitlines():
             if "Function properties for" in line:
                 fn = line.split("for")[-1].strip()
-            elif (("ILi4E" in fn or "ILi20E" in fn) and
+            elif (("ILi4E" in fn or "ILi20E" in fn or "pars_insert" in fn) and
                   ("registers" in line or "spill" in line)):
                 print(f"  {n}: {line.split(':', 1)[-1].strip()}")
 
@@ -543,7 +558,7 @@ def main():
 
     phase("6. main path: the default search through the CLI on cuda")
     with tempfile.TemporaryDirectory() as tmp:
-        args = write_inputs(tmp, names, seqs, tree_nwk, search=True)[0]
+        args = write_inputs(tmp, names, seqs, tree_nwk, search=SEARCH_FLAGS)[0]
         print("iqtree-torch " + " ".join(SEARCH_FLAGS))
         s_wall, launches, log, nwk = run_cli(cli_main, args, counters)
     best = float(logged(log, "BEST SCORE FOUND :"))
@@ -591,6 +606,7 @@ def main():
     torch.cuda.empty_cache()
 
     protein_phases(dev, card, record, results, cli_main)
+    protein_search_phases(dev, card, record, results, cli_main)
 
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
@@ -753,7 +769,6 @@ def protein_phases(dev, card, record, results, cli_main):
           "finite branch lengths of the written tree")
     for k in ("wide_forward", "wide_store", "wide_tbar", "wide_newton"):
         check(launches[k] > 0, f"kernel {k} launched on the protein -te path")
-        results[k]["launches"] = launches[k]
     for k in ("forward", "store", "tbar", "newton"):
         check(launches[k] == 0, f"the CS-packed kernel {k} stays off the S=20 path")
 
@@ -762,6 +777,178 @@ def protein_phases(dev, card, record, results, cli_main):
         args = write_inputs(tmp, names, seqs, tree_nwk, model="LG+G")[0]
         profile_run(lambda: check(cli_main(args) == 0, "profiled CLI run"), wall,
                     "protein fit")
+
+
+def protein_search_phases(dev, card, record, results, cli_main):
+    """Phases 11-12: the wide outside-partial store and the 32-bit parsimony
+    scorer at the protein search's shapes, then the protein search with
+    ultrafast bootstrap through the CLI and one profiled protein climb."""
+    import numpy as np
+    import torch
+    from iqtree_torch.engine import parsimony as pars
+    from iqtree_torch.engine.banner import decide_engine
+    from iqtree_torch.engine.distances import ml_distances
+    from iqtree_torch.engine.kernels import cs_kernels as csk
+    from iqtree_torch.engine.kernels import pruning as pk
+    from iqtree_torch.engine.likelihood import (ModelArrays, SiteData, TreeArrays,
+                                                branch_transition_mats, tip_partials)
+    from iqtree_torch.io.alignment import Alignment
+    from iqtree_torch.models.factory import parse_model_string
+    from iqtree_torch.models.optimize import ModelOptimizer
+    from iqtree_torch.search.nni_search import NNIEngine
+    from iqtree_torch.trees.bionj import bionj_tree
+    from iqtree_torch.trees.tree import PhyloTree
+
+    phase("11. wide outside-partial store and 32-bit parsimony against their twins "
+          "(protein: 300 taxa x 2 000 aa)")
+    names, seqs, tree_nwk = load_bench("bench_data_protein.npz")
+    aln = Alignment.from_sequences(names, seqs, "AA")
+    true_tree = PhyloTree.from_newick(tree_nwk, aln.names)
+    subst, rate = parse_model_string("LG+G", aln)
+    opt = ModelOptimizer(subst, rate, dev)
+    rng = np.random.default_rng(11)
+    params = {k: v + torch.as_tensor(rng.normal(0, 0.3, v.shape), device=dev)
+              for k, v in opt.init_params().items()}
+    model = opt.build(params)
+    site = SiteData.from_alignment(aln, dev, torch.float32)
+    ta = TreeArrays.from_tree(true_tree, dev)
+    steps_np, n_slots = pk.device_slot_schedule(true_tree, ta)
+    steps = torch.as_tensor(steps_np, device=dev)
+    N, P = aln.n_taxa, aln.n_patterns
+    C, S = rate.ncat, subst.num_states
+    CS, CSS, R = C * S, C * S * S, 2 * N
+    print(f"{N} taxa, {P} patterns, C={C}, S={S}, {n_slots} slots")
+    trans = branch_transition_mats(model, ta.blen).float().contiguous()
+    tips = tip_partials(site).contiguous()
+    freq = model.state_freq.float()
+    up_k, usc_k = pk.fused_upward_store(steps, n_slots, trans, tips)
+    csk.fill_tip_rows_cs(up_k, usc_k, tips, C)
+
+    # O in [0, 1] absolutely, osc relative to its largest; the root and the
+    # dummy rows are never written.  Bound: up, usc read and out, osc
+    # written once, the matrices read once; both child messages a step and
+    # the push P^T O into each internal non-root child
+    for tile in (8, 16, 32):
+        ms = cuda_ms(lambda: csk.fused_down_store(steps, n_slots, trans, up_k, usc_k,
+                                                  freq, tile=tile), 10)
+        print(f"wide down-store tile {tile}: {ms:.3f} ms")
+    out_k, osc_k = csk.fused_down_store(steps, n_slots, trans, up_k, usc_k, freq)
+    out_p, osc_p = csk._down_store_plain(steps, trans, up_k, usc_k, freq)
+    rows = torch.arange(R - 2, device=dev)
+    err = max(float((out_k[rows] - out_p[rows]).abs().max()),
+              float((osc_k[rows] - osc_p[rows]).abs().max()
+                    / osc_p[rows].abs().max()))
+    check(not bool(out_k[R - 2:].any()) and not bool(osc_k[R - 2:].any()),
+          "root and dummy rows of the outside store are 0")
+    record("wide_down_store", "iqtree_torch/engine/kernels/csrc/wide_down_store.cu",
+           "iqtree_tpu/engine/kernels/pruning.py:1437", err, 1e-4,
+           cuda_ms(lambda: csk.fused_down_store(steps, n_slots, trans, up_k, usc_k,
+                                                freq), 10),
+           cuda_ms(lambda: csk._down_store_plain(steps, trans, up_k, usc_k, freq), 3),
+           4 * (2 * R * (CS + 1) * P + R * CSS + 6 * (N - 1) + CS),
+           P * (2 * (N - 1) * (2 * CSS + 3 * CS) + (N - 2) * 2 * CSS))
+    del out_k, osc_k, out_p, osc_p, up_k, usc_k, trans, tips
+
+    # the last insertion of a full protein tree with 32-bit state sets
+    leaf, present, layout = partial_tree(true_tree, N)
+    masks = torch.as_tensor(pars.pack_tip_masks(aln), device=dev)
+    words = pars.kernel_tip_words(masks, S)
+    check(words.dtype == torch.int32, "20 states take the 32-bit instance")
+    pfreq = torch.as_tensor(aln.pattern_freq, dtype=torch.float64, device=dev)
+    scratch = tuple(torch.empty(R, P, dtype=words.dtype, device=dev) for _ in range(2))
+    cost_k = pars.insertion_costs(masks, words, pfreq, leaf, layout, present, scratch)
+    cost_p = pars._edge_costs(
+        pars._insertion_costs_plain(masks, pfreq, leaf, layout, present), layout)
+    fin = np.isfinite(cost_p)
+    check(np.array_equal(np.isfinite(cost_k), fin), "32-bit parsimony: the same edges")
+    record("pars_insert_s20", "iqtree_torch/engine/kernels/csrc/pars_insert.cu",
+           "iqtree_tpu/engine/parsimony.py:168 (plain XLA, no Pallas kernel)",
+           float(np.abs(cost_k[fin] - cost_p[fin]).max()), 0.0,
+           cuda_ms(lambda: pars.insertion_costs(masks, words, pfreq, leaf, layout,
+                                                present, scratch), 10),
+           cuda_ms(lambda: pars._insertion_costs_plain(masks, pfreq, leaf, layout,
+                                                       present), 3),
+           4 * N * P + 8 * P + 4 * 6 * R + 8 * R, 14 * R * P)
+    del masks, words, scratch, model, site, ta
+    torch.cuda.empty_cache()
+
+    phase("12. the protein search with ultrafast bootstrap through the CLI on cuda")
+    counters = {"wide_forward": pk.wide_site_lnl, "wide_store": pk.fused_upward_store,
+                "wide_tbar": csk.fused_downward_tbar,
+                "wide_newton": csk.wide_newton_sweep,
+                "wide_down_store": csk.fused_down_store,
+                "pars_insert_s20": pars.insertion_costs,
+                "forward": pk.fused_site_lnl, "store": csk.fused_upward_store_cs,
+                "tbar": csk.fused_tbar_cs, "newton": csk.newton_sweep,
+                "down_store": csk.fused_down_store_cs}
+    with tempfile.TemporaryDirectory() as tmp:
+        args, prefix = write_inputs(tmp, names, seqs, tree_nwk,
+                                    search=PROTEIN_SEARCH_FLAGS)
+        print("iqtree-torch " + " ".join(PROTEIN_SEARCH_FLAGS))
+        wall, launches, log, nwk = run_cli(cli_main, args, counters)
+        with open(prefix + ".ufboot") as f:
+            boot = f.read().splitlines()
+        sizes = {ext: os.path.getsize(prefix + ext) for ext in (".contree", ".splits.nex")}
+        with open(prefix + ".contree") as f:
+            contree = PhyloTree.from_newick(f.read(), aln.names)
+    best = float(logged(log, "BEST SCORE FOUND :"))
+    model_str = logged(log, "Best-fit model parameters:")
+    lnl64, _, _ = reevaluate(nwk, model_str, aln, dev)
+    out_tree = PhyloTree.from_newick(nwk, aln.names)
+    rf = out_tree.robinson_foulds(true_tree)
+    supports = [int(x) for x in re.findall(r"\)(\d+):", nwk)]
+    print(f"protein search: {wall:.2f} s wall on {card}; BEST SCORE FOUND {best:.4f}; "
+          f"float64 re-evaluation of the written tree and model {lnl64:.4f}; "
+          f"for information, the JAX package's float32 search without -bb on a TPU "
+          f"{JAX_PROTEIN_SEARCH_LNL} (gap {best - JAX_PROTEIN_SEARCH_LNL:+.4f}) and the "
+          f"-te fit of the true tree {REF_PROTEIN_LNL} (binary)")
+    print(f"RF distance of the best tree to the true tree: {rf} (of {2 * (N - 3)}); "
+          f"consensus to the true tree: {contree.robinson_foulds(true_tree)}")
+    print(f"UFBoot: {len(boot)} sample trees, {len(supports)} supports on the "
+          f"treefile (min {min(supports)}, median {int(np.median(supports))}); "
+          f"files {sizes}; summaries and outputs "
+          f"{logged(log, 'UFBoot summaries and outputs:')}")
+    for line in log[[i for i, l in enumerate(log) if l.startswith("search profile")][-1]:]:
+        if not line.startswith(("search profile", " ")):
+            break
+        print(line)
+    print(f"protein search launches: {launches}")
+    k_ms = sum(results[k]["ms"] * n for k, n in launches.items() if k in results)
+    print(f"kernel time of the protein search, estimated as launches x phase-8/11 "
+          f"kernel ms: {k_ms / 1e3:.3f} s of {wall:.2f} s wall")
+    check(abs(lnl64 - best) < 1.0, "protein search lnL vs its float64 re-evaluation")
+    check(bool(np.all(np.isfinite(out_tree.blen))) and out_tree.n_taxa == N,
+          "a written 300-taxon tree with finite lengths")
+    check(len(boot) == 1000 and all(l.strip().endswith(";") for l in boot),
+          "every one of the 1000 UFBoot samples holds a tree")
+    check(len(supports) == N - 3 and all(0 <= x <= 100 for x in supports),
+          "the treefile carries N-3 supports in 0-100")
+    check(all(v > 0 for v in sizes.values()), ".contree and .splits.nex written")
+    for k in ("wide_forward", "wide_store", "wide_tbar", "wide_newton",
+              "wide_down_store", "pars_insert_s20"):
+        check(launches[k] > 0, f"kernel {k} launched on the protein search")
+        results[k]["launches"] = launches[k]
+    for k in ("forward", "store", "tbar", "newton", "down_store"):
+        check(launches[k] == 0, f"the CS-packed kernel {k} stays off the S=20 path")
+
+    # one protein hill climb from the ML-distance BIONJ tree, profiled
+    s_fit, r_fit = parse_model_string(model_str, aln)
+    site = SiteData.from_alignment(aln, dev, torch.float32)
+    model = ModelArrays.from_model(s_fit, r_fit, dev)
+    with torch.no_grad():
+        start = bionj_tree(ml_distances(model, site))
+    chunk = decide_engine(N, C, S, P, dev, torch.float32, search=True).nni_chunk
+    engine = NNIEngine(model, site, edge_chunk=chunk)
+    t0 = time.time()
+    res = engine.hill_climb(start.copy())
+    torch.cuda.synchronize()
+    c_wall = time.time() - t0
+    print(f"protein hill climb ({chunk} edges a chunk): {c_wall:.2f} s wall, "
+          f"{res.steps} steps, {res.nni_count} NNIs, lnL {res.lnl:.4f}")
+    print(engine.profile_summary())
+    profile_run(lambda: engine.hill_climb(start.copy()), c_wall, "protein hill climb")
+    del engine, model, site
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -1,14 +1,19 @@
-"""Command-line entry: the default tree search (DNA), or the
-fixed-topology (-te) model and branch fit (DNA and protein).
+"""Command-line entry: the default tree search, with the ultrafast
+bootstrap under -bb, or the fixed-topology (-te) model and branch fit;
+DNA and protein.
 
-    python -m iqtree_torch -s ALN [-m MODEL] [-t TREE | -starttree BIONJ|PARS]
+    python -m iqtree_torch -s ALN [-st DNA|AA] [-m MODEL]
+                           [-t TREE | -starttree BIONJ|PARS]
                            [-n N] [-nstop N] [-ninit N] [-ntop N] [-pers X]
                            [-maxtime MIN] [-keep-ident] [-pre P] [-seed N]
+                           [-bb B [-beps X] [-bcor X] [-nstep N] [-wbt | -wbtl]]
                            [-redo] [-device cuda|cpu]
     python -m iqtree_torch -s ALN [-st DNA|AA] -te TREE -m MODEL [-blfix] ...
 
-Writes PREFIX.treefile (the best tree), PREFIX.iqtree (the report) and
-PREFIX.log (the screen log, with `BEST SCORE FOUND :`).
+Writes PREFIX.treefile (the best tree, with UFBoot supports under -bb),
+PREFIX.iqtree (the report) and PREFIX.log (the screen log, with
+`BEST SCORE FOUND :`); under -bb also PREFIX.splits.nex, PREFIX.contree
+and, with -wbt/-wbtl, PREFIX.ufboot.
 """
 
 from __future__ import annotations
@@ -46,20 +51,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     log(f"IQ-TREE-torch {__version__} starting: {command}")
     log(f"Device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
                                if device.type == "cuda" else ""))
-    from .io.alignment import SEQ_DNA, read_alignment
+    from .io.alignment import read_alignment
     from .io.report import write_report
     from .models.factory import default_model
 
     aln = read_alignment(cfg.aln_file, cfg.seq_type)
     log(f"Alignment: {aln.n_taxa} sequences, {aln.n_sites} sites, "
         f"{aln.n_patterns} patterns ({aln.states.seq_type})")
-    if not cfg.fixed_tree and aln.states.seq_type != SEQ_DNA:
-        raise SystemExit(
-            f"iqtree-torch: the {aln.states.seq_type} tree search is not ported "
-            "yet (the protein search comes with _kernel_down_store, next slice); "
-            "fit a fixed topology with -te TREE")
     model_str = cfg.model or default_model(aln)
     ident_pairs = []
+    ufboot = None
     if cfg.fixed_tree:
         tree, lnl, subst, rate = run_fixed_topology(cfg, aln, model_str, device, log)
         iterations = 0
@@ -72,10 +73,14 @@ def main(argv: Optional[List[str]] = None) -> int:
                 for r, t in ident_pairs:
                     log(f"NOTE: {r} (identical to {t}) is ignored")
                 aln = aln.subset_taxa(keep)
-        tree, lnl, subst, rate, iterations = run_tree_search(
+        tree, lnl, subst, rate, iterations, ufboot = run_tree_search(
             cfg, aln, model_str, device, log)
     log(f"Best-fit model parameters: {model_name(subst, rate)}")
-    nwk = tree.to_newick(aln.names)
+    support = None
+    if ufboot is not None:
+        support = ufboot.supports_for(tree)
+        write_ufboot_outputs(cfg, prefix, aln, ufboot, log)
+    nwk = tree.to_newick(aln.names, support=support)
     if ident_pairs:
         nwk = graft_identical(nwk, ident_pairs)
     with open(prefix + ".treefile", "w") as f:
@@ -91,6 +96,24 @@ def main(argv: Optional[List[str]] = None) -> int:
     with open(prefix + ".log", "w") as f:
         f.write("\n".join(log_lines) + "\n")
     return 0
+
+
+def write_ufboot_outputs(cfg, prefix: str, aln, ufboot, log) -> None:
+    """PREFIX.splits.nex, PREFIX.contree (the consensus with its supports)
+    and, under -wbt/-wbtl, PREFIX.ufboot."""
+    t0 = time.time()
+    if cfg.write_boot_trees:
+        ufboot.write_ufboot(prefix + ".ufboot", aln.names,
+                            with_lengths=cfg.write_boot_tree_blens)
+        log(f"  UFBoot trees:                  {prefix}.ufboot")
+    ufboot.write_splits_nex(prefix + ".splits.nex", aln.names)
+    contree = ufboot.consensus()
+    with open(prefix + ".contree", "w") as f:
+        f.write(contree.to_newick(aln.names, support=ufboot.supports_for(contree),
+                                  with_lengths=False) + "\n")
+    log(f"  Split support values:          {prefix}.splits.nex")
+    log(f"  Consensus tree:                {prefix}.contree")
+    log(f"UFBoot summaries and outputs: {time.time() - t0:.2f} s")
 
 
 def model_name(subst, rate) -> str:
@@ -124,7 +147,8 @@ def graft_identical(nwk: str, pairs) -> str:
 
 
 def run_tree_search(cfg, aln, model_str: str, device: torch.device, log):
-    """The default search.  Returns (tree, lnL, subst, rate, iterations)."""
+    """The default search.  Returns (tree, lnL, subst, rate, iterations,
+    the UFBoot samples or None)."""
     from .search.driver import SearchParams, run_search
 
     start = None
@@ -136,8 +160,11 @@ def run_tree_search(cfg, aln, model_str: str, device: torch.device, log):
         n_init_trees=cfg.n_init_trees, n_top_init=cfg.n_top_init, pers=cfg.pers,
         unsuccess_iteration=cfg.unsuccess_iteration,
         fixed_iterations=cfg.n_iterations, max_seconds=cfg.max_seconds,
-        start_tree=start, start_tree_mode=cfg.start_tree_mode, log=log))
-    return res.best_tree, res.best_lnl, res.subst, res.rate, res.iterations
+        start_tree=start, start_tree_mode=cfg.start_tree_mode, ufboot=cfg.ufboot,
+        ufboot_epsilon=cfg.ufboot_epsilon, min_correlation=cfg.min_correlation,
+        step_iterations=cfg.step_iterations, log=log))
+    return (res.best_tree, res.best_lnl, res.subst, res.rate, res.iterations,
+            res.ufboot)
 
 
 def run_fixed_topology(cfg, aln, model_str: str, device: torch.device, log):

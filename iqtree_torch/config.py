@@ -1,5 +1,6 @@
-"""Command-line configuration of the port: the fixed-topology fit (-te,
-DNA and protein) and the default tree search (DNA)."""
+"""Command-line configuration of the port: the fixed-topology fit (-te)
+and the default tree search with its ultrafast bootstrap (-bb), DNA and
+protein."""
 
 from __future__ import annotations
 
@@ -9,7 +10,8 @@ from typing import Optional
 
 PORTED_FLAGS = ("-s", "-st", "-te", "-t", "-m", "-pre", "-seed", "-blfix", "-redo",
                 "-device", "-n", "-nstop", "-ninit", "-ntop", "-pers", "-maxtime",
-                "-starttree", "-keep-ident", "-keep_ident")
+                "-starttree", "-keep-ident", "-keep_ident", "-bb", "-beps", "-bcor",
+                "-nstep", "-wbt", "-wbtl")
 
 
 @dataclass
@@ -32,6 +34,12 @@ class RunConfig:
     start_tree_mode: str = "BIONJ"
     keep_identical: bool = False
     seq_type: Optional[str] = None  # -st DNA|AA; None = detected
+    ufboot: int = 0  # -bb: ultrafast bootstrap samples
+    ufboot_epsilon: float = 0.5  # -beps
+    min_correlation: float = 0.99  # -bcor
+    step_iterations: int = 100  # -nstep
+    write_boot_trees: bool = False  # -wbt (or -wbtl)
+    write_boot_tree_blens: bool = False  # -wbtl
 
     @property
     def out_prefix(self) -> str:
@@ -49,7 +57,7 @@ def parse_args(argv) -> RunConfig:
         if a.startswith("-") and a not in PORTED_FLAGS and not _is_number(a):
             raise SystemExit(
                 f"iqtree-torch: option {a} is not ported yet; this version runs "
-                f"the fixed-topology fit and the default search "
+                f"the fixed-topology fit and the default search with its bootstrap "
                 f"({' '.join(PORTED_FLAGS)})")
     p = _Parser(prog="iqtree-torch",
                 description="IQ-TREE tree search and fixed-topology fit on "
@@ -92,9 +100,25 @@ def parse_args(argv) -> RunConfig:
     p.add_argument("-keep-ident", "-keep_ident", dest="keep_ident",
                    action="store_true",
                    help="keep identical sequences during the search")
+    p.add_argument("-bb", dest="ufboot", type=int, default=0,
+                   help="ultrafast bootstrap replicates (e.g. 1000)")
+    p.add_argument("-beps", dest="beps", type=float, default=0.5,
+                   help="UFBoot RELL tie epsilon")
+    p.add_argument("-bcor", dest="bcor", type=float, default=0.99,
+                   help="min UFBoot split correlation for convergence")
+    p.add_argument("-nstep", dest="nstep", type=int, default=100,
+                   help="UFBoot correlation check interval (iterations)")
+    p.add_argument("-wbt", dest="wbt", action="store_true",
+                   help="write the UFBoot trees to PREFIX.ufboot")
+    p.add_argument("-wbtl", dest="wbtl", action="store_true",
+                   help="write the UFBoot trees with branch lengths (implies -wbt)")
     a = p.parse_args(argv)
     if a.fixed_tree and a.start_tree:
         p.error("-te and -t exclude each other")
+    if a.beps <= 0:
+        p.error("-beps epsilon must be positive")
+    if a.ufboot and a.fixed_tree:
+        p.error("-bb runs with the tree search, not with -te")
     if a.seq_type not in (None, "DNA", "AA"):
         raise SystemExit(
             f"iqtree-torch: -st {a.seq_type} is not ported yet; this version "
@@ -106,7 +130,9 @@ def parse_args(argv) -> RunConfig:
         unsuccess_iteration=a.unsuccess, n_init_trees=a.ninit, n_top_init=a.ntop,
         pers=a.pers, max_seconds=a.maxtime * 60 if a.maxtime else None,
         start_tree_mode=a.starttree, keep_identical=a.keep_ident,
-        seq_type=a.seq_type)
+        seq_type=a.seq_type, ufboot=a.ufboot, ufboot_epsilon=a.beps,
+        min_correlation=a.bcor, step_iterations=a.nstep,
+        write_boot_trees=a.wbt or a.wbtl, write_boot_tree_blens=a.wbtl)
 
 
 def _is_number(s: str) -> bool:

@@ -65,10 +65,6 @@ def decide_engine(n_taxa: int, ncat: int, num_states: int, n_patterns: int,
     store = n_rows * (CS + 1) * n_patterns * item * (2 if search else 1)
     cap = memory_capacity(device)
     kernels = device.type == "cuda"
-    if search and num_states != 4:
-        raise NotImplementedError(
-            f"the tree search at {num_states} states is not ported yet (the "
-            "protein search comes with _kernel_down_store, next slice)")
     if kernels:
         check_shape(ncat, num_states)
         if store > cap:
@@ -100,8 +96,8 @@ def engine_banner(dec: EngineDecision, n_taxa: int, ncat: int, num_states: int,
     if search:
         lines.append(
             "Tree search: batched NNI evaluator on the upward store and the "
-            + ("outside-partial store kernel" if dec.kernels else
-               "plain twin of the outside-partial store")
+            + (("wide " if num_states != 4 else "") + "outside-partial store kernel"
+               if dec.kernels else "plain twin of the outside-partial store")
             + f", {dec.nni_chunk} edges per evaluator chunk "
             f"(of {n_taxa - 3} internal edges)")
     what = "up and outside partials" if search else "stored partials"

@@ -23,7 +23,7 @@ import torch
 CSRC = Path(__file__).with_name("csrc")
 BUILD_ROOT = Path(__file__).with_name("build")
 SOURCES = ("forward", "store", "tbar", "newton", "down_store", "pars_insert",
-           "wide_forward", "wide_store", "wide_tbar", "wide_newton")
+           "wide_forward", "wide_store", "wide_tbar", "wide_newton", "wide_down_store")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -36,8 +36,8 @@ SIGNATURES = {
     "iqt_newton": [P_, I_, P_, P_, P_, P_, P_, P_, I_, I_, P_, P_, I_, I_, I_, P_],
     "iqt_down_store": [P_, I_, P_, P_, P_, P_, I_, P_, P_, I_, I_, I_, P_],
     # (post, n_post, pre, n_pre, tips, n_taxa, leaf, freq, P, up, rest, cost,
-    #  tile, stream)
-    "iqt_pars_insert": [P_, I_, P_, I_, P_, I_, I_, P_, I_, P_, P_, P_, I_, P_],
+    #  word_bytes, tile, stream)
+    "iqt_pars_insert": [P_, I_, P_, I_, P_, I_, I_, P_, I_, P_, P_, P_, I_, I_, P_],
     # wide kernels: (steps, n_steps, ...inputs..., C, S, n_slots, tile, stream)
     "iqt_wide_forward": [P_, I_, P_, P_, I_, P_, P_, P_, I_, I_, I_, I_, P_],
     "iqt_wide_store": [P_, I_, P_, P_, I_, P_, P_, I_, I_, I_, I_, P_],
@@ -46,6 +46,9 @@ SIGNATURES = {
                       I_, I_, P_],
     "iqt_wide_newton": [P_, I_, P_, P_, P_, P_, P_, P_, I_, I_, P_, P_, I_, I_, I_,
                         I_, P_],
+    # (steps, n_steps, trans, rootd, up, usc, P, out, osc, C, S, n_slots, tile,
+    #  stream)
+    "iqt_wide_down_store": [P_, I_, P_, P_, P_, P_, I_, P_, P_, I_, I_, I_, I_, P_],
 }
 
 # State counts with a kernel instance: the CS-packed DNA kernels (S=4) and

@@ -23,7 +23,9 @@ as pruning.fused_site_lnl does, so a caller makes one call at any shape:
 
 * `pruning.fused_upward_store` -- the upward store (csrc/wide_store.cu);
 * `fused_downward_tbar` -- the gradient sweep (csrc/wide_tbar.cu);
-* `wide_newton_sweep` -- the branch-Newton sweep (csrc/wide_newton.cu).
+* `wide_newton_sweep` -- the branch-Newton sweep (csrc/wide_newton.cu);
+* `fused_down_store` -- the outside-partial store (csrc/wide_down_store.cu),
+  so `fused_nni_passes_cs` serves the NNI evaluator at both shapes.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain twin
 for CPU tensors.  The reverse sweeps read child partials from `up` with
@@ -166,22 +168,32 @@ def _down_store_plain(steps, trans, up, usc, state_freq):
     return out.reshape(n_rows, C * S, -1), osc
 
 
+def _zeroed_outside(n_rows, CS, P, device):
+    """Empty out [2N, CS, P] / osc [2N, P] with the root and dummy rows
+    (the device numbering puts the root last, then the dummy) zeroed:
+    the reverse sweeps never write them."""
+    out = torch.empty(n_rows, CS, P, dtype=torch.float32, device=device)
+    osc = torch.empty(n_rows, P, dtype=torch.float32, device=device)
+    out[n_rows - 2:].zero_()
+    osc[n_rows - 2:].zero_()
+    return out, osc
+
+
 def fused_down_store_cs(steps, n_slots, trans, up, usc, state_freq):
     """(out [2N, CS, P], osc [2N, P]): every non-root node's normalized
     outside partial (at the parent end of its edge) and log-scale, from
     the upward store's up/usc with the tip rows filled.  The root seed is
-    the bare state_freq [C, S]; the root and dummy rows are 0."""
+    the bare state_freq [C, S]; the root and dummy rows are 0.  The wide
+    shapes (S=20) run fused_down_store."""
     if not trans.is_cuda:
         return _down_store_plain(steps, trans, up, usc, state_freq)
     n_rows, C, S = trans.shape[:3]
+    if S not in build.PACKED_STATES:
+        return fused_down_store(steps, n_slots, trans, up, usc, state_freq)
     P = up.shape[2]
     rootd = state_freq.reshape(-1).float().contiguous()
     build.check_inputs(C, S, steps, trans, rootd, up, usc)
-    out = torch.empty(n_rows, C * S, P, dtype=torch.float32, device=trans.device)
-    osc = torch.empty(n_rows, P, dtype=torch.float32, device=trans.device)
-    root = n_rows - 2  # the device numbering puts the root last, then the dummy
-    out[root:].zero_()
-    osc[root:].zero_()
+    out, osc = _zeroed_outside(n_rows, C * S, P, trans.device)
     build.launch("down_store", steps, steps.shape[0], trans, rootd, up, usc, P,
                  out, osc, C, n_slots, DEFAULT_TILE)
     fused_down_store_cs.launches += 1
@@ -191,9 +203,33 @@ def fused_down_store_cs(steps, n_slots, trans, up, usc, state_freq):
 fused_down_store_cs.launches = 0
 
 
+def fused_down_store(steps, n_slots, trans, up, usc, state_freq, tile=None):
+    """fused_down_store_cs at the wide shapes (S=20): csrc/wide_down_store.cu
+    for CUDA tensors, the plain twin _down_store_plain for CPU tensors.
+    `tile` (patterns per block, default WIDE_TILE) is for measuring the
+    kernel."""
+    if not trans.is_cuda:
+        return _down_store_plain(steps, trans, up, usc, state_freq)
+    n_rows, C, S = trans.shape[:3]
+    P = up.shape[2]
+    rootd = state_freq.reshape(-1).float().contiguous()
+    build.check_inputs(C, S, steps, trans, rootd, up, usc, states=build.WIDE_STATES)
+    out, osc = _zeroed_outside(n_rows, C * S, P, trans.device)
+    build.launch("wide_down_store", steps, steps.shape[0], trans, rootd, up, usc, P,
+                 out, osc, C, S, n_slots, tile or WIDE_TILE)
+    fused_down_store.launches += 1
+    return out, osc
+
+
+fused_down_store.launches = 0
+
+
 def fused_nni_passes_cs(steps, n_slots, trans, tips, state_freq):
     """(up, usc, out, osc): the two global passes of the NNI evaluator --
-    the upward store (tip rows filled) and the outside-partial store."""
+    the upward store (tip rows filled) and the outside-partial store -- at
+    the CS-packed (S=4) and the wide (S=20) shapes alike.  Unlike the TPU's
+    general passes nothing is padded: no state axis to 8 rows, no pattern
+    axis to 128 lanes."""
     up, usc = fused_upward_store_cs(steps, n_slots, trans, tips)
     fill_tip_rows_cs(up, usc, tips, trans.shape[1])
     out, osc = fused_down_store_cs(steps, n_slots, trans, up, usc, state_freq)

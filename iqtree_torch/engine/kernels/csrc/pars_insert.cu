@@ -11,53 +11,58 @@
 //   rest pass, parents first:  rest[v] = fitch(rest[parent], up[sibling]),
 //                              rest[root] = all states
 //   cost[v] += freq[p] * [leaf & (up[v] | rest[v]) == 0]
-// fitch(x, y) = x & y if non-empty, else x | y.  State sets are one byte
-// (S <= 8 states); up/rest live in device memory [2N, P] (bytes), each
-// thread on its own column, coalesced over patterns.  The per-node sums
+// fitch(x, y) = x & y if non-empty, else x | y.  A state set is one word,
+// the kernel a template on its type: a byte for S <= 8 states (DNA), a
+// 32-bit word for S <= 32 (protein); the root's full set is all ones of
+// the word.  up/rest live in device memory [2N, P] (words), each thread
+// on its own column, coalesced over patterns.  The per-node sums
 // over patterns reduce within a warp by shuffles, then one atomicAdd per
 // warp and node; pattern weights are integers, so the float64 sums are
 // exact in any order.
 //
 // Bound on an H100 (1000 taxa x 9 962 patterns, a full tree): the tips
 // read and up/rest written once and read back, about 2 x 2 000 x 9 962
-// bytes x 3 = 120 MB (3.35 TB/s: 0.036 ms); a few integer operations per
-// node and pattern.  The dependent walk of 2 000 nodes per thread bounds
-// it instead, as it does the likelihood sweeps.
+// words x 3 (120 MB in bytes; four times that for 32-bit words) at
+// 3.35 TB/s; a few integer operations per node and pattern.  The
+// dependent walk of 2 000 nodes per thread bounds it instead, as it does
+// the likelihood sweeps.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
-__device__ __forceinline__ unsigned char fitch(unsigned char x, unsigned char y) {
-  const unsigned char i = x & y;
-  return i ? i : (unsigned char)(x | y);
+template <typename W>
+__device__ __forceinline__ W fitch(W x, W y) {
+  const W i = x & y;
+  return i ? i : (W)(x | y);
 }
 
+template <typename W>
 __global__ void pars_insert_kernel(const int* __restrict__ post, int n_post,
                                    const int* __restrict__ pre, int n_pre,
-                                   const unsigned char* __restrict__ tips, int n_taxa,
-                                   int leaf, const double* __restrict__ freq, int P,
-                                   unsigned char* __restrict__ up,
-                                   unsigned char* __restrict__ rest,
+                                   const W* __restrict__ tips, int n_taxa, int leaf,
+                                   const double* __restrict__ freq, int P,
+                                   W* __restrict__ up, W* __restrict__ rest,
                                    double* __restrict__ cost) {
   const int p_raw = blockIdx.x * blockDim.x + threadIdx.x;
   const bool valid = p_raw < P;
   const int p = min(p_raw, P - 1);
   const int lane = threadIdx.x & 31;
-  auto val = [&](int v) -> unsigned char {
+  auto val = [&](int v) -> W {
     return v < n_taxa ? __ldg(tips + (size_t)v * P + p) : up[(size_t)v * P + p];
   };
   for (int i = 0; i < n_post; ++i) {
     const int v = __ldg(post + 3 * i), a = __ldg(post + 3 * i + 1),
               b = __ldg(post + 3 * i + 2);
-    up[(size_t)v * P + p] = fitch(val(a), val(b));
+    up[(size_t)v * P + p] = fitch<W>(val(a), val(b));
   }
-  const unsigned char lm = __ldg(tips + (size_t)leaf * P + p);
+  const W lm = __ldg(tips + (size_t)leaf * P + p);
   const double w = valid ? __ldg(freq + p) : 0.0;
   for (int i = 0; i < n_pre; ++i) {
     // (node, parent, sibling); a parent of -1 is the root, whose rest
     // is the full state set
     const int v = __ldg(pre + 3 * i), par = __ldg(pre + 3 * i + 1),
               sib = __ldg(pre + 3 * i + 2);
-    const unsigned char r = par < 0 ? (unsigned char)0xFF : rest[(size_t)par * P + p];
-    const unsigned char rv = fitch(r, val(sib));
+    const W r = par < 0 ? (W)~(W)0 : rest[(size_t)par * P + p];
+    const W rv = fitch<W>(r, val(sib));
     rest[(size_t)v * P + p] = rv;
     double miss = (lm & (val(v) | rv)) ? 0.0 : w;
 #pragma unroll
@@ -66,14 +71,27 @@ __global__ void pars_insert_kernel(const int* __restrict__ post, int n_post,
   }
 }
 
+// word_bytes: 1 (uint8 sets, S <= 8) or 4 (uint32 sets, S <= 32)
 extern "C" int iqt_pars_insert(const int* post, int n_post, const int* pre, int n_pre,
-                               const unsigned char* tips, int n_taxa, int leaf,
-                               const double* freq, int P, unsigned char* up,
-                               unsigned char* rest, double* cost, int tile,
-                               void* stream) {
+                               const void* tips, int n_taxa, int leaf,
+                               const double* freq, int P, void* up, void* rest,
+                               double* cost, int word_bytes, int tile, void* stream) {
   const dim3 grid((P + tile - 1) / tile);
-  pars_insert_kernel<<<grid, tile, 0, (cudaStream_t)stream>>>(
-      post, n_post, pre, n_pre, tips, n_taxa, leaf, freq, P, up, rest, cost);
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (word_bytes) {
+    case 1:
+      pars_insert_kernel<uint8_t><<<grid, tile, 0, st>>>(
+          post, n_post, pre, n_pre, (const uint8_t*)tips, n_taxa, leaf, freq, P,
+          (uint8_t*)up, (uint8_t*)rest, cost);
+      break;
+    case 4:
+      pars_insert_kernel<uint32_t><<<grid, tile, 0, st>>>(
+          post, n_post, pre, n_pre, (const uint32_t*)tips, n_taxa, leaf, freq, P,
+          (uint32_t*)up, (uint32_t*)rest, cost);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 

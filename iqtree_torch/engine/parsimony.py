@@ -16,7 +16,9 @@ every node of one height at once.  For stepwise addition a reversed
 for every edge of the current tree at once.  Stepwise-addition trees are
 deep (hundreds of levels at 1000 taxa), so on the card both passes run as
 one kernel that walks the whole tree per pattern (csrc/pars_insert.cu,
-`insertion_costs`); the level-batched form is its plain twin.
+`insertion_costs`); the level-batched form is its plain twin.  The kernel
+keeps a state set in one word: a byte up to 8 states (DNA), a 32-bit word
+up to 32 (protein).
 """
 
 from __future__ import annotations
@@ -218,28 +220,41 @@ def walk_orders(layout, present):
     return post.astype(np.int32), pre.astype(np.int32)
 
 
-def insertion_costs(tips, tips8, freq, leaf: int, layout, present, scratch):
+def insertion_costs(tips, tipsw, freq, leaf: int, layout, present, scratch):
     """[2N] float64 cost of attaching taxon `leaf` on the edge above every
     node of a partial tree (inf where there is no such edge).  For CUDA
     tensors one launch of csrc/pars_insert.cu walks the whole tree per
-    pattern (tips8 [N, P] uint8 masks, scratch two [2N, P] uint8 buffers);
-    for CPU tensors the plain twin runs."""
+    pattern (tipsw [N, P] one-word masks, uint8 or int32; scratch two
+    [2N, P] buffers of the same type); for CPU tensors the plain twin runs."""
     if not tips.is_cuda:
         return _edge_costs(_insertion_costs_plain(tips, freq, leaf, layout, present),
                            layout)
-    N, P = tips8.shape
+    N, P = tipsw.shape
     post, pre = walk_orders(layout, present)
-    dev = tips8.device
+    dev = tipsw.device
     post_t, pre_t = (torch.as_tensor(x, device=dev) for x in (post, pre))
     cost = torch.zeros(2 * N, dtype=torch.float64, device=dev)
     up, rest = scratch
-    build.launch("pars_insert", post_t, len(post), pre_t, len(pre), tips8, N, leaf,
-                 freq, P, up, rest, cost, PARS_TILE)
+    build.launch("pars_insert", post_t, len(post), pre_t, len(pre), tipsw, N, leaf,
+                 freq, P, up, rest, cost, tipsw.element_size(), PARS_TILE)
     insertion_costs.launches += 1
     return _edge_costs(cost.cpu().numpy(), layout)
 
 
 insertion_costs.launches = 0
+
+
+def kernel_tip_words(tips: torch.Tensor, num_states: int) -> torch.Tensor:
+    """[N, P] one-word state sets for the insertion-cost kernel from the
+    int32 masks [N, W, P]: bytes up to 8 states, the 32-bit word as it is
+    up to 32.  Wider alphabets (W > 1 words) have no kernel instance."""
+    if num_states > 32:
+        raise NotImplementedError(
+            f"the parsimony kernel takes up to 32 states (one 32-bit word a set), "
+            f"got {num_states}; the codon alphabet comes with the codon slice "
+            "(slice 5)")
+    word = tips[:, 0]
+    return (word.to(torch.uint8) if num_states <= 8 else word).contiguous()
 
 
 def parsimony_stepwise_tree(aln: Alignment, rng: np.random.Generator, device,
@@ -253,14 +268,10 @@ def parsimony_stepwise_tree(aln: Alignment, rng: np.random.Generator, device,
         return random_tree(N, rng, mean_blen)
     tips = torch.as_tensor(pack_tip_masks(aln), device=device)
     freq = torch.as_tensor(aln.pattern_freq, dtype=torch.float64, device=device)
-    tips8 = scratch = None
+    tipsw = scratch = None
     if tips.is_cuda:
-        if aln.num_states > 8:
-            raise NotImplementedError(
-                "the parsimony kernel takes up to 8 states (one byte a set); "
-                "wider alphabets come with the protein search, the next slice")
-        tips8 = tips[:, 0].to(torch.uint8).contiguous()
-        scratch = tuple(torch.empty(2 * N, tips8.shape[1], dtype=torch.uint8,
+        tipsw = kernel_tip_words(tips, aln.num_states)
+        scratch = tuple(torch.empty(2 * N, tipsw.shape[1], dtype=tipsw.dtype,
                                     device=device) for _ in range(2))
 
     order = [int(t) for t in rng.permutation(N)]
@@ -273,7 +284,7 @@ def parsimony_stepwise_tree(aln: Alignment, rng: np.random.Generator, device,
     for t in order[3:]:
         layout = _partial_layout(adj, first_tip, N)
         present = [v for v in adj if v < N]
-        cost = insertion_costs(tips, tips8, freq, t, layout, present, scratch)
+        cost = insertion_costs(tips, tipsw, freq, t, layout, present, scratch)
         best = float(cost.min())
         cands = np.nonzero(cost <= best + 1e-9)[0]
         pick = int(cands[rng.integers(len(cands))])

@@ -11,6 +11,12 @@
      improvement; stop by the stop rule
   5. a final model fit on the best tree
 
+With -bb B every tree a hill climb visits is RELL-rescored against B
+bootstrap samples (search/ufboot.py); the loop then runs at least -nstep
+iterations and, without -n, until the samples' split frequencies
+correlate at -bcor between two checks -nstep iterations apart (at most
+MAX_BOOT_ITERATIONS).
+
 Host randomness comes from one numpy Generator(seed), drawn in a fixed
 order, so a float64 run on the CPU follows the JAX package's trajectory.
 """
@@ -37,6 +43,9 @@ from ..trees.tree import PhyloTree
 from .candidate_set import CandidateSet
 from .nni_search import NNIEngine
 from .stoprule import StopRule
+from .ufboot import RELL_EPSILON, UFBoot
+
+MAX_BOOT_ITERATIONS = 1000  # the -bb search's iteration cap without -n
 
 
 @dataclass
@@ -52,6 +61,10 @@ class SearchParams:
     max_seconds: Optional[float] = None
     start_tree: Optional[str] = None  # newick (-t)
     start_tree_mode: str = "BIONJ"  # -starttree BIONJ|PARS
+    ufboot: int = 0  # -bb: bootstrap samples (0: none)
+    ufboot_epsilon: float = RELL_EPSILON  # -beps
+    min_correlation: float = 0.99  # -bcor
+    step_iterations: int = 100  # -nstep
     log: Callable[[str], None] = print
 
 
@@ -63,6 +76,7 @@ class SearchResult:
     rate: object
     iterations: int
     engine: NNIEngine
+    ufboot: Optional[UFBoot] = None
 
 
 def random_nni_perturb(tree: PhyloTree, n_moves: int, rng: np.random.Generator):
@@ -144,6 +158,16 @@ def run_search(aln: Alignment, params: SearchParams) -> SearchResult:
             tree = tree2
             log(f"ML-distance BIONJ tree is better ({lnl_b:.4f} vs {lnl_a:.4f})")
 
+    # ---- ultrafast bootstrap: the samples drawn here, from the search's rng
+    ufboot = on_tree = None
+    if params.ufboot > 0:
+        ufboot = UFBoot(aln, params.ufboot, rng, device, epsilon=params.ufboot_epsilon)
+        log(f"Ultrafast bootstrap: {params.ufboot} replicates (RELL on the device)")
+
+        def on_tree(t, _lnl):
+            with phase("ufboot"):
+                ufboot.save_tree(t, engine.site_lnl(t))
+
     n_perturb = max(1, int(params.pers * (aln.n_taxa - 3)))
     cand = CandidateSet()
 
@@ -159,7 +183,7 @@ def run_search(aln: Alignment, params: SearchParams) -> SearchResult:
         return lnl_now
 
     # ---- initial candidate set ------------------------------------------
-    res = engine.hill_climb(tree)
+    res = engine.hill_climb(tree, on_tree=on_tree)
     lnl0 = reopt_model(res.tree, res.lnl, tol=0.1)
     cand.update(res.tree, lnl0)
     best_lnl = lnl0
@@ -193,7 +217,7 @@ def run_search(aln: Alignment, params: SearchParams) -> SearchResult:
         if i > 0 and not init_budget_left():
             log("init-variant climbing stopped (time budget)")
             break
-        r = engine.hill_climb(t)
+        r = engine.hill_climb(t, on_tree=on_tree)
         cand.update(r.tree, r.lnl)
         if r.lnl > best_lnl:
             best_lnl, best_tree = r.lnl, r.tree.canonical()
@@ -202,12 +226,29 @@ def run_search(aln: Alignment, params: SearchParams) -> SearchResult:
 
     # ---- stochastic loop ----------------------------------------------
     stop = StopRule(unsuccess_iteration=params.unsuccess_iteration,
+                    min_iterations=params.step_iterations if ufboot else 0,
                     fixed_iterations=params.fixed_iterations,
                     max_seconds=params.max_seconds)
-    while not stop.should_stop():
+    boot_converged = ufboot is None
+
+    def keep_searching() -> bool:
+        nonlocal boot_converged
+        if ufboot is not None and params.fixed_iterations is None:
+            it = stop.cur_iteration
+            if it >= MAX_BOOT_ITERATIONS:
+                return False
+            if it > 0 and it % params.step_iterations == 0:
+                corr = ufboot.check_convergence()
+                boot_converged = corr >= params.min_correlation
+                log(f"UFBoot split correlation at iteration {it}: {corr:.4f}")
+            if not boot_converged:
+                return True
+        return not stop.should_stop()
+
+    while keep_searching():
         t = cand.random_candidate(rng)
         random_nni_perturb(t, n_perturb, rng)
-        r = engine.hill_climb(t)
+        r = engine.hill_climb(t, on_tree=on_tree)
         improved = r.lnl > best_lnl + 1e-6
         r_lnl = reopt_model(r.tree, r.lnl, tol=0.01) if improved else r.lnl
         cand.update(r.tree, r_lnl)
@@ -230,4 +271,5 @@ def run_search(aln: Alignment, params: SearchParams) -> SearchResult:
     for line in engine.profile_summary().splitlines():
         log(line)
     return SearchResult(best_tree=best_tree, best_lnl=best_lnl, subst=subst,
-                        rate=rate, iterations=stop.cur_iteration, engine=engine)
+                        rate=rate, iterations=stop.cur_iteration, engine=engine,
+                        ufboot=ufboot)

@@ -16,7 +16,7 @@ import contextlib
 import time
 from collections import Counter
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -86,12 +86,15 @@ class NNIEngine:
         self._sched_cache[key] = out
         return out
 
-    def pattern_lnl(self, tree: PhyloTree) -> np.ndarray:
+    def site_lnl(self, tree: PhyloTree) -> torch.Tensor:
+        """Per-pattern lnL [P] of `tree` by the forward kernel, on the device."""
         ta = self.arrays(tree)
         steps, n_slots = self.schedule(tree, ta)
         with torch.no_grad():
-            return fused_compute_loglik(ta, self.model, self.site, steps,
-                                        n_slots)[1].cpu().numpy()
+            return fused_compute_loglik(ta, self.model, self.site, steps, n_slots)[1]
+
+    def pattern_lnl(self, tree: PhyloTree) -> np.ndarray:
+        return self.site_lnl(tree).cpu().numpy()
 
     def optimize_branches(self, tree: PhyloTree, n_sweeps: int = 100,
                           tol: float = 1e-5) -> Tuple[PhyloTree, float]:
@@ -126,8 +129,11 @@ class NNIEngine:
                              f"  ({self.prof[k] / max(n, 1) * 1000:7.1f} ms/call)")
         return "\n".join(lines)
 
-    def hill_climb(self, tree: PhyloTree,
-                   max_steps: Optional[int] = None) -> NNISearchResult:
+    def hill_climb(self, tree: PhyloTree, max_steps: Optional[int] = None,
+                   on_tree: Optional[Callable[[PhyloTree, float], None]] = None
+                   ) -> NNISearchResult:
+        """on_tree(tree, lnl) is called with the tree at the start of every
+        step (the ultrafast bootstrap's hook)."""
         self.climbs += 1
         max_steps = max_steps or tree.n_taxa
         # a few sweeps settle the (perturbed) lengths and give `cur`
@@ -137,6 +143,8 @@ class NNIEngine:
         for step in range(1, max_steps + 1):
             steps = step
             old = cur
+            if on_tree is not None:
+                on_tree(tree, cur)
             edges = tree.internal_edges()
             if len(edges) == 0:
                 break

@@ -1,6 +1,6 @@
 """Search stop conditions: unsuccessful-iteration count (the default,
-100 iterations), a fixed iteration count (-n) and a wall-clock limit
-(-maxtime)."""
+100 iterations, and never before `min_iterations`: -nstep under -bb), a
+fixed iteration count (-n) and a wall-clock limit (-maxtime)."""
 
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from typing import List, Optional
 @dataclass
 class StopRule:
     unsuccess_iteration: int = 100
+    min_iterations: int = 0
     max_seconds: Optional[float] = None
     fixed_iterations: Optional[int] = None
 
@@ -32,5 +33,7 @@ class StopRule:
             return True
         if self.fixed_iterations is not None:
             return self.cur_iteration >= self.fixed_iterations
+        if self.cur_iteration < self.min_iterations:
+            return False
         return (self.cur_iteration - self.last_improved_iteration
                 >= self.unsuccess_iteration)

@@ -79,8 +79,11 @@ def test_cli_fit_matches_jax_cli(tmp_path):
 
 
 def test_cli_refuses_unported_flags():
-    with pytest.raises(SystemExit, match="-bb is not ported yet"):
-        cli_main(["-s", os.path.join(DATA, "example.phy"), "-bb", "1000"])
+    with pytest.raises(SystemExit, match="-alrt is not ported yet"):
+        cli_main(["-s", os.path.join(DATA, "example.phy"), "-alrt", "1000"])
+    with pytest.raises(SystemExit, match="-bb runs with the tree search"):
+        cli_main(["-s", os.path.join(DATA, "example.phy"), "-bb", "1000",
+                  "-te", os.path.join(DATA, "golden_tree_44.nwk")])
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked_for(tmp_path):

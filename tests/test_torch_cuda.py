@@ -262,3 +262,67 @@ def test_wide_tbar_in_chunks_of_blocks_matches_twin(protein_card, part_blocks):
     tb_p = cs_kernels._tbar_plain(st, trans, props, freq, lnl, wp, up, usc)
     torch.testing.assert_close(tb, tb_p, rtol=1e-4,
                                atol=1e-4 * float(tb_p.abs().max()))
+
+
+@pytest.mark.cuda
+def test_wide_down_store_and_nni_evaluator_on_card(protein_card):
+    """The wide outside-partial store (S=20) against its twin, and the NNI
+    evaluator on the kernels' passes against the twins' passes (paired
+    deltas, float32 both)."""
+    from iqtree_torch.engine.nni import evaluate_nnis
+
+    ta, model, site = protein_card["tree"], protein_card["model"], protein_card["site"]
+    st, ns = protein_card["steps"], protein_card["n_slots"]
+    trans = branch_transition_mats(model, ta.blen).float().contiguous()
+    tips = tip_partials(site)
+    freq = model.state_freq.float()
+    before = (cs_kernels.fused_down_store.launches, cs_kernels.fused_down_store_cs.launches)
+    up, usc, out, osc = cs_kernels.fused_nni_passes_cs(st, ns, trans, tips, freq)
+    assert (cs_kernels.fused_down_store.launches - before[0],
+            cs_kernels.fused_down_store_cs.launches - before[1]) == (1, 0)
+    out_p, osc_p = cs_kernels._down_store_plain(st, trans, up, usc, freq)
+    rows = [v for v in range(2 * ta.n_taxa - 1) if v != ta.root]
+    torch.testing.assert_close(out[rows], out_p[rows], rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(osc[rows], osc_p[rows], rtol=1e-5, atol=1e-4)
+    assert not bool(out[ta.root].any()) and not bool(osc[2 * ta.n_taxa - 1].any())
+    for tile in (8, 32):
+        o_t, s_t = cs_kernels.fused_down_store(st, ns, trans, up, usc, freq, tile=tile)
+        torch.testing.assert_close(o_t[rows], out_p[rows], rtol=1e-4, atol=1e-6)
+        torch.testing.assert_close(s_t[rows], osc_p[rows], rtol=1e-5, atol=1e-4)
+    parent = ta.parent.cpu().numpy()
+    edges = np.array([v for v in range(ta.n_taxa, ta.root) if parent[v] != ta.root])
+    up_p, usc_p = pruning.upward_plain(st, trans, tips)
+    cs_kernels.fill_tip_rows_cs(up_p, usc_p, tips, 4)
+    plain = (up_p, usc_p, *cs_kernels._down_store_plain(st, trans, up_p, usc_p, freq))
+    with torch.no_grad():
+        got = evaluate_nnis(ta, model, site, edges, st, ns, paired=True)
+        want = evaluate_nnis(ta, model, site, edges, st, ns, paired=True,
+                             passes=plain)
+    torch.testing.assert_close(got.lnl - got.base_lnl[:, None],
+                               want.lnl - want.base_lnl[:, None], rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_parsimony_kernel_32bit_sets_match_the_twin():
+    """The insertion-cost kernel's 32-bit instance (protein, 20 states plus
+    ambiguity codes): the same costs as the plain twin at every insertion,
+    so the same stepwise-addition tree."""
+    from iqtree_torch.engine import parsimony as pars
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(6)
+    n = 40
+    seqs = ["".join(rng.choice(list("ARNDCQEGHILKMFPSTWYV-XBZ"), 300)) for _ in range(n)]
+    aln = Alignment.from_sequences([f"t{i}" for i in range(n)], seqs, "AA")
+    dev = torch.device("cuda")
+    words = pars.kernel_tip_words(torch.as_tensor(pars.pack_tip_masks(aln), device=dev),
+                                  20)
+    assert words.dtype == torch.int32
+    before = pars.insertion_costs.launches
+    got = pars.parsimony_stepwise_tree(aln, np.random.default_rng(1), dev)
+    assert pars.insertion_costs.launches - before == n - 3
+    want = pars.parsimony_stepwise_tree(aln, np.random.default_rng(1),
+                                        torch.device("cpu"))
+    np.testing.assert_array_equal(got.children, want.children)
+    np.testing.assert_array_equal(got.blen, want.blen)

@@ -275,7 +275,8 @@ def test_golden_lg_fit():
 
 def test_cli_protein_fit_and_search(tmp_path, capsys):
     """`-te ... -m LG+G -device cpu` through the CLI: the golden optimum, a
-    report naming LG+G4; the protein search exits "not ported yet"."""
+    report naming LG+G4; the protein search runs (its candidate set cut to
+    one tree for time) and writes its tree; codon exits "not ported yet"."""
     prefix = str(tmp_path / "lg")
     assert cli_main(["-s", PROT, "-st", "AA", "-te", PROT_TREE, "-m", "LG+G",
                      "-device", "cpu", "-pre", prefix]) == 0
@@ -289,8 +290,15 @@ def test_cli_protein_fit_and_search(tmp_path, capsys):
         report = f.read()
     assert "Model of substitution: LG+G4" in report
     assert "amino-acid sites" in report and "pi(V)" in report
-    with pytest.raises(SystemExit, match="not ported yet.*_kernel_down_store"):
-        cli_main(["-s", PROT, "-device", "cpu", "-pre", str(tmp_path / "s")])
+    search = str(tmp_path / "s")
+    assert cli_main(["-s", PROT, "-n", "1", "-ninit", "1", "-ntop", "1", "-device",
+                     "cpu", "-pre", search]) == 0
+    with open(search + ".log") as f:
+        log = f.read()
+    assert "parameters: LG+F{" in log and "outside-partial store" in log
+    assert float(re.search(r"BEST SCORE FOUND : (\S+)", log).group(1)) > GOLDEN_LG_LNL
+    with open(search + ".treefile") as f:
+        assert f.read().count(",") == 26
     with pytest.raises(SystemExit, match="-st CODON is not ported yet"):
         cli_main(["-s", PROT, "-st", "CODON", "-te", PROT_TREE, "-device", "cpu"])
     if not torch.cuda.is_available():  # the default device is the card
@@ -300,17 +308,18 @@ def test_cli_protein_fit_and_search(tmp_path, capsys):
 
 def test_shapes_served_and_cpu_twins():
     """The kernels serve S=4 and S=20; another state count names the slice
-    that ports it, and the search refuses S=20.  CPU tensors take the
-    twins: no wide kernel launch is counted."""
+    that ports it, and the search serves S=20 with up and out stored.  CPU
+    tensors take the twins: no wide kernel launch is counted."""
     build.check_shape(4, 20)
     with pytest.raises(NotImplementedError, match="codon slice"):
         build.check_shape(4, 61)
-    with pytest.raises(NotImplementedError, match="protein search"):
-        decide_engine(27, 4, 20, 184, CPU, torch.float64, search=True)
+    assert decide_engine(27, 4, 20, 184, CPU, torch.float64,
+                         search=True).store_bytes == 2 * 54 * 81 * 184 * 8
     assert decide_engine(27, 4, 20, 184, CPU, torch.float64).store_bytes == \
         54 * 81 * 184 * 8
     wrappers = (pruning.wide_site_lnl, pruning.fused_upward_store,
-                cs_kernels.fused_downward_tbar, cs_kernels.wide_newton_sweep)
+                cs_kernels.fused_downward_tbar, cs_kernels.wide_newton_sweep,
+                cs_kernels.fused_down_store)
     before = [w.launches for w in wrappers]
     (_, _, _), (tt, tm, ts), steps, n_slots = make_case()
     st, tips = convert.schedule(steps, CPU), tip_partials(ts)
@@ -321,4 +330,5 @@ def test_shapes_served_and_cpu_twins():
     fill_tip_rows_cs(up, usc, tips, 4)
     fused_newton_derivs(st, n_slots, tm, tt.blen, tips, ts.pattern_freq,
                         ptn_invar(tm, ts))
+    cs_kernels.fused_nni_passes_cs(st, n_slots, trans, tips, tm.state_freq)
     assert [w.launches for w in wrappers] == before

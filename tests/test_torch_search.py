@@ -271,8 +271,8 @@ def test_cli_search_on_cpu(tmp_path):
     assert abs(jax_lnl(aln_path, nwk, model) - lnl) < 1e-3, (lnl, model)
     with open(prefix + ".iqtree") as f:
         assert f"Log-likelihood of the tree: {lnl:.4f}" in f.read()
-    with pytest.raises(SystemExit, match="-bb is not ported yet"):
-        cli_main(["-s", aln_path, "-bb", "1000", "-device", "cpu"])
+    with pytest.raises(SystemExit, match="-alrt is not ported yet"):
+        cli_main(["-s", aln_path, "-alrt", "1000", "-device", "cpu"])
 
 
 def test_parsimony_kernel_walk_orders():

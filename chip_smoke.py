@@ -6,7 +6,7 @@
 Phases (any failure exits non-zero; nothing is caught):
   1. the card's name and power limit, torch and CUDA versions;
   2. build the CUDA kernels from iqtree_torch/engine/kernels/csrc, one nvcc
-     per source, all at once (ten ported TPU kernels and the
+     per source, all at once (the twelve ported TPU kernels and the
      stepwise-addition parsimony scorer);
   3. at the main path's shapes (bench_data.npz: 1000 taxa x 10k sites,
      GTR+G4) run each kernel and its plain PyTorch twin on the card,
@@ -41,10 +41,21 @@ Phases (any failure exits non-zero; nothing is caught):
      cuda, with the launch counts of the five wide kernels and the
      parsimony scorer read around it, its score re-evaluated in float64,
      its bootstrap outputs checked; then one protein hill climb from the
-     ML-distance BIONJ tree under torch.profiler.
+     ML-distance BIONJ tree under torch.profiler;
+ 13. the multi-tree forward at the main path's full width: the bench tree
+     and a chain of 15 more, each three random NNIs from the last, under
+     GTR+G4; K=8 of them scored in one launch through fused_multi_tree_lnl,
+     held against its twin on the card ([K, P], 1e-3) and against K
+     forward.cu fits (0.1 a tree), timed at K = 1, 4, 8, 16 beside
+     forward.cu's single tree, and at K=8 over three tiles;
+ 14. the forward kernel's six ablation variants at the bench tree's shapes
+     (random trans and tips from numpy seed 0), timed through the ablation
+     entry point and held against their twins.
 Prints the kernels' JSON line (the DNA kernels' launches from the DNA
 search, the wide kernels' and the 32-bit parsimony scorer's from the
-protein search), then as its last line {"ok": true, "device": {...}}.
+protein search, the multi-tree and ablation kernels' from phases 13 and
+14, which no CLI path reaches), then as its last line
+{"ok": true, "device": {...}}.
 """
 
 import json
@@ -289,9 +300,11 @@ def main():
         for line in (bdir / f"{n}.log").read_text().splitlines():
             if "Function properties for" in line:
                 fn = line.split("for")[-1].strip()
-            elif (("ILi4E" in fn or "ILi20E" in fn or "pars_insert" in fn) and
-                  ("registers" in line or "spill" in line)):
-                print(f"  {n}: {line.split(':', 1)[-1].strip()}")
+            elif (("ILi4E" in fn or "ILi20E" in fn or "pars_insert" in fn
+                   or "ablate_kernel" in fn) and ("registers" in line or "spill" in line)):
+                # the ablation kernel's instances are its variants, 0-5
+                v = f" variant {fn.split('ILi')[1][0]}" if "ablate_kernel" in fn else ""
+                print(f"  {n}{v}: {line.split(':', 1)[-1].strip()}")
 
     phase("3. kernels against their plain twins (1000 taxa x 10k sites)")
     from iqtree_torch.engine import grad as grad_mod
@@ -607,6 +620,7 @@ def main():
 
     protein_phases(dev, card, record, results, cli_main)
     protein_search_phases(dev, card, record, results, cli_main)
+    multi_tree_phases(dev, card, record, results)
 
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
@@ -948,6 +962,152 @@ def protein_search_phases(dev, card, record, results, cli_main):
     print(engine.profile_summary())
     profile_run(lambda: engine.hill_climb(start.copy()), c_wall, "protein hill climb")
     del engine, model, site
+    torch.cuda.empty_cache()
+
+
+def multi_tree_phases(dev, card, record, results):
+    """Phases 13-14: the multi-tree forward at the main path's full width
+    against its twin and against forward.cu, timed at K = 1, 4, 8, 16; then
+    the forward kernel's ablation variants against their twins, timed."""
+    import numpy as np
+    import torch
+    from iqtree_torch.engine.kernels import ablate
+    from iqtree_torch.engine.kernels import pruning as pk
+    from iqtree_torch.engine.likelihood import (ModelArrays, SiteData, TreeArrays,
+                                                branch_transition_mats, ptn_invar,
+                                                tip_partials)
+    from iqtree_torch.io.alignment import Alignment
+    from iqtree_torch.models.dna import create_dna_model
+    from iqtree_torch.models.rates import RateModel
+    from iqtree_torch.trees.tree import PhyloTree
+
+    phase("13. the multi-tree forward at full width (1000 taxa x 10k sites, K trees)")
+    names, seqs, tree_nwk = load_bench()
+    aln = Alignment.from_sequences(names, seqs, "DNA")
+    # the true tree and a chain of trees, each three random NNIs from the last
+    trees = [PhyloTree.from_newick(tree_nwk, aln.names)]
+    rng = np.random.default_rng(0)
+    for _ in range(15):
+        t = trees[-1].copy()
+        for _ in range(3):
+            e = t.internal_edges()
+            t.apply_nni(int(e[rng.integers(len(e))]), int(rng.integers(2)))
+        trees.append(t)
+    model = ModelArrays.from_model(create_dna_model("GTR"),
+                                   RateModel.make(gamma_cats=4, alpha=0.6), dev)
+    site = SiteData.from_alignment(aln, dev, torch.float32)
+    pairs = [(t, TreeArrays.from_tree(t, dev)) for t in trees]
+    N, P, C, S = aln.n_taxa, aln.n_patterns, model.ncat, model.num_states
+    CS, CSS, R, K = C * S, C * S * S, 2 * N, 8
+    on = lambda a: torch.as_tensor(a, device=dev)
+
+    # the path: K trees scored through the entry point, one launch
+    pk.fused_site_lnl_cs_stream.launches = 0
+    totals = pk.fused_multi_tree_lnl(pairs[:K], model, site).cpu().numpy()
+    torch.cuda.synchronize()
+    launches = pk.fused_site_lnl_cs_stream.launches
+    check(launches == 1, "the multi-tree evaluation launched the kernel once")
+    scheds = [pk.device_slot_schedule(t, ta) for t, ta in pairs]
+    singles = [pk.fused_compute_loglik(ta, model, site, on(s), ns)
+               for (_, ta), (s, ns) in zip(pairs, scheds)]
+    single_tot = np.array([float(s[0]) for s in singles])
+    diff = float(np.abs(totals - single_tot[:K]).max())
+    print(f"K={K} lnL (multi-tree kernel): {np.array2string(totals, precision=4)}")
+    print(f"largest difference to {K} forward.cu fits: {diff:.4e} (tol 0.1); spread "
+          f"of the K lnL {np.ptp(single_tot[:K]):.2f}")
+    check(diff < 0.1, "multi-tree totals vs forward.cu per tree")
+    check(np.ptp(single_tot[:K]) > 1.0, "the K topologies differ in lnL")
+    check(bool(np.isfinite(totals).all()) and totals.shape == (K,),
+          "finite lnL of the K trees")
+
+    tips = tip_partials(site).contiguous()
+    inv = ptn_invar(model, site).float().contiguous()
+    props, freq = model.props.float(), model.state_freq.float()
+    rootw = (props[:, None] * freq).reshape(-1).contiguous()
+
+    def batch(k):
+        """The kernel's arguments for the first k trees."""
+        sk, sg, ns, roots = pk.multi_tree_schedule(pairs[:k])
+        trans = torch.cat([branch_transition_mats(model, ta.blen)
+                           for _, ta in pairs[:k]]).float().contiguous()
+        return dict(steps=on(sk), n_slots=ns, trans=trans, roots=on(roots),
+                    gather_steps=on(sg), tree_slots=pk.pool_slots(sk, k))
+
+    def stream(b, tile=None):
+        return pk.fused_site_lnl_cs_stream(
+            b["steps"], b["n_slots"], b["trans"], tips, props, freq, inv,
+            roots=b["roots"], gather_steps=b["gather_steps"], tile=tile,
+            tree_slots=b["tree_slots"])
+
+    def plain(b):
+        k = b["roots"].shape[0]
+        return pk._stream_plain(b["steps"], b["gather_steps"], b["trans"], tips, rootw,
+                                inv.expand(k, P), b["roots"])
+
+    def work(k):
+        """(bytes, operations) of k trees: tips, trans, schedules and roots
+        read once, invariant classes read and outputs written once."""
+        return (4 * (N * S * P + k * R * CSS + 12 * k * (N - 1) + k + CS + 2 * k * P),
+                k * ((N - 1) * P * (4 * CSS + 3 * CS) + 2 * CS * P))
+
+    b8 = batch(K)
+    print(f"{K} trees: {b8['steps'].shape[0]} rows, {b8['n_slots']} slots in all, "
+          f"{b8['tree_slots']} a tree (the block's pool)")
+    k_out = stream(b8)
+    p_out = plain(b8)
+    check(k_out.shape == (K, P) and bool(torch.isfinite(k_out).all()),
+          "finite [K, P] site lnL")
+    record("stream_forward", "iqtree_torch/engine/kernels/csrc/stream_forward.cu",
+           "iqtree_tpu/engine/kernels/pruning.py:246",
+           float((k_out - p_out).abs().max()), 1e-3, cuda_ms(lambda: stream(b8), 5),
+           cuda_ms(lambda: plain(b8), 2), *work(K))
+    results["stream_forward"]["launches"] = launches
+    del p_out
+
+    s0 = on(scheds[0][0])
+    trans0 = branch_transition_mats(model, pairs[0][1].blen).float().contiguous()
+    fwd_ms = cuda_ms(lambda: pk.fused_site_lnl(s0, scheds[0][1], trans0, tips, props,
+                                               freq, inv), 10)
+    print(f"forward.cu, one tree: {fwd_ms:.3f} ms")
+    for k in (1, 4, 8, 16):
+        b = b8 if k == K else batch(k)
+        out = stream(b)
+        err = max(float((out[j] - singles[j][1]).abs().max()) for j in range(k))
+        check(err < 1e-3, f"K={k}: the multi-tree kernel vs forward.cu per tree")
+        ms = cuda_ms(lambda: stream(b), 5)
+        bms, by = bound(*work(k))
+        print(f"K={k:2d}: {ms:.3f} ms a launch, {ms / k:.3f} ms a tree ({fwd_ms / (ms / k):.2f}x "
+              f"forward.cu's {fwd_ms:.3f}); bound {bms:.4f} ms ({by}); largest site lnL "
+              f"difference to forward.cu {err:.2e}")
+    for tile in (32, 64, 128):
+        print(f"K={K} tile {tile}: {cuda_ms(lambda: stream(b8, tile), 5):.3f} ms")
+    del b8, k_out, singles, site, pairs
+    torch.cuda.empty_cache()
+
+    phase("14. the forward kernel's ablation variants (bench tree, random trans and tips)")
+    steps, n_slots, trans, tips = ablate.bench_inputs(dev)
+    n_steps, (N, S, P) = steps.shape[0], tips.shape
+    ablate.forward_ablation.launches = 0
+    times = ablate.time_variants(steps, n_slots, trans, tips)
+    launches = ablate.forward_ablation.launches
+    check(launches == 11 * len(ablate.VARIANTS), "every variant launched")
+    errs = {}
+    for v in ablate.VARIANTS:
+        k_out = ablate.forward_ablation(v, steps, n_slots, trans, tips)
+        p_out = ablate.ablation_plain(v, steps, trans, tips)
+        # log-scales of ~1e3: relative to the largest, as the store's scales
+        errs[v] = float((k_out - p_out).abs().max()) / max(1.0, float(p_out.abs().max()))
+        print(f"{v:10s} {times[v]:.3f} ms a launch, {times[v] * 1e3 / n_steps:.3f} us a "
+              f"step, {1 - times[v] / times['full']:+.1%} against full; error {errs[v]:.2e} "
+              f"relative to the largest |scale| (tol 1e-5)")
+        check(errs[v] <= 1e-5, f"ablation variant {v} vs its twin")
+    full_plain = cuda_ms(lambda: ablate.ablation_plain("full", steps, trans, tips), 2)
+    record("forward_ablate", "iqtree_torch/engine/kernels/csrc/forward_ablate.cu",
+           "scripts/kernel_ablate.py:42", max(errs.values()), 1e-5, times["full"],
+           full_plain, 4 * (N * S * P + (R - 1) * CSS + 6 * (N - 1) + P),
+           (N - 1) * P * (4 * CSS + 3 * CS))
+    results["forward_ablate"]["launches"] = launches
+    del steps, trans, tips
     torch.cuda.empty_cache()
 
 

@@ -23,7 +23,8 @@ import torch
 CSRC = Path(__file__).with_name("csrc")
 BUILD_ROOT = Path(__file__).with_name("build")
 SOURCES = ("forward", "store", "tbar", "newton", "down_store", "pars_insert",
-           "wide_forward", "wide_store", "wide_tbar", "wide_newton", "wide_down_store")
+           "wide_forward", "wide_store", "wide_tbar", "wide_newton", "wide_down_store",
+           "stream_forward", "forward_ablate")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -49,6 +50,11 @@ SIGNATURES = {
     # (steps, n_steps, trans, rootd, up, usc, P, out, osc, C, S, n_slots, tile,
     #  stream)
     "iqt_wide_down_store": [P_, I_, P_, P_, P_, P_, I_, P_, P_, I_, I_, I_, I_, P_],
+    # (steps, gather, n_rows, K, roots, trans, tips, P, rootw, invar, out, C,
+    #  pool, tile, stream)
+    "iqt_stream_forward": [P_, P_, I_, I_, P_, P_, P_, I_, P_, P_, P_, I_, I_, I_, P_],
+    # (variant, steps, n_steps, trans, tips, P, out, C, n_slots, tile, stream)
+    "iqt_forward_ablate": [I_, P_, I_, P_, P_, I_, P_, I_, I_, I_, P_],
 }
 
 # State counts with a kernel instance: the CS-packed DNA kernels (S=4) and

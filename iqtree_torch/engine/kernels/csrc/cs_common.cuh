@@ -101,16 +101,20 @@ __device__ __forceinline__ float load_child(int node, int slot,
 // One post-order step for this thread's pattern: both children through
 // their edges, elementwise product, per-pattern max renormalization.
 // Leaves the normalized partial in y and returns the new log-scale.
+// The children's edge matrices are trans rows tl and tr (upward_step:
+// the children's own node ids).
 template <int C>
-__device__ __forceinline__ float upward_step(const Step& st, const float* __restrict__ trans,
-                                             const float* __restrict__ tips, int P, int p,
-                                             const float* slots, const float* sscale,
-                                             int T, int tid, float (&y)[C][S]) {
+__device__ __forceinline__ float upward_step_rows(const Step& st, int tl, int tr,
+                                                  const float* __restrict__ trans,
+                                                  const float* __restrict__ tips, int P,
+                                                  int p, const float* slots,
+                                                  const float* sscale, int T, int tid,
+                                                  float (&y)[C][S]) {
   float x[C][S], m[C][S];
   float sl = load_child<C>(st.l, st.ls, tips, P, p, slots, sscale, T, tid, x);
-  apply_p<C>(trans + (size_t)st.l * C * SS, x, y);
+  apply_p<C>(trans + (size_t)tl * C * SS, x, y);
   float sr = load_child<C>(st.r, st.rs, tips, P, p, slots, sscale, T, tid, x);
-  apply_p<C>(trans + (size_t)st.r * C * SS, x, m);
+  apply_p<C>(trans + (size_t)tr * C * SS, x, m);
   float mx = 0.f;
 #pragma unroll
   for (int c = 0; c < C; ++c)
@@ -128,6 +132,14 @@ __device__ __forceinline__ float upward_step(const Step& st, const float* __rest
 }
 
 template <int C>
+__device__ __forceinline__ float upward_step(const Step& st, const float* __restrict__ trans,
+                                             const float* __restrict__ tips, int P, int p,
+                                             const float* slots, const float* sscale,
+                                             int T, int tid, float (&y)[C][S]) {
+  return upward_step_rows<C>(st, st.l, st.r, trans, tips, P, p, slots, sscale, T, tid, y);
+}
+
+template <int C>
 __device__ __forceinline__ void store_slot(float* slots, float* sscale, int slot, int T,
                                            int tid, const float (&y)[C][S], float sc) {
   float* col = slots + (size_t)slot * C * S * T + tid;
@@ -136,6 +148,26 @@ __device__ __forceinline__ void store_slot(float* slots, float* sscale, int slot
 #pragma unroll
     for (int s = 0; s < S; ++s) col[(c * S + s) * T] = y[c][s];
   sscale[slot * T + tid] = sc;
+}
+
+// The root of a forward sweep: this thread's pattern log-likelihood from
+// the root slot, mixed with rootw = props * pi [C*S], with the invariant
+// class `inv` log-added.
+template <int C>
+__device__ __forceinline__ float root_site_lnl(const float* slots, const float* sscale,
+                                              int root_slot, int T, int tid,
+                                              const float* __restrict__ rootw, float inv) {
+  const float* col = slots + (size_t)root_slot * C * S * T + tid;
+  float mix = 0.f;
+#pragma unroll
+  for (int k = 0; k < C * S; ++k) mix += __ldg(rootw + k) * col[k * T];
+  float lnl = logf(fmaxf(mix, SCALE_TINY)) + sscale[root_slot * T + tid];
+  if (inv > 0.f) {
+    float b = logf(fmaxf(inv, SCALE_TINY));
+    float hi = fmaxf(lnl, b), lo = fminf(lnl, b);
+    lnl = hi + log1pf(expf(lo - hi));
+  }
+  return lnl;
 }
 
 // Reverse sweeps: this thread's column of a stored node partial

@@ -39,17 +39,7 @@ __global__ void forward_kernel(const int* __restrict__ steps, int n_steps,
     store_slot<C>(slots, sscale, st.out, T, tid, y, sc);
   }
   const int root_slot = load_step(steps, n_steps - 1).out;
-  const float* col = slots + (size_t)root_slot * C * S * T + tid;
-  float mix = 0.f;
-#pragma unroll
-  for (int k = 0; k < C * S; ++k) mix += __ldg(rootw + k) * col[k * T];
-  float lnl = logf(fmaxf(mix, SCALE_TINY)) + sscale[root_slot * T + tid];
-  float inv = __ldg(invar + p);
-  if (inv > 0.f) {
-    float b = logf(fmaxf(inv, SCALE_TINY));
-    float hi = fmaxf(lnl, b), lo = fminf(lnl, b);
-    lnl = hi + log1pf(expf(lo - hi));
-  }
+  float lnl = root_site_lnl<C>(slots, sscale, root_slot, T, tid, rootw, __ldg(invar + p));
   if (p_raw < P) out[p_raw] = lnl;
 }
 

@@ -18,6 +18,10 @@ The plain twin computes the same function one wave of independent
 schedule steps at a time (engine/likelihood.py upward_pass).  Unlike the
 TPU kernel it contracts each category's [S,S] block directly: the
 block-diagonal [2CS, 2CS] pair matrices existed to feed the 128x128 MXU.
+
+`fused_multi_tree_lnl` scores K topologies that share one alignment in one
+launch of csrc/stream_forward.cu (`fused_site_lnl_cs_stream`), on the
+schedule `multi_tree_schedule` interleaves from theirs.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from . import build
 from .schedule import slot_schedule
 from ..likelihood import (
     SCALE_TINY,
+    asc_correction,
     branch_transition_mats,
     finish_site_lnl,
     ptn_invar,
@@ -184,3 +189,135 @@ def fused_compute_loglik(tree, model, site, steps, n_slots):
                               model.props, model.state_freq,
                               ptn_invar(model, site).to(dt).contiguous())
     return finish_site_lnl(site, site_lnl)
+
+
+def multi_tree_schedule(trees_and_arrays):
+    """One schedule for K topologies that share an alignment:
+    (steps_kernel, steps_gather, n_slots, roots).
+
+    trees_and_arrays: [(tree_host, tree_arrays)] of one taxon count.  Row j
+    of tree k's slot schedule sits at row j*K+k; each tree's slots are
+    offset into one global slot space, plus one trash slot (n_slots = the
+    sum + 1).  steps_kernel carries raw tip ids for tip children (the tips
+    are shared), steps_gather every node id offset by k*2N, the tree's rows
+    in the concatenated trans; roots [K] are the trees' root slots.  The
+    JAX package's multi_tree_schedule at pack=1 returns the same arrays
+    (its pack-4 grouping fed the TPU's matrix unit)."""
+    scheds = [device_slot_schedule(tree, ta) for tree, ta in trees_and_arrays]
+    if len({s.shape[0] for s, _ in scheds}) != 1:
+        raise ValueError("a multi-tree schedule needs trees of one taxon count")
+    K = len(scheds)
+    soff = np.cumsum([0] + [ns for _, ns in scheds])
+    g = np.stack([s for s, _ in scheds]).astype(np.int64)  # [K, rows, 6]
+    node_off = 2 * trees_and_arrays[0][0].n_taxa * np.arange(K)[:, None]
+    slot_off = soff[:-1, None]
+    for col in (0, 1, 5):
+        g[:, :, col] += node_off
+    for col in (2, 3):
+        g[:, :, col] = np.where(g[:, :, col] >= 0, g[:, :, col] + slot_off, -1)
+    g[:, :, 4] += slot_off
+    kern = g.copy()
+    for col in (0, 1):
+        kern[:, :, col] = np.where(g[:, :, col + 2] < 0, g[:, :, col] - node_off,
+                                   g[:, :, col])
+    rows = lambda a: a.transpose(1, 0, 2).reshape(-1, 6).astype(np.int32)
+    return rows(kern), rows(g), int(soff[-1]) + 1, g[:, -1, 4].astype(np.int32)
+
+
+def pool_slots(steps, K: int) -> int:
+    """The most slots one tree of a K-tree schedule uses: the shared-memory
+    pool of the multi-tree kernel, whose block walks one tree."""
+    out = np.asarray(steps)[:, 4].reshape(-1, K)
+    return int((out.max(0) - out[0]).max()) + 1
+
+
+def _stream_plain(steps, gather, trans, tips, rootw, invar, roots):
+    """Plain twin of the multi-tree kernel: [K, P].  Tree k's rows (k::K),
+    its node ids taken back by k*2N, run through the plain upward pass on
+    its block of trans; its root is the node of its last row that writes
+    roots[k]."""
+    K = roots.shape[0]
+    R = trans.shape[0] // K
+    out = []
+    for k in range(K):
+        g = gather[k::K].clone()
+        for col in (0, 1, 5):
+            g[:, col] -= k * R
+        up, usc = upward_plain(g, trans[k * R:(k + 1) * R], tips)
+        root = int(g[(steps[k::K, 4] == roots[k]).nonzero()[-1, 0], 5])
+        lnl = torch.log(torch.clamp(rootw @ up[root], min=SCALE_TINY)) + usc[root]
+        out.append(torch.where(
+            invar[k] > 0,
+            torch.logaddexp(lnl, torch.log(torch.clamp(invar[k], min=SCALE_TINY))),
+            lnl))
+    return torch.stack(out)
+
+
+def fused_site_lnl_cs_stream(steps, n_slots, trans, tips, props, state_freq,
+                             ptn_invar, roots=None, gather_steps=None, tile=None,
+                             tree_slots=None) -> torch.Tensor:
+    """Per-pattern log-likelihood: [P] for one tree (roots=None: the last
+    row's output slot), [K, P] for the K trees of a multi_tree_schedule
+    (roots [K] their root slots, gather_steps its trans-row schedule).
+
+    steps [R, 6] int32, trans [K*2N, C, S, S] (the K trees' arrays
+    concatenated), tips [N, S, P], props [C], state_freq [C, S], ptn_invar
+    [P] or [K, P].  CS-packed shapes only (S=4, C<=8; ValueError
+    otherwise).  CUDA tensors launch csrc/stream_forward.cu, CPU tensors
+    run the plain twin.  `tree_slots` is pool_slots(steps, K), the
+    kernel's shared-memory pool, as n_slots is for one tree: a caller that
+    built the schedule on the host passes it, otherwise it is read from
+    the device.  `tile` (patterns per block) is for measuring the kernel."""
+    C, S = trans.shape[1], trans.shape[2]
+    if S not in build.PACKED_STATES or not 1 <= C <= build.MAX_CATEGORIES:
+        raise ValueError(f"the multi-tree kernel serves the CS-packed shapes (S in "
+                         f"{build.PACKED_STATES}, C <= {build.MAX_CATEGORIES}), got "
+                         f"C={C}, S={S}")
+    single = roots is None
+    if single:
+        roots = steps[-1:, 4]
+    K, P = roots.shape[0], tips.shape[2]
+    if gather_steps is None:
+        if K > 1:
+            raise ValueError("a multi-tree schedule needs its gather_steps")
+        gather_steps = steps
+    invar = ptn_invar.expand(K, P).contiguous()
+    rootw = (props[:, None] * state_freq).reshape(-1).to(trans.dtype).contiguous()
+    if not trans.is_cuda:
+        out = _stream_plain(steps, gather_steps, trans, tips, rootw, invar, roots)
+        return out[0] if single else out
+    if tree_slots is None:
+        tree_slots = n_slots if single else pool_slots(steps.cpu(), K)
+    build.check_inputs(C, S, steps, trans, tips, rootw, invar)
+    build.check_inputs(C, S, gather_steps)
+    roots = roots.to(torch.int32).contiguous()
+    out = torch.empty(K, P, dtype=torch.float32, device=trans.device)
+    build.launch("stream_forward", steps, gather_steps, steps.shape[0] // K, K, roots,
+                 trans, tips, P, rootw, invar, out, C, tree_slots,
+                 tile or DEFAULT_TILE)
+    fused_site_lnl_cs_stream.launches += 1
+    return out[0] if single else out
+
+
+fused_site_lnl_cs_stream.launches = 0
+
+
+def fused_multi_tree_lnl(trees_and_arrays, model, site, tile=None) -> torch.Tensor:
+    """[K] float64 total log-likelihoods of K topologies that share the
+    model and the alignment, through one launch of the multi-tree kernel
+    (the plain twin for CPU tensors)."""
+    if model.num_states not in build.PACKED_STATES:
+        raise ValueError(f"multi-tree evaluation needs a CS-packed shape (S in "
+                         f"{build.PACKED_STATES}), got S={model.num_states}")
+    sk, sg, n_slots, roots = multi_tree_schedule(trees_and_arrays)
+    dt, dev = site.code_masks.dtype, site.code_masks.device
+    trans = torch.cat([branch_transition_mats(model, ta.blen)
+                       for _, ta in trees_and_arrays]).to(dt).contiguous()
+    site_lnl = fused_site_lnl_cs_stream(
+        torch.as_tensor(sk, device=dev), n_slots, trans,
+        tip_partials(site).contiguous(), model.props, model.state_freq,
+        ptn_invar(model, site).to(dt), roots=torch.as_tensor(roots, device=dev),
+        gather_steps=torch.as_tensor(sg, device=dev), tile=tile,
+        tree_slots=pool_slots(sk, len(roots)))
+    corr = torch.stack([asc_correction(site, lnl) for lnl in site_lnl])
+    return (site.pattern_freq.double() * (site_lnl - corr[:, None]).double()).sum(1)

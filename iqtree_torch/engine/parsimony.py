@@ -251,8 +251,7 @@ def kernel_tip_words(tips: torch.Tensor, num_states: int) -> torch.Tensor:
     if num_states > 32:
         raise NotImplementedError(
             f"the parsimony kernel takes up to 32 states (one 32-bit word a set), "
-            f"got {num_states}; the codon alphabet comes with the codon slice "
-            "(slice 5)")
+            f"got {num_states}; the codon alphabet comes with the codon slice")
     word = tips[:, 0]
     return (word.to(torch.uint8) if num_states <= 8 else word).contiguous()
 

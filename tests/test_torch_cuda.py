@@ -51,7 +51,7 @@ def card():
     steps, n_slots = pruning.device_slot_schedule(tree, ta)
     return dict(tree=ta, model=ModelArrays.from_model(subst, rate, dev),
                 site=SiteData.from_alignment(aln, dev, torch.float32),
-                steps=torch.as_tensor(steps, device=dev), n_slots=n_slots)
+                steps=torch.as_tensor(steps, device=dev), n_slots=n_slots, host=tree)
 
 
 @pytest.mark.cuda
@@ -326,3 +326,62 @@ def test_parsimony_kernel_32bit_sets_match_the_twin():
                                         torch.device("cpu"))
     np.testing.assert_array_equal(got.children, want.children)
     np.testing.assert_array_equal(got.blen, want.blen)
+
+
+@pytest.mark.cuda
+def test_multi_tree_kernel_matches_twin_on_card(card):
+    """The multi-tree kernel at K=1 (a plain schedule) and K=5 (a chain of
+    NNIs from the fixture's tree) against the single-tree twin, and the
+    multi-tree totals against forward.cu's."""
+    model, site, dev = card["model"], card["site"], torch.device("cuda")
+    rng = np.random.default_rng(3)
+    trees = [card["host"]]
+    for _ in range(4):
+        t = trees[-1].copy()
+        e = t.internal_edges()
+        t.apply_nni(int(e[rng.integers(len(e))]), int(rng.integers(2)))
+        trees.append(t)
+    pairs = [(t, TreeArrays.from_tree(t, dev)) for t in trees]
+    tips = tip_partials(site).contiguous()
+    inv = ptn_invar(model, site).float().contiguous()
+    props, freq = model.props.float(), model.state_freq.float()
+    trans = [branch_transition_mats(model, ta.blen).float().contiguous()
+             for _, ta in pairs]
+    scheds = [pruning.device_slot_schedule(t, ta) for t, ta in pairs]
+    want = torch.stack([
+        pruning._site_lnl_plain(torch.as_tensor(s, device=dev), tr, tips, props, freq,
+                                inv) for (s, _), tr in zip(scheds, trans)])
+    before = pruning.fused_site_lnl_cs_stream.launches
+    got1 = pruning.fused_site_lnl_cs_stream(card["steps"], card["n_slots"], trans[0],
+                                            tips, props, freq, inv)
+    torch.testing.assert_close(got1, want[0], rtol=1e-5, atol=1e-4)
+    sk, sg, n_slots, roots = pruning.multi_tree_schedule(pairs)
+    on = lambda a: torch.as_tensor(a, device=dev)
+    got = pruning.fused_site_lnl_cs_stream(on(sk), n_slots, torch.cat(trans), tips,
+                                           props, freq, inv, roots=on(roots),
+                                           gather_steps=on(sg))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    totals = pruning.fused_multi_tree_lnl(pairs, model, site)
+    singles = torch.stack([pruning.fused_compute_loglik(ta, model, site, on(s), ns)[0]
+                           for (_, ta), (s, ns) in zip(pairs, scheds)])
+    torch.testing.assert_close(totals, singles, rtol=0, atol=1e-2)
+    assert pruning.fused_site_lnl_cs_stream.launches == before + 3
+
+
+@pytest.mark.cuda
+def test_ablation_variants_match_twins_on_card(card):
+    """The six ablation variants of the forward kernel against their twins,
+    on random trans and tips uniform in [0, 1)."""
+    from iqtree_torch.engine.kernels import ablate
+
+    n = card["tree"].n_taxa
+    rng = np.random.default_rng(4)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device="cuda")
+    trans = f32(rng.random((2 * n, 4, 4, 4)))
+    tips = f32(rng.random((n, 4, 700)))
+    before = ablate.forward_ablation.launches
+    for v in ablate.VARIANTS:
+        got = ablate.forward_ablation(v, card["steps"], card["n_slots"], trans, tips)
+        want = ablate.ablation_plain(v, card["steps"], trans, tips)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    assert ablate.forward_ablation.launches == before + len(ablate.VARIANTS)

@@ -10,7 +10,11 @@ Phases (any failure exits non-zero; nothing is caught):
      stepwise-addition parsimony scorer);
   3. at the main path's shapes (bench_data.npz: 1000 taxa x 10k sites,
      GTR+G4) run each kernel and its plain PyTorch twin on the card,
-     hold them together, time both; check the custom-autograd gradient
+     hold them together, time both (the two redesigned kernels beside
+     their earlier designs' times; the branch-Newton kernel also at C = 1, 3 and 8
+     against its twin, and two launches bit-equal; the parsimony kernel
+     alone, through its wrapper, and the host layout around it); check the
+     custom-autograd gradient
      against autograd through the plain pass; check the golden lnL of the
      44-taxon example; score every NNI of the true tree on the kernels'
      passes and on the twins' passes;
@@ -35,7 +39,8 @@ Phases (any failure exits non-zero; nothing is caught):
  10. the same fit once more under torch.profiler;
  11. at the protein search's shapes the wide outside-partial store against
      its twin, timed with its tile sweep, and the parsimony scorer's 32-bit
-     instance against its twin on a partial protein tree (exact);
+     instance against its twin on a partial protein tree (exact), each of
+     50 launches timed alone (min / median / max), kernel and wrapper;
  12. the protein search with ultrafast bootstrap through the CLI entry
      point: `-s ALN -m LG+G -n 2 -ninit 4 -ntop 2 -seed 1 -bb 1000 -wbt` on
      cuda, with the launch counts of the five wide kernels and the
@@ -81,6 +86,11 @@ JAX_PROTEIN_SEARCH_LNL = -237901.3  # the JAX package's search without -bb, floa
 #                                     on a TPU (README.md)
 PEAK_F32 = 67e12  # H100 SXM float32 outside the tensor cores, FLOP/s
 PEAK_BW = 3.35e12  # H100 SXM HBM3, bytes/s
+# The times of the thread-a-pattern designs the two kernels replace
+# (PERF.md section 6, the same card and timing): ms a call of newton_sweep
+# and of insertion_costs (its events held the wrapper's host work)
+EARLIER_MS = {"newton": 12.361, "pars_insert": 1.683, "pars_insert_s20": 0.556}
+SMEM_ROUND_TRIP = 30  # cycles from a shared-memory load to its use, about
 
 
 def phase(name):
@@ -100,6 +110,30 @@ def cuda_ms(fn, reps):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def cuda_ms_each(fn, reps):
+    """Each of `reps` calls of fn() timed alone: [ms]."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b))
+    return out
+
+
+def spread(ms):
+    import numpy as np
+
+    return f"min {min(ms):.4f} / median {float(np.median(ms)):.4f} / max {max(ms):.4f} ms"
 
 
 def check(ok, what):
@@ -144,6 +178,13 @@ def partial_tree(tree, N):
     taxon goes back: (leaf, present taxa, layout)."""
     from iqtree_torch.engine import parsimony as pars
 
+    leaf, adj = partial_adj(tree, N)
+    present = [v for v in adj if v < N]
+    return leaf, present, pars._partial_layout(adj, 0, N)
+
+
+def partial_adj(tree, N):
+    """(leaf, adjacency of `tree` without its last taxon, the leaf)."""
     adj = {v: [] for v in range(tree.n_nodes - 1)}
     R = tree.root
     for v in range(tree.n_nodes - 1):
@@ -160,8 +201,31 @@ def partial_tree(tree, N):
     x, y = [u for u in adj.pop(w) if u != leaf]
     adj[x] = [y if u == w else u for u in adj[x]]
     adj[y] = [x if u == w else u for u in adj[y]]
-    present = [v for v in adj if v < N]
-    return leaf, present, pars._partial_layout(adj, 0, N)
+    return leaf, adj
+
+
+def pars_launch(pars, layout, present, words, leaf, scratch):
+    """(the C entry's arguments for one insertion as insertion_costs makes
+    them, walk rows): for timing the kernel without its wrapper's host
+    work."""
+    import torch
+
+    rows, n_post = pars.kernel_rows(layout, present)
+    N, n_words = words.shape
+    miss, wts = scratch
+    cost = torch.zeros(2 * N, dtype=torch.float64, device=words.device)
+    return (("pars_insert", torch.as_tensor(rows, device=words.device), n_post,
+             len(rows) - n_post, words, N, leaf, wts, n_words, miss, cost,
+             wts.numel() // n_words), len(rows))
+
+
+def pars_work(N, n_words, lanes, n_rows):
+    """(bytes, operations) of one insertion: the packed tips, the weights
+    and the walk rows read once, the costs written once; ~14 integer
+    operations a word and row (SWAR Fitch and the miss bits), counted at
+    the float32 rate (the card's table has no int32 rate)."""
+    return (4 * N * n_words + 4 * n_words * lanes + 16 * n_rows + 16 * N,
+            14 * n_rows * n_words)
 
 
 def load_bench(name="bench_data.npz"):
@@ -285,6 +349,10 @@ def main():
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     card = smi.splitlines()[0]
     print(card)
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.split()[0])
+    print(f"max SM clock {sm_mhz:.0f} MHz")
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     dev = torch.device("cuda")
@@ -404,15 +472,41 @@ def main():
     mats = csk.stacked_deriv_mats(model, ta.blen).float().contiguous()
     d_k = csk.newton_sweep(steps, n_slots, mats, props, freq, wp, invar, up_k, usc_k)
     d_p = csk._newton_plain(steps, mats, props, freq, wp, invar, up_k, usc_k)
+    again = csk.newton_sweep(steps, n_slots, mats, props, freq, wp, invar, up_k, usc_k)
+    check(all(torch.equal(a, b) for a, b in zip(d_k, again)),
+          "newton: two launches bit-equal")
+    print("newton: two launches bit-equal")
     err = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(d_k, d_p))
     record("newton", "iqtree_torch/engine/kernels/csrc/newton.cu",
            "iqtree_tpu/engine/kernels/cs_kernels.py:280", err, 1e-4,
            cuda_ms(lambda: csk.newton_sweep(steps, n_slots, mats, props, freq, wp,
-                                            invar, up_k, usc_k), 5),
+                                            invar, up_k, usc_k), 10),
            cuda_ms(lambda: csk._newton_plain(steps, mats, props, freq, wp, invar,
                                              up_k, usc_k), 2),
            rev_bytes + 4 * R * 3 * CSS, newton_flops(N, P, CS, CSS))
-    del d_p
+    print(f"newton: {results['newton']['ms']:.3f} ms beside the earlier design's "
+          f"{EARLIER_MS['newton']} ({EARLIER_MS['newton'] / results['newton']['ms']:.2f}x)")
+    del d_p, again, up_k, usc_k, mats
+    # the lane layout at the other category counts: C = 1 (one lane), 3
+    # (an idle lane a pattern) and 8 (eight lanes), the same tree and data
+    for k in (1, 3, 8):
+        s_k, r_k = parse_model_string("GTR+I" + (f"+G{k}" if k > 1 else ""), aln)
+        r_k.p_invar = 0.05
+        m_k = ModelArrays.from_model(s_k, r_k, dev)
+        tr_k = branch_transition_mats(m_k, ta.blen).float().contiguous()
+        u_k, us_k = csk.fused_upward_store_cs(steps, n_slots, tr_k, tips)
+        csk.fill_tip_rows_cs(u_k, us_k, tips, k)
+        mt_k = csk.stacked_deriv_mats(m_k, ta.blen).float().contiguous()
+        args = (steps, n_slots, mt_k, m_k.props.float(), m_k.state_freq.float(), wp,
+                ptn_invar(m_k, site).float().contiguous(), u_k, us_k)
+        got, want = csk.newton_sweep(*args), csk._newton_plain(*args[:1], *args[2:])
+        e_k = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(got, want))
+        print(f"newton C={k}: max relative error {e_k:.3e} (tol 1e-4), "
+              f"{cuda_ms(lambda: csk.newton_sweep(*args), 5):.3f} ms")
+        check(e_k <= 1e-4, f"newton at C={k} against its twin")
+        del u_k, us_k, mt_k, tr_k, got, want, args
+    up_k, usc_k = csk.fused_upward_store_cs(steps, n_slots, trans, tips)
+    csk.fill_tip_rows_cs(up_k, usc_k, tips, C)
 
     # outside-partial store: O in [0, 1] absolutely, osc relative to its largest
     out_k, osc_k = csk.fused_down_store_cs(steps, n_slots, trans, up_k, usc_k, freq)
@@ -433,29 +527,49 @@ def main():
 
     # stepwise-addition parsimony: the last insertion of a full tree (the
     # bench tree without one taxon); integer pattern weights, exact sums.
-    # Bound: tips, weights and walk orders read once, costs written once;
-    # ~14 integer operations a node and pattern, at the float32 rate
+    # Bound: pars_work
     from iqtree_torch.engine import parsimony as pars
 
     leaf, present, layout = partial_tree(tree, N)
     masks = torch.as_tensor(pars.pack_tip_masks(aln), device=dev)
-    masks8 = masks[:, 0].to(torch.uint8).contiguous()
     pfreq = torch.as_tensor(aln.pattern_freq, dtype=torch.float64, device=dev)
-    scratch = tuple(torch.empty(R, P, dtype=torch.uint8, device=dev) for _ in range(2))
-    cost_k = pars.insertion_costs(masks, masks8, pfreq, leaf, layout, present, scratch)
+    words = pars.kernel_tip_words(masks, S)
+    scratch = pars.kernel_scratch(words, pfreq, S)
+    cost_k = pars.insertion_costs(masks, words, pfreq, leaf, layout, present, scratch)
     cost_p = pars._edge_costs(
         pars._insertion_costs_plain(masks, pfreq, leaf, layout, present), layout)
     fin = np.isfinite(cost_p)
     check(np.array_equal(np.isfinite(cost_k), fin), "parsimony: the same edges")
+    launch_args, n_rows = pars_launch(pars, layout, present, words, leaf, scratch)
+    lanes = pars.word_lanes(S)
     record("pars_insert", "iqtree_torch/engine/kernels/csrc/pars_insert.cu",
            "iqtree_tpu/engine/parsimony.py:168 (plain XLA, no Pallas kernel)",
            float(np.abs(cost_k[fin] - cost_p[fin]).max()), 0.0,
-           cuda_ms(lambda: pars.insertion_costs(masks, masks8, pfreq, leaf, layout,
-                                                present, scratch), 5),
+           cuda_ms(lambda: build.launch(*launch_args), 20),
            cuda_ms(lambda: pars._insertion_costs_plain(masks, pfreq, leaf, layout,
                                                        present), 2),
-           N * P + 8 * P + 4 * 6 * R + 8 * R, 14 * R * P)
-    del masks, masks8, scratch
+           *pars_work(N, words.shape[1], lanes, n_rows))
+    wrap_ms = cuda_ms(lambda: pars.insertion_costs(masks, words, pfreq, leaf, layout,
+                                                   present, scratch), 20)
+    adj = partial_adj(tree, N)[1]
+    t0 = time.time()
+    for _ in range(20):
+        pars._partial_layout(adj, 0, N)
+    layout_ms = (time.time() - t0) / 20 * 1e3
+    t0 = time.time()
+    for _ in range(20):
+        pars.kernel_rows(layout, present)
+    rows_ms = (time.time() - t0) / 20 * 1e3
+    floor_ms = n_rows * SMEM_ROUND_TRIP / (sm_mhz * 1e3)
+    print(f"pars_insert ({words.shape[1]} words of {lanes} patterns, {n_rows} walk "
+          f"rows): kernel {results['pars_insert']['ms']:.4f} ms; through "
+          f"insertion_costs (events around the wrapper, host work inside, as the "
+          f"earlier design was timed) {wrap_ms:.4f} ms beside its "
+          f"{EARLIER_MS['pars_insert']}; the "
+          f"host layout (_partial_layout) {layout_ms:.4f} ms, the walk rows (kernel_rows) "
+          f"{rows_ms:.4f} ms; chain floor {floor_ms:.4f} "
+          f"ms ({n_rows} rows x {SMEM_ROUND_TRIP} cycles at {sm_mhz:.0f} MHz)")
+    del masks, words, scratch, launch_args
 
     # every NNI of the true tree, on the kernels' passes and on the twins':
     # the two sum in other orders in float32, and the per-edge biases that
@@ -555,7 +669,9 @@ def main():
     print(f"-te fit launches: {launches}")
     k_ms = sum(results[k]["ms"] * n for k, n in launches.items())
     print(f"kernel time of the fit, estimated as launches x phase-3 kernel ms: "
-          f"{k_ms / 1e3:.3f} s of {wall:.2f} s wall")
+          f"{k_ms / 1e3:.3f} s of {wall:.2f} s wall ("
+          + ", ".join(f"{k} {results[k]['ms'] * n / 1e3:.3f} s"
+                      for k, n in launches.items() if n) + ")")
     check(fit_lnl > REF_OPTIMUM, "fit ends above the reference binary's optimum")
     out_tree = PhyloTree.from_newick(nwk, aln.names)
     check(bool(np.all(np.isfinite(out_tree.blen))) and out_tree.n_taxa == N,
@@ -587,7 +703,13 @@ def main():
     print(f"search launches: {launches}")
     k_ms = sum(results[k]["ms"] * n for k, n in launches.items())
     print(f"kernel time of the search, estimated as launches x phase-3 kernel ms: "
-          f"{k_ms / 1e3:.3f} s of {s_wall:.2f} s wall")
+          f"{k_ms / 1e3:.3f} s of {s_wall:.2f} s wall ("
+          + ", ".join(f"{k} {results[k]['ms'] * n / 1e3:.3f} s"
+                      for k, n in launches.items()) + ")")
+    for line in log[[i for i, l in enumerate(log) if l.startswith("search profile")][-1]:]:
+        if not line.startswith(("search profile", " ")):
+            break
+        print(line)
     check(bool(np.all(np.isfinite(out_tree.blen))) and out_tree.n_taxa == N,
           "a written 1000-taxon tree with finite lengths")
     check(abs(lnl64 - best) < 1.0, "search lnL vs its float64 re-evaluation")
@@ -802,6 +924,7 @@ def protein_search_phases(dev, card, record, results, cli_main):
     from iqtree_torch.engine import parsimony as pars
     from iqtree_torch.engine.banner import decide_engine
     from iqtree_torch.engine.distances import ml_distances
+    from iqtree_torch.engine.kernels import build
     from iqtree_torch.engine.kernels import cs_kernels as csk
     from iqtree_torch.engine.kernels import pruning as pk
     from iqtree_torch.engine.likelihood import (ModelArrays, SiteData, TreeArrays,
@@ -869,21 +992,28 @@ def protein_search_phases(dev, card, record, results, cli_main):
     words = pars.kernel_tip_words(masks, S)
     check(words.dtype == torch.int32, "20 states take the 32-bit instance")
     pfreq = torch.as_tensor(aln.pattern_freq, dtype=torch.float64, device=dev)
-    scratch = tuple(torch.empty(R, P, dtype=words.dtype, device=dev) for _ in range(2))
+    scratch = pars.kernel_scratch(words, pfreq, S)
     cost_k = pars.insertion_costs(masks, words, pfreq, leaf, layout, present, scratch)
     cost_p = pars._edge_costs(
         pars._insertion_costs_plain(masks, pfreq, leaf, layout, present), layout)
     fin = np.isfinite(cost_p)
     check(np.array_equal(np.isfinite(cost_k), fin), "32-bit parsimony: the same edges")
+    # each of 50 launches timed alone, the kernel and its wrapper (whose
+    # events hold the wrapper's host work, as the earlier design's times did)
+    launch_args, n_rows = pars_launch(pars, layout, present, words, leaf, scratch)
+    each = cuda_ms_each(lambda: build.launch(*launch_args), 50)
+    wrap = cuda_ms_each(lambda: pars.insertion_costs(masks, words, pfreq, leaf, layout,
+                                                     present, scratch), 50)
     record("pars_insert_s20", "iqtree_torch/engine/kernels/csrc/pars_insert.cu",
            "iqtree_tpu/engine/parsimony.py:168 (plain XLA, no Pallas kernel)",
-           float(np.abs(cost_k[fin] - cost_p[fin]).max()), 0.0,
-           cuda_ms(lambda: pars.insertion_costs(masks, words, pfreq, leaf, layout,
-                                                present, scratch), 10),
+           float(np.abs(cost_k[fin] - cost_p[fin]).max()), 0.0, float(np.mean(each)),
            cuda_ms(lambda: pars._insertion_costs_plain(masks, pfreq, leaf, layout,
                                                        present), 3),
-           4 * N * P + 8 * P + 4 * 6 * R + 8 * R, 14 * R * P)
-    del masks, words, scratch, model, site, ta
+           *pars_work(N, words.shape[1], pars.word_lanes(S), n_rows))
+    print(f"pars_insert_s20 ({words.shape[1]} words, {n_rows} walk rows), 50 launches "
+          f"each: kernel {spread(each)}; through insertion_costs {spread(wrap)} (the "
+          f"earlier design: {EARLIER_MS['pars_insert_s20']} and 0.673 in two runs)")
+    del masks, words, scratch, model, site, ta, launch_args
     torch.cuda.empty_cache()
 
     phase("12. the protein search with ultrafast bootstrap through the CLI on cuda")

@@ -10,7 +10,8 @@ DNA and protein.
                            [-redo] [-device cuda|cpu]
     python -m iqtree_torch -s ALN [-st DNA|AA] -te TREE -m MODEL [-blfix] ...
 
-Writes PREFIX.treefile (the best tree, with UFBoot supports under -bb),
+With -te, -bb is accepted and ignored: the fit writes no supports (as the
+JAX CLI does).  Writes PREFIX.treefile (the best tree, with UFBoot supports under -bb),
 PREFIX.iqtree (the report) and PREFIX.log (the screen log, with
 `BEST SCORE FOUND :`); under -bb also PREFIX.splits.nex, PREFIX.contree
 and, with -wbt/-wbtl, PREFIX.ufboot.
@@ -65,7 +66,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         tree, lnl, subst, rate = run_fixed_topology(cfg, aln, model_str, device, log)
         iterations = 0
     else:
-        if not cfg.keep_identical:
+        # identical sequences are set aside for the search and grafted back
+        # onto the written tree, except under -bb: supports must cover all
+        # taxa (as the JAX CLI does)
+        if not cfg.keep_identical and not cfg.ufboot:
             keep, ident_pairs = aln.identical_groups()
             if ident_pairs:
                 log(f"NOTE: {len(ident_pairs)} identical sequences will be "

@@ -117,8 +117,6 @@ def parse_args(argv) -> RunConfig:
         p.error("-te and -t exclude each other")
     if a.beps <= 0:
         p.error("-beps epsilon must be positive")
-    if a.ufboot and a.fixed_tree:
-        p.error("-bb runs with the tree search, not with -te")
     if a.seq_type not in (None, "DNA", "AA"):
         raise SystemExit(
             f"iqtree-torch: -st {a.seq_type} is not ported yet; this version "

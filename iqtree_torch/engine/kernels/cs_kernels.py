@@ -274,16 +274,27 @@ def newton_sweep(steps, n_slots, mats, props, state_freq, wp, invar, up, usc):
     P = up.shape[2]
     rootd = (props[:, None] * state_freq).reshape(-1).float().contiguous()
     build.check_inputs(C, S, steps, mats, rootd, wp, invar, up, usc)
-    part = torch.zeros(-(-P // DEFAULT_TILE), n_rows, 2, dtype=torch.float32,
-                       device=mats.device)
+    # per-warp sums [warps, 2N, 2]: ~20 MB at 1000 taxa x 9 962 patterns, C=4
+    per_block = NEWTON_THREADS // category_lanes(C)
+    n_warps = -(-P // per_block) * (NEWTON_THREADS // 32)
+    part = torch.zeros(n_warps, n_rows, 2, dtype=torch.float32, device=mats.device)
     d12 = torch.empty(n_rows, 2, dtype=torch.float32, device=mats.device)
     build.launch("newton", steps, steps.shape[0], mats, rootd, wp, invar, up, usc,
-                 P, n_rows, part, d12, C, n_slots, DEFAULT_TILE)
+                 P, n_rows, part, d12, C, n_slots, NEWTON_THREADS)
     newton_sweep.launches += 1
     return d12[:, 0], d12[:, 1]
 
 
 newton_sweep.launches = 0
+# Lanes a block of csrc/newton.cu, one a (pattern, rate category): small
+# blocks spread the ~9 warps an SM evenly (PERF.md).
+NEWTON_THREADS = 64
+
+
+def category_lanes(C: int) -> int:
+    """Lanes a pattern in the lane layout of csrc/cs_common.cuh: the
+    category count rounded up to a power of two."""
+    return 1 << (C - 1).bit_length()
 
 
 def wide_newton_sweep(steps, n_slots, mats, props, state_freq, wp, invar, up, usc,

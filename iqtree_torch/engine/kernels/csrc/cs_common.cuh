@@ -205,6 +205,55 @@ __device__ __forceinline__ float outside(const float (&d)[C][S], const float (&m
   return dsc + s_sib + logf(mx);
 }
 
+// ---------------------------------------------------------------------------
+// Lane layout: several threads a pattern, one a rate category.
+//
+// P, P' and P'' are block-diagonal over categories, so a category's
+// messages (apply_p, apply_pt, outside) need only its own S states; what
+// crosses categories (the renormalizing max, the sums over c) is a
+// butterfly of __shfl_xor_sync rounds inside a group of CL = C rounded up
+// to a power of two lanes.  Lane (pattern q, category c) of a block is
+// thread q * CL + c: a warp holds 32 / CL patterns, and a load of one
+// packed row of up [2N, C*S, P] reads CL runs of 32 / CL consecutive
+// floats, whole 32-byte sectors at CL <= 8.  A lane past C (C = 3, 5-7)
+// computes a copy of category C-1: harmless to the max, and it adds 0
+// to the sums.  Butterfly rounds leave every lane of a group the same
+// bits (each round adds or maxes a pair in both orders, which float
+// addition and fmaxf give alike).
+// ---------------------------------------------------------------------------
+
+template <int C>
+struct Lanes {
+  static constexpr int CL = C <= 1 ? 1 : C <= 2 ? 2 : C <= 4 ? 4 : 8;
+};
+
+// m[s] = sum_t P[s][t] x[t] for one category's [S,S] block staged in
+// shared memory (16-byte aligned rows).
+__device__ __forceinline__ void apply_p1(const float* P, const float (&x)[S], float (&m)[S]) {
+  const float4* P4 = reinterpret_cast<const float4*>(P);
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const float4 row = P4[s];
+    m[s] = row.x * x[0] + row.y * x[1] + row.z * x[2] + row.w * x[3];
+  }
+}
+
+// dd[t] = sum_s P[s][t] o[s] for one category's staged [S,S] block.
+__device__ __forceinline__ void apply_pt1(const float* P, const float (&o)[S],
+                                          float (&dd)[S]) {
+  const float4* P4 = reinterpret_cast<const float4*>(P);
+  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const float4 row = P4[s];
+    a0 += row.x * o[s];
+    a1 += row.y * o[s];
+    a2 += row.z * o[s];
+    a3 += row.w * o[s];
+  }
+  dd[0] = a0; dd[1] = a1; dd[2] = a2; dd[3] = a3;
+}
+
 // Second, deterministic pass of a reverse sweep: out[i] = sum over blocks
 // of part[b][i] (per-block partial sums; the blocks of the sweep run in
 // no order, so they cannot accumulate into one buffer in sequence).  With

@@ -15,10 +15,11 @@ every node of one height at once.  For stepwise addition a reversed
 
 for every edge of the current tree at once.  Stepwise-addition trees are
 deep (hundreds of levels at 1000 taxa), so on the card both passes run as
-one kernel that walks the whole tree per pattern (csrc/pars_insert.cu,
-`insertion_costs`); the level-batched form is its plain twin.  The kernel
-keeps a state set in one word: a byte up to 8 states (DNA), a 32-bit word
-up to 32 (protein).
+one kernel that walks the whole tree per word of patterns in shared memory
+(csrc/pars_insert.cu, `insertion_costs`); the level-batched form is its
+plain twin.  The kernel packs a state set into a lane of a 32-bit word:
+4-bit lanes, 8 patterns a word, up to 4 states (DNA); one 32-bit lane up to
+32 (protein) -- `kernel_tip_words`.
 """
 
 from __future__ import annotations
@@ -33,7 +34,6 @@ from ..trees.tree import MIN_BLEN, PhyloTree, random_tree
 from .kernels import build
 
 FULL = -1  # every bit of an int32 word
-PARS_TILE = 128  # patterns per block of the insertion-cost kernel
 
 
 def pack_tip_masks(aln: Alignment) -> np.ndarray:
@@ -224,19 +224,18 @@ def insertion_costs(tips, tipsw, freq, leaf: int, layout, present, scratch):
     """[2N] float64 cost of attaching taxon `leaf` on the edge above every
     node of a partial tree (inf where there is no such edge).  For CUDA
     tensors one launch of csrc/pars_insert.cu walks the whole tree per
-    pattern (tipsw [N, P] one-word masks, uint8 or int32; scratch two
-    [2N, P] buffers of the same type); for CPU tensors the plain twin runs."""
+    word of patterns (tipsw [N, n_words] from kernel_tip_words, scratch
+    from kernel_scratch); for CPU tensors the plain twin runs."""
     if not tips.is_cuda:
         return _edge_costs(_insertion_costs_plain(tips, freq, leaf, layout, present),
                            layout)
-    N, P = tipsw.shape
-    post, pre = walk_orders(layout, present)
-    dev = tipsw.device
-    post_t, pre_t = (torch.as_tensor(x, device=dev) for x in (post, pre))
-    cost = torch.zeros(2 * N, dtype=torch.float64, device=dev)
-    up, rest = scratch
-    build.launch("pars_insert", post_t, len(post), pre_t, len(pre), tipsw, N, leaf,
-                 freq, P, up, rest, cost, tipsw.element_size(), PARS_TILE)
+    N, n_words = tipsw.shape
+    miss, wts = scratch
+    rows, n_post = kernel_rows(layout, present)
+    cost = torch.zeros(2 * N, dtype=torch.float64, device=tipsw.device)
+    build.launch("pars_insert", torch.as_tensor(rows, device=tipsw.device), n_post,
+                 len(rows) - n_post, tipsw, N, leaf, wts, n_words, miss, cost,
+                 wts.numel() // n_words)
     insertion_costs.launches += 1
     return _edge_costs(cost.cpu().numpy(), layout)
 
@@ -244,16 +243,56 @@ def insertion_costs(tips, tipsw, freq, leaf: int, layout, present, scratch):
 insertion_costs.launches = 0
 
 
-def kernel_tip_words(tips: torch.Tensor, num_states: int) -> torch.Tensor:
-    """[N, P] one-word state sets for the insertion-cost kernel from the
-    int32 masks [N, W, P]: bytes up to 8 states, the 32-bit word as it is
-    up to 32.  Wider alphabets (W > 1 words) have no kernel instance."""
+def kernel_rows(layout, present):
+    """(rows [n_post + n_pre, 4] int32, n_post): walk_orders' two walks as
+    the kernel reads them, one 16-byte row each (the 4th column unused)."""
+    post, pre = walk_orders(layout, present)
+    rows = np.zeros((len(post) + len(pre), 4), dtype=np.int32)
+    rows[:len(post), :3] = post
+    rows[len(post):, :3] = pre
+    return rows, len(post)
+
+
+def word_lanes(num_states: int) -> int:
+    """Patterns a 32-bit word of the insertion-cost kernel: 8 (4-bit state
+    sets) up to 4 states, 1 up to 32.  Wider alphabets (W > 1 words) have
+    no kernel instance."""
     if num_states > 32:
         raise NotImplementedError(
             f"the parsimony kernel takes up to 32 states (one 32-bit word a set), "
             f"got {num_states}; the codon alphabet comes with the codon slice")
+    return 8 if num_states <= 4 else 1
+
+
+def kernel_tip_words(tips: torch.Tensor, num_states: int) -> torch.Tensor:
+    """[N, n_words] int32 words of the insertion-cost kernel from the int32
+    masks [N, W, P]: pattern p in lane p % lanes of word p // lanes (lane k
+    of a word is bits 4k..4k+3 for 4-bit sets), lanes past P empty."""
+    lanes = word_lanes(num_states)
     word = tips[:, 0]
-    return (word.to(torch.uint8) if num_states <= 8 else word).contiguous()
+    if lanes == 1:
+        return word.contiguous()
+    N, P = word.shape
+    n_words = -(-P // lanes)
+    nib = torch.zeros(N, n_words * lanes, dtype=torch.int64, device=tips.device)
+    nib[:, :P] = word & 0xF
+    shift = 4 * torch.arange(lanes, device=tips.device)
+    packed = (nib.view(N, n_words, lanes) << shift).sum(-1)  # disjoint bits, < 2^32
+    return torch.where(packed >= 2**31, packed - 2**32, packed).to(torch.int32).contiguous()
+
+
+def kernel_scratch(tipsw: torch.Tensor, freq: torch.Tensor, num_states: int):
+    """(miss [2N, n_words] uint8, weights [n_words * lanes] int32) for
+    insertion_costs on the card: the kernel's per-node miss bits, and the
+    pattern weights as integers (0 past P), so its cost sums are exact."""
+    N, n_words = tipsw.shape
+    lanes = word_lanes(num_states)
+    if not bool((freq == freq.round()).all()):
+        raise ValueError("the parsimony kernel sums integer pattern weights")
+    wts = torch.zeros(n_words * lanes, dtype=torch.int32, device=tipsw.device)
+    wts[:freq.shape[0]] = freq.to(torch.int32)
+    miss = torch.empty(2 * N, n_words, dtype=torch.uint8, device=tipsw.device)
+    return miss, wts
 
 
 def parsimony_stepwise_tree(aln: Alignment, rng: np.random.Generator, device,
@@ -270,8 +309,7 @@ def parsimony_stepwise_tree(aln: Alignment, rng: np.random.Generator, device,
     tipsw = scratch = None
     if tips.is_cuda:
         tipsw = kernel_tip_words(tips, aln.num_states)
-        scratch = tuple(torch.empty(2 * N, tipsw.shape[1], dtype=tipsw.dtype,
-                                    device=device) for _ in range(2))
+        scratch = kernel_scratch(tipsw, freq, aln.num_states)
 
     order = [int(t) for t in rng.permutation(N)]
     a, b, c = order[0], order[1], order[2]

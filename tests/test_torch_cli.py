@@ -81,9 +81,23 @@ def test_cli_fit_matches_jax_cli(tmp_path):
 def test_cli_refuses_unported_flags():
     with pytest.raises(SystemExit, match="-alrt is not ported yet"):
         cli_main(["-s", os.path.join(DATA, "example.phy"), "-alrt", "1000"])
-    with pytest.raises(SystemExit, match="-bb runs with the tree search"):
-        cli_main(["-s", os.path.join(DATA, "example.phy"), "-bb", "1000",
-                  "-te", os.path.join(DATA, "golden_tree_44.nwk")])
+
+
+def test_cli_fit_with_bb_runs_the_fit_without_supports(tmp_path):
+    """-te with -bb runs the fixed-topology fit and writes no supports, as
+    the JAX CLI does (its fixed-topology path returns no bootstrap)."""
+    common = ["-s", os.path.join(DATA, "example.phy"), "-te",
+              os.path.join(DATA, "golden_tree_44.nwk"), "-m", "JC", "-device", "cpu"]
+    out = {}
+    for tag, extra in (("bb", ["-bb", "1000", "-wbt"]), ("plain", [])):
+        prefix = str(tmp_path / tag)
+        assert cli_main([*common, *extra, "-pre", prefix]) == 0
+        with open(prefix + ".treefile") as f:
+            out[tag] = f.read()
+        for ext in (".ufboot", ".splits.nex", ".contree"):
+            assert not os.path.exists(prefix + ext), ext
+    assert out["bb"] == out["plain"]
+    assert not re.search(r"\)\d", out["bb"])  # no support labels
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked_for(tmp_path):

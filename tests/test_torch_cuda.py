@@ -385,3 +385,85 @@ def test_ablation_variants_match_twins_on_card(card):
         want = ablate.ablation_plain(v, card["steps"], trans, tips)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
     assert ablate.forward_ablation.launches == before + len(ablate.VARIANTS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 3, 4, 8])
+def test_newton_lanes_match_twin_at_every_category_count(C):
+    """The branch-Newton kernel's lane layout (C rounded up to a power of
+    two lanes a pattern, idle lanes at C = 3) at an odd pattern count:
+    within 1e-4 of the twin, and two launches bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(30 + C)
+    n = 33
+    seqs = ["".join(rng.choice(list("ACGT-"), 301)) for _ in range(n)]
+    aln = Alignment.from_sequences([f"t{i}" for i in range(n)], seqs, "DNA")
+    assert aln.n_patterns % 2 == 1
+    subst, rate = parse_model_string("GTR+I" + (f"+G{C}" if C > 1 else ""), aln)
+    rate.p_invar = 0.1
+    tree = random_tree(n, rng)
+    ta = TreeArrays.from_tree(tree, dev)
+    model = ModelArrays.from_model(subst, rate, dev)
+    site = SiteData.from_alignment(aln, dev, torch.float32)
+    steps, n_slots = pruning.device_slot_schedule(tree, ta)
+    steps = torch.as_tensor(steps, device=dev)
+    trans = branch_transition_mats(model, ta.blen).float().contiguous()
+    tips = tip_partials(site).contiguous()
+    inv = ptn_invar(model, site).float().contiguous()
+    up, usc = cs_kernels.fused_upward_store_cs(steps, n_slots, trans, tips)
+    cs_kernels.fill_tip_rows_cs(up, usc, tips, C)
+    mats = cs_kernels.stacked_deriv_mats(model, ta.blen).float().contiguous()
+    props, freq = model.props.float(), model.state_freq.float()
+    wp = site.pattern_freq.contiguous()
+    before = cs_kernels.newton_sweep.launches
+    got = cs_kernels.newton_sweep(steps, n_slots, mats, props, freq, wp, inv, up, usc)
+    again = cs_kernels.newton_sweep(steps, n_slots, mats, props, freq, wp, inv, up, usc)
+    assert cs_kernels.newton_sweep.launches == before + 2
+    want = cs_kernels._newton_plain(steps, mats, props, freq, wp, inv, up, usc)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4 * float(w.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alphabet", ["ACGT-", "ARNDCQEGHILKMFPSTWYV-X"])
+def test_parsimony_kernel_costs_equal_twin_at_ragged_patterns(alphabet):
+    """Every insertion of a stepwise-addition tree at a pattern count that
+    is not a multiple of 8 (a partial last word of 4-bit sets): the
+    kernel's costs equal the twin's exactly, DNA and 32-bit sets."""
+    from iqtree_torch.engine import parsimony as pars
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(len(alphabet))
+    n = 24
+    seqs = ["".join(rng.choice(list(alphabet), 203)) for _ in range(n)]
+    aln = Alignment.from_sequences([f"t{i}" for i in range(n)], seqs,
+                                   "DNA" if len(alphabet) == 5 else "AA")
+    assert aln.n_patterns % 8
+    masks = torch.as_tensor(pars.pack_tip_masks(aln))
+    freq = torch.as_tensor(aln.pattern_freq, dtype=torch.float64)
+    words = pars.kernel_tip_words(masks.to(dev), aln.num_states)
+    scratch = pars.kernel_scratch(words, freq.to(dev), aln.num_states)
+    order = [int(t) for t in rng.permutation(n)]
+    adj = {order[0]: [n], order[1]: [n], order[2]: [n], n: order[:3]}
+    nxt = n + 1
+    for t in order[3:]:
+        layout = pars._partial_layout(adj, order[0], n)
+        present = [v for v in adj if v < n]
+        got = pars.insertion_costs(masks.to(dev), words, freq.to(dev), t, layout,
+                                   present, scratch)
+        want = pars.insertion_costs(masks, None, freq, t, layout, present, None)
+        np.testing.assert_array_equal(got, want)
+        v_old = layout[0][int(np.argmin(want))]
+        p_old = pars._adj_parent(adj, order[0], v_old)
+        adj[v_old].remove(p_old)
+        adj[p_old].remove(v_old)
+        adj[v_old].append(nxt)
+        adj[p_old].append(nxt)
+        adj[nxt] = [v_old, p_old, t]
+        adj[t] = [nxt]
+        nxt += 1

@@ -115,3 +115,14 @@ def test_cpu_tensors_run_the_twins():
     fused_newton_derivs(st, n_slots, tm, tt.blen, tip_partials(ts), ts.pattern_freq,
                         ptn_invar(tm, ts))
     assert [w.launches for w in wrappers] == before
+
+
+def test_newton_probe_variants_apply_to_the_kernel_source():
+    """Every variant of the branch-Newton probe edits csrc/newton.cu (the
+    probe runs on the card; here its edits are checked against the source)."""
+    from iqtree_torch.engine.kernels import newton_probe
+
+    src = (newton_probe.build.CSRC / "newton.cu").read_text()
+    for name in newton_probe.VARIANTS:
+        out = newton_probe.variant_source(name)
+        assert (out == src) == (name == "as built"), name

@@ -5,11 +5,15 @@ port's UFBoot against the JAX package's, fed the same seed, the same
 sequence of visited trees and the same float64 pattern log-likelihoods
 (two whole searches part at parsimony below 34 taxa, ROADMAP Queue 3, so
 the bootstrap is compared on the same visits); and -bb runs through the
-CLI on the CPU, DNA and protein.
+CLI on the CPU, DNA and protein, and on an alignment with a duplicated row
+beside the JAX CLI (in a subprocess: the JAX CLI pins a device mesh in the
+process that runs it).
 """
 
 import os
 import re
+import subprocess
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +34,7 @@ from test_torch_protein import PROT
 from test_torch_search import jax_view, simulate_jc
 
 CPU = torch.device("cpu")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def nni_walk(n_taxa, n_trees, seed):
@@ -158,3 +163,49 @@ def test_cli_ufboot_protein_on_cpu(tmp_path):
     check_ufboot_outputs(prefix, 27, 100)
     with open(prefix + ".ufboot") as f:
         assert re.search(r":[0-9.]+", f.readline())  # -wbtl writes the lengths
+
+
+def leaf_names(nwk):
+    return set(re.findall(r"[(,]([^(),:;]+)", nwk))
+
+
+def nexus_taxa(path):
+    with open(path) as f:
+        return set(re.findall(r"^\[\d+\] '([^']+)'$", f.read(), re.M))
+
+
+def test_cli_ufboot_keeps_identical_sequences(tmp_path):
+    """Under -bb identical sequences stay in the analysis, as in the JAX
+    CLI: the bootstrap trees, the split supports and the consensus cover
+    every taxon, the duplicate included."""
+    with open(os.path.join(REPO, "tests", "data", "example.phy")) as f:
+        head, *rows = [l for l in f.read().splitlines() if l.strip()]
+    n, n_sites = head.split()
+    seq = rows[3].split(None, 1)[1]
+    aln_path = str(tmp_path / "dup.phy")
+    with open(aln_path, "w") as f:
+        f.write(f"{int(n) + 1} {n_sites}\n" + "\n".join(rows + ["DUPTAXON " + seq]) + "\n")
+    flags = ["-s", aln_path, "-m", "JC", "-bb", "100", "-n", "1", "-ninit", "2",
+             "-ntop", "1", "-wbt", "-redo"]
+    env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    jax_run = subprocess.Popen([sys.executable, "-m", "iqtree_tpu", *flags, "-pre",
+                                str(tmp_path / "jx")], cwd=tmp_path, env=env,
+                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        prefix = str(tmp_path / "pt")
+        assert cli_main([*flags, "-device", "cpu", "-pre", prefix]) == 0
+    finally:
+        jax_out, _ = jax_run.communicate(timeout=600)
+    assert jax_run.returncode == 0, jax_out[-2000:]
+    names = {r.split()[0] for r in rows} | {"DUPTAXON"}
+    with open(prefix + ".log") as f:
+        assert "identical sequences will be ignored" not in f.read()
+    check_ufboot_outputs(prefix, len(names), 100)
+    for pre in (prefix, str(tmp_path / "jx")):
+        assert nexus_taxa(pre + ".splits.nex") == names
+        for ext in (".contree", ".treefile"):
+            with open(pre + ext) as f:
+                assert leaf_names(f.read()) == names, (pre, ext)
+        with open(pre + ".ufboot") as f:
+            assert all(leaf_names(t) == names for t in f.read().splitlines())

@@ -10,9 +10,11 @@ Phases (any failure exits non-zero; nothing is caught):
      stepwise-addition parsimony scorer);
   3. at the main path's shapes (bench_data.npz: 1000 taxa x 10k sites,
      GTR+G4) run each kernel and its plain PyTorch twin on the card,
-     hold them together, time both (the two redesigned kernels beside
-     their earlier designs' times; the branch-Newton kernel also at C = 1, 3 and 8
-     against its twin, and two launches bit-equal; the parsimony kernel
+     hold them together, time both (the four redesigned kernels -- forward,
+     store, branch-Newton, parsimony -- beside their earlier designs' times;
+     the forward kernel over 32-256 lanes a block; forward, store and
+     branch-Newton also at C = 1, 3 and 8 against their twins, and two
+     launches of each bit-equal; the parsimony kernel
      alone, through its wrapper, and the host layout around it); check the
      custom-autograd gradient
      against autograd through the plain pass; check the golden lnL of the
@@ -53,9 +55,10 @@ Phases (any failure exits non-zero; nothing is caught):
      held against its twin on the card ([K, P], 1e-3) and against K
      forward.cu fits (0.1 a tree), timed at K = 1, 4, 8, 16 beside
      forward.cu's single tree, and at K=8 over three tiles;
- 14. the forward kernel's six ablation variants at the bench tree's shapes
-     (random trans and tips from numpy seed 0), timed through the ablation
-     entry point and held against their twins.
+ 14. the forward kernel's eight ablation variants at the bench tree's shapes
+     (random trans and tips from numpy seed 0), the two precision variants
+     (the TPU matrix unit's 3 and 1 bfloat16 passes) among them, timed
+     through the ablation entry point and held against their twins.
 Prints the kernels' JSON line (the DNA kernels' launches from the DNA
 search, the wide kernels' and the 32-bit parsimony scorer's from the
 protein search, the multi-tree and ablation kernels' from phases 13 and
@@ -85,11 +88,14 @@ PROTEIN_SEARCH_FLAGS = ["-m", "LG+G", "-n", "2", "-ninit", "4", "-ntop", "2", "-
 JAX_PROTEIN_SEARCH_LNL = -237901.3  # the JAX package's search without -bb, float32,
 #                                     on a TPU (README.md)
 PEAK_F32 = 67e12  # H100 SXM float32 outside the tensor cores, FLOP/s
+PEAK_BF16 = 989e12  # H100 SXM bfloat16 on the tensor cores (float32 sums), FLOP/s
 PEAK_BW = 3.35e12  # H100 SXM HBM3, bytes/s
-# The times of the thread-a-pattern designs the two kernels replace
-# (PERF.md section 6, the same card and timing): ms a call of newton_sweep
-# and of insertion_costs (its events held the wrapper's host work)
-EARLIER_MS = {"newton": 12.361, "pars_insert": 1.683, "pars_insert_s20": 0.556}
+# The times of the thread-a-pattern designs the redesigned kernels replace
+# (PERF.md section 6, the same card and timing): ms a call of
+# fused_site_lnl, fused_upward_store_cs and newton_sweep, and of
+# insertion_costs (its events held the wrapper's host work)
+EARLIER_MS = {"forward": 3.139, "store": 3.315, "newton": 12.361, "pars_insert": 1.683,
+              "pars_insert_s20": 0.556}
 SMEM_ROUND_TRIP = 30  # cycles from a shared-memory load to its use, about
 
 
@@ -142,9 +148,12 @@ def check(ok, what):
         raise RuntimeError(f"check failed: {what}")
 
 
-def bound(bytes_, flops):
-    """(least ms on an H100 SXM for this work, what bounds it)."""
-    tb, tf = bytes_ / PEAK_BW * 1e3, flops / PEAK_F32 * 1e3
+def bound(bytes_, flops, bf16_flops=0):
+    """(least ms on an H100 SXM for this work, what bounds it): float32
+    operations at the CUDA cores' rate, products of bfloat16 operands with
+    float32 sums at the tensor cores' rate."""
+    tb = bytes_ / PEAK_BW * 1e3
+    tf = (flops / PEAK_F32 + bf16_flops / PEAK_BF16) * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -410,8 +419,9 @@ def main():
     props, freq = model.props.float(), model.state_freq.float()
     results = {}
 
-    def record(name, source, replaces, err, tol, ms, plain_ms, bytes_, flops):
-        bms, by = bound(bytes_, flops)
+    def record(name, source, replaces, err, tol, ms, plain_ms, bytes_, flops,
+               bf16_flops=0):
+        bms, by = bound(bytes_, flops, bf16_flops)
         print(f"{name}: max_abs_err {err:.3e} (tol {tol:g}), kernel {ms:.3f} ms, "
               f"plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by})")
         check(err <= tol, f"{name}: kernel and plain twin agree ({err:.3e} vs {tol:g})")
@@ -420,12 +430,28 @@ def main():
                              ms=ms, plain_ms=plain_ms, bound_ms=bms,
                              bound_by=by, library_ms=None)
 
-    # forward: tile sweep, then kernel vs twin
-    for tile in (32, 64, 128):
+    def beside_earlier(name):
+        ms = results[name]["ms"]
+        print(f"{name}: {ms:.3f} ms beside the earlier design's {EARLIER_MS[name]} "
+              f"({EARLIER_MS[name] / ms:.2f}x)")
+
+    def bit_equal(name, a, b):
+        check(all(torch.equal(x, y) for x, y in zip(a, b)),
+              f"{name}: two launches bit-equal")
+        print(f"{name}: two launches bit-equal")
+
+    # forward and store: a sweep of lanes a block, then kernel vs twin
+    lanes0 = pk.UPWARD_LANES
+    for lanes in (32, 64, 128, 256):
+        pk.UPWARD_LANES = lanes
         ms = cuda_ms(lambda: pk.fused_site_lnl(steps, n_slots, trans, tips, props,
-                                               freq, invar, tile=tile), 5)
-        print(f"forward tile {tile}: {ms:.3f} ms")
+                                               freq, invar), 5)
+        st_ms = cuda_ms(lambda: csk.fused_upward_store_cs(steps, n_slots, trans, tips), 5)
+        print(f"{lanes} lanes a block: forward {ms:.3f} ms, store {st_ms:.3f} ms")
+    pk.UPWARD_LANES = lanes0
     k_out = pk.fused_site_lnl(steps, n_slots, trans, tips, props, freq, invar)
+    bit_equal("forward", [k_out],
+              [pk.fused_site_lnl(steps, n_slots, trans, tips, props, freq, invar)])
     p_out = pk._site_lnl_plain(steps, trans, tips, props, freq, invar)
     fwd_flops = (N - 1) * P * (4 * CSS + 3 * CS) + 2 * CS * P
     record("forward", "iqtree_torch/engine/kernels/csrc/forward.cu",
@@ -436,19 +462,38 @@ def main():
            cuda_ms(lambda: pk._site_lnl_plain(steps, trans, tips, props, freq,
                                               invar), 2),
            4 * (N * S * P + R * CSS + 6 * (N - 1) + 3 * P), fwd_flops)
+    beside_earlier("forward")
+
+    inner = slice(N, 2 * N - 1)
+
+    def store_err(up_k, usc_k, up_p, usc_p):
+        """Partials absolutely (in [0, 1]), scales relative to the largest."""
+        return max(float((up_k[inner] - up_p[inner]).abs().max()),
+                   float((usc_k[inner] - usc_p[inner]).abs().max()
+                         / usc_p[inner].abs().max()))
 
     up_k, usc_k = csk.fused_upward_store_cs(steps, n_slots, trans, tips)
+    again = csk.fused_upward_store_cs(steps, n_slots, trans, tips)
+    bit_equal("store", [up_k[inner], usc_k], [again[0][inner], again[1]])
+    del again
+    # the lane layout keeps the thread-a-pattern step's arithmetic: the
+    # ablation kernel's `full` (that step) gives the root's scale
+    from iqtree_torch.engine.kernels import ablate
+
+    root = int(steps_np[-1, 5])
+    same = torch.equal(usc_k[root], ablate.forward_ablation("full", steps, n_slots,
+                                                            trans, tips))
+    print(f"store: the root's log-scale {'equals' if same else 'differs from'} the "
+          f"thread-a-pattern step's (forward_ablate full) bit for bit")
     up_p, usc_p = pk.upward_plain(steps, trans, tips)
-    inner = slice(N, 2 * N - 1)
-    err = max(float((up_k[inner] - up_p[inner]).abs().max()),
-              float((usc_k[inner] - usc_p[inner]).abs().max()
-                    / usc_p[inner].abs().max()))
+    err = store_err(up_k, usc_k, up_p, usc_p)
     record("store", "iqtree_torch/engine/kernels/csrc/store.cu",
            "iqtree_tpu/engine/kernels/cs_kernels.py:56", err, 1e-4,
            cuda_ms(lambda: csk.fused_upward_store_cs(steps, n_slots, trans, tips), 5),
            cuda_ms(lambda: pk.upward_plain(steps, trans, tips), 2),
            4 * (N * S * P + R * CSS + 6 * (N - 1) + (N - 1) * (CS + 1) * P),
            fwd_flops)
+    beside_earlier("store")
     del up_p, usc_p
 
     lnl = k_out.contiguous()
@@ -484,17 +529,31 @@ def main():
            cuda_ms(lambda: csk._newton_plain(steps, mats, props, freq, wp, invar,
                                              up_k, usc_k), 2),
            rev_bytes + 4 * R * 3 * CSS, newton_flops(N, P, CS, CSS))
-    print(f"newton: {results['newton']['ms']:.3f} ms beside the earlier design's "
-          f"{EARLIER_MS['newton']} ({EARLIER_MS['newton'] / results['newton']['ms']:.2f}x)")
+    beside_earlier("newton")
     del d_p, again, up_k, usc_k, mats
-    # the lane layout at the other category counts: C = 1 (one lane), 3
+    # the lane layouts at the other category counts: C = 1 (one lane), 3
     # (an idle lane a pattern) and 8 (eight lanes), the same tree and data
     for k in (1, 3, 8):
         s_k, r_k = parse_model_string("GTR+I" + (f"+G{k}" if k > 1 else ""), aln)
         r_k.p_invar = 0.05
         m_k = ModelArrays.from_model(s_k, r_k, dev)
         tr_k = branch_transition_mats(m_k, ta.blen).float().contiguous()
+        fargs = (steps, n_slots, tr_k, tips, m_k.props.float(), m_k.state_freq.float(),
+                 ptn_invar(m_k, site).float().contiguous())
+        f_k = pk.fused_site_lnl(*fargs)
+        bit_equal(f"forward C={k}", [f_k], [pk.fused_site_lnl(*fargs)])
+        e_k = float((f_k - pk._site_lnl_plain(*fargs[:1], *fargs[2:])).abs().max())
+        print(f"forward C={k}: max_abs_err {e_k:.3e} (tol 1e-3), "
+              f"{cuda_ms(lambda: pk.fused_site_lnl(*fargs), 5):.3f} ms")
+        check(e_k <= 1e-3, f"forward at C={k} against its twin")
         u_k, us_k = csk.fused_upward_store_cs(steps, n_slots, tr_k, tips)
+        again = csk.fused_upward_store_cs(steps, n_slots, tr_k, tips)
+        bit_equal(f"store C={k}", [u_k[inner], us_k], [again[0][inner], again[1]])
+        del again
+        e_k = store_err(u_k, us_k, *pk.upward_plain(steps, tr_k, tips))
+        print(f"store C={k}: error {e_k:.3e} (tol 1e-4), "
+              f"{cuda_ms(lambda: csk.fused_upward_store_cs(steps, n_slots, tr_k, tips), 5):.3f} ms")
+        check(e_k <= 1e-4, f"store at C={k} against its twin")
         csk.fill_tip_rows_cs(u_k, us_k, tips, k)
         mt_k = csk.stacked_deriv_mats(m_k, ta.blen).float().contiguous()
         args = (steps, n_slots, mt_k, m_k.props.float(), m_k.state_freq.float(), wp,
@@ -504,7 +563,7 @@ def main():
         print(f"newton C={k}: max relative error {e_k:.3e} (tol 1e-4), "
               f"{cuda_ms(lambda: csk.newton_sweep(*args), 5):.3f} ms")
         check(e_k <= 1e-4, f"newton at C={k} against its twin")
-        del u_k, us_k, mt_k, tr_k, got, want, args
+        del u_k, us_k, mt_k, tr_k, got, want, args, f_k, fargs
     up_k, usc_k = csk.fused_upward_store_cs(steps, n_slots, trans, tips)
     csk.fill_tip_rows_cs(up_k, usc_k, tips, C)
 
@@ -1217,26 +1276,64 @@ def multi_tree_phases(dev, card, record, results):
     phase("14. the forward kernel's ablation variants (bench tree, random trans and tips)")
     steps, n_slots, trans, tips = ablate.bench_inputs(dev)
     n_steps, (N, S, P) = steps.shape[0], tips.shape
-    ablate.forward_ablation.launches = 0
-    times = ablate.time_variants(steps, n_slots, trans, tips)
-    launches = ablate.forward_ablation.launches
-    check(launches == 11 * len(ablate.VARIANTS), "every variant launched")
-    errs = {}
+    # each variant's timed launches counted alone (the comparisons below
+    # launch again and are not counted)
+    times, launched = {}, {}
+    for v in ablate.VARIANTS:
+        ablate.forward_ablation.launches = 0
+        times.update(ablate.time_variants(steps, n_slots, trans, tips, variants=(v,)))
+        launched[v] = ablate.forward_ablation.launches
+        check(launched[v] == 11, f"ablation variant {v} launched 11 times")
+    # Tolerances.  The exact variants: log-scales of ~1e3, relative to the
+    # largest 1e-5, as the store's scales.  The precision variants: their
+    # twins sum the exact bfloat16 products in the kernel's order, so they
+    # give the kernel's bits up to the last digits of a log; each must lie
+    # within a tenth of its measured distance from the kernel's `full`, so
+    # a kernel that skipped its passes (and computed `full`) fails.
+    k_full = ablate.forward_ablation("full", steps, n_slots, trans, tips)
+    tols, errs = {v: 1e-5 for v in ablate.VARIANTS}, {}
     for v in ablate.VARIANTS:
         k_out = ablate.forward_ablation(v, steps, n_slots, trans, tips)
         p_out = ablate.ablation_plain(v, steps, trans, tips)
-        # log-scales of ~1e3: relative to the largest, as the store's scales
-        errs[v] = float((k_out - p_out).abs().max()) / max(1.0, float(p_out.abs().max()))
+        d = (k_out - p_out).abs()
+        errs[v] = float(d.max())
+        if v in ablate.PASSES:
+            gap = (p_out - k_full).abs()
+            tols[v] = float(gap.max()) / 10
+            check(tols[v] > 0, f"{v}: the passes move the twin away from full")
+            how = "absolute"
+            print(f"{v}: twin's distance from the kernel's full: max {float(gap.max()):.4e}, "
+                  f"mean {float(gap.mean()):.4e}; the kernel's: max "
+                  f"{float((k_out - k_full).abs().max()):.4e}; kernel vs twin: "
+                  f"{int((d > 0).sum())} of {P} patterns differ, mean {float(d.mean()):.3e}")
+        else:
+            errs[v] /= max(1.0, float(p_out.abs().max()))
+            how = "relative to the largest |scale|"
         print(f"{v:10s} {times[v]:.3f} ms a launch, {times[v] * 1e3 / n_steps:.3f} us a "
               f"step, {1 - times[v] / times['full']:+.1%} against full; error {errs[v]:.2e} "
-              f"relative to the largest |scale| (tol 1e-5)")
-        check(errs[v] <= 1e-5, f"ablation variant {v} vs its twin")
-    full_plain = cuda_ms(lambda: ablate.ablation_plain("full", steps, trans, tips), 2)
+              f"{how} (tol {tols[v]:.3g})")
+        check(errs[v] <= tols[v], f"ablation variant {v} vs its twin")
+    # The work of full.  A precision variant's passes multiply bfloat16
+    # operands with float32 sums (the tensor cores' rate); it splits each
+    # child's x once a pattern and step (two roundings and a subtraction a
+    # value) and each edge matrix once.
+    fwd_bytes = 4 * (N * S * P + (R - 1) * CSS + 6 * (N - 1) + P)
+    fwd_flops = (N - 1) * P * (4 * CSS + 3 * CS)
+    exact = [v for v in ablate.VARIANTS if v not in ablate.PASSES]
     record("forward_ablate", "iqtree_torch/engine/kernels/csrc/forward_ablate.cu",
-           "scripts/kernel_ablate.py:42", max(errs.values()), 1e-5, times["full"],
-           full_plain, 4 * (N * S * P + (R - 1) * CSS + 6 * (N - 1) + P),
-           (N - 1) * P * (4 * CSS + 3 * CS))
-    results["forward_ablate"]["launches"] = launches
+           "scripts/kernel_ablate.py:42", max(errs[v] for v in exact), 1e-5,
+           times["full"],
+           cuda_ms(lambda: ablate.ablation_plain("full", steps, trans, tips), 2),
+           fwd_bytes, fwd_flops)
+    results["forward_ablate"]["launches"] = sum(launched[v] for v in exact)
+    for v, line in (("highprec3", 153), ("defprec", 154)):
+        passes = ablate.PASSES[v]
+        record(f"forward_ablate_{v}", "iqtree_torch/engine/kernels/csrc/forward_ablate.cu",
+               f"scripts/kernel_ablate.py:{line}", errs[v], tols[v], times[v],
+               cuda_ms(lambda: ablate.ablation_plain(v, steps, trans, tips), 2),
+               fwd_bytes, (N - 1) * P * (3 * CS + 2 * 3 * CS) + 3 * (R - 1) * CSS,
+               (N - 1) * P * 4 * CSS * passes)
+        results[f"forward_ablate_{v}"]["launches"] = launched[v]
     del steps, trans, tips
     torch.cuda.empty_cache()
 

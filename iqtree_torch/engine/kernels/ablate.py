@@ -12,6 +12,9 @@ each computes):
   nostage    no per-step child loads: a fixed column of ones instead
   noscale    no scale reads or writes
   empty      the loop reads the step rows and does nothing
+  highprec3  full, each edge product at the TPU matrix unit's 3 passes:
+             hi*hi + hi*lo + lo*hi of the operands' bfloat16 parts
+  defprec    full, each edge product at its 1 pass: hi*hi
 
     python -m iqtree_torch.engine.kernels.ablate
 
@@ -29,13 +32,57 @@ import numpy as np
 import torch
 
 from . import build
-from .pruning import DEFAULT_TILE, device_slot_schedule, upward_plain
+from .pruning import DEFAULT_TILE, device_slot_schedule, schedule_tree, upward_plain
 from ..likelihood import SCALE_TINY, TreeArrays
 
-VARIANTS = ("full", "nomatmul", "norescale", "nostage", "noscale", "empty")
+VARIANTS = ("full", "nomatmul", "norescale", "nostage", "noscale", "empty",
+            "highprec3", "defprec")
+# the precision variants: the matrix unit's passes over bfloat16 parts
+PASSES = {"highprec3": 3, "defprec": 1}
 # the kernel's one instance: the bench shapes' C=4 rate categories
 ABLATE_CATEGORIES = 4
 BENCH_DATA = Path(__file__).resolve().parents[3] / "bench_data.npz"
+
+
+def bf16_split(x: torch.Tensor):
+    """(hi, lo) in x's dtype: hi = x rounded to bfloat16 (through float32,
+    to nearest even), lo = x - hi rounded the same way."""
+    hi = x.to(torch.bfloat16).to(x.dtype)
+    return hi, (x - hi).to(torch.bfloat16).to(x.dtype)
+
+
+def pass_product(passes: int, P: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """P @ x ([n, C, S, S] @ [n, C, S, P]) over the operands' bfloat16
+    parts, summed in the kernel's order: for each t, hi*hi, then in 3
+    passes hi*lo and lo*hi.  A product of two bfloat16 values is exact in
+    float32, so each add rounds once, as the kernel's FMA does: the twin
+    gives the kernel's bits."""
+    (ph, pl), (xh, xl) = bf16_split(P), bf16_split(x)
+    pairs = ((ph, xh), (ph, xl), (pl, xh))[:passes]
+    acc = None
+    for t in range(P.shape[-1]):
+        for a, b in pairs:
+            term = a[..., :, t, None] * b[..., t, None, :]
+            acc = term if acc is None else acc + term
+    return acc
+
+
+def precision_plain(passes: int, steps, trans, tips) -> torch.Tensor:
+    """Plain twin of a precision variant: the root slot's log-scale [P]
+    of the level-batched walk with each edge product at `passes`."""
+    n_rows, C, S = trans.shape[:3]
+    N, _, P = tips.shape
+    levels, children = schedule_tree(steps, n_rows)
+    up = tips.new_zeros(n_rows, C, S, P)
+    up[:N] = tips[:, None]
+    usc = tips.new_zeros(n_rows, P)
+    for ids in levels:
+        l, r = children[ids, 0], children[ids, 1]
+        y = pass_product(passes, trans[l], up[l]) * pass_product(passes, trans[r], up[r])
+        mx = torch.clamp(y.amax(dim=(1, 2)), min=SCALE_TINY)
+        up[ids] = y / mx[:, None, None, :]
+        usc[ids] = usc[l] + usc[r] + torch.log(mx)
+    return usc[int(steps[-1, 5])]
 
 
 def ablation_plain(variant, steps, trans, tips) -> torch.Tensor:
@@ -43,6 +90,8 @@ def ablation_plain(variant, steps, trans, tips) -> torch.Tensor:
     n_rows, C, S = trans.shape[:3]
     P = tips.shape[2]
     l, r, root = (int(x) for x in steps[-1, [0, 1, 5]])
+    if variant in PASSES:
+        return precision_plain(PASSES[variant], steps, trans, tips)
     if variant in ("norescale", "empty"):
         # norescale: every scale is the sum of its children's, 0 at the tips
         return tips.new_zeros(P)
@@ -66,7 +115,7 @@ def forward_ablation(variant, steps, n_slots, trans, tips, tile=None) -> torch.T
     steps [N-1, 6] int32, trans [2N, C, S, S], tips [N, S, P].  CUDA
     tensors launch csrc/forward_ablate.cu (C=4, S=4 only; ValueError
     otherwise), CPU tensors run the plain twin.  `tile` is patterns a
-    block (forward.cu's DEFAULT_TILE)."""
+    block (DEFAULT_TILE, as the other thread-a-pattern kernels)."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown ablation variant {variant!r}; one of {VARIANTS}")
     if not trans.is_cuda:
@@ -107,11 +156,11 @@ def bench_inputs(device):
     return torch.as_tensor(steps, device=device), n_slots, trans, tips
 
 
-def time_variants(steps, n_slots, trans, tips, reps=10, tile=None):
+def time_variants(steps, n_slots, trans, tips, reps=10, tile=None, variants=VARIANTS):
     """{variant: ms a launch} on the card: one warm-up launch, then `reps`
     launches between two CUDA events."""
     times = {}
-    for v in VARIANTS:
+    for v in variants:
         forward_ablation(v, steps, n_slots, trans, tips, tile)
         a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         a.record()

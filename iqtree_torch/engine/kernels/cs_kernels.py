@@ -37,6 +37,7 @@ from __future__ import annotations
 import torch
 
 from . import build
+from . import pruning
 from .pruning import (DEFAULT_TILE, WIDE_TILE, fused_upward_store, schedule_tree,
                       upward_plain)
 from ..likelihood import SCALE_TINY, branch_transition_mats, downward_pass
@@ -45,7 +46,8 @@ from ..likelihood import SCALE_TINY, branch_transition_mats, downward_pass
 def fused_upward_store_cs(steps, n_slots, trans, tips):
     """(up [2N, CS, P], usc [2N, P]) -- every internal node's normalized
     partial and log-scale.  Tip rows are left for fill_tip_rows_cs.  The
-    wide shapes (S=20) run pruning.fused_upward_store."""
+    wide shapes (S=20) run pruning.fused_upward_store.  csrc/store.cu runs
+    pruning.UPWARD_LANES lanes a block."""
     if not trans.is_cuda:
         return upward_plain(steps, trans, tips)
     n_rows, C, S = trans.shape[:3]
@@ -56,7 +58,7 @@ def fused_upward_store_cs(steps, n_slots, trans, tips):
     up = torch.empty(n_rows, C * S, P, dtype=torch.float32, device=trans.device)
     usc = torch.zeros(n_rows, P, dtype=torch.float32, device=trans.device)
     build.launch("store", steps, steps.shape[0], trans, tips, P, up, usc, C,
-                 n_slots, DEFAULT_TILE)
+                 n_slots, pruning.UPWARD_LANES)
     fused_upward_store_cs.launches += 1
     return up, usc
 

@@ -1,21 +1,25 @@
 // Shared pieces of the CS-packed likelihood kernels (DNA shapes: S = 4
 // states, C <= 8 rate categories, float32).
 //
-// Work layout common to all four kernels: the pattern axis is the
-// parallel axis.  One thread owns one pattern; a block owns a tile of
-// `blockDim.x` consecutive patterns and walks the whole slot schedule in
-// order (forward) or in reverse (the two reverse sweeps), exactly as one
-// TPU grid step walks it for its pattern tile.  Partials of the live
-// nodes sit in a shared-memory slot pool laid out [slot][C*S][tile], so
-// each thread reads and writes only its own column and the sweep needs
-// no barrier; a barrier appears only where a reverse sweep reduces over
-// the block's patterns.
+// Two work layouts, both with the pattern axis as the parallel axis and a
+// block walking the whole slot schedule in order (forward) or in reverse
+// (the reverse sweeps), as one TPU grid step walks it for its pattern tile:
+//
+// * a thread a pattern (tbar.cu, down_store.cu, stream_forward.cu,
+//   forward_ablate.cu): a block owns a tile of `blockDim.x` consecutive
+//   patterns; the partials of the live nodes sit in a shared-memory slot
+//   pool laid out [slot][C*S][tile], so each thread reads and writes only
+//   its own column and the sweep needs no barrier; a barrier appears only
+//   where a reverse sweep reduces over the block's patterns;
+// * a lane a (pattern, rate category) (forward.cu, store.cu, newton.cu):
+//   the second half of this header.
 //
 // Schedule rows (int32 x 6): left child, right child, left slot, right
 // slot (-1 = the child is a tip), output slot, output node.  Node ids are
 // the device numbering of engine/likelihood.py (tips 0..N-1).
 #pragma once
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -101,8 +105,7 @@ __device__ __forceinline__ float load_child(int node, int slot,
 // One post-order step for this thread's pattern: both children through
 // their edges, elementwise product, per-pattern max renormalization.
 // Leaves the normalized partial in y and returns the new log-scale.
-// The children's edge matrices are trans rows tl and tr (upward_step:
-// the children's own node ids).
+// The children's edge matrices are trans rows tl and tr.
 template <int C>
 __device__ __forceinline__ float upward_step_rows(const Step& st, int tl, int tr,
                                                   const float* __restrict__ trans,
@@ -129,14 +132,6 @@ __device__ __forceinline__ float upward_step_rows(const Step& st, int tl, int tr
 #pragma unroll
     for (int s = 0; s < S; ++s) y[c][s] = y[c][s] / mx;
   return sl + sr + logf(mx);
-}
-
-template <int C>
-__device__ __forceinline__ float upward_step(const Step& st, const float* __restrict__ trans,
-                                             const float* __restrict__ tips, int P, int p,
-                                             const float* slots, const float* sscale,
-                                             int T, int tid, float (&y)[C][S]) {
-  return upward_step_rows<C>(st, st.l, st.r, trans, tips, P, p, slots, sscale, T, tid, y);
 }
 
 template <int C>
@@ -215,11 +210,11 @@ __device__ __forceinline__ float outside(const float (&d)[C][S], const float (&m
 // to a power of two lanes.  Lane (pattern q, category c) of a block is
 // thread q * CL + c: a warp holds 32 / CL patterns, and a load of one
 // packed row of up [2N, C*S, P] reads CL runs of 32 / CL consecutive
-// floats, whole 32-byte sectors at CL <= 8.  A lane past C (C = 3, 5-7)
-// computes a copy of category C-1: harmless to the max, and it adds 0
-// to the sums.  Butterfly rounds leave every lane of a group the same
-// bits (each round adds or maxes a pair in both orders, which float
-// addition and fmaxf give alike).
+// floats: whole 32-byte sectors at CL <= 4, 16-byte halves at CL = 8.
+// A lane past C (C = 3, 5-7) computes a copy of category C-1: harmless to
+// the max, and it adds 0 to the sums.  Butterfly rounds leave every lane
+// of a group the same bits (each round adds or maxes a pair in both
+// orders, which float addition and fmaxf give alike).
 // ---------------------------------------------------------------------------
 
 template <int C>
@@ -252,6 +247,201 @@ __device__ __forceinline__ void apply_pt1(const float* P, const float (&o)[S],
     a3 += row.w * o[s];
   }
   dd[0] = a0; dd[1] = a1; dd[2] = a2; dd[3] = a3;
+}
+
+// A category's [S,S] block staged with 4 words of padding, so the float4
+// rows that the categories of a warp read at once fall in distinct banks.
+constexpr int SSP = SS + 4;
+
+// Shuffle rounds over the categories of a group, over the K values of v at
+// once so that their latencies overlap.
+template <int CL, int K>
+__device__ __forceinline__ void group_sums(float (&v)[K]) {
+#pragma unroll
+  for (int off = 1; off < CL; off <<= 1)
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] += __shfl_xor_sync(0xffffffffu, v[k], off);
+}
+
+// The largest v over the categories of a group (every lane gets it).
+template <int CL>
+__device__ __forceinline__ float group_max(float v) {
+#pragma unroll
+  for (int off = 1; off < CL; off <<= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// ---------------------------------------------------------------------------
+// The upward sweep on the lane layout (forward.cu, store.cu).
+//
+// Lane (pattern q, category c) is thread q * CL + c and holds its
+// category's S states of a partial.  The live partials sit in a
+// shared-memory pool [slot][S+1][lanes]: a lane's column holds its
+// category's S rows and the pattern's log-scale, which every lane of a
+// group holds with the same bits, so the walk needs no block barrier.  A
+// slot child is already in the pool; a step's other inputs -- a tip
+// child's S words for the lane's pattern (tips [N,S,P]) into the lane's
+// column of a stage, and both children's [C,S,S] edge blocks (16-byte
+// rows shared out over the warp's lanes) into the warp's padded stage --
+// are cp.async copies issued UP_STAGES - 1 steps ahead.  A step waits for
+// its own group and a __syncwarp, never for the block; the schedule rows
+// are read a step ahead of the copies that need them.
+//
+// The step is the thread-a-pattern step's arithmetic for one category:
+// the same products in the same order (apply_p1 is apply_p's row), the
+// max over a group (exact in any order), the same division and log.  So
+// a category's partial and scale carry the bits of upward_step_rows'.
+// ---------------------------------------------------------------------------
+
+// Steps whose inputs are in flight at once (a cp.async ring).
+constexpr int UP_STAGES = 2;
+// A lane's words in one stage: the two children's tip rows.
+constexpr int UP_STAGE_WORDS = 2 * S;
+
+// A warp's words in one stage: both children's padded [C] blocks.
+template <int C>
+struct UpStage {
+  static constexpr int CSSP = C * SSP;
+  static constexpr int WORDS = 2 * CSSP;
+};
+
+// Shared memory of an upward launch: the pool and the lanes' stages, then
+// the warps' stages (16-byte aligned: lanes % 32 == 0).
+template <int C>
+inline size_t upward_smem(int n_slots, int lanes) {
+  return (((size_t)n_slots * (S + 1) + UP_STAGES * UP_STAGE_WORDS) * lanes +
+          (size_t)(lanes / 32) * UP_STAGES * UpStage<C>::WORDS) *
+         sizeof(float);
+}
+
+// Step j's inputs into stage k: the warp's share of both edge blocks,
+// and this lane's tip words of a tip child.
+template <int C>
+__device__ __forceinline__ void fetch_upward(const Step& sj, float* stage_k, float* warp_k,
+                                             int T, int lane,
+                                             const float* __restrict__ trans,
+                                             const float* __restrict__ tips, int P, int p) {
+  constexpr int CSSP = UpStage<C>::CSSP;
+  // 16-byte rows: (child, category, state), 2 C S of them
+  for (int q = lane; q < 2 * C * S; q += 32) {
+    const int child = q / (C * S), rem = q - child * C * S;
+    const int node = child ? sj.r : sj.l;
+    __pipeline_memcpy_async(warp_k + child * CSSP + (rem / S) * SSP + (rem % S) * S,
+                            trans + (size_t)node * C * SS + rem * S, 16);
+  }
+  if (sj.ls < 0)
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+      __pipeline_memcpy_async(stage_k + s * T, tips + ((size_t)sj.l * S + s) * P + p, 4);
+  if (sj.rs < 0)
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+      __pipeline_memcpy_async(stage_k + (S + s) * T, tips + ((size_t)sj.r * S + s) * P + p,
+                              4);
+}
+
+// The whole upward walk for this lane's (pattern p, category c); after
+// each step emit(step, y, scale) sees the normalized partial and its
+// log-scale.  Leaves the root's in y and sc.  All lanes of a warp run it
+// (a ragged tail computes a copy of pattern P - 1).
+template <int C, typename Emit>
+__device__ __forceinline__ void upward_lanes(const int* __restrict__ steps, int n_steps,
+                                             const float* __restrict__ trans,
+                                             const float* __restrict__ tips, int P, int p,
+                                             float* smem, int n_slots, Emit emit,
+                                             float (&y)[S], float& sc) {
+  constexpr int CL = Lanes<C>::CL, CSSP = UpStage<C>::CSSP, WS = UpStage<C>::WORDS;
+  const int T = blockDim.x, tid = threadIdx.x, lane = tid & 31;
+  const int c = min(tid & (CL - 1), C - 1);
+  float* col = smem + tid;  // this lane's column of the pool [slot][S+1][T]
+  float* stage = col + (size_t)n_slots * (S + 1) * T;  // [UP_STAGES][UP_STAGE_WORDS][T]
+  float* wstage = smem + ((size_t)n_slots * (S + 1) + UP_STAGES * UP_STAGE_WORDS) * T +
+                  (size_t)(tid >> 5) * UP_STAGES * WS;  // [warp][UP_STAGES][WS]
+
+#pragma unroll
+  for (int k = 0; k < UP_STAGES - 1; ++k) {
+    if (k < n_steps)
+      fetch_upward<C>(load_step(steps, k), stage + k * UP_STAGE_WORDS * T, wstage + k * WS,
+                      T, lane, trans, tips, P, p);
+    __pipeline_commit();
+  }
+  int j = UP_STAGES - 1;  // the next step to fetch
+  Step st_j = j < n_steps ? load_step(steps, j) : Step{};
+  Step st = load_step(steps, 0);
+  int k = 0;  // the stage of step i
+  for (int i = 0; i < n_steps; ++i) {
+    const int k_free = k == 0 ? UP_STAGES - 1 : k - 1;  // held step i - 1
+    __syncwarp();  // every lane has read the warp's stage of step i - 1
+    if (j < n_steps)
+      fetch_upward<C>(st_j, stage + k_free * UP_STAGE_WORDS * T, wstage + k_free * WS, T,
+                      lane, trans, tips, P, p);
+    __pipeline_commit();
+    if (++j < n_steps) st_j = load_step(steps, j);
+    const Step st_next = i + 1 < n_steps ? load_step(steps, i + 1) : st;
+    __pipeline_wait_prior(UP_STAGES - 1);  // this lane's copies of step i have landed
+    __syncwarp();                          // and so have the other lanes'
+
+    const float* sk = stage + k * UP_STAGE_WORDS * T;
+    float xl[S], xr[S], sl = 0.f, sr = 0.f;
+    if (st.ls < 0) {
+#pragma unroll
+      for (int s = 0; s < S; ++s) xl[s] = sk[s * T];
+    } else {
+#pragma unroll
+      for (int s = 0; s < S; ++s) xl[s] = col[(st.ls * (S + 1) + s) * T];
+      sl = col[(st.ls * (S + 1) + S) * T];
+    }
+    if (st.rs < 0) {
+#pragma unroll
+      for (int s = 0; s < S; ++s) xr[s] = sk[(S + s) * T];
+    } else {
+#pragma unroll
+      for (int s = 0; s < S; ++s) xr[s] = col[(st.rs * (S + 1) + s) * T];
+      sr = col[(st.rs * (S + 1) + S) * T];
+    }
+    const float* Ml = wstage + k * WS + c * SSP;  // this category's block of the left edge
+    float mr[S];
+    apply_p1(Ml, xl, y);
+    apply_p1(Ml + CSSP, xr, mr);
+    float mx = 0.f;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      y[s] *= mr[s];
+      mx = fmaxf(mx, y[s]);
+    }
+    mx = fmaxf(group_max<CL>(mx), SCALE_TINY);
+#pragma unroll
+    for (int s = 0; s < S; ++s) y[s] = y[s] / mx;
+    sc = sl + sr + logf(mx);
+#pragma unroll
+    for (int s = 0; s < S; ++s) col[(st.out * (S + 1) + s) * T] = y[s];
+    col[(st.out * (S + 1) + S) * T] = sc;
+    emit(st, y, sc);
+    st = st_next;
+    k = k == UP_STAGES - 1 ? 0 : k + 1;
+  }
+}
+
+// The root of a forward sweep on the lane layout: the pattern's
+// log-likelihood, mixed with rootw = props * pi [C*S] in root_site_lnl's
+// order from the root slot's columns of the group (lanes g0 .. g0 + C - 1),
+// the invariant class `inv` log-added.  Every lane of the group returns it.
+template <int C>
+__device__ __forceinline__ float lane_root_lnl(const float* smem, int root_slot, int T,
+                                               int g0, const float* __restrict__ rootw,
+                                               float sc, float inv) {
+  __syncwarp();  // the group's root columns are written
+  const float* cols = smem + (size_t)root_slot * (S + 1) * T + g0;
+  float mix = 0.f;
+#pragma unroll
+  for (int k = 0; k < C * S; ++k) mix += __ldg(rootw + k) * cols[(k % S) * T + k / S];
+  float lnl = logf(fmaxf(mix, SCALE_TINY)) + sc;
+  if (inv > 0.f) {
+    float b = logf(fmaxf(inv, SCALE_TINY));
+    float hi = fmaxf(lnl, b), lo = fminf(lnl, b);
+    lnl = hi + log1pf(expf(lo - hi));
+  }
+  return lnl;
 }
 
 // Second, deterministic pass of a reverse sweep: out[i] = sum over blocks

@@ -45,8 +45,6 @@
 // 2 x 3 x 64 + 64 FMA per edge and pattern, about 11 GFLOP (67 TFLOP/s:
 // 0.17 ms): byte-bound.  At C = 4 the sweep runs 4x the threads of a
 // thread-a-pattern layout (1 246 warps at 9 962 patterns, ~9.4 an SM).
-#include <cuda_pipeline.h>
-
 #include "cs_common.cuh"
 
 using namespace iqt;
@@ -56,9 +54,6 @@ using namespace iqt;
 constexpr int STAGES = 2;
 // A lane's words in one stage: the two children's S rows, then their scales.
 constexpr int STAGE_WORDS = 2 * S + 2;
-// A category's [S,S] block staged with 4 words of padding, so the float4
-// rows that the categories of a warp read at once fall in distinct banks.
-constexpr int SSP = SS + 4;
 // A warp's words in one stage: both children's (P, P', P'') [C] blocks.
 template <int C>
 struct WarpStage {
@@ -66,16 +61,7 @@ struct WarpStage {
   static constexpr int WORDS = 2 * 3 * MATP;
 };
 
-// Shuffle rounds over the K values of v at once, so their latencies overlap.
-template <int CL, int K>
-__device__ __forceinline__ void group_sums(float (&v)[K]) {
-#pragma unroll
-  for (int off = 1; off < CL; off <<= 1)
-#pragma unroll
-    for (int k = 0; k < K; ++k) v[k] += __shfl_xor_sync(0xffffffffu, v[k], off);
-}
-
-// The same over the pattern groups of a warp (offsets CL .. 16).
+// group_sums (cs_common.cuh) over the pattern groups of a warp (offsets CL .. 16).
 template <int CL, int K>
 __device__ __forceinline__ void warp_group_sums(float (&v)[K]) {
 #pragma unroll

@@ -19,9 +19,9 @@
 // 32 patterns a block and one block an SM).  A child's edge matrix is the
 // trans row of the gather schedule (tree k's rows at k*2N+id of the
 // concatenated trans), a tip's partial the row of the kernel schedule (raw
-// tip ids: the tips are shared).  Numerics are forward.cu's: upward_step
-// and store_slot of cs_common.cuh, the 1e-30 floor, max renormalization,
-// IEEE float32.
+// tip ids: the tips are shared).  Numerics are forward.cu's:
+// upward_step_rows and store_slot of cs_common.cuh (whose bits forward.cu's
+// lane layout keeps), the 1e-30 floor, max renormalization, IEEE float32.
 //
 // Bound on an H100 at K=8, 1000 taxa x 9 962 patterns, C=4, S=4: per tree
 // (N-1) x P x (4*C*S*S + 3*C*S) = 3.03 GFLOP, 24.2 GFLOP for K=8 (67

@@ -6,7 +6,8 @@ csrc/forward.cu at the CS-packed DNA shapes (S=4), csrc/wide_forward.cu
 twin for a CPU tensor.  `fused_upward_store` is the wide upward store
 (csrc/wide_store.cu): the same sweep, storing every internal partial for
 the reverse sweeps.  The kernels evaluate the entire post-order for a
-tile of patterns with the live partials in a shared-memory slot pool:
+block of patterns with the live partials in a shared-memory slot pool
+(forward.cu with a lane a pattern and rate category, csrc/cs_common.cuh):
 
   * topology arrives as a Sethi-Ullman slot schedule (schedule.py), so at
     most ceil(log2 N)+1 partials are live per pattern;
@@ -43,9 +44,15 @@ from ..likelihood import (
     upward_pass,
 )
 
-# Patterns per block.  One thread owns one pattern; 64 keeps the slot pool
-# of a 1000-taxon tree (11 slots) under the 48 KB default shared memory
-# and gives ~160 blocks for 10k patterns on the 132 SMs.
+# Lanes a block of the upward kernels on the lane layout (forward.cu,
+# store.cu; one lane a pattern and rate category, C rounded up to a power
+# of two lanes a pattern): 64 gives 623 blocks for 10k patterns at C=4,
+# ~9.4 warps an SM spread evenly, as newton.cu's NEWTON_THREADS.
+UPWARD_LANES = 64
+# Patterns per block of the kernels that give a thread a pattern (tbar.cu,
+# down_store.cu, stream_forward.cu, forward_ablate.cu): 64 keeps the slot
+# pool of a 1000-taxon tree (11 slots) under the 48 KB default shared
+# memory and gives ~160 blocks for 10k patterns on the 132 SMs.
 DEFAULT_TILE = 64
 # Patterns per block of the wide kernels: 16 patterns x C*4 row groups of
 # 5 states (256 threads at C=4); ~123 blocks for 1 958 patterns.
@@ -117,7 +124,8 @@ def fused_site_lnl(steps, n_slots, trans, tips, props, state_freq, invar,
     props [C], state_freq [C, S], invar [P] (the invariant-class
     likelihood).  CUDA tensors launch csrc/forward.cu at S=4 and
     csrc/wide_forward.cu (wide_site_lnl) at S=20; CPU tensors run the
-    plain twin.  `tile` (patterns per block) is for measuring the kernel."""
+    plain twin.  `tile` (patterns a block) is for measuring the wide
+    kernel; forward.cu runs UPWARD_LANES lanes a block."""
     if not trans.is_cuda:
         return _site_lnl_plain(steps, trans, tips, props, state_freq, invar)
     C, S = trans.shape[1], trans.shape[2]
@@ -129,7 +137,7 @@ def fused_site_lnl(steps, n_slots, trans, tips, props, state_freq, invar,
     build.check_inputs(C, S, steps, trans, tips, rootw, invar)
     out = torch.empty(P, dtype=torch.float32, device=trans.device)
     build.launch("forward", steps, steps.shape[0], trans, tips, P, rootw,
-                 invar, out, C, n_slots, tile or DEFAULT_TILE)
+                 invar, out, C, n_slots, UPWARD_LANES)
     fused_site_lnl.launches += 1
     return out
 

@@ -370,8 +370,11 @@ def test_multi_tree_kernel_matches_twin_on_card(card):
 
 @pytest.mark.cuda
 def test_ablation_variants_match_twins_on_card(card):
-    """The six ablation variants of the forward kernel against their twins,
-    on random trans and tips uniform in [0, 1)."""
+    """The ablation variants of the forward kernel against their twins, on
+    random trans and tips uniform in [0, 1).  The precision variants' twins
+    sum the exact bfloat16 products in the kernel's order, so each kernel
+    also lies within a tenth of its twin's distance from the kernel's
+    `full`: a kernel that skipped its passes fails."""
     from iqtree_torch.engine.kernels import ablate
 
     n = card["tree"].n_taxa
@@ -380,11 +383,16 @@ def test_ablation_variants_match_twins_on_card(card):
     trans = f32(rng.random((2 * n, 4, 4, 4)))
     tips = f32(rng.random((n, 4, 700)))
     before = ablate.forward_ablation.launches
+    full = ablate.forward_ablation("full", card["steps"], card["n_slots"], trans, tips)
     for v in ablate.VARIANTS:
         got = ablate.forward_ablation(v, card["steps"], card["n_slots"], trans, tips)
         want = ablate.ablation_plain(v, card["steps"], trans, tips)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
-    assert ablate.forward_ablation.launches == before + len(ablate.VARIANTS)
+        if v in ablate.PASSES:
+            gap = float((want - full).abs().max())
+            assert gap > 0
+            assert float((got - want).abs().max()) <= gap / 10
+    assert ablate.forward_ablation.launches == before + len(ablate.VARIANTS) + 1
 
 
 @pytest.mark.cuda
@@ -425,6 +433,53 @@ def test_newton_lanes_match_twin_at_every_category_count(C):
     for g, a, w in zip(got, again, want):
         assert torch.equal(g, a)
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4 * float(w.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 3, 4, 8])
+def test_forward_and_store_lanes_match_twin_at_every_category_count(C):
+    """The upward kernels' lane layout (C rounded up to a power of two lanes
+    a pattern, idle lanes at C = 3) at an odd pattern count, with a ragged
+    last block at every C: forward and store within the float32
+    tolerances of test_kernels_match_twins_on_card, and two launches of
+    each bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(40 + C)
+    n = 33
+    seqs = ["".join(rng.choice(list("ACGT-"), 301)) for _ in range(n)]
+    aln = Alignment.from_sequences([f"t{i}" for i in range(n)], seqs, "DNA")
+    assert aln.n_patterns % 2 == 1
+    subst, rate = parse_model_string("GTR+I" + (f"+G{C}" if C > 1 else ""), aln)
+    rate.p_invar = 0.1
+    tree = random_tree(n, rng)
+    ta = TreeArrays.from_tree(tree, dev)
+    model = ModelArrays.from_model(subst, rate, dev)
+    site = SiteData.from_alignment(aln, dev, torch.float32)
+    steps, n_slots = pruning.device_slot_schedule(tree, ta)
+    steps = torch.as_tensor(steps, device=dev)
+    trans = branch_transition_mats(model, ta.blen).float().contiguous()
+    tips = tip_partials(site).contiguous()
+    inv = ptn_invar(model, site).float().contiguous()
+    props, freq = model.props.float(), model.state_freq.float()
+    f_before = pruning.fused_site_lnl.launches
+    s_before = cs_kernels.fused_upward_store_cs.launches
+    lnl = pruning.fused_site_lnl(steps, n_slots, trans, tips, props, freq, inv)
+    again = pruning.fused_site_lnl(steps, n_slots, trans, tips, props, freq, inv)
+    up, usc = cs_kernels.fused_upward_store_cs(steps, n_slots, trans, tips)
+    up2, usc2 = cs_kernels.fused_upward_store_cs(steps, n_slots, trans, tips)
+    assert pruning.fused_site_lnl.launches == f_before + 2
+    assert cs_kernels.fused_upward_store_cs.launches == s_before + 2
+    assert torch.equal(lnl, again)
+    inner = slice(n, 2 * n - 1)
+    assert torch.equal(up[inner], up2[inner]) and torch.equal(usc, usc2)
+    torch.testing.assert_close(
+        lnl, pruning._site_lnl_plain(steps, trans, tips, props, freq, inv),
+        rtol=1e-5, atol=1e-4)
+    up_p, usc_p = pruning.upward_plain(steps, trans, tips)
+    torch.testing.assert_close(up[inner], up_p[inner], rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(usc[inner], usc_p[inner], rtol=1e-5, atol=1e-4)
 
 
 @pytest.mark.cuda

@@ -120,9 +120,36 @@ def test_cpu_tensors_run_the_twins():
 def test_newton_probe_variants_apply_to_the_kernel_source():
     """Every variant of the branch-Newton probe edits csrc/newton.cu (the
     probe runs on the card; here its edits are checked against the source)."""
-    from iqtree_torch.engine.kernels import newton_probe
+    from iqtree_torch.engine.kernels import probe
 
-    src = (newton_probe.build.CSRC / "newton.cu").read_text()
-    for name in newton_probe.VARIANTS:
-        out = newton_probe.variant_source(name)
+    src = (probe.build.CSRC / "newton.cu").read_text()
+    for name in probe.KERNELS["newton"]:
+        out = probe.variant_sources("newton", name)["newton.cu"]
         assert (out == src) == (name == "as built"), name
+
+
+@pytest.mark.parametrize("kernel", ["forward", "store"])
+def test_upward_probe_variants_apply_to_the_kernel_sources(kernel):
+    """Every variant of the upward kernels' probe edits csrc/<kernel>.cu or
+    the upward walk of csrc/cs_common.cuh, and every edit lands."""
+    from iqtree_torch.engine.kernels import probe
+
+    base = probe.variant_sources(kernel, "as built")
+    for name, edits in probe.KERNELS[kernel].items():
+        out = probe.variant_sources(kernel, name)
+        assert (out == base) == (name == "as built"), name
+        for old, new in edits:
+            assert all(old not in text for text in out.values()), (name, old)
+
+
+@pytest.mark.parametrize("kernel", ["forward", "store"])
+def test_probe_base_variant_reads_both_files_from_its_directory(kernel, tmp_path):
+    """`--base DIR` builds <kernel>.cu and cs_common.cuh as DIR holds them
+    (an earlier commit's sources), untouched by any edit."""
+    from iqtree_torch.engine.kernels import probe
+
+    want = {f"{kernel}.cu": f"// {kernel} of an earlier design\n",
+            probe.HEADER: "// its header\n"}
+    for f, text in want.items():
+        (tmp_path / f).write_text(text)
+    assert probe.variant_sources(kernel, "base", tmp_path) == want

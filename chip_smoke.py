@@ -10,11 +10,13 @@ Phases (any failure exits non-zero; nothing is caught):
      stepwise-addition parsimony scorer);
   3. at the main path's shapes (bench_data.npz: 1000 taxa x 10k sites,
      GTR+G4) run each kernel and its plain PyTorch twin on the card,
-     hold them together, time both (the four redesigned kernels -- forward,
-     store, branch-Newton, parsimony -- beside their earlier designs' times;
-     the forward kernel over 32-256 lanes a block; forward, store and
-     branch-Newton also at C = 1, 3 and 8 against their twins, and two
-     launches of each bit-equal; the parsimony kernel
+     hold them together, time both (the five redesigned kernels -- forward,
+     store, branch-Newton, outside-partial store, parsimony -- beside their
+     earlier designs' times; the forward kernel over 32-256 lanes a block;
+     the outside-partial store over 8-128 patterns a block; forward,
+     store, branch-Newton and outside-partial store also at C = 1, 3 and 8
+     against their twins, and two launches of each bit-equal; the
+     parsimony kernel
      alone, through its wrapper, and the host layout around it); check the
      custom-autograd gradient
      against autograd through the plain pass; check the golden lnL of the
@@ -33,8 +35,11 @@ Phases (any failure exits non-zero; nothing is caught):
      torch.profiler: device time by kernel, busy share;
   8. at the protein path's shapes (bench_data_protein.npz: 300 taxa x
      2 000 aa, 1 958 patterns, LG+G4) the four wide kernels against their
-     twins, timed with their tile sweep; the custom-autograd gradient
-     against autograd through the plain pass;
+     twins, timed with their tile sweep (the branch-Newton sweep over its
+     patterns a cluster, beside its earlier design's time, two launches
+     bit-equal, also at C = 1 and 8, its shared memory by its formula at
+     S = 20 and S = 61); the custom-autograd gradient against autograd
+     through the plain pass;
   9. the protein fixed-topology path through the CLI entry point:
      `-s ALN -te TREE -m LG+G` on cuda, with the wide kernels' launch
      counts read around that run;
@@ -95,7 +100,8 @@ PEAK_BW = 3.35e12  # H100 SXM HBM3, bytes/s
 # fused_site_lnl, fused_upward_store_cs and newton_sweep, and of
 # insertion_costs (its events held the wrapper's host work)
 EARLIER_MS = {"forward": 3.139, "store": 3.315, "newton": 12.361, "pars_insert": 1.683,
-              "pars_insert_s20": 0.556}
+              "pars_insert_s20": 0.556, "down_store": 14.706, "wide_newton": 7.063}
+SMEM_BLOCK = 232448  # bytes of shared memory an H100 block may have
 SMEM_ROUND_TRIP = 30  # cycles from a shared-memory load to its use, about
 
 
@@ -146,6 +152,19 @@ def check(ok, what):
     """Fail the run (an explicit raise: asserts vanish under -O)."""
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+def beside_earlier(results, name):
+    ms = results[name]["ms"]
+    print(f"{name}: {ms:.3f} ms beside the earlier design's {EARLIER_MS[name]} "
+          f"({EARLIER_MS[name] / ms:.2f}x)")
+
+
+def bit_equal(name, a, b):
+    import torch
+
+    check(all(torch.equal(x, y) for x, y in zip(a, b)), f"{name}: two launches bit-equal")
+    print(f"{name}: two launches bit-equal")
 
 
 def bound(bytes_, flops, bf16_flops=0):
@@ -430,16 +449,6 @@ def main():
                              ms=ms, plain_ms=plain_ms, bound_ms=bms,
                              bound_by=by, library_ms=None)
 
-    def beside_earlier(name):
-        ms = results[name]["ms"]
-        print(f"{name}: {ms:.3f} ms beside the earlier design's {EARLIER_MS[name]} "
-              f"({EARLIER_MS[name] / ms:.2f}x)")
-
-    def bit_equal(name, a, b):
-        check(all(torch.equal(x, y) for x, y in zip(a, b)),
-              f"{name}: two launches bit-equal")
-        print(f"{name}: two launches bit-equal")
-
     # forward and store: a sweep of lanes a block, then kernel vs twin
     lanes0 = pk.UPWARD_LANES
     for lanes in (32, 64, 128, 256):
@@ -462,9 +471,17 @@ def main():
            cuda_ms(lambda: pk._site_lnl_plain(steps, trans, tips, props, freq,
                                               invar), 2),
            4 * (N * S * P + R * CSS + 6 * (N - 1) + 3 * P), fwd_flops)
-    beside_earlier("forward")
+    beside_earlier(results, "forward")
 
     inner = slice(N, 2 * N - 1)
+    outside_rows = [v for v in range(R - 1) if v != R - 2]  # the root is never written
+
+    def down_err(got, want):
+        """O absolutely (in [0, 1]), osc relative to the largest."""
+        (o_k, s_k), (o_p, s_p) = got, want
+        return max(float((o_k[outside_rows] - o_p[outside_rows]).abs().max()),
+                   float((s_k[outside_rows] - s_p[outside_rows]).abs().max()
+                         / s_p[outside_rows].abs().max()))
 
     def store_err(up_k, usc_k, up_p, usc_p):
         """Partials absolutely (in [0, 1]), scales relative to the largest."""
@@ -493,7 +510,7 @@ def main():
            cuda_ms(lambda: pk.upward_plain(steps, trans, tips), 2),
            4 * (N * S * P + R * CSS + 6 * (N - 1) + (N - 1) * (CS + 1) * P),
            fwd_flops)
-    beside_earlier("store")
+    beside_earlier(results, "store")
     del up_p, usc_p
 
     lnl = k_out.contiguous()
@@ -529,7 +546,7 @@ def main():
            cuda_ms(lambda: csk._newton_plain(steps, mats, props, freq, wp, invar,
                                              up_k, usc_k), 2),
            rev_bytes + 4 * R * 3 * CSS, newton_flops(N, P, CS, CSS))
-    beside_earlier("newton")
+    beside_earlier(results, "newton")
     del d_p, again, up_k, usc_k, mats
     # the lane layouts at the other category counts: C = 1 (one lane), 3
     # (an idle lane a pattern) and 8 (eight lanes), the same tree and data
@@ -563,26 +580,40 @@ def main():
         print(f"newton C={k}: max relative error {e_k:.3e} (tol 1e-4), "
               f"{cuda_ms(lambda: csk.newton_sweep(*args), 5):.3f} ms")
         check(e_k <= 1e-4, f"newton at C={k} against its twin")
-        del u_k, us_k, mt_k, tr_k, got, want, args, f_k, fargs
+        dargs = (steps, n_slots, tr_k, u_k, us_k, m_k.state_freq.float())
+        got = csk.fused_down_store_cs(*dargs)
+        bit_equal(f"down_store C={k}", got, csk.fused_down_store_cs(*dargs))
+        e_k = down_err(got, csk._down_store_plain(*dargs[:1], *dargs[2:]))
+        print(f"down_store C={k}: error {e_k:.3e} (tol 1e-4), "
+              f"{cuda_ms(lambda: csk.fused_down_store_cs(*dargs), 5):.3f} ms")
+        check(e_k <= 1e-4, f"down_store at C={k} against its twin")
+        del u_k, us_k, mt_k, tr_k, got, want, args, f_k, fargs, dargs
     up_k, usc_k = csk.fused_upward_store_cs(steps, n_slots, trans, tips)
     csk.fill_tip_rows_cs(up_k, usc_k, tips, C)
 
-    # outside-partial store: O in [0, 1] absolutely, osc relative to its largest
+    # outside-partial store: O in [0, 1] absolutely, osc relative to its
+    # largest; timed over patterns a block (a warp's row store a run of
+    # 32 bytes at 8, of 128 from 32 on)
+    pb0 = csk.DOWN_STORE_PATTERNS
+    for pb in (8, 32, 64, 128):
+        csk.DOWN_STORE_PATTERNS = pb
+        ms = cuda_ms(lambda: csk.fused_down_store_cs(steps, n_slots, trans, up_k, usc_k,
+                                                     freq), 5)
+        print(f"down_store, {pb} patterns a block: {ms:.3f} ms")
+    csk.DOWN_STORE_PATTERNS = pb0
     out_k, osc_k = csk.fused_down_store_cs(steps, n_slots, trans, up_k, usc_k, freq)
-    out_p, osc_p = csk._down_store_plain(steps, trans, up_k, usc_k, freq)
-    rows = torch.arange(R - 1, device=dev)
-    rows = rows[rows != R - 2]  # every node but the root (never written)
-    err = max(float((out_k[rows] - out_p[rows]).abs().max()),
-              float((osc_k[rows] - osc_p[rows]).abs().max()
-                    / osc_p[rows].abs().max()))
+    bit_equal("down_store", (out_k, osc_k),
+              csk.fused_down_store_cs(steps, n_slots, trans, up_k, usc_k, freq))
+    err = down_err((out_k, osc_k), csk._down_store_plain(steps, trans, up_k, usc_k, freq))
     record("down_store", "iqtree_torch/engine/kernels/csrc/down_store.cu",
            "iqtree_tpu/engine/kernels/cs_kernels.py:734", err, 1e-4,
            cuda_ms(lambda: csk.fused_down_store_cs(steps, n_slots, trans, up_k, usc_k,
-                                                   freq), 5),
+                                                   freq), 10),
            cuda_ms(lambda: csk._down_store_plain(steps, trans, up_k, usc_k, freq), 2),
            4 * (2 * R * (CS + 1) * P + R * CSS + 6 * (N - 1) + CS),
            P * (2 * (N - 1) * (2 * CSS + 3 * CS) + (N - 2) * 2 * CSS))
-    del up_k, usc_k, out_k, osc_k, out_p, osc_p
+    beside_earlier(results, "down_store")
+    del up_k, usc_k, out_k, osc_k
 
     # stepwise-addition parsimony: the last insertion of a full tree (the
     # bench tree without one taxon); integer pattern weights, exact sums.
@@ -819,8 +850,8 @@ def protein_phases(dev, card, record, results, cli_main):
     from iqtree_torch.engine.kernels import cs_kernels as csk
     from iqtree_torch.engine.kernels import pruning as pk
     from iqtree_torch.engine.likelihood import (
-        SiteData, TreeArrays, branch_transition_mats, compute_loglik, ptn_invar,
-        tip_partials)
+        ModelArrays, SiteData, TreeArrays, branch_transition_mats, compute_loglik,
+        ptn_invar, tip_partials)
     from iqtree_torch.io.alignment import Alignment
     from iqtree_torch.models.factory import parse_model_string
     from iqtree_torch.models.optimize import ModelOptimizer
@@ -889,9 +920,19 @@ def protein_phases(dev, card, record, results, cli_main):
         tb_ms = cuda_ms(lambda: csk.fused_downward_tbar(
             steps, n_slots, trans, tips, props, freq, lnl, wp, up=up_k, usc=usc_k,
             tile=tile), 5)
+        print(f"wide tile {tile}: tbar {tb_ms:.3f} ms")
+    for tile in (16, 32, 64):
         nt_ms = cuda_ms(lambda: csk.wide_newton_sweep(
-            steps, n_slots, mats, props, freq, wp, invar, up_k, usc_k, tile=tile), 5)
-        print(f"wide tile {tile}: tbar {tb_ms:.3f} ms, newton {nt_ms:.3f} ms")
+            steps, n_slots, mats, props, freq, wp, invar, up_k, usc_k, tile=tile), 10)
+        print(f"wide newton, {tile} patterns a cluster of {C} blocks "
+              f"({-(-P // tile) * C} blocks, "
+              f"{csk.wide_newton_smem(S, C, tile, n_slots)} B of shared memory a block): "
+              f"{nt_ms:.3f} ms")
+    s61 = csk.wide_newton_smem(61, 4, 8, max(n_slots, 11))
+    print(f"wide newton shared memory by its formula at S=61, C=4, 8 patterns a "
+          f"cluster, {max(n_slots, 11)} slots (a 1000-taxon tree's): {s61} B (a block "
+          f"may have {SMEM_BLOCK})")
+    check(s61 <= SMEM_BLOCK, "wide newton's staging fits at S=61")
     tb_k = csk.fused_downward_tbar(steps, n_slots, trans, tips, props, freq, lnl, wp,
                                    up=up_k, usc=usc_k)
     tb_p = csk._tbar_plain(steps, trans, props, freq, lnl, wp, up_k, usc_k)
@@ -908,17 +949,39 @@ def protein_phases(dev, card, record, results, cli_main):
 
     d_k = csk.wide_newton_sweep(steps, n_slots, mats, props, freq, wp, invar, up_k,
                                 usc_k)
+    bit_equal("wide_newton", d_k, csk.wide_newton_sweep(steps, n_slots, mats, props, freq,
+                                                        wp, invar, up_k, usc_k))
     d_p = csk._newton_plain(steps, mats, props, freq, wp, invar, up_k, usc_k)
     err = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(d_k, d_p))
     record("wide_newton", "iqtree_torch/engine/kernels/csrc/wide_newton.cu",
            "iqtree_tpu/engine/kernels/cs_kernels.py:300", err, 1e-4,
            cuda_ms(lambda: csk.wide_newton_sweep(steps, n_slots, mats, props, freq, wp,
-                                                 invar, up_k, usc_k), 5),
+                                                 invar, up_k, usc_k), 10),
            cuda_ms(lambda: csk._newton_plain(steps, mats, props, freq, wp, invar, up_k,
                                              usc_k), 3),
            4 * (R * (CS + 1) * P + 3 * P + 3 * R * CSS + 2 * R),
            newton_flops(N, P, CS, CSS))
+    beside_earlier(results, "wide_newton")
     del d_p, up_k, usc_k, mats
+    # the cluster at its smallest and largest: C = 1 (one block) and 8
+    for k in (1, 8):
+        s_k, r_k = parse_model_string("LG+I" + (f"+G{k}" if k > 1 else ""), aln)
+        r_k.p_invar = 0.05
+        m_k = ModelArrays.from_model(s_k, r_k, dev)
+        tr_k = branch_transition_mats(m_k, ta.blen).float().contiguous()
+        u_k, us_k = pk.fused_upward_store(steps, n_slots, tr_k, tips)
+        csk.fill_tip_rows_cs(u_k, us_k, tips, k)
+        mt_k = csk.stacked_deriv_mats(m_k, ta.blen).float().contiguous()
+        args = (steps, n_slots, mt_k, m_k.props.float(), m_k.state_freq.float(), wp,
+                ptn_invar(m_k, site).float().contiguous(), u_k, us_k)
+        got = csk.wide_newton_sweep(*args)
+        bit_equal(f"wide_newton C={k}", got, csk.wide_newton_sweep(*args))
+        want = csk._newton_plain(*args[:1], *args[2:])
+        e_k = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(got, want))
+        print(f"wide_newton C={k}: max relative error {e_k:.3e} (tol 1e-4), "
+              f"{cuda_ms(lambda: csk.wide_newton_sweep(*args), 5):.3f} ms")
+        check(e_k <= 1e-4, f"wide_newton at C={k} against its twin")
+        del u_k, us_k, mt_k, tr_k, got, want, args
 
     # gradient: autograd.Function (wide store + gradient sweep) vs autograd
     # through the plain pass, in the branch lengths and alpha

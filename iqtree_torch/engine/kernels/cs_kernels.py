@@ -197,12 +197,16 @@ def fused_down_store_cs(steps, n_slots, trans, up, usc, state_freq):
     build.check_inputs(C, S, steps, trans, rootd, up, usc)
     out, osc = _zeroed_outside(n_rows, C * S, P, trans.device)
     build.launch("down_store", steps, steps.shape[0], trans, rootd, up, usc, P,
-                 out, osc, C, n_slots, DEFAULT_TILE)
+                 out, osc, C, n_slots, DOWN_STORE_PATTERNS)
     fused_down_store_cs.launches += 1
     return out, osc
 
 
 fused_down_store_cs.launches = 0
+# Patterns a block of csrc/down_store.cu (a lane a pattern and rate
+# category, a category's lanes over the block's patterns: from 32 on a
+# warp's row store is one 128-byte line; 64 measured fastest at C=4).
+DOWN_STORE_PATTERNS = 64
 
 
 def fused_down_store(steps, n_slots, trans, up, usc, state_freq, tile=None):
@@ -299,20 +303,53 @@ def category_lanes(C: int) -> int:
     return 1 << (C - 1).bit_length()
 
 
+# Patterns a cluster of csrc/wide_newton.cu (C blocks, one a rate category):
+# 32 gives 62 clusters of 4 blocks of 64 threads at 1 958 patterns, C=4
+# (measured fastest at C=4 and C=8).
+WIDE_NEWTON_TILE = 32
+# Patterns whose edge terms csrc/wide_newton.cu adds in order into one row
+# of its sums (the earlier design's tile, whose bits it keeps).
+WIDE_NEWTON_SUM_PATTERNS = 16
+
+
+def wide_newton_part_rows(P: int, tile: int) -> int:
+    """Rows of csrc/wide_newton.cu's edge sums [rows, 2N, 2]: a row a group
+    of 16 patterns (of `tile` itself below 16) of each cluster's tile."""
+    group = min(tile, WIDE_NEWTON_SUM_PATTERNS)
+    if tile <= 0 or tile % group:
+        raise ValueError(f"wide_newton: {tile} patterns a cluster is neither a multiple "
+                         f"of {WIDE_NEWTON_SUM_PATTERNS} nor below it")
+    return -(-P // tile) * (tile // group)
+
+
+def wide_newton_smem(S: int, C: int, tile: int, n_slots: int, groups: int = 4,
+                     stages: int = 2) -> int:
+    """Bytes of shared memory a block of csrc/wide_newton.cu takes (the
+    formula of its header) with `groups` row groups a category: the
+    matrices' ring, the children's rows, the slot pool, the O stage, the
+    exchange buffers and the edge terms.  A block holds one rate
+    category, so only the max buffers grow with C."""
+    return 4 * (stages * 6 * S * S + stages * 2 * (S + 1) * tile
+                + n_slots * (S + 1) * tile + 2 * S * tile
+                + (2 * C + 6 * groups + 4) * tile)
+
+
 def wide_newton_sweep(steps, n_slots, mats, props, state_freq, wp, invar, up, usc,
                       tile=None):
     """newton_sweep at the wide shapes (S=20): csrc/wide_newton.cu for CUDA
-    tensors, the plain twin _newton_plain for CPU tensors.  Each step
-    stages its children's per-category (P, P', P'') blocks of `mats`."""
+    tensors, the plain twin _newton_plain for CPU tensors.  A cluster of C
+    blocks (one a rate category) holds `tile` patterns (default
+    WIDE_NEWTON_TILE; for measuring the kernel)."""
     if not mats.is_cuda:
         return _newton_plain(steps, mats, props, state_freq, wp, invar, up, usc)
     n_rows, _, C, S = mats.shape[:4]
     P = up.shape[2]
-    T = tile or WIDE_TILE
+    T = tile or WIDE_NEWTON_TILE
     rootd = (props[:, None] * state_freq).reshape(-1).float().contiguous()
     build.check_inputs(C, S, steps, mats, rootd, wp, invar, up, usc,
                        states=build.WIDE_STATES)
-    part = torch.zeros(-(-P // T), n_rows, 2, dtype=torch.float32, device=mats.device)
+    part = torch.zeros(wide_newton_part_rows(P, T), n_rows, 2, dtype=torch.float32,
+                       device=mats.device)
     d12 = torch.empty(n_rows, 2, dtype=torch.float32, device=mats.device)
     build.launch("wide_newton", steps, steps.shape[0], mats, rootd, wp, invar, up, usc,
                  P, n_rows, part, d12, C, S, n_slots, T)

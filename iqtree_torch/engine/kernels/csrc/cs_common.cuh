@@ -5,14 +5,14 @@
 // block walking the whole slot schedule in order (forward) or in reverse
 // (the reverse sweeps), as one TPU grid step walks it for its pattern tile:
 //
-// * a thread a pattern (tbar.cu, down_store.cu, stream_forward.cu,
-//   forward_ablate.cu): a block owns a tile of `blockDim.x` consecutive
+// * a thread a pattern (tbar.cu, stream_forward.cu, forward_ablate.cu):
+//   a block owns a tile of `blockDim.x` consecutive
 //   patterns; the partials of the live nodes sit in a shared-memory slot
 //   pool laid out [slot][C*S][tile], so each thread reads and writes only
 //   its own column and the sweep needs no barrier; a barrier appears only
 //   where a reverse sweep reduces over the block's patterns;
-// * a lane a (pattern, rate category) (forward.cu, store.cu, newton.cu):
-//   the second half of this header.
+// * a lane a (pattern, rate category) (forward.cu, store.cu, newton.cu,
+//   down_store.cu): the second half of this header.
 //
 // Schedule rows (int32 x 6): left child, right child, left slot, right
 // slot (-1 = the child is a tip), output slot, output node.  Node ids are
@@ -177,6 +177,26 @@ __device__ __forceinline__ float load_up(const float* __restrict__ up,
 #pragma unroll
     for (int s = 0; s < S; ++s) u[c][s] = __ldg(base + (size_t)(c * S + s) * P);
   return __ldg(usc + (size_t)node * P + p);
+}
+
+// x / y for a float x and a normal y > 0, with the bits of the IEEE float
+// division but without its branches (the float division's check and slow
+// path, which a dividend or quotient near the bottom of the float range
+// takes: a slow rate category's partials far below their pattern's max).
+// In double: the hardware's approximate reciprocal (~2^-22) refined by two
+// Newton steps, the product, and one residual correction give the
+// quotient to well under half a double ulp, and one rounding to float then
+// gives the correctly rounded float quotient, subnormal results included
+// (a quotient of two floats is a float midpoint exactly or lies > 2^-49
+// relative from one).
+__device__ __forceinline__ float div_rn(float x, float y) {
+  const double xd = x, yd = y;
+  double r;
+  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(r) : "d"(yd));
+  r = fma(r, fma(-yd, r, 1.0), r);
+  r = fma(r, fma(-yd, r, 1.0), r);
+  const double q = xd * r;
+  return (float)fma(fma(-yd, q, xd), r, q);
 }
 
 // Outside partial of one child edge, normalized per pattern:

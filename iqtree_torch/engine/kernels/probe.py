@@ -1,23 +1,28 @@
-"""Source variants of the lane-layout kernels: what their time is made of.
+"""Source variants of the redesigned kernels: what their time is made of.
 
     python -m iqtree_torch.engine.kernels.probe [-C N[,N...]] [--base DIR]
-                                                [newton|forward|store ...]
+        [newton|forward|store|down_store|wide_newton ...]
 
 On a CUDA card, at the bench shapes (bench_data.npz: its tree, 1000 taxa,
 9 962 patterns, GTR+G4 at the model's start values; GTR+GN with -C N, each
-of a list in turn), builds each variant of a kernel -- a text edit of
-csrc/<kernel>.cu or of csrc/cs_common.cuh that takes one cost out -- loads
-it in place of the kernel and prints ms a call of the kernel's wrapper
-(CUDA events around 10 calls after a warm-up) at 32, 64 and 128 lanes a
-block.  With no kernel named, all three.
+of a list in turn; wide_newton at bench_data_protein.npz's: 300 taxa,
+1 958 patterns, LG+GN), builds each variant of a kernel -- a text edit of
+csrc/<kernel>.cu or of a header it includes that takes one cost out --
+loads it in place of the kernel and prints ms a call of the kernel's
+wrapper (CUDA events around 10 calls after a warm-up) at 32, 64 and 128
+lanes a block (down_store: 8, 32, 64 and 128 patterns a block;
+wide_newton: 16, 32 and 64 patterns a cluster).  With no kernel named,
+all five.
 
---base DIR adds the variant `base`: <kernel>.cu and cs_common.cuh taken
+--base DIR adds the variant `base`: <kernel>.cu and its headers taken
 whole from DIR, e.g. an earlier commit's csrc/ (`git archive COMMIT
 iqtree_torch/engine/kernels/csrc`), with the same C entry point.  It is
 timed first and last, `as built` second and second to last, so that the
-two designs are compared in one process on one card.  The earlier
-thread-a-pattern forward.cu and store.cu read the block argument as
-patterns a block.
+two designs are compared in one process on one card, and the probe says
+whether the two give the same bits.  The earlier thread-a-pattern
+forward.cu, store.cu and down_store.cu read the block argument as
+patterns a block, the earlier wide_newton.cu as patterns a block of
+C x 4 row groups of threads (a block past 512 threads is refused).
 
 newton (newton_sweep; the per-warp sums' zeroing and reduction inside):
   as built         csrc/newton.cu
@@ -36,6 +41,31 @@ walk of cs_common.cuh:
   reciprocal       a reciprocal and a multiply in place of the division
   no stores        (store) nothing written to up and usc
   one row          (store) only the first of a lane's S rows written
+
+down_store (fused_down_store_cs), newton's walk with one matrix, timed at
+8, 32, 64 and 128 patterns a block (a warp's row store a run of 32, 128,
+128 and 128 bytes):
+  as built         csrc/down_store.cu
+  partials cached  every step fetches node 0's partials and scales
+  no max barrier   the block barrier before the cross-category max read
+                   a __syncwarp (wrong values)
+  stages 2         the cp.async ring two steps deep
+  no stores        nothing written to out and osc
+  float division   x / y in place of div_rn's branch-free double quotient
+                   (the same bits)
+  scaled division  (x 2^64) / (y 2^64) in float (the same bits)
+  reciprocal       x * __frcp_rn(y) (other bits)
+
+wide_newton (wide_newton_sweep; a cluster of C blocks, one a category):
+  as built         csrc/wide_newton.cu
+  one pattern a thread  QT = 1: twice the threads, a P word feeds one FMA
+  partials cached  every step fetches node 0's partials and scales
+  matrices cached  every step fetches node 0's (P, P', P'')
+  no cluster barriers  the two exchanges a step without their barrier
+                   (wrong values)
+  float division, scaled division, reciprocal  as for down_store
+  loads on the chain  each step waits for the next step's copies before
+                   its own arithmetic
 
 Only the variants' times mean something; their results are wrong by
 design.  The variants build beside the kernels, under build/<hash>/probe.
@@ -59,6 +89,8 @@ from .ablate import BENCH_DATA
 from .pruning import device_slot_schedule
 
 HEADER = "cs_common.cuh"
+# headers a kernel's source includes, when not HEADER alone
+HEADERS = {"wide_newton": ("wide_common.cuh", HEADER)}
 _UPWARD = {
     "as built": (),
     "tips cached": (("tips + ((size_t)sj.l * S + s) * P + p",
@@ -70,6 +102,16 @@ _UPWARD = {
     "stages 3": (("constexpr int UP_STAGES = 2;", "constexpr int UP_STAGES = 3;"),),
     "reciprocal": (("for (int s = 0; s < S; ++s) y[s] = y[s] / mx;",
                     "for (int s = 0; s < S; ++s) y[s] = y[s] * __frcp_rn(mx);"),),
+}
+# the quotient O = o / max (div_rn, branch-free in double): the float
+# division (the same bits, with its check and slow path), the float
+# division of both operands scaled by 2^64 (the same bits, no slow path for
+# a tiny dividend) or a reciprocal and a product (other bits)
+_DIV = "return (float)fma(fma(-yd, q, xd), r, q);"
+_DIVISION = {
+    "float division": ((_DIV, "return x / y;"),),
+    "scaled division": ((_DIV, "return (x * 0x1p64f) / (y * 0x1p64f);"),),
+    "reciprocal": ((_DIV, "return x * __frcp_rn(y);"),),
 }
 # kernel: {variant: ((old, new) text edits of csrc/<kernel>.cu and cs_common.cuh)}
 KERNELS: Dict[str, Dict[str, Tuple[Tuple[str, str], ...]]] = {
@@ -88,17 +130,62 @@ KERNELS: Dict[str, Dict[str, Tuple[Tuple[str, str], ...]]] = {
     "store": {**_UPWARD, "no stores": (("if (!writes) return;", "return;"),),
               "one row": (("for (int s = 0; s < S; ++s) dst[(size_t)s * P] = ys[s];",
                            "for (int s = 0; s < 1; ++s) dst[(size_t)s * P] = ys[s];"),)},
+    "down_store": {
+        "as built": (),
+        "partials cached": (("up + ((size_t)sj.l * C + c)", "up + ((size_t)0 * C + c)"),
+                            ("up + ((size_t)sj.r * C + c)", "up + ((size_t)0 * C + c)"),
+                            ("usc + (size_t)sj.l * P", "usc"),
+                            ("usc + (size_t)sj.r * P", "usc")),
+        "no max barrier": (("    __syncthreads();  // every category's max of step i is written",
+                            "    __syncwarp();  // every category's max of step i is written"),),
+        "stages 2": (("constexpr int STAGES = 3;", "constexpr int STAGES = 2;"),),
+        "no stores": (("    if (writes) {", "    if (false) {"),),
+        **_DIVISION,
+    },
+    "wide_newton": {
+        "as built": (),
+        "one pattern a thread": (("constexpr int QT = 2;", "constexpr int QT = 1;"),),
+        "partials cached": (("up + ((size_t)node * C * S + c * S + t) * P + p",
+                             "up + ((size_t)0 * C * S + c * S + t) * P + p"),
+                            ("usc + (size_t)node * P + p;", "usc + p;")),
+        "matrices cached": (("(((size_t)node * 3 + blk % 3) * C + c)",
+                             "(((size_t)0 * 3 + blk % 3) * C + c)"),),
+        "no cluster barriers": (("void exchange_barrier(cg::cluster_group& cluster) {\n"
+                                 "  cluster.sync();",
+                                 "void exchange_barrier(cg::cluster_group& cluster) {\n"
+                                 "  __syncthreads();"),),
+        **_DIVISION,
+        "loads on the chain": (("    __pipeline_commit();\n"
+                                "    const Step st_next = i > 0 ? load_step(steps, i - 1) : st;",
+                                "    __pipeline_commit();\n"
+                                "    __pipeline_wait_prior(0);\n"
+                                "    __syncthreads();\n"
+                                "    const Step st_next = i > 0 ? load_step(steps, i - 1) : st;"),),
+    },
 }
 LANES = (32, 64, 128)
+# the launch parameters: down_store's patterns a block, wide_newton's
+# patterns a cluster
+SIZES = {"down_store": (8, 32, 64, 128), "wide_newton": (16, 32, 64)}
+UNITS = {"down_store": "patterns a block", "wide_newton": "patterns a cluster"}
+# the block size at which base and as built are compared bit for bit when
+# not the wrapper's: the earlier wide_newton's tile, whose sums it keeps
+BITS_AT = {"wide_newton": 16}
+# kernels at the protein bench shapes
+PROTEIN = ("wide_newton",)
+
+
+def source_files(kernel: str):
+    return (f"{kernel}.cu", *HEADERS.get(kernel, (HEADER,)))
 
 
 def variant_sources(kernel: str, name: str, base=None) -> Dict[str, str]:
-    """{file: text} of csrc/<kernel>.cu and cs_common.cuh with the edits
-    of variant `name` applied; each edit must change one of them.  The
-    variant `base` is both files as they are in the directory `base`."""
+    """{file: text} of csrc/<kernel>.cu and its headers with the edits of
+    variant `name` applied; each edit must change one of them.  The
+    variant `base` is the files as they are in the directory `base`."""
     if name == "base":
-        return {f: (Path(base) / f).read_text() for f in (f"{kernel}.cu", HEADER)}
-    files = {f: (build.CSRC / f).read_text() for f in (f"{kernel}.cu", HEADER)}
+        return {f: (Path(base) / f).read_text() for f in source_files(kernel)}
+    files = {f: (build.CSRC / f).read_text() for f in source_files(kernel)}
     for old, new in KERNELS[kernel][name]:
         hits = [f for f, text in files.items() if old in text]
         if not hits:
@@ -108,14 +195,14 @@ def variant_sources(kernel: str, name: str, base=None) -> Dict[str, str]:
     return files
 
 
-def variant_libraries(kernel: str, base=None) -> Dict[str, ctypes.CDLL]:
-    """Every variant of `kernel` built (all at once) and loaded like the
-    kernel, with `base` (module docstring) if a directory is given.  A
-    variant's edited header sits beside its source, so its #include finds
-    that copy."""
+def variant_libraries(kernel: str, base=None, names=None) -> Dict[str, ctypes.CDLL]:
+    """Every variant of `kernel` (or those in `names`) built (all at once)
+    and loaded like the kernel, with `base` (module docstring) if a
+    directory is given.  A variant's edited headers sit beside its source,
+    so its #include finds those copies."""
     root = build.build_all() / "probe"
     procs = {}
-    for name in [*KERNELS[kernel], *(["base"] if base else [])]:
+    for name in names or [*KERNELS[kernel], *(["base"] if base else [])]:
         out = root / f"{kernel}_{name.replace(' ', '_')}"
         out.mkdir(parents=True, exist_ok=True)
         for f, text in variant_sources(kernel, name, base).items():
@@ -139,23 +226,27 @@ def variant_libraries(kernel: str, base=None) -> Dict[str, ctypes.CDLL]:
     return libs
 
 
-def bench_calls(device, categories=4):
+def bench_calls(device, categories=4, protein=False):
     """{kernel: a call of its wrapper} at the bench shapes, GTR+G with
-    `categories` rate categories."""
+    `categories` rate categories (LG+G at the protein bench's with
+    `protein`)."""
     from ..likelihood import (ModelArrays, SiteData, TreeArrays, branch_transition_mats,
                               ptn_invar, tip_partials)
     from ...io.alignment import Alignment
     from ...models.factory import parse_model_string
     from ...trees.tree import PhyloTree
 
-    z = np.load(BENCH_DATA, allow_pickle=True)
+    path = BENCH_DATA.with_name("bench_data_protein.npz") if protein else BENCH_DATA
+    z = np.load(path, allow_pickle=True)
     aln = Alignment.from_sequences([str(n) for n in z["names"]],
-                                   [str(s) for s in z["seqs"]], "DNA")
+                                   [str(s) for s in z["seqs"]],
+                                   "AA" if protein else "DNA")
     tree = PhyloTree.from_newick(str(z["tree"]), aln.names)
     ta = TreeArrays.from_tree(tree, device)
     steps, n_slots = device_slot_schedule(tree, ta)
     steps = torch.as_tensor(steps, device=device)
-    model = ModelArrays.from_model(*parse_model_string(f"GTR+G{categories}", aln),
+    name = "LG" if protein else "GTR"
+    model = ModelArrays.from_model(*parse_model_string(f"{name}+G{categories}", aln),
                                    device)
     site = SiteData.from_alignment(aln, device, torch.float32)
     trans = branch_transition_mats(model, ta.blen).float().contiguous()
@@ -166,12 +257,16 @@ def bench_calls(device, categories=4):
     csk.fill_tip_rows_cs(up, usc, tips, model.ncat)
     mats = csk.stacked_deriv_mats(model, ta.blen).float().contiguous()
     wp = site.pattern_freq.contiguous()
+    if protein:
+        return {"wide_newton": lambda: csk.wide_newton_sweep(
+            steps, n_slots, mats, props, freq, wp, invar, up, usc)}
     return {
         "newton": lambda: csk.newton_sweep(steps, n_slots, mats, props, freq, wp, invar,
                                            up, usc),
         "forward": lambda: pruning.fused_site_lnl(steps, n_slots, trans, tips, props,
                                                   freq, invar),
         "store": lambda: csk.fused_upward_store_cs(steps, n_slots, trans, tips),
+        "down_store": lambda: csk.fused_down_store_cs(steps, n_slots, trans, up, usc, freq),
     }
 
 
@@ -186,11 +281,21 @@ def call_ms(fn, reps=10) -> float:
     return a.elapsed_time(b) / reps
 
 
+# the module attribute each kernel's wrapper reads its block size from
+BLOCK_SETTING = {"newton": (csk, "NEWTON_THREADS"), "down_store": (csk, "DOWN_STORE_PATTERNS"),
+                 "wide_newton": (csk, "WIDE_NEWTON_TILE"), "forward": (pruning, "UPWARD_LANES"),
+                 "store": (pruning, "UPWARD_LANES")}
+
+
 def set_lanes(kernel: str, lanes: int) -> None:
-    if kernel == "newton":
-        csk.NEWTON_THREADS = lanes
-    else:
-        pruning.UPWARD_LANES = lanes
+    module, attr = BLOCK_SETTING[kernel]
+    setattr(module, attr, lanes)
+
+
+def same_bits(a, b) -> bool:
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def main(argv=None) -> int:
@@ -207,28 +312,47 @@ def main(argv=None) -> int:
     kernels = args or list(KERNELS)
     dev = resolve_device()
     libs = {kernel: variant_libraries(kernel, base) for kernel in kernels}
-    lanes0 = csk.NEWTON_THREADS, pruning.UPWARD_LANES
+    blocks0 = {k: getattr(*BLOCK_SETTING[k]) for k in kernels}
     for categories in (int(c) for c in options["-C"].split(",")):
-        calls = bench_calls(dev, categories)
+        calls = {}
+        if set(kernels) - set(PROTEIN):
+            calls.update(bench_calls(dev, categories))
+        if set(kernels) & set(PROTEIN):
+            calls.update(bench_calls(dev, categories, protein=True))
         for kernel in kernels:
             order = list(libs[kernel])
             if base:
                 order = ["base", "as built", *order[1:-1], "as built", "base"]
+            sizes = SIZES.get(kernel, LANES)
+            unit = UNITS.get(kernel, "lanes a block")
             print(f"{torch.cuda.get_device_name(dev)}: {kernel} at C={categories}, ms a "
-                  f"call at " + ", ".join(f"{t} lanes" for t in LANES) + " a block",
-                  flush=True)
+                  f"call at " + ", ".join(map(str, sizes)) + f" {unit}", flush=True)
             built = build.library(kernel)
+            outs = {}
             try:
                 for name in order:
                     build._libs[kernel] = libs[kernel][name]
                     times = []
-                    for t in LANES:
+                    for t in sizes:
                         set_lanes(kernel, t)
-                        times.append(call_ms(calls[kernel]))
-                    print(f"{name:16s}" + "".join(f"{ms:9.3f}" for ms in times), flush=True)
+                        try:
+                            times.append(f"{call_ms(calls[kernel]):9.3f}")
+                        except RuntimeError:  # a block size this design refuses
+                            times.append(f"{'refused':>9s}")
+                    set_lanes(kernel, BITS_AT.get(kernel, blocks0[kernel]))
+                    if name in ("base", "as built"):
+                        try:
+                            outs[name] = calls[kernel]()
+                        except RuntimeError:  # refused at the default block size
+                            pass
+                    print(f"{name:16s}" + "".join(times), flush=True)
             finally:
                 build._libs[kernel] = built
-                csk.NEWTON_THREADS, pruning.UPWARD_LANES = lanes0
+                set_lanes(kernel, blocks0[kernel])
+            if len(outs) == 2:
+                print(f"base and as built at {BITS_AT.get(kernel, blocks0[kernel])} {unit}: "
+                      f"{'the same bits' if same_bits(*outs.values()) else 'other bits'}",
+                      flush=True)
         del calls
         torch.cuda.empty_cache()
     return 0

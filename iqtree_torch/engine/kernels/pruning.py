@@ -50,12 +50,13 @@ from ..likelihood import (
 # ~9.4 warps an SM spread evenly, as newton.cu's NEWTON_THREADS.
 UPWARD_LANES = 64
 # Patterns per block of the kernels that give a thread a pattern (tbar.cu,
-# down_store.cu, stream_forward.cu, forward_ablate.cu): 64 keeps the slot
+# stream_forward.cu, forward_ablate.cu): 64 keeps the slot
 # pool of a 1000-taxon tree (11 slots) under the 48 KB default shared
 # memory and gives ~160 blocks for 10k patterns on the 132 SMs.
 DEFAULT_TILE = 64
-# Patterns per block of the wide kernels: 16 patterns x C*4 row groups of
-# 5 states (256 threads at C=4); ~123 blocks for 1 958 patterns.
+# Patterns per block of the wide kernels but wide_newton.cu
+# (cs_kernels.WIDE_NEWTON_TILE): 16 patterns x C*4 row groups of 5 states
+# (256 threads at C=4); ~123 blocks for 1 958 patterns.
 WIDE_TILE = 16
 
 

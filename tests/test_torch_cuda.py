@@ -8,8 +8,12 @@ PyTorch and the CUDA toolkit:
 Without a CUDA device they skip.  Inputs: a random 40-taxon DNA alignment
 (700 sites, a numpy seed), GTR+G4+I, and for the wide kernels a random
 30-taxon protein alignment (300 sites), LG+G4+I.  Tolerances are float32
-ones: the kernels and the twins sum in different orders.
+ones: the kernels and the twins sum in different orders.  Two tests hold
+a kernel's bits against its earlier design, built from the csrc/ directory
+that IQT_EARLIER_CSRC names; they skip without it.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -522,3 +526,144 @@ def test_parsimony_kernel_costs_equal_twin_at_ragged_patterns(alphabet):
         adj[nxt] = [v_old, p_old, t]
         adj[t] = [nxt]
         nxt += 1
+
+
+def _lane_case(C, seed, alphabet="ACGT-", n=33, sites=301):
+    """A random alignment at an odd pattern count (so no block size divides
+    it), a random tree and GTR+I+GC (LG+I+GC for amino acids) on the card."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    dna = len(alphabet) == 5
+    seqs = ["".join(rng.choice(list(alphabet), sites)) for _ in range(n)]
+    aln = Alignment.from_sequences([f"t{i}" for i in range(n)], seqs, "DNA" if dna else "AA")
+    assert aln.n_patterns % 2 == 1
+    name = "GTR" if dna else "LG"
+    subst, rate = parse_model_string(f"{name}+I" + (f"+G{C}" if C > 1 else ""), aln)
+    rate.p_invar = 0.1
+    tree = random_tree(n, rng)
+    ta = TreeArrays.from_tree(tree, dev)
+    model = ModelArrays.from_model(subst, rate, dev)
+    site = SiteData.from_alignment(aln, dev, torch.float32)
+    steps, n_slots = pruning.device_slot_schedule(tree, ta)
+    steps = torch.as_tensor(steps, device=dev)
+    trans = branch_transition_mats(model, ta.blen).float().contiguous()
+    tips = tip_partials(site).contiguous()
+    up, usc = cs_kernels.fused_upward_store_cs(steps, n_slots, trans, tips)
+    cs_kernels.fill_tip_rows_cs(up, usc, tips, C)
+    return dict(ta=ta, model=model, site=site, steps=steps, n_slots=n_slots, trans=trans,
+                up=up, usc=usc, freq=model.state_freq.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_down_store_lanes_match_twin_at_every_category_count(C, monkeypatch):
+    """The outside-partial store on the lane layout (a lane a pattern and
+    category, a category's lanes over the block's patterns) at an odd
+    pattern count: within 1e-4 of the twin (O absolutely, osc relative to
+    its largest), the root and dummy rows 0, two launches bit-equal, and
+    the same bits at 8 (C >= 3) and 64 patterns a block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    k = _lane_case(C, 50 + C)
+    args = (k["steps"], k["n_slots"], k["trans"], k["up"], k["usc"], k["freq"])
+    before = cs_kernels.fused_down_store_cs.launches
+    out, osc = cs_kernels.fused_down_store_cs(*args)
+    out2, osc2 = cs_kernels.fused_down_store_cs(*args)
+    assert cs_kernels.fused_down_store_cs.launches == before + 2
+    assert torch.equal(out, out2) and torch.equal(osc, osc2)
+    for patterns in (8, 64) if C >= 3 else (64,):
+        monkeypatch.setattr(cs_kernels, "DOWN_STORE_PATTERNS", patterns)
+        out2, osc2 = cs_kernels.fused_down_store_cs(*args)
+        assert torch.equal(out, out2) and torch.equal(osc, osc2), patterns
+    out_p, osc_p = cs_kernels._down_store_plain(k["steps"], k["trans"], k["up"], k["usc"],
+                                                k["freq"])
+    R = 2 * k["ta"].n_taxa
+    rows = [v for v in range(R - 1) if v != k["ta"].root]
+    assert float((out[rows] - out_p[rows]).abs().max()) <= 1e-4
+    assert float((osc[rows] - osc_p[rows]).abs().max()
+                 / osc_p[rows].abs().max()) <= 1e-4
+    assert not bool(out[R - 2:].any()) and not bool(osc[R - 2:].any())
+
+
+def _earlier_csrc():
+    """The csrc/ directory that IQT_EARLIER_CSRC names (an earlier commit's
+    `iqtree_torch/engine/kernels/csrc`, unpacked by `git archive`)."""
+    import os
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    earlier = os.environ.get("IQT_EARLIER_CSRC")
+    if not earlier:
+        pytest.skip("needs IQT_EARLIER_CSRC: an earlier commit's csrc/ directory")
+    return earlier
+
+
+@contextlib.contextmanager
+def _earlier_design(kernel, earlier):
+    """The wrappers launch `kernel` as the sources in `earlier` build it."""
+    from iqtree_torch.engine.kernels import build, probe
+
+    built = build.library(kernel)
+    build._libs[kernel] = probe.variant_libraries(kernel, earlier, names=["base"])["base"]
+    try:
+        yield
+    finally:
+        build._libs[kernel] = built
+
+
+@pytest.mark.cuda
+def test_down_store_gives_the_earlier_designs_bits():
+    """At C = 4 the lane-layout store gives the thread-a-pattern store's
+    bits on the same inputs (the earlier design from IQT_EARLIER_CSRC)."""
+    earlier = _earlier_csrc()
+    k = _lane_case(4, 54)
+    args = (k["steps"], k["n_slots"], k["trans"], k["up"], k["usc"], k["freq"])
+    got = cs_kernels.fused_down_store_cs(*args)
+    with _earlier_design("down_store", earlier):
+        want = cs_kernels.fused_down_store_cs(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_wide_newton_gives_the_earlier_designs_bits():
+    """At C = 4 the cluster sweep adds in the thread-per-row-group design's
+    orders, so d1/d2 keep its bits on the same inputs, at 16 and 32
+    patterns a cluster (the earlier design from IQT_EARLIER_CSRC)."""
+    earlier = _earlier_csrc()
+    k = _lane_case(4, 64, alphabet="ARNDCQEGHILKMFPSTWYV-X", n=30, sites=301)
+    model, site = k["model"], k["site"]
+    mats = cs_kernels.stacked_deriv_mats(model, k["ta"].blen).float().contiguous()
+    args = (k["steps"], k["n_slots"], mats, model.props.float(), k["freq"],
+            site.pattern_freq.contiguous(), ptn_invar(model, site).float().contiguous(),
+            k["up"], k["usc"])
+    got = [cs_kernels.wide_newton_sweep(*args, tile=t) for t in (16, 32)]
+    with _earlier_design("wide_newton", earlier):
+        want = cs_kernels.wide_newton_sweep(*args, tile=16)
+    for g in got:
+        assert torch.equal(g[0], want[0]) and torch.equal(g[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 4, 8])
+def test_wide_newton_clusters_match_twin(C):
+    """The wide branch-Newton sweep (a cluster of C blocks, one a category)
+    at an odd pattern count, over its patterns a cluster: within 1e-4
+    relative of the twin, and two launches bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    k = _lane_case(C, 60 + C, alphabet="ARNDCQEGHILKMFPSTWYV-X", n=30, sites=301)
+    model, site = k["model"], k["site"]
+    mats = cs_kernels.stacked_deriv_mats(model, k["ta"].blen).float().contiguous()
+    args = (k["steps"], k["n_slots"], mats, model.props.float(), k["freq"],
+            site.pattern_freq.contiguous(), ptn_invar(model, site).float().contiguous(),
+            k["up"], k["usc"])
+    want = cs_kernels._newton_plain(*args[:1], *args[2:])
+    before = cs_kernels.wide_newton_sweep.launches
+    got = cs_kernels.wide_newton_sweep(*args)
+    again = cs_kernels.wide_newton_sweep(*args)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    for tile in (16, 32, 64):
+        for g, w in zip(cs_kernels.wide_newton_sweep(*args, tile=tile), want):
+            assert float((g - w).abs().max() / w.abs().max()) <= 1e-4
+    assert cs_kernels.wide_newton_sweep.launches == before + 5

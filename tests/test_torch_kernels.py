@@ -142,14 +142,56 @@ def test_upward_probe_variants_apply_to_the_kernel_sources(kernel):
             assert all(old not in text for text in out.values()), (name, old)
 
 
-@pytest.mark.parametrize("kernel", ["forward", "store"])
+@pytest.mark.parametrize("kernel", ["forward", "store", "down_store", "wide_newton"])
 def test_probe_base_variant_reads_both_files_from_its_directory(kernel, tmp_path):
-    """`--base DIR` builds <kernel>.cu and cs_common.cuh as DIR holds them
-    (an earlier commit's sources), untouched by any edit."""
+    """`--base DIR` builds <kernel>.cu and the headers it includes
+    (cs_common.cuh; wide_newton also wide_common.cuh) as DIR holds them (an
+    earlier commit's sources), untouched by any edit."""
     from iqtree_torch.engine.kernels import probe
 
     want = {f"{kernel}.cu": f"// {kernel} of an earlier design\n",
             probe.HEADER: "// its header\n"}
+    if kernel == "wide_newton":
+        want["wide_common.cuh"] = "// the wide kernels' header\n"
     for f, text in want.items():
         (tmp_path / f).write_text(text)
     assert probe.variant_sources(kernel, "base", tmp_path) == want
+
+
+@pytest.mark.parametrize("kernel", ["down_store", "wide_newton"])
+def test_redesigned_probe_variants_apply_to_the_kernel_sources(kernel):
+    """Every variant of the down-store and wide branch-Newton probes edits
+    csrc/<kernel>.cu or a header it includes, and every edit lands."""
+    from iqtree_torch.engine.kernels import probe
+
+    base = probe.variant_sources(kernel, "as built")
+    assert f"{kernel}.cu" in base
+    for name, edits in probe.KERNELS[kernel].items():
+        out = probe.variant_sources(kernel, name)
+        assert (out == base) == (name == "as built"), name
+        for old, new in edits:
+            assert all(old not in text for text in out.values()), (name, old)
+
+
+def test_wide_newton_part_rows_and_shared_memory():
+    """csrc/wide_newton.cu's host-side sizes: a part row a group of 16
+    patterns of each cluster's tile (the earlier design's tile, whose sum
+    order it keeps), and the shared memory of its header's formula -- under
+    the 227 KB a block may have at S=61, C=4 (8 patterns a cluster, 10
+    slots), where the earlier design staged 2 x 3 x C x S x S floats
+    (357 KB)."""
+    rows = cs_kernels.wide_newton_part_rows
+    assert rows(1958, 16) == 123
+    assert rows(1958, 32) == 62 * 2
+    assert rows(301, 64) == 5 * 4
+    assert rows(301, 8) == 38
+    for bad in (0, 24, 40):
+        with pytest.raises(ValueError):
+            rows(1958, bad)
+    smem = cs_kernels.wide_newton_smem
+    assert smem(20, 4, 32, 10) == 4 * 16640
+    assert smem(61, 4, 8, 10) == 4 * 52860 <= 232448
+    assert smem(61, 4, 16, 10) > 232448
+    assert 2 * 3 * 4 * 61 * 61 * 4 > 232448
+    # one block a category: only the max buffers (2 C tile) grow with C
+    assert smem(20, 8, 32, 12) - smem(20, 1, 32, 12) == 4 * 2 * 7 * 32

@@ -10,13 +10,13 @@ Phases (any failure exits non-zero; nothing is caught):
      stepwise-addition parsimony scorer);
   3. at the main path's shapes (bench_data.npz: 1000 taxa x 10k sites,
      GTR+G4) run each kernel and its plain PyTorch twin on the card,
-     hold them together, time both (the five redesigned kernels -- forward,
-     store, branch-Newton, outside-partial store, parsimony -- beside their
-     earlier designs' times; the forward kernel over 32-256 lanes a block;
-     the outside-partial store over 8-128 patterns a block; forward,
-     store, branch-Newton and outside-partial store also at C = 1, 3 and 8
-     against their twins, and two launches of each bit-equal; the
-     parsimony kernel
+     hold them together, time both (the six redesigned kernels -- forward,
+     store, gradient, branch-Newton, outside-partial store, parsimony --
+     beside their earlier designs' times; the forward kernel over 32-256
+     lanes a block; the outside-partial store over 8-128 patterns a block;
+     forward, store, gradient, branch-Newton and outside-partial store
+     also at C = 1, 3 and 8 against their twins, and two launches of each
+     bit-equal; the parsimony kernel
      alone, through its wrapper, and the host layout around it); check the
      custom-autograd gradient
      against autograd through the plain pass; check the golden lnL of the
@@ -35,11 +35,11 @@ Phases (any failure exits non-zero; nothing is caught):
      torch.profiler: device time by kernel, busy share;
   8. at the protein path's shapes (bench_data_protein.npz: 300 taxa x
      2 000 aa, 1 958 patterns, LG+G4) the four wide kernels against their
-     twins, timed with their tile sweep (the branch-Newton sweep over its
-     patterns a cluster, beside its earlier design's time, two launches
-     bit-equal, also at C = 1 and 8, its shared memory by its formula at
-     S = 20 and S = 61); the custom-autograd gradient against autograd
-     through the plain pass;
+     twins, timed with their tile sweep (the forward kernel and the
+     branch-Newton sweep over their patterns a cluster, beside their
+     earlier designs' times, two launches bit-equal, also at C = 1 and 8,
+     their shared memory by their formulas at S = 20 and S = 61); the
+     custom-autograd gradient against autograd through the plain pass;
   9. the protein fixed-topology path through the CLI entry point:
      `-s ALN -te TREE -m LG+G` on cuda, with the wide kernels' launch
      counts read around that run;
@@ -95,12 +95,14 @@ JAX_PROTEIN_SEARCH_LNL = -237901.3  # the JAX package's search without -bb, floa
 PEAK_F32 = 67e12  # H100 SXM float32 outside the tensor cores, FLOP/s
 PEAK_BF16 = 989e12  # H100 SXM bfloat16 on the tensor cores (float32 sums), FLOP/s
 PEAK_BW = 3.35e12  # H100 SXM HBM3, bytes/s
-# The times of the thread-a-pattern designs the redesigned kernels replace
-# (PERF.md section 6, the same card and timing): ms a call of
-# fused_site_lnl, fused_upward_store_cs and newton_sweep, and of
+# The times of the earlier designs the redesigned kernels replace (PERF.md
+# section 6, the same card and timing): ms a call of fused_site_lnl,
+# fused_upward_store_cs, newton_sweep, fused_down_store_cs,
+# wide_newton_sweep, wide_site_lnl and fused_tbar_cs, and of
 # insertion_costs (its events held the wrapper's host work)
 EARLIER_MS = {"forward": 3.139, "store": 3.315, "newton": 12.361, "pars_insert": 1.683,
-              "pars_insert_s20": 0.556, "down_store": 14.706, "wide_newton": 7.063}
+              "pars_insert_s20": 0.556, "down_store": 14.706, "wide_newton": 7.063,
+              "wide_forward": 2.102, "tbar": 13.848}
 SMEM_BLOCK = 232448  # bytes of shared memory an H100 block may have
 SMEM_ROUND_TRIP = 30  # cycles from a shared-memory load to its use, about
 
@@ -529,7 +531,10 @@ def main():
            cuda_ms(lambda: csk._tbar_plain(steps, trans, props, freq, lnl, wp,
                                            up_k, usc_k), 2),
            rev_bytes, tbar_flops(N, P, CS, CSS))
-    del tb_p
+    beside_earlier(results, "tbar")
+    bit_equal("tbar", [tb_k], [csk.fused_tbar_cs(steps, n_slots, trans, tips, props, freq,
+                                                 lnl, wp, up=up_k, usc=usc_k)])
+    del tb_p, tb_k
 
     mats = csk.stacked_deriv_mats(model, ta.blen).float().contiguous()
     d_k = csk.newton_sweep(steps, n_slots, mats, props, freq, wp, invar, up_k, usc_k)
@@ -580,6 +585,15 @@ def main():
         print(f"newton C={k}: max relative error {e_k:.3e} (tol 1e-4), "
               f"{cuda_ms(lambda: csk.newton_sweep(*args), 5):.3f} ms")
         check(e_k <= 1e-4, f"newton at C={k} against its twin")
+        targs = (steps, n_slots, tr_k, tips, m_k.props.float(), m_k.state_freq.float(),
+                 f_k, wp)
+        got = csk.fused_tbar_cs(*targs, up=u_k, usc=us_k)
+        bit_equal(f"tbar C={k}", [got], [csk.fused_tbar_cs(*targs, up=u_k, usc=us_k)])
+        want = csk._tbar_plain(*targs[:1], *targs[2:3], *targs[4:], u_k, us_k)
+        e_k = float((got - want).abs().max() / want.abs().max())
+        print(f"tbar C={k}: max relative error {e_k:.3e} (tol 1e-4), "
+              f"{cuda_ms(lambda: csk.fused_tbar_cs(*targs, up=u_k, usc=us_k), 5):.3f} ms")
+        check(e_k <= 1e-4, f"tbar at C={k} against its twin")
         dargs = (steps, n_slots, tr_k, u_k, us_k, m_k.state_freq.float())
         got = csk.fused_down_store_cs(*dargs)
         bit_equal(f"down_store C={k}", got, csk.fused_down_store_cs(*dargs))
@@ -587,7 +601,7 @@ def main():
         print(f"down_store C={k}: error {e_k:.3e} (tol 1e-4), "
               f"{cuda_ms(lambda: csk.fused_down_store_cs(*dargs), 5):.3f} ms")
         check(e_k <= 1e-4, f"down_store at C={k} against its twin")
-        del u_k, us_k, mt_k, tr_k, got, want, args, f_k, fargs, dargs
+        del u_k, us_k, mt_k, tr_k, got, want, args, f_k, fargs, dargs, targs
     up_k, usc_k = csk.fused_upward_store_cs(steps, n_slots, trans, tips)
     csk.fill_tip_rows_cs(up_k, usc_k, tips, C)
 
@@ -881,13 +895,25 @@ def protein_phases(dev, card, record, results, cli_main):
     invar = ptn_invar(model, site).float().contiguous()
     props, freq = model.props.float(), model.state_freq.float()
 
-    for tile in (8, 16, 32):
+    for tile in (16, 32, 64):
         ms = cuda_ms(lambda: pk.wide_site_lnl(steps, n_slots, trans, tips, props, freq,
                                               invar, tile=tile), 10)
+        print(f"wide forward, {tile} patterns a cluster of {C} blocks "
+              f"({-(-P // tile) * C} blocks, "
+              f"{pk.wide_forward_smem(S, C, tile, n_slots)} B of shared memory a block): "
+              f"{ms:.3f} ms")
+    for tile in (8, 16, 32):
         st_ms = cuda_ms(lambda: pk.fused_upward_store(steps, n_slots, trans, tips,
                                                       tile=tile), 10)
-        print(f"wide tile {tile}: forward {ms:.3f} ms, store {st_ms:.3f} ms")
+        print(f"wide tile {tile}: store {st_ms:.3f} ms")
+    s61 = pk.wide_forward_smem(61, 4, pk.WIDE_FORWARD_TILE, max(n_slots, 11))
+    print(f"wide forward shared memory by its formula at S=61, C=4, "
+          f"{pk.WIDE_FORWARD_TILE} patterns a cluster, {max(n_slots, 11)} slots (a "
+          f"1000-taxon tree's): {s61} B (a block may have {SMEM_BLOCK})")
+    check(s61 <= SMEM_BLOCK, "wide forward's cluster walk fits at S=61")
     k_out = pk.fused_site_lnl(steps, n_slots, trans, tips, props, freq, invar)
+    bit_equal("wide_forward", [k_out],
+              [pk.fused_site_lnl(steps, n_slots, trans, tips, props, freq, invar)])
     p_out = pk._site_lnl_plain(steps, trans, tips, props, freq, invar)
     fwd_flops = (N - 1) * P * (4 * CSS + 3 * CS) + 2 * CS * P
     record("wide_forward", "iqtree_torch/engine/kernels/csrc/wide_forward.cu",
@@ -897,6 +923,7 @@ def protein_phases(dev, card, record, results, cli_main):
                                             invar), 20),
            cuda_ms(lambda: pk._site_lnl_plain(steps, trans, tips, props, freq, invar), 3),
            4 * (N * S * P + R * CSS + 6 * (N - 1) + CS + 2 * P), fwd_flops)
+    beside_earlier(results, "wide_forward")
 
     up_k, usc_k = pk.fused_upward_store(steps, n_slots, trans, tips)
     up_p, usc_p = pk.upward_plain(steps, trans, tips)
@@ -981,7 +1008,15 @@ def protein_phases(dev, card, record, results, cli_main):
         print(f"wide_newton C={k}: max relative error {e_k:.3e} (tol 1e-4), "
               f"{cuda_ms(lambda: csk.wide_newton_sweep(*args), 5):.3f} ms")
         check(e_k <= 1e-4, f"wide_newton at C={k} against its twin")
-        del u_k, us_k, mt_k, tr_k, got, want, args
+        fargs = (steps, n_slots, tr_k, tips, m_k.props.float(), m_k.state_freq.float(),
+                 ptn_invar(m_k, site).float().contiguous())
+        f_k = pk.wide_site_lnl(*fargs)
+        bit_equal(f"wide_forward C={k}", [f_k], [pk.wide_site_lnl(*fargs)])
+        e_k = float((f_k - pk._site_lnl_plain(*fargs[:1], *fargs[2:])).abs().max())
+        print(f"wide_forward C={k}: max_abs_err {e_k:.3e} (tol 1e-3), "
+              f"{cuda_ms(lambda: pk.wide_site_lnl(*fargs), 5):.3f} ms")
+        check(e_k <= 1e-3, f"wide_forward at C={k} against its twin")
+        del u_k, us_k, mt_k, tr_k, got, want, args, f_k, fargs
 
     # gradient: autograd.Function (wide store + gradient sweep) vs autograd
     # through the plain pass, in the branch lengths and alpha

@@ -38,8 +38,7 @@ import torch
 
 from . import build
 from . import pruning
-from .pruning import (DEFAULT_TILE, WIDE_TILE, fused_upward_store, schedule_tree,
-                      upward_plain)
+from .pruning import WIDE_TILE, fused_upward_store, schedule_tree, upward_plain
 from ..likelihood import SCALE_TINY, branch_transition_mats, downward_pass
 
 
@@ -104,17 +103,37 @@ def fused_tbar_cs(steps, n_slots, trans, tips, props, state_freq, lnl_raw, w_p,
     P = tips.shape[2]
     rootd = (props[:, None] * state_freq).reshape(-1).float().contiguous()
     build.check_inputs(C, S, steps, trans, rootd, lnl_raw, w_p, up, usc)
-    n_blocks = -(-P // DEFAULT_TILE)
+    n_blocks = -(-P // TBAR_PATTERNS)
     part = torch.zeros(n_blocks, n_rows, C, S, S, dtype=torch.float32,
                        device=trans.device)
     tbar = torch.empty(n_rows, C, S, S, dtype=torch.float32, device=trans.device)
     build.launch("tbar", steps, steps.shape[0], trans, rootd, lnl_raw, w_p, up,
-                 usc, P, n_rows, part, tbar, C, n_slots, DEFAULT_TILE)
+                 usc, P, n_rows, part, tbar, C, n_slots, TBAR_PATTERNS)
     fused_tbar_cs.launches += 1
     return tbar
 
 
 fused_tbar_cs.launches = 0
+# Patterns a block of csrc/tbar.cu (C x 64 lanes, one a pattern and rate
+# category, and a warp for the sums): the thread-a-pattern design's block,
+# whose sum order (64 patterns a part row, in order) it keeps; the kernel
+# takes no other.
+TBAR_PATTERNS = 64
+# The ring depth of csrc/tbar.cu and its rows' padding (words).
+TBAR_STAGES, TBAR_PAD = 2, 4
+
+
+def tbar_smem(C: int, n_slots: int, stages: int = TBAR_STAGES) -> int:
+    """Bytes of shared memory a block of csrc/tbar.cu takes (the formula of
+    its header): the walk warps' edge blocks (padded to 20 words) and the
+    lanes' ring, the O * fac stage, the pool [slot][S+1][lanes] and the
+    max buffers, at S=4 and C x TBAR_PATTERNS walk lanes."""
+    S, pb = 4, TBAR_PATTERNS
+    lanes = C * pb
+    return 4 * (lanes // 32 * stages * 2 * (S * S + 4)
+                + stages * (2 * S + 2) * (lanes + TBAR_PAD)
+                + C * 2 * S * (pb + TBAR_PAD)
+                + (n_slots * (S + 1) + 4) * lanes)
 
 # Share of the card's free memory the wide gradient sweep's per-block sums
 # may take; past it the sweep runs in chunks of blocks.

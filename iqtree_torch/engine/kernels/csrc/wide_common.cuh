@@ -27,7 +27,12 @@
 // right slot (-1 = tip), output slot, output node; see cs_common.cuh).
 // The kernels are templates on S and RPT with one instance, S = 20; a
 // new state count (codon, S = 61) adds an instance, not a kernel.
+//
+// The second half of this header is the upward walk on thread-block
+// clusters (cluster_upward_walk, wide_forward.cu): a block a rate category.
 #pragma once
+
+#include <cooperative_groups.h>
 
 #include "cs_common.cuh"
 
@@ -180,6 +185,272 @@ __device__ __forceinline__ void stage_children(float* dst, const float* __restri
                                                const Step& st, int stride) {
   stage(dst, src + (size_t)st.l * stride, stride);
   stage(dst + stride, src + (size_t)st.r * stride, stride);
+}
+
+
+// ---------------------------------------------------------------------------
+// The upward walk on thread-block clusters (wide_forward.cu).
+//
+// A cluster of C blocks, one a rate category (its rank), owns a tile of
+// consecutive patterns.  Thread (pq, g) of a block holds CLUSTER_QT
+// consecutive patterns q = pq QT + qq and the RPT state rows g RPT .. g RPT
+// + RPT - 1 of its category (G = S / RPT consecutive lanes a pattern
+// group), so a block has tile / QT x G threads.  A block keeps only its
+// category's rows in its slot pool [slot][S+1][tile] (S rows and the
+// patterns' log-scale, which every block of the cluster holds with the same
+// bits).  A step's other inputs -- the block's category's [S,S] blocks of
+// both children and each tip child's S indicator rows for the tile (every
+// block reads its own copy, in 4-byte words: P need not be a multiple of 4)
+// -- are cp.async copies into a ring CLUSTER_STAGES deep, issued as the
+// stage they replace is released.
+//
+// The renormalizing max crosses the category's rows in log2(G) shuffle
+// rounds and the categories through distributed shared memory: each block
+// stores its per-pattern max into every block's buffer [parity][rank][tile]
+// (double-buffered by step parity), and one cluster barrier a step, which
+// also publishes the ring's landed copies and releases the stage the step
+// read, precedes the reads.  A pattern's pool rows cross its G lanes, which
+// share a warp, after a __syncwarp.
+//
+// The arithmetic is upward_step's: each message's products in t order,
+// the product of the two messages, the max (exact in any order), the float
+// division's bits (div_rn, without its branches) and the scale chain
+// sl + sr + log(max) in that order.  So the pool holds upward_step's bits.
+//
+// Shared memory a block (floats), with tile patterns, n_slots slots and
+// STAGES = CLUSTER_STAGES:
+//     STAGES x 2 S^2           both children's matrices
+//   + STAGES x 2 S tile        their tip rows
+//   + n_slots (S+1) tile       the pool
+//   + 2 C tile                 the max buffers
+// (pruning.wide_forward_smem).
+// ---------------------------------------------------------------------------
+
+namespace cg = cooperative_groups;
+
+// Patterns a thread: each staged matrix word loaded feeds CLUSTER_QT
+// multiply-adds.
+constexpr int CLUSTER_QT = 2;
+// Steps whose matrices and tip rows are in flight at once (a cp.async ring).
+constexpr int CLUSTER_STAGES = 2;
+// Largest block of a cluster walk.
+constexpr int CLUSTER_THREADS_MAX = 256;
+
+// Offsets (floats) of a cluster walk's shared-memory arrays.
+template <int S>
+struct ClusterSmem {
+  int tile;
+  __device__ __host__ ClusterSmem(int tile_) : tile(tile_) {}
+  __device__ __host__ size_t tips() const { return (size_t)CLUSTER_STAGES * 2 * S * S; }
+  __device__ __host__ size_t pool() const {
+    return tips() + (size_t)CLUSTER_STAGES * 2 * S * tile;
+  }
+  __device__ __host__ size_t xmax(int n_slots) const {
+    return pool() + (size_t)n_slots * (S + 1) * tile;
+  }
+  __device__ __host__ size_t floats(int n_slots, int C) const {
+    return xmax(n_slots) + 2 * (size_t)C * tile;
+  }
+};
+
+// Step j's inputs for category c into stage k: both children's [S,S]
+// blocks (mst_k [child][S*S]) and each tip child's S rows for the tile's
+// patterns (tst_k [child][S][tile]; a ragged tail repeats P - 1).
+template <int S>
+__device__ __forceinline__ void cluster_fetch(const Step& sj, float* mst_k, float* tst_k,
+                                              int c, int C, int tile, int p0,
+                                              const float* __restrict__ trans,
+                                              const float* __restrict__ tips, int P) {
+  constexpr int SS = S * S;
+  const int T = blockDim.x, tid = threadIdx.x;
+  if constexpr (SS % 4 == 0) {
+    constexpr int V = SS / 4;  // 16-byte rows a block
+    for (int q = tid; q < 2 * V; q += T) {
+      const int side = q / V, r = q - side * V;
+      const int node = side ? sj.r : sj.l;
+      __pipeline_memcpy_async(mst_k + side * SS + 4 * r,
+                              trans + ((size_t)node * C + c) * SS + 4 * r, 16);
+    }
+  } else {
+    for (int q = tid; q < 2 * SS; q += T) {
+      const int side = q / SS, r = q - side * SS;
+      const int node = side ? sj.r : sj.l;
+      __pipeline_memcpy_async(mst_k + q, trans + ((size_t)node * C + c) * SS + r, 4);
+    }
+  }
+  // a thread copies one pattern's words (T % tile == 0)
+  const int qq = tid % tile, p = min(p0 + qq, P - 1);
+#pragma unroll
+  for (int side = 0; side < 2; ++side) {
+    if ((side ? sj.rs : sj.ls) >= 0) continue;
+    const int node = side ? sj.r : sj.l;
+    for (int t = tid / tile; t < S; t += T / tile)
+      __pipeline_memcpy_async(tst_k + (side * S + t) * tile + qq,
+                              tips + ((size_t)node * S + t) * P + p, 4);
+  }
+}
+
+// m[j][qq] = sum_t M[s0+j][t] x[t][qq] for this thread's rows and patterns,
+// in message's order (t ascending).
+template <int S, int RPT, int QT>
+__device__ __forceinline__ void cluster_message(const float* M, int s0,
+                                                const float (&x)[S][QT],
+                                                float (&m)[RPT][QT]) {
+#pragma unroll
+  for (int j = 0; j < RPT; ++j) {
+    float acc[QT];
+#pragma unroll
+    for (int qq = 0; qq < QT; ++qq) acc[qq] = 0.f;
+    const float* row = M + (s0 + j) * S;
+    if constexpr (S % 4 == 0) {
+#pragma unroll
+      for (int t = 0; t < S; t += 4) {
+        const float4 w = *reinterpret_cast<const float4*>(row + t);
+#pragma unroll
+        for (int qq = 0; qq < QT; ++qq) {
+          acc[qq] += w.x * x[t][qq];
+          acc[qq] += w.y * x[t + 1][qq];
+          acc[qq] += w.z * x[t + 2][qq];
+          acc[qq] += w.w * x[t + 3][qq];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int t = 0; t < S; ++t) {
+        const float w = row[t];
+#pragma unroll
+        for (int qq = 0; qq < QT; ++qq) acc[qq] += w * x[t][qq];
+      }
+    }
+#pragma unroll
+    for (int qq = 0; qq < QT; ++qq) m[j][qq] = acc[qq];
+  }
+}
+
+// The whole upward walk for this block's category and tile (patterns p0
+// ..).  After each step emit(step, y, sc) sees this thread's normalized
+// rows y[RPT][QT] and its patterns' log-scales sc[QT]; the pool keeps
+// them for the parent step.  Returns the root's slot.  Every thread of
+// every block of the cluster runs it; the caller passes a cluster barrier
+// before it reads another block's pool.
+template <int S, int RPT, typename Emit>
+__device__ __forceinline__ int cluster_upward_walk(const int* __restrict__ steps,
+                                                   int n_steps,
+                                                   const float* __restrict__ trans,
+                                                   const float* __restrict__ tips, int P,
+                                                   int p0, int tile, int n_slots,
+                                                   float* smem, Emit emit) {
+  constexpr int G = S / RPT, SS = S * S, QT = CLUSTER_QT, NS = CLUSTER_STAGES;
+  static_assert(S % RPT == 0 && G <= 32 && (G & (G - 1)) == 0,
+                "a pattern's row groups are a power of two of consecutive lanes");
+  static_assert(G % QT == 0, "a block's threads are a multiple of its tile");
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), c = (int)cluster.block_rank();
+  const int tid = threadIdx.x, g = tid % G, s0 = g * RPT, pq = tid / G;
+  const ClusterSmem<S> lay(tile);
+  float* mst = smem;                   // [NS][2][SS]
+  float* tst = smem + lay.tips();      // [NS][2][S][tile]
+  float* pool = smem + lay.pool();     // [n_slots][S+1][tile]
+  float* xmax = smem + lay.xmax(n_slots);  // [2][C][tile]
+  int q[QT];
+#pragma unroll
+  for (int qq = 0; qq < QT; ++qq) q[qq] = pq * QT + qq;
+
+#pragma unroll
+  for (int k = 0; k < NS; ++k) {
+    if (k < n_steps)
+      cluster_fetch<S>(load_step(steps, k), mst + k * 2 * SS, tst + (size_t)k * 2 * S * tile,
+                       c, C, tile, p0, trans, tips, P);
+    __pipeline_commit();
+  }
+  __pipeline_wait_prior(NS - 1);  // step 0's copies have landed
+  cluster.sync();  // every thread's, and every block of the cluster runs
+  Step st = load_step(steps, 0);
+  Step st_f = NS < n_steps ? load_step(steps, NS) : st;  // the next step to fetch
+  int k = 0;  // the stage of step i
+  for (int i = 0; i < n_steps; ++i) {
+    const Step st_next = i + 1 < n_steps ? load_step(steps, i + 1) : st;
+    const float* Mk = mst + k * 2 * SS;
+    const float* Tk = tst + (size_t)k * 2 * S * tile;
+    float y[RPT][QT], m[RPT][QT], sc[QT];
+#pragma unroll
+    for (int qq = 0; qq < QT; ++qq) sc[qq] = 0.f;
+#pragma unroll
+    for (int side = 0; side < 2; ++side) {
+      const int slot = side ? st.rs : st.ls;
+      float x[S][QT];
+      if (slot < 0) {
+#pragma unroll
+        for (int t = 0; t < S; ++t)
+#pragma unroll
+          for (int qq = 0; qq < QT; ++qq) x[t][qq] = Tk[(side * S + t) * tile + q[qq]];
+      } else {
+        const float* col = pool + (size_t)slot * (S + 1) * tile;
+#pragma unroll
+        for (int t = 0; t < S; ++t)
+#pragma unroll
+          for (int qq = 0; qq < QT; ++qq) x[t][qq] = col[t * tile + q[qq]];
+#pragma unroll
+        for (int qq = 0; qq < QT; ++qq) sc[qq] += col[S * tile + q[qq]];
+      }
+      if (side)
+        cluster_message<S, RPT, QT>(Mk + SS, s0, x, m);
+      else
+        cluster_message<S, RPT, QT>(Mk, s0, x, y);
+    }
+    float mx[QT];
+#pragma unroll
+    for (int qq = 0; qq < QT; ++qq) {
+      mx[qq] = 0.f;
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) {
+        y[j][qq] *= m[j][qq];
+        mx[qq] = fmaxf(mx[qq], y[j][qq]);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < G; off <<= 1)
+#pragma unroll
+      for (int qq = 0; qq < QT; ++qq)
+        mx[qq] = fmaxf(mx[qq], __shfl_xor_sync(0xffffffffu, mx[qq], off));
+    float* xm = xmax + (size_t)(i & 1) * C * tile;
+    for (int r = g; r < C; r += G) {  // the G lanes of a pattern group share the blocks out
+      float* xr = cluster.map_shared_rank(xm, r) + c * tile;
+#pragma unroll
+      for (int qq = 0; qq < QT; ++qq) xr[q[qq]] = mx[qq];
+    }
+    __pipeline_wait_prior(NS - 2);  // this thread's copies of step i + 1 have landed
+    cluster.sync();  // one barrier a step: the maxima, the ring, the stage read
+#pragma unroll
+    for (int qq = 0; qq < QT; ++qq) {
+      mx[qq] = 0.f;
+      for (int r = 0; r < C; ++r) mx[qq] = fmaxf(mx[qq], xm[r * tile + q[qq]]);
+      mx[qq] = fmaxf(mx[qq], SCALE_TINY);
+    }
+    // the step's child reads are done: the output slot may be one they held
+    float* out = pool + (size_t)st.out * (S + 1) * tile;
+#pragma unroll
+    for (int qq = 0; qq < QT; ++qq) {
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) {
+        y[j][qq] = iqt::div_rn(y[j][qq], mx[qq]);
+        out[(s0 + j) * tile + q[qq]] = y[j][qq];
+      }
+      sc[qq] += logf(mx[qq]);
+      if (g == 0) out[S * tile + q[qq]] = sc[qq];
+    }
+    emit(st, y, sc);
+    // stage k is free: step i + NS into it
+    if (i + NS < n_steps)
+      cluster_fetch<S>(st_f, mst + k * 2 * SS, tst + (size_t)k * 2 * S * tile, c, C, tile,
+                       p0, trans, tips, P);
+    __pipeline_commit();
+    __syncwarp();  // the pattern group's pool rows are written
+    if (i + NS + 1 < n_steps) st_f = load_step(steps, i + NS + 1);
+    st = st_next;
+    k = k == NS - 1 ? 0 : k + 1;
+  }
+  return st.out;
 }
 
 }  // namespace iqtw

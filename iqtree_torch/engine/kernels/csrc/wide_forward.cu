@@ -2,84 +2,101 @@
 // tree at the general [C,S,S] layout (protein, S = 20).
 //
 // Replaces the TPU kernel _kernel (iqtree_tpu/engine/kernels/pruning.py),
-// the general forward lnL with [C,S,S] x [C,S,T] child contractions.  Each
-// block walks the slot schedule for its tile of T patterns with the live
-// partials in a shared-memory slot pool; per step the two children's
-// matrices are staged in shared memory, each thread forms its RPT rows of
-// both messages, and a shared-memory max over the row groups renormalizes
-// the product.  The root mixes with props * pi and adds the invariant-site
-// class in log space.  See wide_common.cuh for the layout.
+// the general forward lnL with [C,S,S] x [C,S,T] child contractions.
+//
+// Work layout: a thread-block cluster of C blocks, one a rate category,
+// owns a tile of consecutive patterns and walks the slot schedule with
+// cluster_upward_walk (wide_common.cuh): a thread 2 patterns x 5 rows, the
+// block's category's matrices and the tip rows fetched with cp.async as
+// the ring releases a stage, the max across the categories through
+// distributed shared memory at one cluster barrier a step.  At the root,
+// rank 0 reads the other blocks' root columns through distributed shared
+// memory, mixes them with rootw = props * pi in root_site_lnl's order
+// (k = c S + s), and log-adds the invariant-site class.  The message rows
+// keep their t order and the division its bits (div_rn), so the
+// per-pattern lnL is the thread-per-row-group design's bit for bit.
 //
 // Bound on an H100 (LG+G4, 300 taxa x 1 958 patterns): 2 children x C*S*S
 // multiply-adds per step and pattern, 2*2*1600*299*1958 = 3.7 GFLOP of
 // float32 FMA (67 TFLOP/s: 0.056 ms), against 47 MB of tip indicators read
-// once (3.35 TB/s: 0.014 ms): bound by operations.  This first version does
-// not reach it: two barriers a step along a 299-step dependent chain, and
-// ~123 blocks of 256 threads for 132 SMs at T = 16.  Tensor-core products
-// of the [S,S] x [S,T] blocks are later work.
+// once (3.35 TB/s: 0.014 ms): bound by operations.  The walk is a chain of
+// 299 dependent steps; a step costs a block's 2 x 5 x 2 x 20 multiply-adds
+// a thread, a shuffle round trip and a cluster barrier.
+//
+// Shared memory: ClusterSmem (wide_common.cuh; pruning.wide_forward_smem).
 #include "wide_common.cuh"
 
 using namespace iqtw;
 
 template <int S, int RPT>
-__global__ void __launch_bounds__(MAX_THREADS)
+__global__ void __launch_bounds__(CLUSTER_THREADS_MAX)
 wide_forward_kernel(const int* __restrict__ steps, int n_steps,
                     const float* __restrict__ trans, const float* __restrict__ tips,
                     int P, const float* __restrict__ rootw,
-                    const float* __restrict__ invar, float* __restrict__ out, int C,
-                    int n_slots, int T) {
-  extern __shared__ float smem[];
-  const Lane<S, RPT> L(T, C);
-  const int p_raw = blockIdx.x * T + L.p;
-  const int pg = min(p_raw, P - 1);  // ragged tail computes a copy, writes nothing
-  const int CSS = L.CS * S;
-  float* slots = smem;                                 // [n_slots][CS][T]
-  float* sscale = slots + (size_t)n_slots * L.CS * T;  // [n_slots][T]
-  float* pst = sscale + (size_t)n_slots * T;           // [2][C][S][S]
-  float* red = pst + 2 * CSS;                          // [G][T]
-
-  stage_children(pst, trans, load_step(steps, 0), CSS);
-  __syncthreads();
-  float y[RPT];
-  for (int i = 0; i < n_steps; ++i) {
-    upward_step<S, RPT>(load_step(steps, i), pst, tips, P, pg, slots, sscale, red, L, y);
-    // the step's matrix reads ended at its barrier: stage the next step's
-    if (i + 1 < n_steps) stage_children(pst, trans, load_step(steps, i + 1), CSS);
-    __syncthreads();
+                    const float* __restrict__ invar, float* __restrict__ out,
+                    int n_slots, int tile) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int p0 = (int)(blockIdx.x / C) * tile;
+  const int root_slot = cluster_upward_walk<S, RPT>(
+      steps, n_steps, trans, tips, P, p0, tile, n_slots, smem,
+      [](const Step&, const auto&, const auto&) {});
+  cluster.sync();  // every block's root rows are written
+  const int q = threadIdx.x;
+  if (cluster.block_rank() == 0 && q < tile) {
+    const size_t col = ClusterSmem<S>(tile).pool() + (size_t)root_slot * (S + 1) * tile + q;
+    float mix = 0.f;
+    for (int c = 0; c < C; ++c) {
+      const float* rows = cluster.map_shared_rank(smem, c) + col;
+#pragma unroll
+      for (int s = 0; s < S; ++s) mix += __ldg(rootw + c * S + s) * rows[s * tile];
+    }
+    float lnl = logf(fmaxf(mix, SCALE_TINY)) + smem[col + S * tile];
+    const int p_raw = p0 + q;
+    const float inv = __ldg(invar + min(p_raw, P - 1));
+    if (inv > 0.f) {
+      const float b = logf(fmaxf(inv, SCALE_TINY));
+      const float hi = fmaxf(lnl, b), lo = fminf(lnl, b);
+      lnl = hi + log1pf(expf(lo - hi));
+    }
+    if (p_raw < P) out[p_raw] = lnl;
   }
-  if (L.g != 0) return;
-  const int root_slot = load_step(steps, n_steps - 1).out;
-  const float* col = slots + (size_t)root_slot * L.CS * T + L.p;
-  float mix = 0.f;
-  for (int k = 0; k < L.CS; ++k) mix += __ldg(rootw + k) * col[k * T];
-  float lnl = logf(fmaxf(mix, SCALE_TINY)) + sscale[root_slot * T + L.p];
-  const float inv = __ldg(invar + pg);
-  if (inv > 0.f) {
-    const float b = logf(fmaxf(inv, SCALE_TINY));
-    const float hi = fmaxf(lnl, b), lo = fminf(lnl, b);
-    lnl = hi + log1pf(expf(lo - hi));
-  }
-  if (p_raw < P) out[p_raw] = lnl;
+  cluster.sync();  // no block leaves while rank 0 reads its pool
 }
 
+// tile: patterns a cluster, a multiple of 16 (a block has tile / 2 x 4
+// threads, whole warps) up to 128.
 extern "C" int iqt_wide_forward(const int* steps, int n_steps, const float* trans,
                                 const float* tips, int P, const float* rootw,
                                 const float* invar, float* out, int C, int S,
                                 int n_slots, int tile, void* stream) {
-  const int CS = C * S;
-  const size_t smem =
-      ((size_t)n_slots * (CS + 1) * tile + 2 * (size_t)CS * S) * sizeof(float);
-  const dim3 grid((P + tile - 1) / tile);
+  if (C < 1 || C > 8 || tile <= 0 || tile % CLUSTER_QT) return (int)cudaErrorInvalidValue;
+  const int clusters = (P + tile - 1) / tile;
   cudaError_t e = cudaSuccess;
-#define IQT_LAUNCH(SS_, RPT_)                                                     \
-  {                                                                               \
-    const int threads = tile * C * (SS_ / RPT_);                                  \
-    if (threads > MAX_THREADS) return (int)cudaErrorInvalidConfiguration;         \
-    const size_t bytes = smem + (size_t)C * (SS_ / RPT_) * tile * sizeof(float);  \
-    e = iqt::allow_smem(wide_forward_kernel<SS_, RPT_>, bytes);                   \
-    if (e == cudaSuccess)                                                         \
-      wide_forward_kernel<SS_, RPT_><<<grid, threads, bytes, (cudaStream_t)stream>>>( \
-          steps, n_steps, trans, tips, P, rootw, invar, out, C, n_slots, tile);    \
+#define IQT_LAUNCH(SS_, RPT_)                                                       \
+  {                                                                                 \
+    const int threads = tile / CLUSTER_QT * (SS_ / RPT_);                           \
+    if (threads % 32 || threads > CLUSTER_THREADS_MAX)                              \
+      return (int)cudaErrorInvalidValue;                                            \
+    const size_t smem = ClusterSmem<SS_>(tile).floats(n_slots, C) * sizeof(float);  \
+    e = iqt::allow_smem(wide_forward_kernel<SS_, RPT_>, smem);                      \
+    if (e == cudaSuccess) {                                                         \
+      cudaLaunchConfig_t cfg = {};                                                  \
+      cfg.gridDim = dim3(clusters * C);                                             \
+      cfg.blockDim = dim3(threads);                                                 \
+      cfg.dynamicSmemBytes = smem;                                                  \
+      cfg.stream = (cudaStream_t)stream;                                            \
+      cudaLaunchAttribute attr[1];                                                  \
+      attr[0].id = cudaLaunchAttributeClusterDimension;                             \
+      attr[0].val.clusterDim.x = C;                                                 \
+      attr[0].val.clusterDim.y = 1;                                                 \
+      attr[0].val.clusterDim.z = 1;                                                 \
+      cfg.attrs = attr;                                                             \
+      cfg.numAttrs = 1;                                                             \
+      e = cudaLaunchKernelEx(&cfg, wide_forward_kernel<SS_, RPT_>, steps, n_steps,  \
+                             trans, tips, P, rootw, invar, out, n_slots, tile);     \
+    }                                                                               \
   }
   IQT_DISPATCH_S(S, IQT_LAUNCH)
 #undef IQT_LAUNCH

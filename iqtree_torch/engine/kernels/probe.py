@@ -1,18 +1,18 @@
 """Source variants of the redesigned kernels: what their time is made of.
 
     python -m iqtree_torch.engine.kernels.probe [-C N[,N...]] [--base DIR]
-        [newton|forward|store|down_store|wide_newton ...]
+        [newton|forward|store|down_store|wide_newton|wide_forward|tbar ...]
 
 On a CUDA card, at the bench shapes (bench_data.npz: its tree, 1000 taxa,
 9 962 patterns, GTR+G4 at the model's start values; GTR+GN with -C N, each
-of a list in turn; wide_newton at bench_data_protein.npz's: 300 taxa,
-1 958 patterns, LG+GN), builds each variant of a kernel -- a text edit of
-csrc/<kernel>.cu or of a header it includes that takes one cost out --
-loads it in place of the kernel and prints ms a call of the kernel's
-wrapper (CUDA events around 10 calls after a warm-up) at 32, 64 and 128
-lanes a block (down_store: 8, 32, 64 and 128 patterns a block;
-wide_newton: 16, 32 and 64 patterns a cluster).  With no kernel named,
-all five.
+of a list in turn; wide_newton and wide_forward at bench_data_protein.npz's:
+300 taxa, 1 958 patterns, LG+GN), builds each variant of a kernel -- a text
+edit of csrc/<kernel>.cu or of a header it includes that takes one cost
+out -- loads it in place of the kernel and prints ms a call of the
+kernel's wrapper (CUDA events around 10 calls after a warm-up) at 32, 64
+and 128 lanes a block (down_store: 8, 32, 64 and 128 patterns a block;
+tbar: 64 patterns a block, the only size that keeps its bits;
+wide_newton and wide_forward: 16, 32 and 64 patterns a cluster).  With no kernel named, all seven.
 
 --base DIR adds the variant `base`: <kernel>.cu and its headers taken
 whole from DIR, e.g. an earlier commit's csrc/ (`git archive COMMIT
@@ -21,8 +21,9 @@ timed first and last, `as built` second and second to last, so that the
 two designs are compared in one process on one card, and the probe says
 whether the two give the same bits.  The earlier thread-a-pattern
 forward.cu, store.cu and down_store.cu read the block argument as
-patterns a block, the earlier wide_newton.cu as patterns a block of
-C x 4 row groups of threads (a block past 512 threads is refused).
+patterns a block, the earlier wide_newton.cu and wide_forward.cu as
+patterns a block of C x 4 row groups of threads (a block past 512 threads
+is refused).
 
 newton (newton_sweep; the per-warp sums' zeroing and reduction inside):
   as built         csrc/newton.cu
@@ -67,6 +68,36 @@ wide_newton (wide_newton_sweep; a cluster of C blocks, one a category):
   loads on the chain  each step waits for the next step's copies before
                    its own arithmetic
 
+wide_forward (wide_site_lnl; the cluster walk of wide_common.cuh):
+  as built         csrc/wide_forward.cu
+  one pattern a thread  CLUSTER_QT = 1, as for wide_newton
+  tips cached      every tip child fetches tip 0's rows
+  matrices cached  every step fetches node 0's [S,S] blocks
+  no cluster barrier  the step's cluster barrier a block barrier (wrong
+                   values)
+  stages 3         the cp.async ring three steps deep
+  float division, scaled division, reciprocal  as for down_store
+  loads on the chain  each step waits for the copies it has just issued
+
+tbar (fused_tbar_cs), down_store's walk and the ordered cotangent sums:
+  as built         csrc/tbar.cu
+  partials cached  every step fetches node 0's partials and scales
+  matrices cached  every step fetches node 0's edge blocks
+  no barriers      no block barrier before the cross-category max and no
+                   named barrier for the sum warp, each a __syncwarp
+                   (wrong values; the sum warps run on their own)
+  block barrier    the named barrier between the walk and the sum warps a
+                   block barrier (the walk waits for the sum warps)
+  stages 3         the cp.async ring three steps deep
+  one sum warp     one sum warp for all the categories (SUM_CATEGORIES 8)
+  a sum warp a category  SUM_CATEGORIES 1
+  no sums          the sum warps add nothing (wrong values)
+  no stage         nor do the walk lanes stage O * fac (nor form fac)
+  butterfly sums   the sums as each walk warp's shuffle butterflies, the
+                   two warps of a category added through shared memory
+                   (other bits)
+  float division, scaled division, reciprocal  as for down_store
+
 Only the variants' times mean something; their results are wrong by
 design.  The variants build beside the kernels, under build/<hash>/probe.
 """
@@ -89,8 +120,8 @@ from .ablate import BENCH_DATA
 from .pruning import device_slot_schedule
 
 HEADER = "cs_common.cuh"
-# headers a kernel's source includes, when not HEADER alone
-HEADERS = {"wide_newton": ("wide_common.cuh", HEADER)}
+# the header the wide kernels' sources include besides HEADER
+WIDE_HEADER = "wide_common.cuh"
 _UPWARD = {
     "as built": (),
     "tips cached": (("tips + ((size_t)sj.l * S + s) * P + p",
@@ -113,6 +144,37 @@ _DIVISION = {
     "scaled division": ((_DIV, "return (x * 0x1p64f) / (y * 0x1p64f);"),),
     "reciprocal": ((_DIV, "return x * __frcp_rn(y);"),),
 }
+# tbar's sums: the sum warp's ordered sums (none: zeros), the walk lanes'
+# O * fac stage (none), or in its place each walk warp's sums as shuffle
+# butterflies, the category's two warps added through its stage (other bits)
+_TBAR_SUMS = ("    ordered_dots<N>(ost + ((c0 * 2 + side) * S + s) * OS, dc * 2 * S * OS, U, "
+              "dc * PB, acc);")
+_TBAR_NO_SUMS = "    for (int n = 0; n < N; ++n) acc[n] = 0.f;"
+_TBAR_STAGE = """    for (int s = 0; s < S; ++s) {
+      oc[s * OS + q] = ol[s] * facl;
+      oc[(S + s) * OS + q] = orr[s] * facr;
+    }"""
+_TBAR_NO_STAGE = """    for (int s = 0; s < 0; ++s) {
+      oc[s * OS + q] = ol[s] * facl;
+      oc[(S + s) * OS + q] = orr[s] * facr;
+    }"""
+_TBAR_BUTTERFLY = """    for (int s = 0; s < 1; ++s) {
+      float v[2 * SS];  // [side][s][t] of this lane's pattern
+      for (int s2 = 0; s2 < S; ++s2)
+        for (int t2 = 0; t2 < S; ++t2) {
+          v[s2 * S + t2] = ol[s2] * facl * ul[t2];
+          v[SS + s2 * S + t2] = orr[s2] * facr * ur[t2];
+        }
+      group_sums<32, 2 * SS>(v);
+      if (lane == 0)
+        for (int w = 0; w < 2 * SS; ++w) oc[(q >> 5) * 2 * SS + w] = v[w];
+      asm volatile("bar.sync %0, %1;" ::"r"(c + 2), "r"(PB) : "memory");
+      if (q < 2 * SS) {
+        float acc = 0.f;
+        for (int w = 0; w < PB / 32; ++w) acc += oc[w * 2 * SS + q];
+        part_b[((size_t)(q < SS ? st.l : st.r) * C + c) * SS + q % SS] = acc;
+      }
+    }"""
 # kernel: {variant: ((old, new) text edits of csrc/<kernel>.cu and cs_common.cuh)}
 KERNELS: Dict[str, Dict[str, Tuple[Tuple[str, str], ...]]] = {
     "newton": {
@@ -162,21 +224,74 @@ KERNELS: Dict[str, Dict[str, Tuple[Tuple[str, str], ...]]] = {
                                 "    __syncthreads();\n"
                                 "    const Step st_next = i > 0 ? load_step(steps, i - 1) : st;"),),
     },
+    "wide_forward": {
+        "as built": (),
+        "one pattern a thread": (("constexpr int CLUSTER_QT = 2;",
+                                  "constexpr int CLUSTER_QT = 1;"),),
+        "tips cached": (("tips + ((size_t)node * S + t) * P + p, 4);",
+                         "tips + ((size_t)0 * S + t) * P + p, 4);"),),
+        "matrices cached": (("trans + ((size_t)node * C + c) * SS + 4 * r, 16);",
+                             "trans + ((size_t)0 * C + c) * SS + 4 * r, 16);"),),
+        "no cluster barrier": (("    cluster.sync();  // one barrier a step",
+                                "    __syncthreads();  // one barrier a step"),),
+        "stages 3": (("constexpr int CLUSTER_STAGES = 2;", "constexpr int CLUSTER_STAGES = 3;"),),
+        **_DIVISION,
+        "loads on the chain": (("    __pipeline_commit();\n"
+                                "    __syncwarp();  // the pattern group's pool rows are written",
+                                "    __pipeline_commit();\n"
+                                "    __pipeline_wait_prior(0);\n"
+                                "    __syncwarp();  // the pattern group's pool rows are written"),),
+    },
+    "tbar": {
+        "as built": (),
+        "partials cached": (("up + ((size_t)sj.l * C + c)", "up + ((size_t)0 * C + c)"),
+                            ("up + ((size_t)sj.r * C + c)", "up + ((size_t)0 * C + c)"),
+                            ("usc + (size_t)sj.l * P", "usc"),
+                            ("usc + (size_t)sj.r * P", "usc")),
+        "matrices cached": (("trans + ((size_t)node * C + c) * SS + s * S, 16);",
+                             "trans + ((size_t)0 * C + c) * SS + s * S, 16);"),),
+        "no barriers": (("    __syncthreads();  // every category's max of step i is written",
+                         "    __syncwarp();  // every category's max of step i is written"),
+                        ("    __syncthreads();                               // the walk's max",
+                         "    __syncwarp();                               // the walk's max"),
+                        ('asm volatile("bar.arrive 1, %0;" ::"r"(threads) : "memory");',
+                         "__syncwarp();"),
+                        ('asm volatile("bar.sync 1, %0;" ::"r"(threads) : "memory");',
+                         "__syncwarp();")),
+        "block barrier": (('asm volatile("bar.arrive 1, %0;" ::"r"(threads) : "memory");',
+                           "__syncthreads();"),
+                          ('asm volatile("bar.sync 1, %0;" ::"r"(threads) : "memory");',
+                           "__syncthreads();")),
+        "stages 3": (("constexpr int STAGES = 2;", "constexpr int STAGES = 3;"),),
+        "no sums": ((_TBAR_SUMS, _TBAR_NO_SUMS),),
+        "no stage": ((_TBAR_SUMS, _TBAR_NO_SUMS), (_TBAR_STAGE, _TBAR_NO_STAGE)),
+        "butterfly sums": ((_TBAR_SUMS, _TBAR_NO_SUMS), (_TBAR_STAGE, _TBAR_BUTTERFLY),
+                           ("      if (c0 + n < C) dst[n * SS] = acc[n];",
+                            "      if (c0 + n < 0) dst[n * SS] = acc[n];")),
+        "one sum warp": (("constexpr int SUM_CATEGORIES = 2;", "constexpr int SUM_CATEGORIES = 8;"),),
+        "a sum warp a category": (("constexpr int SUM_CATEGORIES = 2;",
+                                   "constexpr int SUM_CATEGORIES = 1;"),),
+        **_DIVISION,
+    },
 }
 LANES = (32, 64, 128)
 # the launch parameters: down_store's patterns a block, wide_newton's
 # patterns a cluster
-SIZES = {"down_store": (8, 32, 64, 128), "wide_newton": (16, 32, 64)}
-UNITS = {"down_store": "patterns a block", "wide_newton": "patterns a cluster"}
+SIZES = {"down_store": (8, 32, 64, 128), "wide_newton": (16, 32, 64),
+         "wide_forward": (16, 32, 64), "tbar": (64,)}
+UNITS = {"down_store": "patterns a block", "wide_newton": "patterns a cluster",
+         "wide_forward": "patterns a cluster", "tbar": "patterns a block"}
 # the block size at which base and as built are compared bit for bit when
-# not the wrapper's: the earlier wide_newton's tile, whose sums it keeps
-BITS_AT = {"wide_newton": 16}
+# not the wrapper's: the earlier wide_newton's tile, whose sums it keeps;
+# the earlier wide_forward's tile (its bits do not depend on the tile; it
+# refuses 32 patterns at C=8, 1 024 threads)
+BITS_AT = {"wide_newton": 16, "wide_forward": 16}
 # kernels at the protein bench shapes
-PROTEIN = ("wide_newton",)
+PROTEIN = ("wide_newton", "wide_forward")
 
 
 def source_files(kernel: str):
-    return (f"{kernel}.cu", *HEADERS.get(kernel, (HEADER,)))
+    return (f"{kernel}.cu", *((WIDE_HEADER,) if kernel.startswith("wide_") else ()), HEADER)
 
 
 def variant_sources(kernel: str, name: str, base=None) -> Dict[str, str]:
@@ -259,8 +374,13 @@ def bench_calls(device, categories=4, protein=False):
     wp = site.pattern_freq.contiguous()
     if protein:
         return {"wide_newton": lambda: csk.wide_newton_sweep(
-            steps, n_slots, mats, props, freq, wp, invar, up, usc)}
+                    steps, n_slots, mats, props, freq, wp, invar, up, usc),
+                "wide_forward": lambda: pruning.wide_site_lnl(
+                    steps, n_slots, trans, tips, props, freq, invar)}
+    lnl = pruning.fused_site_lnl(steps, n_slots, trans, tips, props, freq, invar)
     return {
+        "tbar": lambda: csk.fused_tbar_cs(steps, n_slots, trans, tips, props, freq, lnl, wp,
+                                          up=up, usc=usc),
         "newton": lambda: csk.newton_sweep(steps, n_slots, mats, props, freq, wp, invar,
                                            up, usc),
         "forward": lambda: pruning.fused_site_lnl(steps, n_slots, trans, tips, props,
@@ -284,7 +404,8 @@ def call_ms(fn, reps=10) -> float:
 # the module attribute each kernel's wrapper reads its block size from
 BLOCK_SETTING = {"newton": (csk, "NEWTON_THREADS"), "down_store": (csk, "DOWN_STORE_PATTERNS"),
                  "wide_newton": (csk, "WIDE_NEWTON_TILE"), "forward": (pruning, "UPWARD_LANES"),
-                 "store": (pruning, "UPWARD_LANES")}
+                 "store": (pruning, "UPWARD_LANES"), "tbar": (csk, "TBAR_PATTERNS"),
+                 "wide_forward": (pruning, "WIDE_FORWARD_TILE")}
 
 
 def set_lanes(kernel: str, lanes: int) -> None:

@@ -7,7 +7,9 @@ twin for a CPU tensor.  `fused_upward_store` is the wide upward store
 (csrc/wide_store.cu): the same sweep, storing every internal partial for
 the reverse sweeps.  The kernels evaluate the entire post-order for a
 block of patterns with the live partials in a shared-memory slot pool
-(forward.cu with a lane a pattern and rate category, csrc/cs_common.cuh):
+(forward.cu with a lane a pattern and rate category, csrc/cs_common.cuh;
+wide_forward.cu with a cluster of blocks, one a rate category,
+csrc/wide_common.cuh):
 
   * topology arrives as a Sethi-Ullman slot schedule (schedule.py), so at
     most ceil(log2 N)+1 partials are live per pattern;
@@ -49,15 +51,22 @@ from ..likelihood import (
 # of two lanes a pattern): 64 gives 623 blocks for 10k patterns at C=4,
 # ~9.4 warps an SM spread evenly, as newton.cu's NEWTON_THREADS.
 UPWARD_LANES = 64
-# Patterns per block of the kernels that give a thread a pattern (tbar.cu,
-# stream_forward.cu, forward_ablate.cu): 64 keeps the slot
+# Patterns per block of the kernels that give a thread a pattern
+# (stream_forward.cu, forward_ablate.cu): 64 keeps the slot
 # pool of a 1000-taxon tree (11 slots) under the 48 KB default shared
 # memory and gives ~160 blocks for 10k patterns on the 132 SMs.
 DEFAULT_TILE = 64
-# Patterns per block of the wide kernels but wide_newton.cu
-# (cs_kernels.WIDE_NEWTON_TILE): 16 patterns x C*4 row groups of 5 states
-# (256 threads at C=4); ~123 blocks for 1 958 patterns.
+# Patterns per block of the wide kernels on row groups (wide_store.cu,
+# wide_tbar.cu, wide_down_store.cu): 16 patterns x C*4 row groups of 5
+# states (256 threads at C=4); ~123 blocks for 1 958 patterns.
 WIDE_TILE = 16
+# Patterns a cluster of csrc/wide_forward.cu (C blocks, one a rate
+# category, of tile / 2 x 4 threads): 16 gives 123 clusters of 4 one-warp
+# blocks at 1 958 patterns, C=4 (measured fastest at C = 1, 3, 4 and 8,
+# PERF.md).
+WIDE_FORWARD_TILE = 16
+# The cluster walk's ring depth (CLUSTER_STAGES of csrc/wide_common.cuh).
+CLUSTER_STAGES = 2
 
 
 def device_slot_schedule(tree_host, tree_arrays) -> Tuple[np.ndarray, int]:
@@ -125,7 +134,7 @@ def fused_site_lnl(steps, n_slots, trans, tips, props, state_freq, invar,
     props [C], state_freq [C, S], invar [P] (the invariant-class
     likelihood).  CUDA tensors launch csrc/forward.cu at S=4 and
     csrc/wide_forward.cu (wide_site_lnl) at S=20; CPU tensors run the
-    plain twin.  `tile` (patterns a block) is for measuring the wide
+    plain twin.  `tile` (patterns a cluster) is for measuring the wide
     kernel; forward.cu runs UPWARD_LANES lanes a block."""
     if not trans.is_cuda:
         return _site_lnl_plain(steps, trans, tips, props, state_freq, invar)
@@ -146,11 +155,23 @@ def fused_site_lnl(steps, n_slots, trans, tips, props, state_freq, invar,
 fused_site_lnl.launches = 0
 
 
+def wide_forward_smem(S: int, C: int, tile: int, n_slots: int,
+                      stages: int = CLUSTER_STAGES) -> int:
+    """Bytes of shared memory a block of csrc/wide_forward.cu takes (the
+    cluster walk's ClusterSmem, csrc/wide_common.cuh): the ring of both
+    children's [S,S] blocks and tip rows, the slot pool of the block's
+    category and the max buffers.  A block holds one rate category, so
+    only the max buffers grow with C."""
+    return 4 * (stages * 2 * (S * S + S * tile) + n_slots * (S + 1) * tile
+                + 2 * C * tile)
+
+
 def wide_site_lnl(steps, n_slots, trans, tips, props, state_freq, invar,
                   tile=None) -> torch.Tensor:
     """fused_site_lnl at the wide shapes (S=20): csrc/wide_forward.cu for
-    CUDA tensors, the plain twin for CPU tensors.  `tile` (patterns per
-    block, default WIDE_TILE) is for measuring the kernel."""
+    CUDA tensors, the plain twin for CPU tensors.  A cluster of C blocks
+    (one a rate category) holds `tile` patterns (default
+    WIDE_FORWARD_TILE; for measuring the kernel)."""
     if not trans.is_cuda:
         return _site_lnl_plain(steps, trans, tips, props, state_freq, invar)
     C, S = trans.shape[1], trans.shape[2]
@@ -160,7 +181,7 @@ def wide_site_lnl(steps, n_slots, trans, tips, props, state_freq, invar,
                        states=build.WIDE_STATES)
     out = torch.empty(P, dtype=torch.float32, device=trans.device)
     build.launch("wide_forward", steps, steps.shape[0], trans, tips, P, rootw,
-                 invar, out, C, S, n_slots, tile or WIDE_TILE)
+                 invar, out, C, S, n_slots, tile or WIDE_FORWARD_TILE)
     wide_site_lnl.launches += 1
     return out
 

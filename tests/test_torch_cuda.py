@@ -8,8 +8,8 @@ PyTorch and the CUDA toolkit:
 Without a CUDA device they skip.  Inputs: a random 40-taxon DNA alignment
 (700 sites, a numpy seed), GTR+G4+I, and for the wide kernels a random
 30-taxon protein alignment (300 sites), LG+G4+I.  Tolerances are float32
-ones: the kernels and the twins sum in different orders.  Two tests hold
-a kernel's bits against its earlier design, built from the csrc/ directory
+ones: the kernels and the twins sum in different orders.  Five tests hold
+kernels' bits against their earlier designs, built from the csrc/ directory
 that IQT_EARLIER_CSRC names; they skip without it.
 """
 
@@ -197,7 +197,7 @@ def test_wide_kernels_match_twins_on_card(protein_card):
                 cs_kernels.fused_downward_tbar, cs_kernels.wide_newton_sweep)
     before = [w.launches for w in wrappers]
     want = pruning._site_lnl_plain(st, trans, tips, props, freq, inv)
-    for tile in (8, 16, 32):
+    for tile in (16, 32, 64):  # patterns a cluster (whole warps from 16 on)
         lnl = pruning.fused_site_lnl(st, ns, trans, tips, props, freq, inv, tile=tile)
         torch.testing.assert_close(lnl, want, rtol=1e-5, atol=1e-4)
     up, usc = pruning.fused_upward_store(st, ns, trans, tips)
@@ -667,3 +667,130 @@ def test_wide_newton_clusters_match_twin(C):
         for g, w in zip(cs_kernels.wide_newton_sweep(*args, tile=tile), want):
             assert float((g - w).abs().max() / w.abs().max()) <= 1e-4
     assert cs_kernels.wide_newton_sweep.launches == before + 5
+
+
+def _tbar_args(k):
+    """fused_tbar_cs's arguments for a _lane_case: the forward kernel's lnL,
+    the pattern weights; up/usc go by keyword."""
+    model, site = k["model"], k["site"]
+    tips = tip_partials(site).contiguous()
+    props = model.props.float()
+    inv = ptn_invar(model, site).float().contiguous()
+    lnl = pruning.fused_site_lnl(k["steps"], k["n_slots"], k["trans"], tips, props,
+                                 k["freq"], inv)
+    return (k["steps"], k["n_slots"], k["trans"], tips, props, k["freq"], lnl,
+            site.pattern_freq.contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_tbar_lanes_match_twin_at_every_category_count(C):
+    """The gradient sweep on the lane layout (a lane a pattern and category,
+    C x 64 lanes a block, the category's ordered sums after its named
+    barrier) at an odd pattern count, so the last block is ragged: within
+    1e-4 relative of the twin, and two launches bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    k = _lane_case(C, 90 + C)
+    args = _tbar_args(k)
+    before = cs_kernels.fused_tbar_cs.launches
+    got = cs_kernels.fused_tbar_cs(*args, up=k["up"], usc=k["usc"])
+    again = cs_kernels.fused_tbar_cs(*args, up=k["up"], usc=k["usc"])
+    assert cs_kernels.fused_tbar_cs.launches == before + 2
+    assert torch.equal(got, again)
+    want = cs_kernels._tbar_plain(k["steps"], k["trans"], *args[4:], k["up"], k["usc"])
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 4, 8])
+def test_wide_forward_clusters_match_twin(C):
+    """The wide forward kernel (a cluster of C blocks, one a category) at an
+    odd pattern count, at 16, 32 and 64 patterns a cluster: within 1e-3 of
+    the twin, and two launches bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    k = _lane_case(C, 100 + C, alphabet="ARNDCQEGHILKMFPSTWYV-X", n=30, sites=301)
+    model, site = k["model"], k["site"]
+    args = (k["steps"], k["n_slots"], k["trans"], tip_partials(site).contiguous(),
+            model.props.float(), k["freq"], ptn_invar(model, site).float().contiguous())
+    want = pruning._site_lnl_plain(*args[:1], *args[2:])
+    before = pruning.wide_site_lnl.launches
+    got = pruning.wide_site_lnl(*args)
+    assert torch.equal(got, pruning.wide_site_lnl(*args))
+    for tile in (16, 32, 64):
+        assert float((pruning.wide_site_lnl(*args, tile=tile) - want).abs().max()) <= 1e-3
+    assert pruning.wide_site_lnl.launches == before + 5
+
+
+@pytest.mark.cuda
+def test_tbar_gives_the_earlier_designs_bits():
+    """The lane-layout gradient sweep adds each block's 64 patterns in the
+    thread-a-pattern design's order, so its cotangents keep that design's
+    bits on the same inputs at C = 1, 3, 4 and 8 (the earlier design from
+    IQT_EARLIER_CSRC)."""
+    earlier = _earlier_csrc()
+    cases = [_lane_case(C, 110 + C) for C in (1, 3, 4, 8)]
+    args = [_tbar_args(k) for k in cases]
+    got = [cs_kernels.fused_tbar_cs(*a, up=k["up"], usc=k["usc"])
+           for k, a in zip(cases, args)]
+    with _earlier_design("tbar", earlier):
+        want = [cs_kernels.fused_tbar_cs(*a, up=k["up"], usc=k["usc"])
+                for k, a in zip(cases, args)]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_wide_forward_gives_the_earlier_designs_bits():
+    """The cluster walk keeps upward_step's arithmetic and the root mix its
+    order, so the per-pattern lnL is the thread-per-row-group design's bit
+    for bit at C = 1, 4 and 8, at 16, 32 and 64 patterns a cluster (the
+    earlier design, at 16 patterns a block, from IQT_EARLIER_CSRC)."""
+    earlier = _earlier_csrc()
+    calls = []
+    for C in (1, 4, 8):
+        k = _lane_case(C, 120 + C, alphabet="ARNDCQEGHILKMFPSTWYV-X", n=30, sites=301)
+        model, site = k["model"], k["site"]
+        calls.append((k["steps"], k["n_slots"], k["trans"],
+                      tip_partials(site).contiguous(), model.props.float(), k["freq"],
+                      ptn_invar(model, site).float().contiguous()))
+    got = [[pruning.wide_site_lnl(*a, tile=t) for t in (16, 32, 64)] for a in calls]
+    with _earlier_design("wide_forward", earlier):
+        want = [pruning.wide_site_lnl(*a, tile=16) for a in calls]
+    for gs, w in zip(got, want):
+        for g in gs:
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["wide_store", "wide_tbar", "wide_down_store"])
+def test_wide_row_group_kernels_keep_the_earlier_designs_bits(kernel):
+    """The row-group wide kernels share wide_common.cuh with the cluster
+    walk and are otherwise unchanged: at C = 4 each gives the earlier
+    commit's bits (the earlier build from IQT_EARLIER_CSRC)."""
+    earlier = _earlier_csrc()
+    k = _lane_case(4, 130, alphabet="ARNDCQEGHILKMFPSTWYV-X", n=30, sites=301)
+    model, site = k["model"], k["site"]
+    tips = tip_partials(site).contiguous()
+    inner = slice(k["ta"].n_taxa, 2 * k["ta"].n_taxa - 1)  # the store leaves tip rows
+    props = model.props.float()
+    lnl = pruning._site_lnl_plain(k["steps"], k["trans"], tips, props, k["freq"],
+                                  ptn_invar(model, site).float().contiguous())
+
+    def run():
+        if kernel == "wide_store":
+            up, usc = pruning.fused_upward_store(k["steps"], k["n_slots"], k["trans"], tips)
+            return up[inner], usc[inner]
+        if kernel == "wide_down_store":
+            return cs_kernels.fused_down_store(k["steps"], k["n_slots"], k["trans"], k["up"],
+                                               k["usc"], k["freq"])
+        return (cs_kernels.fused_downward_tbar(
+            k["steps"], k["n_slots"], k["trans"], tips, props, k["freq"], lnl,
+            site.pattern_freq.contiguous(), up=k["up"], usc=k["usc"]),)
+
+    got = run()
+    with _earlier_design(kernel, earlier):
+        want = run()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

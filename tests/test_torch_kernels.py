@@ -142,26 +142,28 @@ def test_upward_probe_variants_apply_to_the_kernel_sources(kernel):
             assert all(old not in text for text in out.values()), (name, old)
 
 
-@pytest.mark.parametrize("kernel", ["forward", "store", "down_store", "wide_newton"])
+@pytest.mark.parametrize("kernel", ["forward", "store", "down_store", "wide_newton",
+                                    "wide_forward", "tbar"])
 def test_probe_base_variant_reads_both_files_from_its_directory(kernel, tmp_path):
     """`--base DIR` builds <kernel>.cu and the headers it includes
-    (cs_common.cuh; wide_newton also wide_common.cuh) as DIR holds them (an
-    earlier commit's sources), untouched by any edit."""
+    (cs_common.cuh; the wide kernels also wide_common.cuh) as DIR holds them
+    (an earlier commit's sources), untouched by any edit."""
     from iqtree_torch.engine.kernels import probe
 
     want = {f"{kernel}.cu": f"// {kernel} of an earlier design\n",
             probe.HEADER: "// its header\n"}
-    if kernel == "wide_newton":
+    if kernel.startswith("wide_"):
         want["wide_common.cuh"] = "// the wide kernels' header\n"
     for f, text in want.items():
         (tmp_path / f).write_text(text)
     assert probe.variant_sources(kernel, "base", tmp_path) == want
 
 
-@pytest.mark.parametrize("kernel", ["down_store", "wide_newton"])
+@pytest.mark.parametrize("kernel", ["down_store", "wide_newton", "wide_forward", "tbar"])
 def test_redesigned_probe_variants_apply_to_the_kernel_sources(kernel):
-    """Every variant of the down-store and wide branch-Newton probes edits
-    csrc/<kernel>.cu or a header it includes, and every edit lands."""
+    """Every variant of the probes of the kernels redesigned on the lane
+    layout and on clusters edits csrc/<kernel>.cu or a header it includes,
+    and every edit lands."""
     from iqtree_torch.engine.kernels import probe
 
     base = probe.variant_sources(kernel, "as built")
@@ -195,3 +197,32 @@ def test_wide_newton_part_rows_and_shared_memory():
     assert 2 * 3 * 4 * 61 * 61 * 4 > 232448
     # one block a category: only the max buffers (2 C tile) grow with C
     assert smem(20, 8, 32, 12) - smem(20, 1, 32, 12) == 4 * 2 * 7 * 32
+
+
+def test_wide_forward_and_tbar_shared_memory():
+    """The shared memory of csrc/wide_forward.cu (the cluster walk of
+    csrc/wide_common.cuh) and of csrc/tbar.cu by their headers' formulas:
+    wide_forward at S=20 and S=61 (codon) under the 227 KB a block may have
+    at every C = 1-8, 32 patterns a cluster and a 1000-taxon tree's 11
+    slots, one block a category so that only its max buffers grow with C;
+    tbar's C x 64 lanes a block under it up to 15 slots (a 16 384-taxon
+    tree's) at C = 8."""
+    block = 232448
+    wf = pruning.wide_forward_smem
+    assert wf(20, 4, 32, 10) == 4 * 11136
+    assert wf(61, 4, 16, 11) == 119312
+    for C in range(1, 9):
+        for S in (20, 61):
+            assert wf(S, C, 32, 11) <= block, (S, C)
+        assert wf(20, C, 64, 12) <= block
+        assert wf(20, C, 32, 12) - wf(20, 1, 32, 12) == 4 * 2 * (C - 1) * 32
+    assert wf(61, 4, 64, 11) > block
+    assert wf(20, 4, 32, 10, stages=3) - wf(20, 4, 32, 10) == 4 * 2 * (400 + 20 * 32)
+    tb = cs_kernels.tbar_smem
+    assert tb(4, 11) == 92480
+    for C in range(1, 9):
+        assert tb(C, 15) <= block, C
+        # a slot of the pool is S + 1 = 5 words a lane (C x 64 lanes)
+        assert tb(C, 12) - tb(C, 11) == 4 * 5 * 64 * C
+    assert tb(8, 16) > block
+    assert tb(4, 11, stages=3) - tb(4, 11) == 4 * (8 * 2 * 20 + 10 * (256 + 4))

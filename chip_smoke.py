@@ -35,17 +35,20 @@ Phases (any failure exits non-zero; nothing is caught):
      torch.profiler: device time by kernel, busy share;
   8. at the protein path's shapes (bench_data_protein.npz: 300 taxa x
      2 000 aa, 1 958 patterns, LG+G4) the four wide kernels against their
-     twins, timed with their tile sweep (the forward kernel and the
-     branch-Newton sweep over their patterns a cluster, beside their
-     earlier designs' times, two launches bit-equal, also at C = 1 and 8,
-     their shared memory by their formulas at S = 20 and S = 61); the
-     custom-autograd gradient against autograd through the plain pass;
+     twins, timed with their tile sweep (the forward kernel, the store and
+     the branch-Newton sweep over 16 / 32 / 64 patterns a cluster, beside
+     their earlier designs' times, two launches bit-equal, also at C = 1
+     and 8 with the outside-partial store, their shared memory by their
+     formulas at S = 20 and S = 61); the custom-autograd gradient against
+     autograd through the plain pass;
   9. the protein fixed-topology path through the CLI entry point:
      `-s ALN -te TREE -m LG+G` on cuda, with the wide kernels' launch
      counts read around that run;
  10. the same fit once more under torch.profiler;
  11. at the protein search's shapes the wide outside-partial store against
-     its twin, timed with its tile sweep, and the parsimony scorer's 32-bit
+     its twin, timed over 16 / 32 / 64 patterns a cluster beside its
+     earlier design's time, two launches bit-equal, its shared memory by
+     its formula at S = 20 and S = 61, and the parsimony scorer's 32-bit
      instance against its twin on a partial protein tree (exact), each of
      50 launches timed alone (min / median / max), kernel and wrapper;
  12. the protein search with ultrafast bootstrap through the CLI entry
@@ -98,11 +101,13 @@ PEAK_BW = 3.35e12  # H100 SXM HBM3, bytes/s
 # The times of the earlier designs the redesigned kernels replace (PERF.md
 # section 6, the same card and timing): ms a call of fused_site_lnl,
 # fused_upward_store_cs, newton_sweep, fused_down_store_cs,
-# wide_newton_sweep, wide_site_lnl and fused_tbar_cs, and of
-# insertion_costs (its events held the wrapper's host work)
+# wide_newton_sweep, wide_site_lnl, fused_tbar_cs, fused_upward_store and
+# fused_down_store, and of insertion_costs (its events held the wrapper's
+# host work)
 EARLIER_MS = {"forward": 3.139, "store": 3.315, "newton": 12.361, "pars_insert": 1.683,
               "pars_insert_s20": 0.556, "down_store": 14.706, "wide_newton": 7.063,
-              "wide_forward": 2.102, "tbar": 13.848}
+              "wide_forward": 2.102, "tbar": 13.848, "wide_store": 2.236,
+              "wide_down_store": 3.961}
 SMEM_BLOCK = 232448  # bytes of shared memory an H100 block may have
 SMEM_ROUND_TRIP = 30  # cycles from a shared-memory load to its use, about
 
@@ -160,6 +165,25 @@ def beside_earlier(results, name):
     ms = results[name]["ms"]
     print(f"{name}: {ms:.3f} ms beside the earlier design's {EARLIER_MS[name]} "
           f"({EARLIER_MS[name] / ms:.2f}x)")
+
+
+def store_err(up_k, usc_k, up_p, usc_p, inner):
+    """An upward store against its twin on the internal rows `inner` (tip
+    rows are the caller's): partials absolutely (in [0, 1]), scales
+    relative to the largest."""
+    return max(float((up_k[inner] - up_p[inner]).abs().max()),
+               float((usc_k[inner] - usc_p[inner]).abs().max()
+                     / usc_p[inner].abs().max()))
+
+
+def outside_err(got, want, R):
+    """An outside-partial store against its twin on every row but the root
+    and the dummy (R - 2, R - 1; never written): O absolutely (in [0, 1]),
+    osc relative to the largest."""
+    (o_k, s_k), (o_p, s_p) = got, want
+    rows = slice(0, R - 2)
+    return max(float((o_k[rows] - o_p[rows]).abs().max()),
+               float((s_k[rows] - s_p[rows]).abs().max() / s_p[rows].abs().max()))
 
 
 def bit_equal(name, a, b):
@@ -476,20 +500,6 @@ def main():
     beside_earlier(results, "forward")
 
     inner = slice(N, 2 * N - 1)
-    outside_rows = [v for v in range(R - 1) if v != R - 2]  # the root is never written
-
-    def down_err(got, want):
-        """O absolutely (in [0, 1]), osc relative to the largest."""
-        (o_k, s_k), (o_p, s_p) = got, want
-        return max(float((o_k[outside_rows] - o_p[outside_rows]).abs().max()),
-                   float((s_k[outside_rows] - s_p[outside_rows]).abs().max()
-                         / s_p[outside_rows].abs().max()))
-
-    def store_err(up_k, usc_k, up_p, usc_p):
-        """Partials absolutely (in [0, 1]), scales relative to the largest."""
-        return max(float((up_k[inner] - up_p[inner]).abs().max()),
-                   float((usc_k[inner] - usc_p[inner]).abs().max()
-                         / usc_p[inner].abs().max()))
 
     up_k, usc_k = csk.fused_upward_store_cs(steps, n_slots, trans, tips)
     again = csk.fused_upward_store_cs(steps, n_slots, trans, tips)
@@ -505,7 +515,7 @@ def main():
     print(f"store: the root's log-scale {'equals' if same else 'differs from'} the "
           f"thread-a-pattern step's (forward_ablate full) bit for bit")
     up_p, usc_p = pk.upward_plain(steps, trans, tips)
-    err = store_err(up_k, usc_k, up_p, usc_p)
+    err = store_err(up_k, usc_k, up_p, usc_p, inner)
     record("store", "iqtree_torch/engine/kernels/csrc/store.cu",
            "iqtree_tpu/engine/kernels/cs_kernels.py:56", err, 1e-4,
            cuda_ms(lambda: csk.fused_upward_store_cs(steps, n_slots, trans, tips), 5),
@@ -572,7 +582,7 @@ def main():
         again = csk.fused_upward_store_cs(steps, n_slots, tr_k, tips)
         bit_equal(f"store C={k}", [u_k[inner], us_k], [again[0][inner], again[1]])
         del again
-        e_k = store_err(u_k, us_k, *pk.upward_plain(steps, tr_k, tips))
+        e_k = store_err(u_k, us_k, *pk.upward_plain(steps, tr_k, tips), inner)
         print(f"store C={k}: error {e_k:.3e} (tol 1e-4), "
               f"{cuda_ms(lambda: csk.fused_upward_store_cs(steps, n_slots, tr_k, tips), 5):.3f} ms")
         check(e_k <= 1e-4, f"store at C={k} against its twin")
@@ -597,7 +607,7 @@ def main():
         dargs = (steps, n_slots, tr_k, u_k, us_k, m_k.state_freq.float())
         got = csk.fused_down_store_cs(*dargs)
         bit_equal(f"down_store C={k}", got, csk.fused_down_store_cs(*dargs))
-        e_k = down_err(got, csk._down_store_plain(*dargs[:1], *dargs[2:]))
+        e_k = outside_err(got, csk._down_store_plain(*dargs[:1], *dargs[2:]), R)
         print(f"down_store C={k}: error {e_k:.3e} (tol 1e-4), "
               f"{cuda_ms(lambda: csk.fused_down_store_cs(*dargs), 5):.3f} ms")
         check(e_k <= 1e-4, f"down_store at C={k} against its twin")
@@ -618,7 +628,8 @@ def main():
     out_k, osc_k = csk.fused_down_store_cs(steps, n_slots, trans, up_k, usc_k, freq)
     bit_equal("down_store", (out_k, osc_k),
               csk.fused_down_store_cs(steps, n_slots, trans, up_k, usc_k, freq))
-    err = down_err((out_k, osc_k), csk._down_store_plain(steps, trans, up_k, usc_k, freq))
+    err = outside_err((out_k, osc_k),
+                      csk._down_store_plain(steps, trans, up_k, usc_k, freq), R)
     record("down_store", "iqtree_torch/engine/kernels/csrc/down_store.cu",
            "iqtree_tpu/engine/kernels/cs_kernels.py:734", err, 1e-4,
            cuda_ms(lambda: csk.fused_down_store_cs(steps, n_slots, trans, up_k, usc_k,
@@ -902,15 +913,19 @@ def protein_phases(dev, card, record, results, cli_main):
               f"({-(-P // tile) * C} blocks, "
               f"{pk.wide_forward_smem(S, C, tile, n_slots)} B of shared memory a block): "
               f"{ms:.3f} ms")
-    for tile in (8, 16, 32):
+    for tile in (16, 32, 64):
         st_ms = cuda_ms(lambda: pk.fused_upward_store(steps, n_slots, trans, tips,
                                                       tile=tile), 10)
-        print(f"wide tile {tile}: store {st_ms:.3f} ms")
-    s61 = pk.wide_forward_smem(61, 4, pk.WIDE_FORWARD_TILE, max(n_slots, 11))
-    print(f"wide forward shared memory by its formula at S=61, C=4, "
-          f"{pk.WIDE_FORWARD_TILE} patterns a cluster, {max(n_slots, 11)} slots (a "
-          f"1000-taxon tree's): {s61} B (a block may have {SMEM_BLOCK})")
-    check(s61 <= SMEM_BLOCK, "wide forward's cluster walk fits at S=61")
+        print(f"wide store, {tile} patterns a cluster of {C} blocks "
+              f"({-(-P // tile) * C} blocks, "
+              f"{pk.wide_forward_smem(S, C, tile, n_slots)} B of shared memory a block): "
+              f"{st_ms:.3f} ms")
+    for name, tile in (("forward", pk.WIDE_FORWARD_TILE), ("store", pk.WIDE_STORE_TILE)):
+        s61 = pk.wide_forward_smem(61, 4, tile, max(n_slots, 11))
+        print(f"wide {name} shared memory by its formula at S=61, C=4, {tile} patterns "
+              f"a cluster, {max(n_slots, 11)} slots (a 1000-taxon tree's): {s61} B (a "
+              f"block may have {SMEM_BLOCK})")
+        check(s61 <= SMEM_BLOCK, f"wide {name}'s cluster walk fits at S=61")
     k_out = pk.fused_site_lnl(steps, n_slots, trans, tips, props, freq, invar)
     bit_equal("wide_forward", [k_out],
               [pk.fused_site_lnl(steps, n_slots, trans, tips, props, freq, invar)])
@@ -926,17 +941,19 @@ def protein_phases(dev, card, record, results, cli_main):
     beside_earlier(results, "wide_forward")
 
     up_k, usc_k = pk.fused_upward_store(steps, n_slots, trans, tips)
-    up_p, usc_p = pk.upward_plain(steps, trans, tips)
     inner = slice(N, 2 * N - 1)
-    err = max(float((up_k[inner] - up_p[inner]).abs().max()),
-              float((usc_k[inner] - usc_p[inner]).abs().max()
-                    / usc_p[inner].abs().max()))
+    up2, usc2 = pk.fused_upward_store(steps, n_slots, trans, tips)
+    bit_equal("wide_store", [up_k[inner], usc_k], [up2[inner], usc2])
+    del up2, usc2
+    up_p, usc_p = pk.upward_plain(steps, trans, tips)
+    err = store_err(up_k, usc_k, up_p, usc_p, inner)
     record("wide_store", "iqtree_torch/engine/kernels/csrc/wide_store.cu",
            "iqtree_tpu/engine/kernels/pruning.py:822", err, 1e-4,
-           cuda_ms(lambda: pk.fused_upward_store(steps, n_slots, trans, tips), 10),
+           cuda_ms(lambda: pk.fused_upward_store(steps, n_slots, trans, tips), 20),
            cuda_ms(lambda: pk.upward_plain(steps, trans, tips), 3),
            4 * (N * S * P + R * CSS + 6 * (N - 1) + (N - 1) * (CS + 1) * P),
            fwd_flops)
+    beside_earlier(results, "wide_store")
     del up_p, usc_p
 
     lnl = k_out.contiguous()
@@ -1016,7 +1033,21 @@ def protein_phases(dev, card, record, results, cli_main):
         print(f"wide_forward C={k}: max_abs_err {e_k:.3e} (tol 1e-3), "
               f"{cuda_ms(lambda: pk.wide_site_lnl(*fargs), 5):.3f} ms")
         check(e_k <= 1e-3, f"wide_forward at C={k} against its twin")
-        del u_k, us_k, mt_k, tr_k, got, want, args, f_k, fargs
+        # the two stores: u_k came from the store, its tip rows since filled
+        u2, us2 = pk.fused_upward_store(steps, n_slots, tr_k, tips)
+        bit_equal(f"wide_store C={k}", [u_k[inner], us_k[inner]], [u2[inner], us2[inner]])
+        e_k = store_err(u_k, us_k, *pk.upward_plain(steps, tr_k, tips), inner)
+        print(f"wide_store C={k}: max error {e_k:.3e} (tol 1e-4), "
+              f"{cuda_ms(lambda: pk.fused_upward_store(steps, n_slots, tr_k, tips), 5):.3f} ms")
+        check(e_k <= 1e-4, f"wide_store at C={k} against its twin")
+        dargs = (steps, n_slots, tr_k, u_k, us_k, m_k.state_freq.float())
+        o_k = csk.fused_down_store(*dargs)
+        bit_equal(f"wide_down_store C={k}", o_k, csk.fused_down_store(*dargs))
+        e_k = outside_err(o_k, csk._down_store_plain(*dargs[:1], *dargs[2:]), R)
+        print(f"wide_down_store C={k}: max error {e_k:.3e} (tol 1e-4), "
+              f"{cuda_ms(lambda: csk.fused_down_store(*dargs), 5):.3f} ms")
+        check(e_k <= 1e-4, f"wide_down_store at C={k} against its twin")
+        del u_k, us_k, mt_k, tr_k, got, want, args, f_k, fargs, u2, us2, dargs, o_k
 
     # gradient: autograd.Function (wide store + gradient sweep) vs autograd
     # through the plain pass, in the branch lengths and alpha
@@ -1122,25 +1153,34 @@ def protein_search_phases(dev, card, record, results, cli_main):
     # dummy rows are never written.  Bound: up, usc read and out, osc
     # written once, the matrices read once; both child messages a step and
     # the push P^T O into each internal non-root child
-    for tile in (8, 16, 32):
+    for tile in (16, 32, 64):
         ms = cuda_ms(lambda: csk.fused_down_store(steps, n_slots, trans, up_k, usc_k,
                                                   freq, tile=tile), 10)
-        print(f"wide down-store tile {tile}: {ms:.3f} ms")
+        print(f"wide down-store, {tile} patterns a cluster of {C} blocks "
+              f"({-(-P // tile) * C} blocks, "
+              f"{csk.wide_down_store_smem(S, C, tile, n_slots)} B of shared memory a "
+              f"block): {ms:.3f} ms")
+    tile = csk.WIDE_DOWN_STORE_TILE
+    s61 = csk.wide_down_store_smem(61, 4, tile, max(n_slots, 11))
+    print(f"wide down-store shared memory by its formula at S=61, C=4, {tile} patterns "
+          f"a cluster, {max(n_slots, 11)} slots (a 1000-taxon tree's): {s61} B (a block "
+          f"may have {SMEM_BLOCK})")
+    check(s61 <= SMEM_BLOCK, "wide down-store's reverse walk fits at S=61")
     out_k, osc_k = csk.fused_down_store(steps, n_slots, trans, up_k, usc_k, freq)
+    bit_equal("wide_down_store", (out_k, osc_k),
+              csk.fused_down_store(steps, n_slots, trans, up_k, usc_k, freq))
     out_p, osc_p = csk._down_store_plain(steps, trans, up_k, usc_k, freq)
-    rows = torch.arange(R - 2, device=dev)
-    err = max(float((out_k[rows] - out_p[rows]).abs().max()),
-              float((osc_k[rows] - osc_p[rows]).abs().max()
-                    / osc_p[rows].abs().max()))
+    err = outside_err((out_k, osc_k), (out_p, osc_p), R)
     check(not bool(out_k[R - 2:].any()) and not bool(osc_k[R - 2:].any()),
           "root and dummy rows of the outside store are 0")
     record("wide_down_store", "iqtree_torch/engine/kernels/csrc/wide_down_store.cu",
            "iqtree_tpu/engine/kernels/pruning.py:1437", err, 1e-4,
            cuda_ms(lambda: csk.fused_down_store(steps, n_slots, trans, up_k, usc_k,
-                                                freq), 10),
+                                                freq), 20),
            cuda_ms(lambda: csk._down_store_plain(steps, trans, up_k, usc_k, freq), 3),
            4 * (2 * R * (CS + 1) * P + R * CSS + 6 * (N - 1) + CS),
            P * (2 * (N - 1) * (2 * CSS + 3 * CS) + (N - 2) * 2 * CSS))
+    beside_earlier(results, "wide_down_store")
     del out_k, osc_k, out_p, osc_p, up_k, usc_k, trans, tips
 
     # the last insertion of a full protein tree with 32-bit state sets

@@ -228,11 +228,28 @@ fused_down_store_cs.launches = 0
 DOWN_STORE_PATTERNS = 64
 
 
+# Patterns a cluster of csrc/wide_down_store.cu (C blocks, one a rate
+# category, of tile x 4 threads): 16 gives 123 clusters of 4 two-warp
+# blocks at 1 958 patterns, C=4 (measured fastest at C = 3 and 8, within 2%
+# of 32 at C = 1 and 4; PERF.md).
+WIDE_DOWN_STORE_TILE = 16
+
+
+def wide_down_store_smem(S: int, C: int, tile: int, n_slots: int, stages: int = 2) -> int:
+    """Bytes of shared memory a block of csrc/wide_down_store.cu takes (the
+    formula of its header): the ring of both children's [S,S] blocks and
+    their rows and scales, the slot pool, O's stage and the max buffers
+    (double-buffered by step parity).  A block holds one rate category, so
+    only the max buffers grow with C."""
+    return 4 * (stages * (2 * S * S + 2 * (S + 1) * tile) + n_slots * (S + 1) * tile
+                + 2 * S * tile + 4 * C * tile)
+
+
 def fused_down_store(steps, n_slots, trans, up, usc, state_freq, tile=None):
     """fused_down_store_cs at the wide shapes (S=20): csrc/wide_down_store.cu
-    for CUDA tensors, the plain twin _down_store_plain for CPU tensors.
-    `tile` (patterns per block, default WIDE_TILE) is for measuring the
-    kernel."""
+    for CUDA tensors, the plain twin _down_store_plain for CPU tensors.  A
+    cluster of C blocks (one a rate category) holds `tile` patterns
+    (default WIDE_DOWN_STORE_TILE; for measuring the kernel)."""
     if not trans.is_cuda:
         return _down_store_plain(steps, trans, up, usc, state_freq)
     n_rows, C, S = trans.shape[:3]
@@ -241,7 +258,7 @@ def fused_down_store(steps, n_slots, trans, up, usc, state_freq, tile=None):
     build.check_inputs(C, S, steps, trans, rootd, up, usc, states=build.WIDE_STATES)
     out, osc = _zeroed_outside(n_rows, C * S, P, trans.device)
     build.launch("wide_down_store", steps, steps.shape[0], trans, rootd, up, usc, P,
-                 out, osc, C, S, n_slots, tile or WIDE_TILE)
+                 out, osc, C, S, n_slots, tile or WIDE_DOWN_STORE_TILE)
     fused_down_store.launches += 1
     return out, osc
 

@@ -3,33 +3,36 @@
 //
 // The CS-packed DNA kernels give one thread a whole pattern column
 // (float[C][4] in registers).  At S = 20 a column is 80 floats per child
-// and an edge's matrices 1 600 floats, so here a block owns a tile of T
-// consecutive patterns with T * C * (S/RPT) threads:
+// and an edge's matrices 1 600 floats, so the wide kernels spread a
+// pattern over threads.  Two layouts:
 //
-//   thread tid:  p  = tid % T         its pattern in the tile
-//                g  = tid / T         its row group: category c = g / NG,
-//                                     state rows s0 .. s0+RPT-1 with
-//                                     s0 = (g % NG) * RPT, NG = S / RPT.
+// * row groups (wide_tbar.cu): a block owns a tile of T consecutive
+//   patterns with T * C * (S/RPT) threads:
 //
-// Consecutive threads take consecutive patterns, so every [row][pattern]
-// array (the slot pool, the stored partials, the tips) is read and
-// written coalesced in device memory and without bank conflicts in
-// shared memory.  A child message m[c][s][p] = sum_t P[c][s][t] x[c][t][p]
-// costs a thread its category's S-value column x (from shared memory or
-// the tips) and RPT x S multiply-adds against P[c], which is staged in
-// shared memory (the threads of a warp read the same P entries:
-// broadcasts).  The per-pattern max over the C*S rows is a shared-memory
-// reduction over the row groups; barriers separate the load, product,
-// max and normalize phases of a step.
+//     thread tid:  p  = tid % T         its pattern in the tile
+//                  g  = tid / T         its row group: category c = g / NG,
+//                                       state rows s0 .. s0+RPT-1 with
+//                                       s0 = (g % NG) * RPT, NG = S / RPT.
+//
+//   Consecutive threads take consecutive patterns, so every [row][pattern]
+//   array (the slot pool, the stored partials) is read and written
+//   coalesced in device memory and without bank conflicts in shared
+//   memory.  A child message m[c][s][p] = sum_t P[c][s][t] x[c][t][p]
+//   costs a thread its category's S-value column x and RPT x S
+//   multiply-adds against P[c], which is staged in shared memory (the
+//   threads of a warp read the same P entries: broadcasts).  The
+//   per-pattern max over the C*S rows is a shared-memory reduction over
+//   the row groups; barriers separate the load, product, max and
+//   normalize phases of a step;
+// * thread-block clusters (wide_forward.cu, wide_store.cu, and the reverse
+//   walks of wide_newton.cu and wide_down_store.cu): a block a rate
+//   category, the second half of this header.
 //
 // Each block walks the whole slot schedule for its tile, as a TPU grid
 // step walks it (schedule rows: left child, right child, left slot,
 // right slot (-1 = tip), output slot, output node; see cs_common.cuh).
 // The kernels are templates on S and RPT with one instance, S = 20; a
 // new state count (codon, S = 61) adds an instance, not a kernel.
-//
-// The second half of this header is the upward walk on thread-block
-// clusters (cluster_upward_walk, wide_forward.cu): a block a rate category.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -130,55 +133,6 @@ __device__ __forceinline__ void transport(const float* Pc, const float* o, int t
   }
 }
 
-// One post-order step of the upward sweeps.  The children's matrices are
-// staged in pst [2][C][S][S].  A tip child's column comes from its [S,P]
-// indicator rows, an internal child's from the slot pool [n_slots][CS][T].
-// Leaves this thread's normalized rows in y, writes them and the scale to
-// the output slot, and returns the new log-scale.  Contains one barrier,
-// after which every child read of the step is done (the output slot may
-// be one the children held).
-template <int S, int RPT>
-__device__ __forceinline__ float upward_step(const Step& st, const float* pst,
-                                             const float* __restrict__ tips, int P, int pg,
-                                             float* slots, float* sscale, float* red,
-                                             const Lane<S, RPT>& L, float (&y)[RPT]) {
-  const int T = L.T;
-  float x[S], m[RPT], sc = 0.f;
-#pragma unroll
-  for (int side = 0; side < 2; ++side) {
-    const int node = side ? st.r : st.l, slot = side ? st.rs : st.ls;
-    if (slot < 0) {
-      const float* t0 = tips + (size_t)node * S * P + pg;
-#pragma unroll
-      for (int t = 0; t < S; ++t) x[t] = __ldg(t0 + (size_t)t * P);
-    } else {
-      load_column<S, RPT>(slots + (size_t)slot * L.CS * T, T, L, x);
-      sc += sscale[slot * T + L.p];
-    }
-    const float* Pc = pst + side * L.CS * S + L.c * L.SS;
-    if (side)
-      message<S, RPT>(Pc, L.s0, x, m);
-    else
-      message<S, RPT>(Pc, L.s0, x, y);
-  }
-  float local = 0.f;
-#pragma unroll
-  for (int j = 0; j < RPT; ++j) {
-    y[j] *= m[j];
-    local = fmaxf(local, y[j]);
-  }
-  const float mx = row_max<S, RPT>(red, local, L);
-  float* out = slots + ((size_t)st.out * L.CS + L.row(0)) * T + L.p;
-#pragma unroll
-  for (int j = 0; j < RPT; ++j) {
-    y[j] = y[j] / mx;
-    out[j * T] = y[j];
-  }
-  sc += logf(mx);
-  if (L.g == 0) sscale[st.out * T + L.p] = sc;
-  return sc;
-}
-
 // Stage both children's [C,S,S] blocks of an edge-indexed array whose rows
 // are `stride` floats apart (trans: C*S*S; the stacked derivatives: 3*C*S*S).
 __device__ __forceinline__ void stage_children(float* dst, const float* __restrict__ src,
@@ -189,7 +143,7 @@ __device__ __forceinline__ void stage_children(float* dst, const float* __restri
 
 
 // ---------------------------------------------------------------------------
-// The upward walk on thread-block clusters (wide_forward.cu).
+// The upward walk on thread-block clusters (wide_forward.cu, wide_store.cu).
 //
 // A cluster of C blocks, one a rate category (its rank), owns a tile of
 // consecutive patterns.  Thread (pq, g) of a block holds CLUSTER_QT
@@ -212,10 +166,11 @@ __device__ __forceinline__ void stage_children(float* dst, const float* __restri
 // read, precedes the reads.  A pattern's pool rows cross its G lanes, which
 // share a warp, after a __syncwarp.
 //
-// The arithmetic is upward_step's: each message's products in t order,
-// the product of the two messages, the max (exact in any order), the float
-// division's bits (div_rn, without its branches) and the scale chain
-// sl + sr + log(max) in that order.  So the pool holds upward_step's bits.
+// The arithmetic is the row-group design's upward step: each message's
+// products in t order, the product of the two messages, the max (exact in
+// any order), the float division's bits (div_rn, without its branches) and
+// the scale chain sl + sr + log(max) in that order.  So the pool holds that
+// design's bits.
 //
 // Shared memory a block (floats), with tile patterns, n_slots slots and
 // STAGES = CLUSTER_STAGES:
@@ -253,14 +208,11 @@ struct ClusterSmem {
   }
 };
 
-// Step j's inputs for category c into stage k: both children's [S,S]
-// blocks (mst_k [child][S*S]) and each tip child's S rows for the tile's
-// patterns (tst_k [child][S][tile]; a ragged tail repeats P - 1).
+// Step j's [S,S] blocks of category c for both children (mst_k
+// [child][S*S]), as cp.async copies by the whole block.
 template <int S>
-__device__ __forceinline__ void cluster_fetch(const Step& sj, float* mst_k, float* tst_k,
-                                              int c, int C, int tile, int p0,
-                                              const float* __restrict__ trans,
-                                              const float* __restrict__ tips, int P) {
+__device__ __forceinline__ void fetch_blocks(const Step& sj, float* mst_k, int c, int C,
+                                             const float* __restrict__ trans) {
   constexpr int SS = S * S;
   const int T = blockDim.x, tid = threadIdx.x;
   if constexpr (SS % 4 == 0) {
@@ -278,7 +230,19 @@ __device__ __forceinline__ void cluster_fetch(const Step& sj, float* mst_k, floa
       __pipeline_memcpy_async(mst_k + q, trans + ((size_t)node * C + c) * SS + r, 4);
     }
   }
+}
+
+// Step j's inputs for category c into stage k: both children's [S,S]
+// blocks (mst_k [child][S*S]) and each tip child's S rows for the tile's
+// patterns (tst_k [child][S][tile]; a ragged tail repeats P - 1).
+template <int S>
+__device__ __forceinline__ void cluster_fetch(const Step& sj, float* mst_k, float* tst_k,
+                                              int c, int C, int tile, int p0,
+                                              const float* __restrict__ trans,
+                                              const float* __restrict__ tips, int P) {
+  fetch_blocks<S>(sj, mst_k, c, C, trans);
   // a thread copies one pattern's words (T % tile == 0)
+  const int T = blockDim.x, tid = threadIdx.x;
   const int qq = tid % tile, p = min(p0 + qq, P - 1);
 #pragma unroll
   for (int side = 0; side < 2; ++side) {
@@ -328,11 +292,14 @@ __device__ __forceinline__ void cluster_message(const float* M, int s0,
 }
 
 // The whole upward walk for this block's category and tile (patterns p0
-// ..).  After each step emit(step, y, sc) sees this thread's normalized
-// rows y[RPT][QT] and its patterns' log-scales sc[QT]; the pool keeps
-// them for the parent step.  Returns the root's slot.  Every thread of
-// every block of the cluster runs it; the caller passes a cluster barrier
-// before it reads another block's pool.
+// ..).  After each step emit(step, y, sc, slot) sees this thread's
+// normalized rows y[RPT][QT], its patterns' log-scales sc[QT] and the
+// step's pool slot [S+1][tile], whose columns of the warp's patterns its
+// lanes have written (a __syncwarp before); the slot keeps them for the
+// parent step, which may overwrite it after the next step's cluster
+// barrier.  Returns the root's slot.  Every thread of every block of the
+// cluster runs it; the caller passes a cluster barrier before it reads
+// another block's pool.
 template <int S, int RPT, typename Emit>
 __device__ __forceinline__ int cluster_upward_walk(const int* __restrict__ steps,
                                                    int n_steps,
@@ -439,18 +406,40 @@ __device__ __forceinline__ int cluster_upward_walk(const int* __restrict__ steps
       sc[qq] += logf(mx[qq]);
       if (g == 0) out[S * tile + q[qq]] = sc[qq];
     }
-    emit(st, y, sc);
     // stage k is free: step i + NS into it
     if (i + NS < n_steps)
       cluster_fetch<S>(st_f, mst + k * 2 * SS, tst + (size_t)k * 2 * S * tile, c, C, tile,
                        p0, trans, tips, P);
     __pipeline_commit();
     __syncwarp();  // the pattern group's pool rows are written
+    emit(st, y, sc, static_cast<const float*>(out));
     if (i + NS + 1 < n_steps) st_f = load_step(steps, i + NS + 1);
     st = st_next;
     k = k == NS - 1 ? 0 : k + 1;
   }
   return st.out;
+}
+
+// Launch `kernel` as `clusters` thread-block clusters of C blocks (one a
+// rate category) of `threads` threads and `smem` bytes of shared memory.
+template <typename... Params, typename... Args>
+inline cudaError_t launch_clusters(void (*kernel)(Params...), int clusters, int C,
+                                   int threads, size_t smem, void* stream, Args... args) {
+  cudaError_t e = iqt::allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * C);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 }  // namespace iqtw

@@ -41,7 +41,7 @@ wide_forward_kernel(const int* __restrict__ steps, int n_steps,
   const int p0 = (int)(blockIdx.x / C) * tile;
   const int root_slot = cluster_upward_walk<S, RPT>(
       steps, n_steps, trans, tips, P, p0, tile, n_slots, smem,
-      [](const Step&, const auto&, const auto&) {});
+      [](const Step&, const auto&, const auto&, const float*) {});
   cluster.sync();  // every block's root rows are written
   const int q = threadIdx.x;
   if (cluster.block_rank() == 0 && q < tile) {
@@ -74,29 +74,15 @@ extern "C" int iqt_wide_forward(const int* steps, int n_steps, const float* tran
   if (C < 1 || C > 8 || tile <= 0 || tile % CLUSTER_QT) return (int)cudaErrorInvalidValue;
   const int clusters = (P + tile - 1) / tile;
   cudaError_t e = cudaSuccess;
-#define IQT_LAUNCH(SS_, RPT_)                                                       \
-  {                                                                                 \
-    const int threads = tile / CLUSTER_QT * (SS_ / RPT_);                           \
-    if (threads % 32 || threads > CLUSTER_THREADS_MAX)                              \
-      return (int)cudaErrorInvalidValue;                                            \
-    const size_t smem = ClusterSmem<SS_>(tile).floats(n_slots, C) * sizeof(float);  \
-    e = iqt::allow_smem(wide_forward_kernel<SS_, RPT_>, smem);                      \
-    if (e == cudaSuccess) {                                                         \
-      cudaLaunchConfig_t cfg = {};                                                  \
-      cfg.gridDim = dim3(clusters * C);                                             \
-      cfg.blockDim = dim3(threads);                                                 \
-      cfg.dynamicSmemBytes = smem;                                                  \
-      cfg.stream = (cudaStream_t)stream;                                            \
-      cudaLaunchAttribute attr[1];                                                  \
-      attr[0].id = cudaLaunchAttributeClusterDimension;                             \
-      attr[0].val.clusterDim.x = C;                                                 \
-      attr[0].val.clusterDim.y = 1;                                                 \
-      attr[0].val.clusterDim.z = 1;                                                 \
-      cfg.attrs = attr;                                                             \
-      cfg.numAttrs = 1;                                                             \
-      e = cudaLaunchKernelEx(&cfg, wide_forward_kernel<SS_, RPT_>, steps, n_steps,  \
-                             trans, tips, P, rootw, invar, out, n_slots, tile);     \
-    }                                                                               \
+#define IQT_LAUNCH(SS_, RPT_)                                                      \
+  {                                                                                \
+    const int threads = tile / CLUSTER_QT * (SS_ / RPT_);                          \
+    if (threads % 32 || threads > CLUSTER_THREADS_MAX)                             \
+      return (int)cudaErrorInvalidValue;                                           \
+    e = launch_clusters(wide_forward_kernel<SS_, RPT_>, clusters, C, threads,      \
+                        ClusterSmem<SS_>(tile).floats(n_slots, C) * sizeof(float), \
+                        stream, steps, n_steps, trans, tips, P, rootw, invar, out, \
+                        n_slots, tile);                                            \
   }
   IQT_DISPATCH_S(S, IQT_LAUNCH)
 #undef IQT_LAUNCH

@@ -4,71 +4,82 @@
 //
 // Replaces the TPU kernel _kernel_store (want_mb=False;
 // iqtree_tpu/engine/kernels/pruning.py), which also feeds the wide
-// branch-Newton sweep.  Same walk as wide_forward.cu; each step's partial
-// goes both to its shared-memory slot (read by the parent step) and to
-// up[node] [C*S, P] / usc[node] [P] in device memory, coalesced over the
-// tile's patterns.  The TPU's padding of S to 24 rows (Mosaic's 8-row DMA
-// tiling) and its 8-row replicated scale rows are not carried over.
+// branch-Newton sweep.  The TPU's padding of S to 24 rows (Mosaic's 8-row
+// DMA tiling) and its 8-row replicated scale rows are not carried over.
+//
+// Work layout: wide_forward.cu's.  A thread-block cluster of C blocks, one
+// a rate category, owns a tile of consecutive patterns and walks the slot
+// schedule with cluster_upward_walk (wide_common.cuh): a thread 2 patterns
+// x 5 rows, the category's matrices and the tip rows fetched with cp.async
+// as the ring releases a stage, the max across the categories through
+// distributed shared memory at one cluster barrier a step.  After a step
+// each warp copies its own patterns' columns of the step's pool slot (16
+// patterns x S rows, and rank 0 the scale row) to up[node] [C*S, P] and
+// usc[node] [P]: a store instruction writes 2 rows x 16 patterns, two
+// 64-byte runs, where the thread's own registers (2 patterns x 5 rows)
+// would write half of each run at a time.  The copy reads only the warp's
+// columns, after the walk's __syncwarp, and ends before the next step's
+// cluster barrier, after which the parent step may reuse the slot.  The
+// pool holds the row-group design's bits (the walk's message order, max,
+// div_rn quotient and scale chain), so up and usc are that design's bit for
+// bit.  A ragged last tile computes with pattern P - 1 and writes no
+// column past P.
 //
 // Bound on an H100 (LG+G4, 300 taxa x 1 958 patterns): the 3.7 GFLOP of
 // the forward kernel (67 TFLOP/s: 0.056 ms) and the stored partials, 299 x
 // 81 rows x 1 958 patterns x 4 B = 190 MB written (3.35 TB/s: 0.057 ms):
-// bytes and operations about even.  Like the forward kernel, this first
-// version runs at the latency of its step chain.
+// bytes and operations about even.  Like the forward kernel it runs at the
+// latency of its step chain, 299 dependent steps.
+//
+// Shared memory: ClusterSmem (wide_common.cuh; pruning.wide_forward_smem),
+// 25 472 bytes a block at S = 20, C = 4, 16 patterns a cluster and 10
+// slots; at S = 61 (codon), C = 4, 16 patterns and 11 slots 119 312 bytes,
+// under the 232 448 a block may have.
 #include "wide_common.cuh"
 
 using namespace iqtw;
 
 template <int S, int RPT>
-__global__ void __launch_bounds__(MAX_THREADS)
+__global__ void __launch_bounds__(CLUSTER_THREADS_MAX)
 wide_store_kernel(const int* __restrict__ steps, int n_steps,
                   const float* __restrict__ trans, const float* __restrict__ tips,
-                  int P, float* __restrict__ up, float* __restrict__ usc, int C,
-                  int n_slots, int T) {
-  extern __shared__ float smem[];
-  const Lane<S, RPT> L(T, C);
-  const int p_raw = blockIdx.x * T + L.p;
-  const int pg = min(p_raw, P - 1);
-  const int CSS = L.CS * S;
-  float* slots = smem;                                 // [n_slots][CS][T]
-  float* sscale = slots + (size_t)n_slots * L.CS * T;  // [n_slots][T]
-  float* pst = sscale + (size_t)n_slots * T;           // [2][C][S][S]
-  float* red = pst + 2 * CSS;                          // [G][T]
-
-  stage_children(pst, trans, load_step(steps, 0), CSS);
-  __syncthreads();
-  float y[RPT];
-  for (int i = 0; i < n_steps; ++i) {
-    const Step st = load_step(steps, i);
-    const float sc = upward_step<S, RPT>(st, pst, tips, P, pg, slots, sscale, red, L, y);
-    if (p_raw < P) {
-      float* dst = up + ((size_t)st.node * L.CS + L.row(0)) * P + p_raw;
-#pragma unroll
-      for (int j = 0; j < RPT; ++j) dst[(size_t)j * P] = y[j];
-      if (L.g == 0) usc[(size_t)st.node * P + p_raw] = sc;
+                  int P, float* __restrict__ up, float* __restrict__ usc, int n_slots,
+                  int tile) {
+  // a warp's patterns, and the rows one of its store instructions covers
+  constexpr int WP = 32 / (S / RPT) * CLUSTER_QT, RW = 32 / WP;
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), c = (int)cluster.block_rank();
+  const int p0 = (int)(blockIdx.x / C) * tile;
+  const int lane = threadIdx.x & 31, r0 = lane / WP;
+  const int q = (int)(threadIdx.x >> 5) * WP + lane % WP, p = p0 + q;
+  const auto emit = [&](const Step& st, const auto&, const auto&, const float* slot) {
+    if (p < P) {
+      float* dst = up + ((size_t)st.node * C + c) * S * P + p;
+      for (int r = r0; r < S; r += RW) dst[(size_t)r * P] = slot[r * tile + q];
+      if (c == 0 && r0 == 0) usc[(size_t)st.node * P + p] = slot[S * tile + q];
     }
-    if (i + 1 < n_steps) stage_children(pst, trans, load_step(steps, i + 1), CSS);
-    __syncthreads();
-  }
+  };
+  cluster_upward_walk<S, RPT>(steps, n_steps, trans, tips, P, p0, tile, n_slots, smem, emit);
 }
 
+// tile: patterns a cluster, a multiple of 16 (a block has tile / 2 x 4
+// threads, whole warps) up to 128.
 extern "C" int iqt_wide_store(const int* steps, int n_steps, const float* trans,
                               const float* tips, int P, float* up, float* usc, int C,
                               int S, int n_slots, int tile, void* stream) {
-  const int CS = C * S;
-  const size_t smem =
-      ((size_t)n_slots * (CS + 1) * tile + 2 * (size_t)CS * S) * sizeof(float);
-  const dim3 grid((P + tile - 1) / tile);
+  if (C < 1 || C > 8 || tile <= 0 || tile % CLUSTER_QT) return (int)cudaErrorInvalidValue;
+  const int clusters = (P + tile - 1) / tile;
   cudaError_t e = cudaSuccess;
-#define IQT_LAUNCH(SS_, RPT_)                                                     \
-  {                                                                               \
-    const int threads = tile * C * (SS_ / RPT_);                                  \
-    if (threads > MAX_THREADS) return (int)cudaErrorInvalidConfiguration;         \
-    const size_t bytes = smem + (size_t)C * (SS_ / RPT_) * tile * sizeof(float);  \
-    e = iqt::allow_smem(wide_store_kernel<SS_, RPT_>, bytes);                     \
-    if (e == cudaSuccess)                                                         \
-      wide_store_kernel<SS_, RPT_><<<grid, threads, bytes, (cudaStream_t)stream>>>( \
-          steps, n_steps, trans, tips, P, up, usc, C, n_slots, tile);             \
+#define IQT_LAUNCH(SS_, RPT_)                                                      \
+  {                                                                                \
+    const int threads = tile / CLUSTER_QT * (SS_ / RPT_);                          \
+    if (threads % 32 || threads > CLUSTER_THREADS_MAX)                             \
+      return (int)cudaErrorInvalidValue;                                           \
+    e = launch_clusters(wide_store_kernel<SS_, RPT_>, clusters, C, threads,        \
+                        ClusterSmem<SS_>(tile).floats(n_slots, C) * sizeof(float), \
+                        stream, steps, n_steps, trans, tips, P, up, usc, n_slots,  \
+                        tile);                                                     \
   }
   IQT_DISPATCH_S(S, IQT_LAUNCH)
 #undef IQT_LAUNCH

@@ -1,18 +1,19 @@
 """Source variants of the redesigned kernels: what their time is made of.
 
     python -m iqtree_torch.engine.kernels.probe [-C N[,N...]] [--base DIR]
-        [newton|forward|store|down_store|wide_newton|wide_forward|tbar ...]
+        [newton|forward|store|down_store|wide_newton|wide_forward|wide_store|
+         wide_down_store|tbar ...]
 
 On a CUDA card, at the bench shapes (bench_data.npz: its tree, 1000 taxa,
 9 962 patterns, GTR+G4 at the model's start values; GTR+GN with -C N, each
-of a list in turn; wide_newton and wide_forward at bench_data_protein.npz's:
-300 taxa, 1 958 patterns, LG+GN), builds each variant of a kernel -- a text
-edit of csrc/<kernel>.cu or of a header it includes that takes one cost
-out -- loads it in place of the kernel and prints ms a call of the
-kernel's wrapper (CUDA events around 10 calls after a warm-up) at 32, 64
-and 128 lanes a block (down_store: 8, 32, 64 and 128 patterns a block;
-tbar: 64 patterns a block, the only size that keeps its bits;
-wide_newton and wide_forward: 16, 32 and 64 patterns a cluster).  With no kernel named, all seven.
+of a list in turn; the wide kernels at bench_data_protein.npz's: 300 taxa,
+1 958 patterns, LG+GN), builds each variant of a kernel -- a text edit of
+csrc/<kernel>.cu or of a header it includes that takes one cost out --
+loads it in place of the kernel and prints ms a call of the kernel's
+wrapper (CUDA events around 10 calls after a warm-up) at 32, 64 and 128
+lanes a block (down_store: 8, 32, 64 and 128 patterns a block; tbar: 64
+patterns a block, the only size that keeps its bits; the wide kernels: 16,
+32 and 64 patterns a cluster).  With no kernel named, all nine.
 
 --base DIR adds the variant `base`: <kernel>.cu and its headers taken
 whole from DIR, e.g. an earlier commit's csrc/ (`git archive COMMIT
@@ -23,7 +24,7 @@ whether the two give the same bits.  The earlier thread-a-pattern
 forward.cu, store.cu and down_store.cu read the block argument as
 patterns a block, the earlier wide_newton.cu and wide_forward.cu as
 patterns a block of C x 4 row groups of threads (a block past 512 threads
-is refused).
+is refused), as do the earlier wide_store.cu and wide_down_store.cu.
 
 newton (newton_sweep; the per-warp sums' zeroing and reduction inside):
   as built         csrc/newton.cu
@@ -78,6 +79,35 @@ wide_forward (wide_site_lnl; the cluster walk of wide_common.cuh):
   stages 3         the cp.async ring three steps deep
   float division, scaled division, reciprocal  as for down_store
   loads on the chain  each step waits for the copies it has just issued
+
+wide_store (pruning.fused_upward_store; the same cluster walk):
+  as built         csrc/wide_store.cu
+  one pattern a thread  CLUSTER_QT = 1 (a warp's row stores 8 patterns)
+  tips cached      as for wide_forward
+  no stores        nothing written to up and usc
+  stores from registers  each thread writes its own 2 patterns x 5 rows
+                   (and the scale) from registers: half of each 64-byte
+                   run an instruction, no copy from the pool
+  no cluster barrier  as for wide_forward (wrong values; a cluster
+                   barrier before the blocks leave)
+  float division   as for down_store
+
+wide_down_store (cs_kernels.fused_down_store; wide_newton's reverse walk
+with one matrix, one cluster barrier a step):
+  as built         csrc/wide_down_store.cu
+  partials cached  every step fetches node 0's partials and scales
+  matrices cached  every step fetches node 0's [S,S] blocks
+  no stores        nothing written to out and osc
+  no cluster barrier  the exchange's cluster barrier a block barrier
+                   (wrong values; a cluster barrier before the blocks leave)
+  stages 3         the cp.async ring three steps deep
+  loads on the chain  as for wide_newton
+  two patterns a thread  QT = 2 (the forward walk's): half the threads
+  registers 255    no cap of 128 registers a thread (the cap keeps every
+                   cluster resident at C=8)
+  no push          nothing pushed into the children's slots (wrong values)
+  no division      O = o, no division by the max (wrong values)
+  float division, reciprocal  as for down_store
 
 tbar (fused_tbar_cs), down_store's walk and the ordered cotangent sums:
   as built         csrc/tbar.cu
@@ -175,6 +205,40 @@ _TBAR_BUTTERFLY = """    for (int s = 0; s < 1; ++s) {
         part_b[((size_t)(q < SS ? st.l : st.r) * C + c) * SS + q % SS] = acc;
       }
     }"""
+# the wide store's row stores: each warp's 16 patterns from the pool slot
+# (as built), or each thread's own rows and scale from its registers
+_STORE_FROM_POOL = """  const auto emit = [&](const Step& st, const auto&, const auto&, const float* slot) {
+    if (p < P) {
+      float* dst = up + ((size_t)st.node * C + c) * S * P + p;
+      for (int r = r0; r < S; r += RW) dst[(size_t)r * P] = slot[r * tile + q];
+      if (c == 0 && r0 == 0) usc[(size_t)st.node * P + p] = slot[S * tile + q];
+    }
+  };"""
+_STORE_FROM_REGISTERS = """  const auto emit = [&](const Step& st, const auto& y, const auto& sc, const float*) {
+    const int g = threadIdx.x % (S / RPT), pq = threadIdx.x / (S / RPT);
+#pragma unroll
+    for (int qq = 0; qq < CLUSTER_QT; ++qq) {
+      const int pr = p0 + pq * CLUSTER_QT + qq;
+      if (pr >= P) continue;
+      float* dst = up + ((size_t)st.node * C + c) * S * P + pr;
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) dst[(size_t)(g * RPT + j) * P] = y[j][qq];
+      if (c == 0 && g == 0) usc[(size_t)st.node * P + pr] = sc[qq];
+    }
+  };"""
+_ONE_PATTERN = (("constexpr int CLUSTER_QT = 2;", "constexpr int CLUSTER_QT = 1;"),)
+_TIPS_CACHED = (("tips + ((size_t)node * S + t) * P + p, 4);",
+                 "tips + ((size_t)0 * S + t) * P + p, 4);"),)
+_MATRICES_CACHED = (("trans + ((size_t)node * C + c) * SS + 4 * r, 16);",
+                     "trans + ((size_t)0 * C + c) * SS + 4 * r, 16);"),)
+_WALK_BARRIER = (("    cluster.sync();  // one barrier a step",
+                  "    __syncthreads();  // one barrier a step"),)
+_LOADS_ON_THE_CHAIN = (("    __pipeline_commit();\n"
+                        "    const Step st_next = i > 0 ? load_step(steps, i - 1) : st;",
+                        "    __pipeline_commit();\n"
+                        "    __pipeline_wait_prior(0);\n"
+                        "    __syncthreads();\n"
+                        "    const Step st_next = i > 0 ? load_step(steps, i - 1) : st;"),)
 # kernel: {variant: ((old, new) text edits of csrc/<kernel>.cu and cs_common.cuh)}
 KERNELS: Dict[str, Dict[str, Tuple[Tuple[str, str], ...]]] = {
     "newton": {
@@ -217,23 +281,14 @@ KERNELS: Dict[str, Dict[str, Tuple[Tuple[str, str], ...]]] = {
                                  "void exchange_barrier(cg::cluster_group& cluster) {\n"
                                  "  __syncthreads();"),),
         **_DIVISION,
-        "loads on the chain": (("    __pipeline_commit();\n"
-                                "    const Step st_next = i > 0 ? load_step(steps, i - 1) : st;",
-                                "    __pipeline_commit();\n"
-                                "    __pipeline_wait_prior(0);\n"
-                                "    __syncthreads();\n"
-                                "    const Step st_next = i > 0 ? load_step(steps, i - 1) : st;"),),
+        "loads on the chain": _LOADS_ON_THE_CHAIN,
     },
     "wide_forward": {
         "as built": (),
-        "one pattern a thread": (("constexpr int CLUSTER_QT = 2;",
-                                  "constexpr int CLUSTER_QT = 1;"),),
-        "tips cached": (("tips + ((size_t)node * S + t) * P + p, 4);",
-                         "tips + ((size_t)0 * S + t) * P + p, 4);"),),
-        "matrices cached": (("trans + ((size_t)node * C + c) * SS + 4 * r, 16);",
-                             "trans + ((size_t)0 * C + c) * SS + 4 * r, 16);"),),
-        "no cluster barrier": (("    cluster.sync();  // one barrier a step",
-                                "    __syncthreads();  // one barrier a step"),),
+        "one pattern a thread": _ONE_PATTERN,
+        "tips cached": _TIPS_CACHED,
+        "matrices cached": _MATRICES_CACHED,
+        "no cluster barrier": _WALK_BARRIER,
         "stages 3": (("constexpr int CLUSTER_STAGES = 2;", "constexpr int CLUSTER_STAGES = 3;"),),
         **_DIVISION,
         "loads on the chain": (("    __pipeline_commit();\n"
@@ -241,6 +296,41 @@ KERNELS: Dict[str, Dict[str, Tuple[Tuple[str, str], ...]]] = {
                                 "    __pipeline_commit();\n"
                                 "    __pipeline_wait_prior(0);\n"
                                 "    __syncwarp();  // the pattern group's pool rows are written"),),
+    },
+    "wide_store": {
+        "as built": (),
+        "one pattern a thread": _ONE_PATTERN,
+        "tips cached": _TIPS_CACHED,
+        "no stores": (("    if (p < P) {", "    if (false) {"),),
+        "stores from registers": ((_STORE_FROM_POOL, _STORE_FROM_REGISTERS),),
+        "no cluster barrier": (*_WALK_BARRIER,
+                               ("n_slots, smem, emit);\n}",
+                                "n_slots, smem, emit);\n  cluster.sync();\n}")),
+        "float division": _DIVISION["float division"],
+    },
+    "wide_down_store": {
+        "as built": (),
+        "partials cached": (("up + ((size_t)node * C * S + c * S + t) * P + p",
+                             "up + ((size_t)0 * C * S + c * S + t) * P + p"),
+                            ("usc + (size_t)node * P + p;", "usc + p;")),
+        "matrices cached": _MATRICES_CACHED,
+        "no stores": (("    if (stores) {", "    if (false) {"),
+                      ("    if (c == 0)\n      for (int v = g;",
+                       "    if (false)\n      for (int v = g;")),
+        "no cluster barrier": (
+            ("    cluster.sync();  // the exchange: every block's maxima of step i are written",
+             "    __syncthreads();  // the exchange: every block's maxima of step i are written"),
+            ("    k = k == STAGES - 1 ? 0 : k + 1;\n  }\n}",
+             "    k = k == STAGES - 1 ? 0 : k + 1;\n  }\n  cluster.sync();\n}")),
+        "stages 3": (("constexpr int STAGES = 2;", "constexpr int STAGES = 3;"),),
+        "loads on the chain": _LOADS_ON_THE_CHAIN,
+        "two patterns a thread": (("constexpr int QT = 1;", "constexpr int QT = 2;"),),
+        "registers 255": (("__launch_bounds__(CLUSTER_THREADS_MAX, 2)\nwide_down_store_kernel",
+                           "__launch_bounds__(CLUSTER_THREADS_MAX)\nwide_down_store_kernel"),),
+        "no push": (("      if (cslot < 0) continue;", "      if (true) continue;"),),
+        "no division": (("iqt::div_rn(o[side][j][qq], mx[side][qq]);", "o[side][j][qq];"),),
+        "float division": _DIVISION["float division"],
+        "reciprocal": _DIVISION["reciprocal"],
     },
     "tbar": {
         "as built": (),
@@ -277,17 +367,20 @@ KERNELS: Dict[str, Dict[str, Tuple[Tuple[str, str], ...]]] = {
 LANES = (32, 64, 128)
 # the launch parameters: down_store's patterns a block, wide_newton's
 # patterns a cluster
-SIZES = {"down_store": (8, 32, 64, 128), "wide_newton": (16, 32, 64),
-         "wide_forward": (16, 32, 64), "tbar": (64,)}
+CLUSTER_TILES = (16, 32, 64)
+SIZES = {"down_store": (8, 32, 64, 128), "wide_newton": CLUSTER_TILES,
+         "wide_forward": CLUSTER_TILES, "wide_store": CLUSTER_TILES,
+         "wide_down_store": CLUSTER_TILES, "tbar": (64,)}
 UNITS = {"down_store": "patterns a block", "wide_newton": "patterns a cluster",
-         "wide_forward": "patterns a cluster", "tbar": "patterns a block"}
+         "wide_forward": "patterns a cluster", "wide_store": "patterns a cluster",
+         "wide_down_store": "patterns a cluster", "tbar": "patterns a block"}
 # the block size at which base and as built are compared bit for bit when
 # not the wrapper's: the earlier wide_newton's tile, whose sums it keeps;
-# the earlier wide_forward's tile (its bits do not depend on the tile; it
-# refuses 32 patterns at C=8, 1 024 threads)
-BITS_AT = {"wide_newton": 16, "wide_forward": 16}
+# the earlier row-group wide kernels' tile (their bits do not depend on the
+# tile; they refuse 32 patterns at C=8, 1 024 threads)
+BITS_AT = {"wide_newton": 16, "wide_forward": 16, "wide_store": 16, "wide_down_store": 16}
 # kernels at the protein bench shapes
-PROTEIN = ("wide_newton", "wide_forward")
+PROTEIN = ("wide_newton", "wide_forward", "wide_store", "wide_down_store")
 
 
 def source_files(kernel: str):
@@ -376,7 +469,10 @@ def bench_calls(device, categories=4, protein=False):
         return {"wide_newton": lambda: csk.wide_newton_sweep(
                     steps, n_slots, mats, props, freq, wp, invar, up, usc),
                 "wide_forward": lambda: pruning.wide_site_lnl(
-                    steps, n_slots, trans, tips, props, freq, invar)}
+                    steps, n_slots, trans, tips, props, freq, invar),
+                "wide_store": lambda: pruning.fused_upward_store(steps, n_slots, trans, tips),
+                "wide_down_store": lambda: csk.fused_down_store(steps, n_slots, trans, up,
+                                                                usc, freq)}
     lnl = pruning.fused_site_lnl(steps, n_slots, trans, tips, props, freq, invar)
     return {
         "tbar": lambda: csk.fused_tbar_cs(steps, n_slots, trans, tips, props, freq, lnl, wp,
@@ -405,7 +501,9 @@ def call_ms(fn, reps=10) -> float:
 BLOCK_SETTING = {"newton": (csk, "NEWTON_THREADS"), "down_store": (csk, "DOWN_STORE_PATTERNS"),
                  "wide_newton": (csk, "WIDE_NEWTON_TILE"), "forward": (pruning, "UPWARD_LANES"),
                  "store": (pruning, "UPWARD_LANES"), "tbar": (csk, "TBAR_PATTERNS"),
-                 "wide_forward": (pruning, "WIDE_FORWARD_TILE")}
+                 "wide_forward": (pruning, "WIDE_FORWARD_TILE"),
+                 "wide_store": (pruning, "WIDE_STORE_TILE"),
+                 "wide_down_store": (csk, "WIDE_DOWN_STORE_TILE")}
 
 
 def set_lanes(kernel: str, lanes: int) -> None:

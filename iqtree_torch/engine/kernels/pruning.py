@@ -4,12 +4,12 @@
 csrc/forward.cu at the CS-packed DNA shapes (S=4), csrc/wide_forward.cu
 (`wide_site_lnl`) at the wide protein shapes (S=20) -- and runs its plain
 twin for a CPU tensor.  `fused_upward_store` is the wide upward store
-(csrc/wide_store.cu): the same sweep, storing every internal partial for
-the reverse sweeps.  The kernels evaluate the entire post-order for a
-block of patterns with the live partials in a shared-memory slot pool
-(forward.cu with a lane a pattern and rate category, csrc/cs_common.cuh;
-wide_forward.cu with a cluster of blocks, one a rate category,
-csrc/wide_common.cuh):
+(csrc/wide_store.cu): the same sweep on the same clusters, storing every
+internal partial for the reverse sweeps.  The kernels evaluate the entire
+post-order for a block of patterns with the live partials in a
+shared-memory slot pool (forward.cu with a lane a pattern and rate
+category, csrc/cs_common.cuh; wide_forward.cu with a cluster of blocks,
+one a rate category, csrc/wide_common.cuh):
 
   * topology arrives as a Sethi-Ullman slot schedule (schedule.py), so at
     most ceil(log2 N)+1 partials are live per pattern;
@@ -56,15 +56,18 @@ UPWARD_LANES = 64
 # pool of a 1000-taxon tree (11 slots) under the 48 KB default shared
 # memory and gives ~160 blocks for 10k patterns on the 132 SMs.
 DEFAULT_TILE = 64
-# Patterns per block of the wide kernels on row groups (wide_store.cu,
-# wide_tbar.cu, wide_down_store.cu): 16 patterns x C*4 row groups of 5
-# states (256 threads at C=4); ~123 blocks for 1 958 patterns.
+# Patterns per block of the wide kernel on row groups (wide_tbar.cu): 16
+# patterns x C*4 row groups of 5 states (256 threads at C=4); ~123 blocks
+# for 1 958 patterns.
 WIDE_TILE = 16
 # Patterns a cluster of csrc/wide_forward.cu (C blocks, one a rate
 # category, of tile / 2 x 4 threads): 16 gives 123 clusters of 4 one-warp
 # blocks at 1 958 patterns, C=4 (measured fastest at C = 1, 3, 4 and 8,
 # PERF.md).
 WIDE_FORWARD_TILE = 16
+# Patterns a cluster of csrc/wide_store.cu (the same clusters and walk):
+# 16, measured fastest at C = 3, 4 and 8 (PERF.md).
+WIDE_STORE_TILE = 16
 # The cluster walk's ring depth (CLUSTER_STAGES of csrc/wide_common.cuh).
 CLUSTER_STAGES = 2
 
@@ -157,11 +160,11 @@ fused_site_lnl.launches = 0
 
 def wide_forward_smem(S: int, C: int, tile: int, n_slots: int,
                       stages: int = CLUSTER_STAGES) -> int:
-    """Bytes of shared memory a block of csrc/wide_forward.cu takes (the
-    cluster walk's ClusterSmem, csrc/wide_common.cuh): the ring of both
-    children's [S,S] blocks and tip rows, the slot pool of the block's
-    category and the max buffers.  A block holds one rate category, so
-    only the max buffers grow with C."""
+    """Bytes of shared memory a block of csrc/wide_forward.cu or
+    csrc/wide_store.cu takes (the cluster walk's ClusterSmem,
+    csrc/wide_common.cuh): the ring of both children's [S,S] blocks and
+    tip rows, the slot pool of the block's category and the max buffers.
+    A block holds one rate category, so only the max buffers grow with C."""
     return 4 * (stages * 2 * (S * S + S * tile) + n_slots * (S + 1) * tile
                 + 2 * C * tile)
 
@@ -193,7 +196,10 @@ def fused_upward_store(steps, n_slots, trans, tips, tile=None):
     """(up [2N, CS, P], usc [2N, P]) at the wide shapes (S=20): every
     internal node's normalized partial and log-scale, through
     csrc/wide_store.cu for CUDA tensors and the plain twin upward_plain
-    for CPU tensors.  Tip rows are left for fill_tip_rows_cs."""
+    for CPU tensors.  Tip rows are left for fill_tip_rows_cs.  A cluster
+    of C blocks (one a rate category) holds `tile` patterns (default
+    WIDE_STORE_TILE; for measuring the kernel); its shared memory is
+    wide_forward_smem's."""
     if not trans.is_cuda:
         return upward_plain(steps, trans, tips)
     n_rows, C, S = trans.shape[:3]
@@ -202,7 +208,7 @@ def fused_upward_store(steps, n_slots, trans, tips, tile=None):
     up = torch.empty(n_rows, C * S, P, dtype=torch.float32, device=trans.device)
     usc = torch.zeros(n_rows, P, dtype=torch.float32, device=trans.device)
     build.launch("wide_store", steps, steps.shape[0], trans, tips, P, up, usc, C, S,
-                 n_slots, tile or WIDE_TILE)
+                 n_slots, tile or WIDE_STORE_TILE)
     fused_upward_store.launches += 1
     return up, usc
 

@@ -289,7 +289,7 @@ def test_wide_down_store_and_nni_evaluator_on_card(protein_card):
     torch.testing.assert_close(out[rows], out_p[rows], rtol=1e-4, atol=1e-6)
     torch.testing.assert_close(osc[rows], osc_p[rows], rtol=1e-5, atol=1e-4)
     assert not bool(out[ta.root].any()) and not bool(osc[2 * ta.n_taxa - 1].any())
-    for tile in (8, 32):
+    for tile in (32, 64):  # patterns a cluster beside the default's (whole warps)
         o_t, s_t = cs_kernels.fused_down_store(st, ns, trans, up, usc, freq, tile=tile)
         torch.testing.assert_close(o_t[rows], out_p[rows], rtol=1e-4, atol=1e-6)
         torch.testing.assert_close(s_t[rows], osc_p[rows], rtol=1e-5, atol=1e-4)
@@ -766,9 +766,11 @@ def test_wide_forward_gives_the_earlier_designs_bits():
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["wide_store", "wide_tbar", "wide_down_store"])
 def test_wide_row_group_kernels_keep_the_earlier_designs_bits(kernel):
-    """The row-group wide kernels share wide_common.cuh with the cluster
-    walk and are otherwise unchanged: at C = 4 each gives the earlier
-    commit's bits (the earlier build from IQT_EARLIER_CSRC)."""
+    """At C = 4 the wide store and outside-partial store on clusters give the
+    row-group design's bits at 16, 32 and 64 patterns a cluster, and the
+    row-group gradient sweep, which shares wide_common.cuh with them, keeps
+    its bits (the earlier build, at 16 patterns a block, from
+    IQT_EARLIER_CSRC)."""
     earlier = _earlier_csrc()
     k = _lane_case(4, 130, alphabet="ARNDCQEGHILKMFPSTWYV-X", n=30, sites=301)
     model, site = k["model"], k["site"]
@@ -778,19 +780,77 @@ def test_wide_row_group_kernels_keep_the_earlier_designs_bits(kernel):
     lnl = pruning._site_lnl_plain(k["steps"], k["trans"], tips, props, k["freq"],
                                   ptn_invar(model, site).float().contiguous())
 
-    def run():
+    def run(tile):
         if kernel == "wide_store":
-            up, usc = pruning.fused_upward_store(k["steps"], k["n_slots"], k["trans"], tips)
+            up, usc = pruning.fused_upward_store(k["steps"], k["n_slots"], k["trans"], tips,
+                                                 tile=tile)
             return up[inner], usc[inner]
         if kernel == "wide_down_store":
             return cs_kernels.fused_down_store(k["steps"], k["n_slots"], k["trans"], k["up"],
-                                               k["usc"], k["freq"])
+                                               k["usc"], k["freq"], tile=tile)
         return (cs_kernels.fused_downward_tbar(
             k["steps"], k["n_slots"], k["trans"], tips, props, k["freq"], lnl,
-            site.pattern_freq.contiguous(), up=k["up"], usc=k["usc"]),)
+            site.pattern_freq.contiguous(), up=k["up"], usc=k["usc"], tile=tile),)
 
-    got = run()
+    tiles = (16,) if kernel == "wide_tbar" else (16, 32, 64)
+    got = [run(t) for t in tiles]
     with _earlier_design(kernel, earlier):
-        want = run()
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+        want = run(16)
+    for gt in got:
+        for g, w in zip(gt, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [16, 32, 64])
+@pytest.mark.parametrize("C", [1, 4, 8])
+def test_wide_store_clusters_match_twin(C, tile):
+    """The wide upward store (a cluster of C blocks, one a category, its rows
+    copied from the pool a warp's 16 patterns at a time) at `tile` patterns
+    a cluster and an odd pattern count (the last cluster ragged): the
+    internal rows within 1e-4 of the twin (up absolutely, usc relative to
+    its largest), the tip rows not written, and two launches bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    k = _lane_case(C, 140 + C, alphabet="ARNDCQEGHILKMFPSTWYV-X", n=30, sites=301)
+    tips = tip_partials(k["site"]).contiguous()
+    N = k["ta"].n_taxa
+    inner = slice(N, 2 * N - 1)
+    up_p, usc_p = pruning.upward_plain(k["steps"], k["trans"], tips)
+    before = pruning.fused_upward_store.launches
+    up, usc = pruning.fused_upward_store(k["steps"], k["n_slots"], k["trans"], tips, tile=tile)
+    up2, usc2 = pruning.fused_upward_store(k["steps"], k["n_slots"], k["trans"], tips,
+                                           tile=tile)
+    assert pruning.fused_upward_store.launches == before + 2
+    assert torch.equal(up[inner], up2[inner]) and torch.equal(usc, usc2)
+    assert float((up[inner] - up_p[inner]).abs().max()) <= 1e-4
+    assert float((usc[inner] - usc_p[inner]).abs().max()
+                 / usc_p[inner].abs().max()) <= 1e-4
+    assert not bool(usc[:N].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [16, 32, 64])
+@pytest.mark.parametrize("C", [1, 4, 8])
+def test_wide_down_store_clusters_match_twin(C, tile):
+    """The wide outside-partial store (a cluster of C blocks, one a category,
+    one cluster barrier a step) at `tile` patterns a cluster: within 1e-4
+    of the twin (O absolutely, osc relative to its largest), the root and
+    dummy rows 0, and two launches bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    k = _lane_case(C, 150 + C, alphabet="ARNDCQEGHILKMFPSTWYV-X", n=30, sites=301)
+    args = (k["steps"], k["n_slots"], k["trans"], k["up"], k["usc"], k["freq"])
+    before = cs_kernels.fused_down_store.launches
+    out, osc = cs_kernels.fused_down_store(*args, tile=tile)
+    out2, osc2 = cs_kernels.fused_down_store(*args, tile=tile)
+    assert cs_kernels.fused_down_store.launches == before + 2
+    assert torch.equal(out, out2) and torch.equal(osc, osc2)
+    out_p, osc_p = cs_kernels._down_store_plain(k["steps"], k["trans"], k["up"], k["usc"],
+                                                k["freq"])
+    R = 2 * k["ta"].n_taxa
+    rows = [v for v in range(R - 1) if v != k["ta"].root]
+    assert float((out[rows] - out_p[rows]).abs().max()) <= 1e-4
+    assert float((osc[rows] - osc_p[rows]).abs().max()
+                 / osc_p[rows].abs().max()) <= 1e-4
+    assert not bool(out[R - 2:].any()) and not bool(osc[R - 2:].any())

@@ -143,7 +143,7 @@ def test_upward_probe_variants_apply_to_the_kernel_sources(kernel):
 
 
 @pytest.mark.parametrize("kernel", ["forward", "store", "down_store", "wide_newton",
-                                    "wide_forward", "tbar"])
+                                    "wide_forward", "tbar", "wide_store", "wide_down_store"])
 def test_probe_base_variant_reads_both_files_from_its_directory(kernel, tmp_path):
     """`--base DIR` builds <kernel>.cu and the headers it includes
     (cs_common.cuh; the wide kernels also wide_common.cuh) as DIR holds them
@@ -159,7 +159,8 @@ def test_probe_base_variant_reads_both_files_from_its_directory(kernel, tmp_path
     assert probe.variant_sources(kernel, "base", tmp_path) == want
 
 
-@pytest.mark.parametrize("kernel", ["down_store", "wide_newton", "wide_forward", "tbar"])
+@pytest.mark.parametrize("kernel", ["down_store", "wide_newton", "wide_forward", "tbar",
+                                    "wide_store", "wide_down_store"])
 def test_redesigned_probe_variants_apply_to_the_kernel_sources(kernel):
     """Every variant of the probes of the kernels redesigned on the lane
     layout and on clusters edits csrc/<kernel>.cu or a header it includes,
@@ -226,3 +227,25 @@ def test_wide_forward_and_tbar_shared_memory():
         assert tb(C, 12) - tb(C, 11) == 4 * 5 * 64 * C
     assert tb(8, 16) > block
     assert tb(4, 11, stages=3) - tb(4, 11) == 4 * (8 * 2 * 20 + 10 * (256 + 4))
+
+
+def test_wide_store_and_down_store_shared_memory():
+    """The shared memory of csrc/wide_store.cu (the cluster walk's, as
+    wide_forward.cu's) and of csrc/wide_down_store.cu (the formula of its
+    header) at S=20 and S=61 (codon), C = 1-8, 16 patterns a cluster and a
+    1000-taxon tree's 11 slots: under the 227 KB a block may have, where
+    the row-group designs' launchers asked 307 168 and 356 944 bytes at
+    S=61, C=4 (a row group a state).  One
+    block a category: only the max buffers (double-buffered by step parity
+    in the down-store, for both children) grow with C."""
+    block = 232448
+    ds = cs_kernels.wide_down_store_smem
+    assert ds(20, 4, 16, 11) == 30144
+    assert ds(61, 4, 16, 11) == 127888
+    for C in range(1, 9):
+        for S in (20, 61):
+            assert pruning.wide_forward_smem(S, C, 16, 11) <= block, (S, C)
+            assert ds(S, C, 16, 11) <= block, (S, C)
+        assert ds(20, C, 64, 12) <= block
+        assert ds(20, C, 16, 11) - ds(20, 1, 16, 11) == 4 * 4 * (C - 1) * 16
+    assert ds(20, 4, 16, 11, stages=3) - ds(20, 4, 16, 11) == 4 * (2 * 400 + 2 * 21 * 16)

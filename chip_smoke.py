@@ -35,12 +35,12 @@ Phases (any failure exits non-zero; nothing is caught):
      torch.profiler: device time by kernel, busy share;
   8. at the protein path's shapes (bench_data_protein.npz: 300 taxa x
      2 000 aa, 1 958 patterns, LG+G4) the four wide kernels against their
-     twins, timed with their tile sweep (the forward kernel, the store and
-     the branch-Newton sweep over 16 / 32 / 64 patterns a cluster, beside
-     their earlier designs' times, two launches bit-equal, also at C = 1
-     and 8 with the outside-partial store, their shared memory by their
-     formulas at S = 20 and S = 61); the custom-autograd gradient against
-     autograd through the plain pass;
+     twins, timed with their tile sweep (the forward kernel, the store,
+     the gradient sweep and the branch-Newton sweep over 16 / 32 / 64
+     patterns a cluster, beside their earlier designs' times, two launches
+     bit-equal, also at C = 1 and 8 with the outside-partial store, their
+     shared memory by their formulas at S = 20 and S = 61); the
+     custom-autograd gradient against autograd through the plain pass;
   9. the protein fixed-topology path through the CLI entry point:
      `-s ALN -te TREE -m LG+G` on cuda, with the wide kernels' launch
      counts read around that run;
@@ -101,13 +101,13 @@ PEAK_BW = 3.35e12  # H100 SXM HBM3, bytes/s
 # The times of the earlier designs the redesigned kernels replace (PERF.md
 # section 6, the same card and timing): ms a call of fused_site_lnl,
 # fused_upward_store_cs, newton_sweep, fused_down_store_cs,
-# wide_newton_sweep, wide_site_lnl, fused_tbar_cs, fused_upward_store and
-# fused_down_store, and of insertion_costs (its events held the wrapper's
-# host work)
+# wide_newton_sweep, wide_site_lnl, fused_tbar_cs, fused_upward_store,
+# fused_down_store and fused_downward_tbar, and of insertion_costs (its
+# events held the wrapper's host work)
 EARLIER_MS = {"forward": 3.139, "store": 3.315, "newton": 12.361, "pars_insert": 1.683,
               "pars_insert_s20": 0.556, "down_store": 14.706, "wide_newton": 7.063,
               "wide_forward": 2.102, "tbar": 13.848, "wide_store": 2.236,
-              "wide_down_store": 3.961}
+              "wide_down_store": 3.961, "wide_tbar": 5.862}
 SMEM_BLOCK = 232448  # bytes of shared memory an H100 block may have
 SMEM_ROUND_TRIP = 30  # cycles from a shared-memory load to its use, about
 
@@ -174,6 +174,15 @@ def store_err(up_k, usc_k, up_p, usc_p, inner):
     return max(float((up_k[inner] - up_p[inner]).abs().max()),
                float((usc_k[inner] - usc_p[inner]).abs().max()
                      / usc_p[inner].abs().max()))
+
+
+def tbar_err(got, want, R):
+    """A wide gradient sweep against its twin on the edges' rows, relative to
+    the twin's largest entry.  The root and dummy rows (the device numbering
+    puts them last) must be the kernel's zeros; the twin's dummy row reads
+    the upward store's unwritten dummy partials."""
+    check(not bool(got[R - 2:].any()), "the gradient sweep's root and dummy rows are 0")
+    return float((got[:R - 2] - want[:R - 2]).abs().max() / want[:R - 2].abs().max())
 
 
 def outside_err(got, want, R):
@@ -960,11 +969,22 @@ def protein_phases(dev, card, record, results, cli_main):
     wp = site.pattern_freq.contiguous()
     csk.fill_tip_rows_cs(up_k, usc_k, tips, C)
     mats = csk.stacked_deriv_mats(model, ta.blen).float().contiguous()
-    for tile in (8, 16, 32):
+    for tile in (16, 32, 64):
         tb_ms = cuda_ms(lambda: csk.fused_downward_tbar(
             steps, n_slots, trans, tips, props, freq, lnl, wp, up=up_k, usc=usc_k,
             tile=tile), 5)
-        print(f"wide tile {tile}: tbar {tb_ms:.3f} ms")
+        print(f"wide tbar, {tile} patterns a cluster of {C} blocks "
+              f"({-(-P // tile) * C} blocks, "
+              f"{csk.wide_tbar_smem(S, C, tile, n_slots)} B of shared memory a block): "
+              f"{tb_ms:.3f} ms")
+    tile = csk.WIDE_TBAR_TILE
+    s61 = csk.wide_tbar_smem(61, 4, tile, max(n_slots, 11))
+    print(f"wide tbar shared memory by its formula at S=61, C=4, {tile} patterns a "
+          f"cluster, {max(n_slots, 11)} slots (a 1000-taxon tree's): {s61} B (a block "
+          f"may have {SMEM_BLOCK}; formula only: no S=61 instance builds, as "
+          f"group_sums needs S % 4 == 0)")
+    check(s61 <= SMEM_BLOCK, "wide tbar's shared-memory formula (no S=61 instance) "
+          "fits at S=61")
     for tile in (16, 32, 64):
         nt_ms = cuda_ms(lambda: csk.wide_newton_sweep(
             steps, n_slots, mats, props, freq, wp, invar, up_k, usc_k, tile=tile), 10)
@@ -979,16 +999,19 @@ def protein_phases(dev, card, record, results, cli_main):
     check(s61 <= SMEM_BLOCK, "wide newton's staging fits at S=61")
     tb_k = csk.fused_downward_tbar(steps, n_slots, trans, tips, props, freq, lnl, wp,
                                    up=up_k, usc=usc_k)
+    bit_equal("wide_tbar", [tb_k], [csk.fused_downward_tbar(
+        steps, n_slots, trans, tips, props, freq, lnl, wp, up=up_k, usc=usc_k)])
     tb_p = csk._tbar_plain(steps, trans, props, freq, lnl, wp, up_k, usc_k)
     rev_bytes = 4 * (R * (CS + 1) * P + 2 * P + 2 * R * CSS)
     record("wide_tbar", "iqtree_torch/engine/kernels/csrc/wide_tbar.cu",
            "iqtree_tpu/engine/kernels/pruning.py:1144",
-           float((tb_k - tb_p).abs().max() / tb_p.abs().max()), 1e-4,
+           tbar_err(tb_k, tb_p, R), 1e-4,
            cuda_ms(lambda: csk.fused_downward_tbar(steps, n_slots, trans, tips, props,
                                                    freq, lnl, wp, up=up_k, usc=usc_k), 5),
            cuda_ms(lambda: csk._tbar_plain(steps, trans, props, freq, lnl, wp, up_k,
                                            usc_k), 3),
            rev_bytes, tbar_flops(N, P, CS, CSS))
+    beside_earlier(results, "wide_tbar")
     del tb_p
 
     d_k = csk.wide_newton_sweep(steps, n_slots, mats, props, freq, wp, invar, up_k,
@@ -1018,6 +1041,19 @@ def protein_phases(dev, card, record, results, cli_main):
         mt_k = csk.stacked_deriv_mats(m_k, ta.blen).float().contiguous()
         args = (steps, n_slots, mt_k, m_k.props.float(), m_k.state_freq.float(), wp,
                 ptn_invar(m_k, site).float().contiguous(), u_k, us_k)
+        fargs = (steps, n_slots, tr_k, tips, m_k.props.float(), m_k.state_freq.float(),
+                 ptn_invar(m_k, site).float().contiguous())
+        targs = (steps, n_slots, tr_k, tips, m_k.props.float(), m_k.state_freq.float(),
+                 pk.wide_site_lnl(*fargs), wp)
+        t_k = csk.fused_downward_tbar(*targs, up=u_k, usc=us_k)
+        bit_equal(f"wide_tbar C={k}", [t_k], [csk.fused_downward_tbar(*targs, up=u_k,
+                                                                       usc=us_k)])
+        t_p = csk._tbar_plain(steps, tr_k, *targs[4:], u_k, us_k)
+        e_k = tbar_err(t_k, t_p, R)
+        print(f"wide_tbar C={k}: max relative error {e_k:.3e} (tol 1e-4), "
+              f"{cuda_ms(lambda: csk.fused_downward_tbar(*targs, up=u_k, usc=us_k), 5):.3f} ms")
+        check(e_k <= 1e-4, f"wide_tbar at C={k} against its twin")
+        del t_k, t_p, targs
         got = csk.wide_newton_sweep(*args)
         bit_equal(f"wide_newton C={k}", got, csk.wide_newton_sweep(*args))
         want = csk._newton_plain(*args[:1], *args[2:])
@@ -1025,8 +1061,6 @@ def protein_phases(dev, card, record, results, cli_main):
         print(f"wide_newton C={k}: max relative error {e_k:.3e} (tol 1e-4), "
               f"{cuda_ms(lambda: csk.wide_newton_sweep(*args), 5):.3f} ms")
         check(e_k <= 1e-4, f"wide_newton at C={k} against its twin")
-        fargs = (steps, n_slots, tr_k, tips, m_k.props.float(), m_k.state_freq.float(),
-                 ptn_invar(m_k, site).float().contiguous())
         f_k = pk.wide_site_lnl(*fargs)
         bit_equal(f"wide_forward C={k}", [f_k], [pk.wide_site_lnl(*fargs)])
         e_k = float((f_k - pk._site_lnl_plain(*fargs[:1], *fargs[2:])).abs().max())

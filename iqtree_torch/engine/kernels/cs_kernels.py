@@ -38,7 +38,7 @@ import torch
 
 from . import build
 from . import pruning
-from .pruning import WIDE_TILE, fused_upward_store, schedule_tree, upward_plain
+from .pruning import fused_upward_store, schedule_tree, upward_plain
 from ..likelihood import SCALE_TINY, branch_transition_mats, downward_pass
 
 
@@ -135,19 +135,39 @@ def tbar_smem(C: int, n_slots: int, stages: int = TBAR_STAGES) -> int:
                 + C * 2 * S * (pb + TBAR_PAD)
                 + (n_slots * (S + 1) + 4) * lanes)
 
-# Share of the card's free memory the wide gradient sweep's per-block sums
-# may take; past it the sweep runs in chunks of blocks.
+# Share of the card's free memory the wide gradient sweep's part rows may
+# take; past it the sweep runs in chunks of clusters.
 PART_MEMORY_SHARE = 0.25
+# Patterns a cluster of csrc/wide_tbar.cu (C blocks, one a rate category,
+# of tile x 4 walk threads and a sum warp for each 16 patterns): 16 gives
+# 123 clusters of 4 three-warp blocks at 1 958 patterns, C=4, as
+# WIDE_DOWN_STORE_TILE.
+WIDE_TBAR_TILE = 16
+# Patterns of a part row of csrc/wide_tbar.cu: the earlier row-group
+# design's block, whose sum order (16 patterns a row, in order) it keeps at
+# any tile.
+WIDE_TBAR_SUM_PATTERNS = 16
+
+
+def wide_tbar_smem(S: int, C: int, tile: int, n_slots: int) -> int:
+    """Bytes of shared memory a block of csrc/wide_tbar.cu takes (the
+    formula of its header): the reverse walk's (wide_down_store_smem), each
+    child's fac for the tile's patterns and each sum warp's stage of both
+    children's [S,S] blocks."""
+    return (wide_down_store_smem(S, C, tile, n_slots)
+            + 4 * (2 * tile + tile // WIDE_TBAR_SUM_PATTERNS * 2 * S * S))
 
 
 def fused_downward_tbar(steps, n_slots, trans, tips, props, state_freq, lnl_raw,
                         w_p, up=None, usc=None, tile=None, part_blocks=None):
     """fused_tbar_cs at the wide shapes (S=20): [2N, C, S, S] cotangents
     through csrc/wide_tbar.cu for CUDA tensors, the plain twin _tbar_plain
-    for CPU tensors.  The per-block sums [part_blocks, 2N, C, S, S] are
-    sized to PART_MEMORY_SHARE of the free memory unless `part_blocks` is
-    given; with fewer than the sweep's blocks the kernel runs in chunks of
-    blocks and adds the chunks in a fixed order.  `tile` and `part_blocks`
+    for CPU tensors.  A cluster of C blocks (one a rate category) holds
+    `tile` patterns (default WIDE_TBAR_TILE, a multiple of 16) and writes a
+    part row [2N, C, S, S] for each 16 of them.  The rows are sized to
+    PART_MEMORY_SHARE of the free memory unless `part_blocks` (rows) is
+    given; with fewer than the sweep's rows the kernel runs in chunks of
+    clusters and adds the chunks in row order.  `tile` and `part_blocks`
     are for measuring and testing the kernel."""
     n_rows, C, S = trans.shape[:3]
     if up is None:
@@ -156,16 +176,20 @@ def fused_downward_tbar(steps, n_slots, trans, tips, props, state_freq, lnl_raw,
     if not trans.is_cuda:
         return _tbar_plain(steps, trans, props, state_freq, lnl_raw, w_p, up, usc)
     P = tips.shape[2]
-    T = tile or WIDE_TILE
+    T = tile or WIDE_TBAR_TILE
+    if T <= 0 or T % WIDE_TBAR_SUM_PATTERNS:
+        raise ValueError(f"wide_tbar: {T} patterns a cluster is not a multiple of "
+                         f"{WIDE_TBAR_SUM_PATTERNS}")
+    groups = T // WIDE_TBAR_SUM_PATTERNS  # part rows a cluster
     rootd = (props[:, None] * state_freq).reshape(-1).float().contiguous()
     build.check_inputs(C, S, steps, trans, rootd, lnl_raw, w_p, up, usc,
                        states=build.WIDE_STATES)
-    n_blocks = -(-P // T)
     if part_blocks is None:
-        per_block = n_rows * C * S * S * 4
+        per_row = n_rows * C * S * S * 4
         free = torch.cuda.mem_get_info(trans.device)[0]
-        part_blocks = int(free * PART_MEMORY_SHARE) // per_block
-    part_blocks = max(1, min(n_blocks, part_blocks))
+        part_blocks = int(free * PART_MEMORY_SHARE) // per_row
+    # a chunk is whole clusters' rows
+    part_blocks = max(groups, min(-(-P // T) * groups, part_blocks) // groups * groups)
     part = torch.empty(part_blocks, n_rows, C, S, S, dtype=torch.float32,
                        device=trans.device)
     part[:, n_rows - 2:].zero_()  # the root and dummy rows are never written

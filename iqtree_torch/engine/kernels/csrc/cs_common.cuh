@@ -165,20 +165,6 @@ __device__ __forceinline__ float root_site_lnl(const float* slots, const float* 
   return lnl;
 }
 
-// Reverse sweeps: this thread's column of a stored node partial
-// up [2N, C*S, P] and its scale usc [2N, P].
-template <int C>
-__device__ __forceinline__ float load_up(const float* __restrict__ up,
-                                         const float* __restrict__ usc, int node, int P,
-                                         int p, float (&u)[C][S]) {
-  const float* base = up + (size_t)node * C * S * P + p;
-#pragma unroll
-  for (int c = 0; c < C; ++c)
-#pragma unroll
-    for (int s = 0; s < S; ++s) u[c][s] = __ldg(base + (size_t)(c * S + s) * P);
-  return __ldg(usc + (size_t)node * P + p);
-}
-
 // x / y for a float x and a normal y > 0, with the bits of the IEEE float
 // division but without its branches (the float division's check and slow
 // path, which a dividend or quotient near the bottom of the float range
@@ -199,35 +185,14 @@ __device__ __forceinline__ float div_rn(float x, float y) {
   return (float)fma(fma(-yd, q, xd), r, q);
 }
 
-// Outside partial of one child edge, normalized per pattern:
-// o = d * m_sib / max, with log-scale dsc + s_sib + log(max).
-template <int C>
-__device__ __forceinline__ float outside(const float (&d)[C][S], const float (&m_sib)[C][S],
-                                         float dsc, float s_sib, float (&o)[C][S]) {
-  float mx = 0.f;
-#pragma unroll
-  for (int c = 0; c < C; ++c)
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      o[c][s] = d[c][s] * m_sib[c][s];
-      mx = fmaxf(mx, o[c][s]);
-    }
-  mx = fmaxf(mx, SCALE_TINY);
-#pragma unroll
-  for (int c = 0; c < C; ++c)
-#pragma unroll
-    for (int s = 0; s < S; ++s) o[c][s] = o[c][s] / mx;
-  return dsc + s_sib + logf(mx);
-}
-
 // ---------------------------------------------------------------------------
 // Lane layout: several threads a pattern, one a rate category.
 //
 // P, P' and P'' are block-diagonal over categories, so a category's
-// messages (apply_p, apply_pt, outside) need only its own S states; what
-// crosses categories (the renormalizing max, the sums over c) is a
-// butterfly of __shfl_xor_sync rounds inside a group of CL = C rounded up
-// to a power of two lanes.  Lane (pattern q, category c) of a block is
+// messages (apply_p, apply_pt, the outside partial) need only its own S
+// states; what crosses categories (the renormalizing max, the sums over c)
+// is a butterfly of __shfl_xor_sync rounds inside a group of CL = C
+// rounded up to a power of two lanes.  Lane (pattern q, category c) of a block is
 // thread q * CL + c: a warp holds 32 / CL patterns, and a load of one
 // packed row of up [2N, C*S, P] reads CL runs of 32 / CL consecutive
 // floats: whole 32-byte sectors at CL <= 4, 16-byte halves at CL = 8.

@@ -38,9 +38,10 @@
 //
 // Bits: a category's arithmetic is the thread-a-pattern step's (apply_p1
 // and apply_pt1 are apply_p's and apply_pt's rows, the max is exact in any
-// order, the IEEE division and the log of outside<C> are kept), so O and
-// osc carry the bits of the earlier design (cs_common.cuh's outside).  The
-// division is div_rn: the float division's bits without its branches.
+// order, the IEEE division and the log of the earlier design's outside
+// partial are kept), so O and osc carry the bits of the thread-a-pattern
+// design.  The division is div_rn: the float division's bits without its
+// branches.
 //
 // Bound on an H100 (DNA+G4, 1000 taxa x 9 962 patterns): reads up and usc
 // and writes out and osc once, 2 x 2000 x 17 rows x 9 962 x 4 B = 2.7 GB

@@ -1,34 +1,18 @@
 // Shared pieces of the wide likelihood kernels: the general [C,S,S] layout
 // (protein: S = 20 states; 1..8 rate categories; float32).
 //
-// The CS-packed DNA kernels give one thread a whole pattern column
-// (float[C][4] in registers).  At S = 20 a column is 80 floats per child
-// and an edge's matrices 1 600 floats, so the wide kernels spread a
-// pattern over threads.  Two layouts:
+// The CS-packed DNA kernels give a lane a whole category column (S = 4
+// floats).  At S = 20 a column is 80 floats per child and an edge's
+// matrices 1 600 floats, so the wide kernels spread a pattern over threads
+// and a cluster of blocks: a thread-block cluster of C blocks, one a rate
+// category, owns a tile of consecutive patterns, and a thread holds some
+// of them and RPT of its category's state rows.  Two walks of the slot
+// schedule run on that layout: the upward walk (wide_forward.cu,
+// wide_store.cu) and the reverse walk (wide_down_store.cu, wide_tbar.cu;
+// wide_newton.cu keeps its own copy, whose step carries three matrices a
+// child).
 //
-// * row groups (wide_tbar.cu): a block owns a tile of T consecutive
-//   patterns with T * C * (S/RPT) threads:
-//
-//     thread tid:  p  = tid % T         its pattern in the tile
-//                  g  = tid / T         its row group: category c = g / NG,
-//                                       state rows s0 .. s0+RPT-1 with
-//                                       s0 = (g % NG) * RPT, NG = S / RPT.
-//
-//   Consecutive threads take consecutive patterns, so every [row][pattern]
-//   array (the slot pool, the stored partials) is read and written
-//   coalesced in device memory and without bank conflicts in shared
-//   memory.  A child message m[c][s][p] = sum_t P[c][s][t] x[c][t][p]
-//   costs a thread its category's S-value column x and RPT x S
-//   multiply-adds against P[c], which is staged in shared memory (the
-//   threads of a warp read the same P entries: broadcasts).  The
-//   per-pattern max over the C*S rows is a shared-memory reduction over
-//   the row groups; barriers separate the load, product, max and
-//   normalize phases of a step;
-// * thread-block clusters (wide_forward.cu, wide_store.cu, and the reverse
-//   walks of wide_newton.cu and wide_down_store.cu): a block a rate
-//   category, the second half of this header.
-//
-// Each block walks the whole slot schedule for its tile, as a TPU grid
+// Each cluster walks the whole slot schedule for its tile, as a TPU grid
 // step walks it (schedule rows: left child, right child, left slot,
 // right slot (-1 = tip), output slot, output node; see cs_common.cuh).
 // The kernels are templates on S and RPT with one instance, S = 20; a
@@ -43,104 +27,6 @@ namespace iqtw {
 
 using iqt::Step;
 using iqt::load_step;
-
-// Largest block: 512 threads keeps the register budget at 128 a thread.
-constexpr int MAX_THREADS = 512;
-
-template <int S, int RPT>
-struct Lane {
-  static_assert(S % RPT == 0, "row groups must tile the state axis");
-  static constexpr int NG = S / RPT;  // row groups per category
-  static constexpr int SS = S * S;
-  int T, p, g, c, s0, G, CS;
-
-  __device__ __forceinline__ Lane(int T_, int C) : T(T_) {
-    const int tid = threadIdx.x;
-    p = tid % T;
-    g = tid / T;
-    c = g / NG;
-    s0 = (g % NG) * RPT;
-    G = C * NG;
-    CS = C * S;
-  }
-  __device__ __forceinline__ int row(int j) const { return c * S + s0 + j; }
-};
-
-// Copy n floats from device memory to shared memory, the whole block.
-__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, int n) {
-  for (int k = threadIdx.x; k < n; k += blockDim.x) dst[k] = __ldg(src + k);
-}
-
-// Stage the rows [CS] of one node's stored partial up [2N, CS, P] for the
-// tile's patterns into dst [CS][ts] (the tail of a ragged last tile
-// repeats pattern P-1).
-template <int S, int RPT>
-__device__ __forceinline__ void stage_partial(float* dst, int ts,
-                                              const float* __restrict__ up, int node,
-                                              int P, int pg, const Lane<S, RPT>& L) {
-  const float* src = up + (size_t)node * L.CS * P + pg;
-  for (int r = L.g; r < L.CS; r += L.G) dst[r * ts + L.p] = __ldg(src + (size_t)r * P);
-}
-
-// m[j] = sum_t Pc[s0+j][t] x[t] for this thread's rows; Pc = P[c] [S][S].
-template <int S, int RPT>
-__device__ __forceinline__ void message(const float* Pc, int s0, const float (&x)[S],
-                                        float (&m)[RPT]) {
-#pragma unroll
-  for (int j = 0; j < RPT; ++j) {
-    const float* row = Pc + (s0 + j) * S;
-    float acc = 0.f;
-#pragma unroll
-    for (int t = 0; t < S; ++t) acc += row[t] * x[t];
-    m[j] = acc;
-  }
-}
-
-// This thread's category column x[t] = a[(c*S + t) * ts + p] of a
-// [CS][ts] shared-memory array.
-template <int S, int RPT>
-__device__ __forceinline__ void load_column(const float* a, int ts, const Lane<S, RPT>& L,
-                                            float (&x)[S]) {
-  const float* col = a + L.c * S * ts + L.p;
-#pragma unroll
-  for (int t = 0; t < S; ++t) x[t] = col[t * ts];
-}
-
-// Per-pattern max over the C*S rows, from each row group's partial max:
-// one barrier.  The caller passes a barrier before `red` is written again.
-template <int S, int RPT>
-__device__ __forceinline__ float row_max(float* red, float local, const Lane<S, RPT>& L) {
-  red[L.g * L.T + L.p] = local;
-  __syncthreads();
-  float mx = 0.f;
-  for (int k = 0; k < L.G; ++k) mx = fmaxf(mx, red[k * L.T + L.p]);
-  return fmaxf(mx, SCALE_TINY);
-}
-
-// dd[j] = sum_s Pc[s][s0+j] o[s] (transport through the edge: P^T o), with
-// o this thread's category column of a [CS][ts] shared-memory array.
-template <int S, int RPT>
-__device__ __forceinline__ void transport(const float* Pc, const float* o, int ts,
-                                          const Lane<S, RPT>& L, float (&dd)[RPT]) {
-  float x[S];
-  load_column<S, RPT>(o, ts, L, x);
-#pragma unroll
-  for (int j = 0; j < RPT; ++j) {
-    float acc = 0.f;
-#pragma unroll
-    for (int s = 0; s < S; ++s) acc += Pc[s * S + L.s0 + j] * x[s];
-    dd[j] = acc;
-  }
-}
-
-// Stage both children's [C,S,S] blocks of an edge-indexed array whose rows
-// are `stride` floats apart (trans: C*S*S; the stacked derivatives: 3*C*S*S).
-__device__ __forceinline__ void stage_children(float* dst, const float* __restrict__ src,
-                                               const Step& st, int stride) {
-  stage(dst, src + (size_t)st.l * stride, stride);
-  stage(dst + stride, src + (size_t)st.r * stride, stride);
-}
-
 
 // ---------------------------------------------------------------------------
 // The upward walk on thread-block clusters (wide_forward.cu, wide_store.cu).
@@ -209,12 +95,12 @@ struct ClusterSmem {
 };
 
 // Step j's [S,S] blocks of category c for both children (mst_k
-// [child][S*S]), as cp.async copies by the whole block.
+// [child][S*S]), as cp.async copies by the block's first T threads.
 template <int S>
 __device__ __forceinline__ void fetch_blocks(const Step& sj, float* mst_k, int c, int C,
-                                             const float* __restrict__ trans) {
+                                             const float* __restrict__ trans, int T) {
   constexpr int SS = S * S;
-  const int T = blockDim.x, tid = threadIdx.x;
+  const int tid = threadIdx.x;
   if constexpr (SS % 4 == 0) {
     constexpr int V = SS / 4;  // 16-byte rows a block
     for (int q = tid; q < 2 * V; q += T) {
@@ -240,9 +126,9 @@ __device__ __forceinline__ void cluster_fetch(const Step& sj, float* mst_k, floa
                                               int c, int C, int tile, int p0,
                                               const float* __restrict__ trans,
                                               const float* __restrict__ tips, int P) {
-  fetch_blocks<S>(sj, mst_k, c, C, trans);
-  // a thread copies one pattern's words (T % tile == 0)
   const int T = blockDim.x, tid = threadIdx.x;
+  fetch_blocks<S>(sj, mst_k, c, C, trans, T);
+  // a thread copies one pattern's words (T % tile == 0)
   const int qq = tid % tile, p = min(p0 + qq, P - 1);
 #pragma unroll
   for (int side = 0; side < 2; ++side) {
@@ -418,6 +304,303 @@ __device__ __forceinline__ int cluster_upward_walk(const int* __restrict__ steps
     k = k == NS - 1 ? 0 : k + 1;
   }
   return st.out;
+}
+
+// ---------------------------------------------------------------------------
+// The reverse walk on thread-block clusters (wide_down_store.cu,
+// wide_tbar.cu).
+//
+// The walk runs the slot schedule from its last step (the root's) down.
+// Each step takes the parent's pushed outside vector d (at the root the
+// seed rootd [C*S]), forms both child messages m = P U (t ascending) from
+// the stored partials up [2N, C*S, P] (tip rows filled by the caller), and
+// for each child
+//     o = d * m_sib,  O = o / max,  osc = dsc + usc_sib + log(max),
+// with the max over the pattern's C*S rows, and pushes D = P^T O (s
+// ascending) into an internal child's pool slot, where its own step finds
+// it.  The root and dummy rows are no step's children.
+//
+// Layout: the cluster of C blocks, one a rate category, owns a tile of
+// consecutive patterns; walk thread (q, g) of a block holds one pattern q
+// (REVERSE_QT = 1) and the RPT state rows g RPT .. of its category (G = S
+// / RPT consecutive lanes a pattern), tile x G walk threads.  A ring
+// REVERSE_STAGES deep brings each step's copies ahead (cp.async): the
+// category's [S,S] block of each child and each child's S rows and scale
+// for the tile, step i - 1's issued in step i after its exchange, into the
+// stage step i + 1 held.  The max crosses the
+// category's rows in log2(G) shuffle rounds and the categories through
+// distributed shared memory: every block stores its per-pattern maxima
+// into every block's buffer [parity][rank][child][tile], double-buffered
+// by step parity, before the step's cluster barrier.  O = div_rn(o, max)
+// goes to a stage [child][S][tile]; the push reads a pattern's O column
+// from it.
+//
+// Barriers: a step opens with one block barrier, named barrier
+// RING_BARRIER over all the block's threads (step i's copies have landed
+// everywhere), and has one cluster barrier (the exchange), after which
+// step i + 1's ring stage, O's stage and the max buffers of step i + 1's
+// parity are rewritten.  Threads of the block outside the walk (wide_tbar's
+// sum warps) take part in both, in order, and in the cluster barrier
+// before the first step; they may arrive at the block barrier without
+// waiting (bar.arrive).
+//
+// hook(st, ost, osc, Uk) runs once a step, after the __syncwarp that
+// follows O's stage: ost is the stage [child][S][tile], whose columns of
+// the warp's patterns are written, osc[child][qq] this thread's patterns'
+// log-scales, Uk the ring stage [child][S+1][tile] (the children's S rows,
+// then their scales).  The stage and the ring stage hold until the next
+// step's cluster barrier.
+//
+// The orders are the row-group design's: messages with t ascending, an
+// exact max, the float division's bits (div_rn, without its branches), the
+// scale chain dsc + s_sib + log(max) and the push with s ascending.  A
+// ragged last tile computes with pattern P - 1.
+//
+// Shared memory a block (floats), with tile patterns, n_slots slots and
+// STAGES = REVERSE_STAGES (cs_kernels.wide_down_store_smem):
+//     STAGES x (2 S^2 + 2 (S+1) tile)   the ring
+//   + n_slots (S+1) tile                the pool
+//   + 2 S tile                          O's stage
+//   + 4 C tile                          the max buffers
+// ---------------------------------------------------------------------------
+
+// Steps whose matrices and child partials are in flight at once (a
+// cp.async ring).
+constexpr int REVERSE_STAGES = 2;
+// Patterns a walk thread: one, where the upward walk's threads hold two
+// (CLUSTER_QT): a reverse step is about twice an upward step's work.
+constexpr int REVERSE_QT = 1;
+
+// Offsets (floats) of a reverse walk's shared-memory arrays.
+template <int S>
+struct ReverseSmem {
+  int tile;
+  __device__ __host__ ReverseSmem(int tile_) : tile(tile_) {}
+  __device__ __host__ size_t rows() const { return (size_t)REVERSE_STAGES * 2 * S * S; }
+  __device__ __host__ size_t pool() const {
+    return rows() + (size_t)REVERSE_STAGES * 2 * (S + 1) * tile;
+  }
+  __device__ __host__ size_t ost(int n_slots) const {
+    return pool() + (size_t)n_slots * (S + 1) * tile;
+  }
+  __device__ __host__ size_t xmax(int n_slots) const {
+    return ost(n_slots) + 2 * (size_t)S * tile;
+  }
+  __device__ __host__ size_t floats(int n_slots, int C) const {
+    return xmax(n_slots) + 4 * (size_t)C * tile;
+  }
+};
+
+// Step j's inputs for category c into stage k, by the T walk threads: both
+// children's [S,S] blocks (mst_k [child][S*S]) and their S rows and scale
+// for the tile's patterns (ust_k [child][S+1][tile]; a ragged tail repeats
+// P - 1).
+template <int S>
+__device__ __forceinline__ void reverse_fetch(const Step& sj, float* mst_k, float* ust_k,
+                                              int c, int C, int tile, int p0, int T,
+                                              const float* __restrict__ trans,
+                                              const float* __restrict__ up,
+                                              const float* __restrict__ usc, int P) {
+  fetch_blocks<S>(sj, mst_k, c, C, trans, T);
+  // a thread copies one pattern's words (T % tile == 0)
+  const int tid = threadIdx.x;
+  const int qq = tid % tile, p = min(p0 + qq, P - 1);
+  for (int row = tid / tile; row < 2 * (S + 1); row += T / tile) {
+    const int side = row / (S + 1), t = row - side * (S + 1);
+    const int node = side ? sj.r : sj.l;
+    const float* src = t < S ? up + ((size_t)node * C * S + c * S + t) * P + p
+                             : usc + (size_t)node * P + p;
+    __pipeline_memcpy_async(ust_k + row * tile + qq, src, 4);
+  }
+}
+
+// The cluster barrier of a reverse step's exchange.
+__device__ __forceinline__ void reverse_barrier(cg::cluster_group& cluster) {
+  cluster.sync();
+}
+
+// The named barrier that opens a reverse step (all the block's threads).
+constexpr int RING_BARRIER = 2;
+__device__ __forceinline__ void ring_barrier() {
+  asm volatile("bar.sync %0, %1;" ::"r"(RING_BARRIER), "r"(blockDim.x) : "memory");
+}
+
+// The whole reverse walk for this block's category and the tile of
+// patterns p0 .. p0 + tile - 1 (see above).  Every walk thread (the
+// block's first tile / REVERSE_QT x S / RPT) of every block of the cluster
+// runs it.
+template <int S, int RPT, typename Hook>
+__device__ __forceinline__ void cluster_reverse_walk(const int* __restrict__ steps,
+                                                     int n_steps,
+                                                     const float* __restrict__ trans,
+                                                     const float* __restrict__ rootd,
+                                                     const float* __restrict__ up,
+                                                     const float* __restrict__ usc, int P,
+                                                     int p0, int tile, int n_slots,
+                                                     float* smem, Hook hook) {
+  constexpr int G = S / RPT, SS = S * S, QT = REVERSE_QT, NS = REVERSE_STAGES;
+  static_assert(S % RPT == 0 && G <= 32 && (G & (G - 1)) == 0,
+                "a pattern's row groups are a power of two of consecutive lanes");
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), c = (int)cluster.block_rank();
+  const int tid = threadIdx.x, g = tid % G, s0 = g * RPT, pq = tid / G;
+  const int T = tile / QT * G;  // the walk threads
+  const ReverseSmem<S> lay(tile);
+  float* mst = smem;                   // [NS][2][SS]
+  float* ust = smem + lay.rows();      // [NS][2][S+1][tile]
+  float* pool = smem + lay.pool();     // [n_slots][S+1][tile]
+  float* ost = smem + lay.ost(n_slots);    // [2][S][tile]
+  float* xmax = smem + lay.xmax(n_slots);  // [2][C][2][tile]
+  int q[QT];
+#pragma unroll
+  for (int qq = 0; qq < QT; ++qq) q[qq] = pq * QT + qq;
+
+  // the walk runs from step n_steps - 1 down; step i's inputs sit in stage
+  // (n_steps - 1 - i) % NS
+#pragma unroll
+  for (int k = 0; k < NS - 1; ++k) {
+    if (k < n_steps)
+      reverse_fetch<S>(load_step(steps, n_steps - 1 - k), mst + k * 2 * SS,
+                       ust + (size_t)k * 2 * (S + 1) * tile, c, C, tile, p0, T, trans, up,
+                       usc, P);
+    __pipeline_commit();
+  }
+  cluster.sync();  // every block of the cluster runs before the first remote store
+  Step st = load_step(steps, n_steps - 1);
+  Step st_f = n_steps >= NS ? load_step(steps, n_steps - NS) : st;  // the next fetch
+  int k = 0;  // the stage of step i
+  for (int i = n_steps - 1; i >= 0; --i) {
+    __pipeline_wait_prior(NS - 2);  // this thread's copies of step i have landed
+    ring_barrier();                 // every thread's
+    const Step st_next = i > 0 ? load_step(steps, i - 1) : st;
+
+    const float* Mk = mst + k * 2 * SS;  // [child][S][S]
+    const float* Uk = ust + (size_t)k * 2 * (S + 1) * tile;
+    float d[RPT][QT], dsc[QT], s_sib[2][QT];  // s_sib[side]: the other child's scale
+#pragma unroll
+    for (int qq = 0; qq < QT; ++qq) {
+      s_sib[0][qq] = Uk[(2 * S + 1) * tile + q[qq]];
+      s_sib[1][qq] = Uk[S * tile + q[qq]];
+      if (i == n_steps - 1) {
+#pragma unroll
+        for (int j = 0; j < RPT; ++j) d[j][qq] = __ldg(rootd + c * S + s0 + j);
+        dsc[qq] = 0.f;
+      } else {
+        const float* col = pool + (size_t)st.out * (S + 1) * tile + q[qq];
+#pragma unroll
+        for (int j = 0; j < RPT; ++j) d[j][qq] = col[(s0 + j) * tile];
+        dsc[qq] = col[S * tile];
+      }
+    }
+    float m[2][RPT][QT];  // both children's messages P U
+#pragma unroll
+    for (int side = 0; side < 2; ++side) {
+      float x[S][QT];
+      const float* U = Uk + side * (S + 1) * tile;
+#pragma unroll
+      for (int t = 0; t < S; ++t)
+#pragma unroll
+        for (int qq = 0; qq < QT; ++qq) x[t][qq] = U[t * tile + q[qq]];
+      cluster_message<S, RPT, QT>(Mk + side * SS, s0, x, m[side]);
+    }
+
+    // o = d * m_sib for each child and its max over the pattern's C*S rows
+    float o[2][RPT][QT], mx[2][QT];
+#pragma unroll
+    for (int side = 0; side < 2; ++side)
+#pragma unroll
+      for (int qq = 0; qq < QT; ++qq) {
+        mx[side][qq] = 0.f;
+#pragma unroll
+        for (int j = 0; j < RPT; ++j) {
+          o[side][j][qq] = d[j][qq] * m[1 - side][j][qq];
+          mx[side][qq] = fmaxf(mx[side][qq], o[side][j][qq]);
+        }
+      }
+#pragma unroll
+    for (int off = 1; off < G; off <<= 1)
+#pragma unroll
+      for (int side = 0; side < 2; ++side)
+#pragma unroll
+        for (int qq = 0; qq < QT; ++qq)
+          mx[side][qq] = fmaxf(mx[side][qq], __shfl_xor_sync(0xffffffffu, mx[side][qq], off));
+    float* xm = xmax + (size_t)(i & 1) * C * 2 * tile;
+    for (int r = g; r < C; r += G) {  // the G lanes of a pattern group share the blocks out
+      float* xr = cluster.map_shared_rank(xm, r) + c * 2 * tile;
+#pragma unroll
+      for (int side = 0; side < 2; ++side)
+#pragma unroll
+        for (int qq = 0; qq < QT; ++qq) xr[side * tile + q[qq]] = mx[side][qq];
+    }
+    reverse_barrier(cluster);  // the exchange: every block's maxima of step i are written
+#pragma unroll
+    for (int side = 0; side < 2; ++side)
+#pragma unroll
+      for (int qq = 0; qq < QT; ++qq) {
+        mx[side][qq] = 0.f;
+        for (int r = 0; r < C; ++r)
+          mx[side][qq] = fmaxf(mx[side][qq], xm[(r * 2 + side) * tile + q[qq]]);
+        mx[side][qq] = fmaxf(mx[side][qq], SCALE_TINY);
+      }
+    // step i + 1's stage is free: step i - NS + 1 into it
+    const int kf = k == 0 ? NS - 1 : k - 1;
+    if (i >= NS - 1)
+      reverse_fetch<S>(st_f, mst + kf * 2 * SS, ust + (size_t)kf * 2 * (S + 1) * tile, c, C,
+                       tile, p0, T, trans, up, usc, P);
+    __pipeline_commit();
+    if (i >= NS) st_f = load_step(steps, i - NS);
+
+    // O = o / max into the stage, and its scale
+    float sc[2][QT];
+#pragma unroll
+    for (int side = 0; side < 2; ++side)
+#pragma unroll
+      for (int qq = 0; qq < QT; ++qq) {
+#pragma unroll
+        for (int j = 0; j < RPT; ++j)
+          ost[(side * S + s0 + j) * tile + q[qq]] = iqt::div_rn(o[side][j][qq], mx[side][qq]);
+        sc[side][qq] = dsc[qq] + s_sib[side][qq] + logf(mx[side][qq]);
+      }
+    __syncwarp();  // the pattern group's O rows are staged
+    hook(st, static_cast<const float*>(ost), sc, Uk);
+
+    // the children's outside partials, pushed through their edges (P^T O),
+    // wait in the pool for their own steps (d is read: a child may reuse
+    // st.out); a pattern's O column comes from the stage
+#pragma unroll
+    for (int side = 0; side < 2; ++side) {
+      const int cslot = side ? st.rs : st.ls;
+      if (cslot < 0) continue;
+      const float* M = Mk + side * SS;  // the child's P
+      const float* os = ost + side * S * tile;
+      float dd[RPT][QT];
+#pragma unroll
+      for (int j = 0; j < RPT; ++j)
+#pragma unroll
+        for (int qq = 0; qq < QT; ++qq) dd[j][qq] = 0.f;
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        float os_[QT];
+#pragma unroll
+        for (int qq = 0; qq < QT; ++qq) os_[qq] = os[s * tile + q[qq]];
+#pragma unroll
+        for (int j = 0; j < RPT; ++j) {
+          const float w = M[s * S + s0 + j];
+#pragma unroll
+          for (int qq = 0; qq < QT; ++qq) dd[j][qq] += w * os_[qq];
+        }
+      }
+      float* col = pool + (size_t)cslot * (S + 1) * tile;
+#pragma unroll
+      for (int qq = 0; qq < QT; ++qq) {
+#pragma unroll
+        for (int j = 0; j < RPT; ++j) col[(s0 + j) * tile + q[qq]] = dd[j][qq];
+        if (g == 0) col[S * tile + q[qq]] = sc[side][qq];
+      }
+    }
+    st = st_next;
+    k = k == NS - 1 ? 0 : k + 1;
+  }
 }
 
 // Launch `kernel` as `clusters` thread-block clusters of C blocks (one a

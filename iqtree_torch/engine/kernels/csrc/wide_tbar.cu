@@ -9,17 +9,41 @@
 //     tbar[e][c][s][t] += sum_p O[c,s,p] * fac[p] * U_e[c,t,p],
 //     fac = exp(min(osc + usc - lnl, 80)) * w_p,
 // and pushes D_child = P^T O down the tree.  The children's inside
-// partials are staged per step from the upward store's up buffer (tip
-// rows filled by the caller), coalesced over the tile's patterns.
+// partials come from the upward store's up buffer (tip rows filled by the
+// caller).
+//
+// Work layout: cluster_reverse_walk (wide_common.cuh), as
+// wide_down_store.cu's: a thread-block cluster of C blocks, one a rate
+// category, owns a tile of consecutive patterns (a multiple of 16); a
+// block's first tile x 4 threads walk, one pattern and 5 state rows each.
+// This kernel's part of a step is the walk's hook and the sums.  The hook
+// stages each child's fac [child][tile] (lnl and w_p of a thread's pattern
+// are loaded once) and arrives at a named barrier without waiting.  The
+// cotangent sums are the sum warps', one for each 16 patterns of the tile,
+// after the walk threads in the block: a sum warp waits at the named
+// barrier, and lane (child, sb, tb) adds its 5 x 5 entries (s = 5 sb + j,
+// t = 5 tb + k) of the category's [S,S] block of the child's edge over the
+// warp's 16 patterns, from the walk's O stage times fac and the ring
+// stage's U rows, as 25 chains in pattern order.  The entries go through
+// the warp's own stage [child][S][S] to the 16 patterns' part row as float4
+// runs (each child's block is S x S consecutive floats there).  The walk
+// threads meanwhile push O and walk the next step up to its exchange: a
+// sum warp arrives at the next step's opening barrier without waiting and
+// joins its cluster barrier when its sums are written, after which the
+// walk rewrites the O stage, fac and the ring stage they read.  So the
+// chains and the stores stay off the walk's step chain.
 //
 // The TPU grid runs its pattern tiles in order into one [2N,C,S,S]
-// accumulator; blocks here run in no order, so each block writes its own
-// sums part[block][edge][C][S][S] and a second pass adds the blocks in
-// block order (deterministic, no float atomics).  At this width the
-// per-block sums are large (1 600 floats an edge and block: 0.47 GB for
-// 300 taxa x 1 958 patterns at T = 16), so the caller sizes `part` for
-// `part_blocks` blocks and the sweep runs in chunks of that many blocks,
-// each chunk's sums added onto the last.
+// accumulator; clusters here run in no order, so the sums of each 16
+// patterns go to their own part row part[row][edge][C][S][S] and
+// reduce_blocks adds the rows in order (deterministic, no float atomics).
+// The rows are the row-group design's blocks (16 patterns) and each entry
+// is sum_{q < 16} (O[s,q] fac[q]) U[t,q] added in q order, that design's
+// contraction, on the walk's O and scales (that design's bits), so tbar
+// keeps its bits at 16, 32 and 64 patterns a cluster.  The part rows are
+// large (1 600 floats an edge and row: 0.47 GB for 300 taxa x 1 958
+// patterns), so the caller sizes `part` for part_blocks rows and the sweep
+// runs in chunks of clusters, each chunk's rows added onto the last.
 //
 // Bound on an H100 (LG+G4, 300 taxa x 1 958 patterns): reads the stored
 // partials once, 2N x 81 rows x 1 958 x 4 B = 0.39 GB (3.35 TB/s: 0.12 ms);
@@ -27,141 +51,216 @@
 // 4 x 1 600 multiply-adds and 6 x 80 row operations, and a 1 600
 // multiply-add push into each of the 298 internal non-root children:
 // 2 x 1 958 x (299 x 6 880 + 298 x 1 600) = 9.9 GFLOP (67 TFLOP/s:
-// 0.15 ms): bound by operations.  Seven barriers a step; this first
-// version runs at the latency of its step chain.
+// 0.15 ms): bound by operations.  A design that keeps the bits also
+// writes the part rows and reads them back, 2 x 0.47 GB: ~0.40 ms.  The
+// walk is a chain of 299 dependent steps.
+//
+// Registers: at most 80 a thread (launch bounds), so that every cluster
+// stays resident at C=8 (984 blocks of 96 threads at 16 patterns a
+// cluster need 8 an SM).
+//
+// Shared memory a block: ReverseSmem (wide_common.cuh), fac, 2 tile
+// floats, and the sum warps' stages, tile / 16 x 2 S^2 floats
+// (cs_kernels.wide_tbar_smem); S = 20, C = 4, tile 16, 11 slots: 33 472
+// bytes; S = 61 (codon): 157 784 bytes, under the 232 448 a block may
+// have.
 #include "wide_common.cuh"
 
 using namespace iqtw;
 
-// One child edge of a reverse step (see the header): O, its cotangent
-// block into part_b, and the push of P^T O into the child's slot.
-template <int S, int RPT>
-__device__ __forceinline__ void tbar_side(
-    int child, int cslot, const float (&d)[RPT], float dsc, const float (&m_sib)[RPT],
-    float s_sib, float s_child, const float* u_child, const float* pst_child, float lnl_p,
-    float w_p, bool valid, float* stage_o, float* fac_s, float* red, float* dslots,
-    float* dscale, float* part_b, const Lane<S, RPT>& L, int TS) {
-  float o[RPT], local = 0.f;
+// Patterns of a part row and of a sum warp: the row-group design's block,
+// whose sums the cotangents keep.
+constexpr int SUM_PATTERNS = 16;
+// Largest block: 64 patterns a cluster, 256 walk threads and 4 sum warps.
+constexpr int TBAR_THREADS_MAX = CLUSTER_THREADS_MAX + 4 * 32;
+
+template <int S>
+inline size_t wide_tbar_smem(int C, int tile, int n_slots) {
+  return (ReverseSmem<S>(tile).floats(n_slots, C) + 2 * (size_t)tile +
+          (size_t)tile / SUM_PATTERNS * 2 * S * S) *
+         sizeof(float);
+}
+
+// A step's O and fac are staged: the walk threads arrive at named barrier
+// 1 and go on, the sum warps wait there (all the block's threads count).
+__device__ __forceinline__ void sums_arrive(int threads) {
+  asm volatile("bar.arrive 1, %0;" ::"r"(threads) : "memory");
+}
+__device__ __forceinline__ void sums_wait(int threads) {
+  asm volatile("bar.sync 1, %0;" ::"r"(threads) : "memory");
+}
+// A sum warp at the walk's opening barrier, without waiting.
+__device__ __forceinline__ void ring_arrive(int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(RING_BARRIER), "r"(threads) : "memory");
+}
+
+// One step's sums of the 16 patterns g16 .. g16 + 15 of the tile by a
+// warp: lane (side, sb, tb) adds sum_q (O[side][s][q] fac[side][q])
+// U[side][t][q] in q order for s = SB sb + j, t = SB tb + k (SB = S / 4:
+// the lanes' 2 x 4 x 4 blocks tile both children's [S,S]), from the O
+// stage ost [2][S][tile], fac [2][tile] and the ring stage Uk
+// [2][S+1][tile], into the child's [S,S] block of category c in `row`
+// (none: a group past P) through the warp's stage pst [2][S][S].
+template <int S>
+__device__ __forceinline__ void group_sums(const Step& st, const float* ost, const float* fac,
+                                           const float* Uk, int tile, int g16, float* pst,
+                                           float* row, int C, int c) {
+  static_assert(S % 4 == 0, "a lane's block is S / 4 entries square; rows are float4 runs");
+  constexpr int SB = S / 4, SS = S * S;
+  const int lane = threadIdx.x & 31, side = lane >> 4, sb = (lane >> 2) & 3, tb = lane & 3;
+  const float* O = ost + side * S * tile + g16;
+  const float* F = fac + side * tile + g16;
+  const float* U = Uk + side * (S + 1) * tile + g16;
+  float acc[SB][SB];
 #pragma unroll
-  for (int j = 0; j < RPT; ++j) {
-    o[j] = d[j] * m_sib[j];
-    local = fmaxf(local, o[j]);
-  }
-  const float mx = row_max<S, RPT>(red, local, L);
-  float* so = stage_o + L.row(0) * TS + L.p;
+  for (int j = 0; j < SB; ++j)
 #pragma unroll
-  for (int j = 0; j < RPT; ++j) so[j * TS] = o[j] / mx;
-  const float osc = dsc + s_sib + logf(mx);
-  if (L.g == 0)
-    fac_s[L.p] = valid ? expf(fminf(osc + s_child - lnl_p, 80.f)) * w_p : 0.f;
-  __syncthreads();
-  const int CSS = L.CS * S;
-  for (int k = threadIdx.x; k < CSS; k += blockDim.x) {
-    const int c = k / L.SS, s = (k / S) % S, t = k % S;
-    const float* a = stage_o + (c * S + s) * TS;
-    const float* b = u_child + (c * S + t) * TS;
-    float acc = 0.f;
-    for (int q = 0; q < L.T; ++q) acc += (a[q] * fac_s[q]) * b[q];
-    part_b[(size_t)child * CSS + k] = acc;
-  }
-  if (cslot >= 0) {
-    float dd[RPT];
-    transport<S, RPT>(pst_child + L.c * L.SS, stage_o, TS, L, dd);
-    float* dst = dslots + ((size_t)cslot * L.CS + L.row(0)) * L.T + L.p;
+    for (int k = 0; k < SB; ++k) acc[j][k] = 0.f;
 #pragma unroll
-    for (int j = 0; j < RPT; ++j) dst[j * L.T] = dd[j];
-    if (L.g == 0) dscale[cslot * L.T + L.p] = osc;
+  for (int q = 0; q < SUM_PATTERNS; q += 4) {
+    const float4 f = *reinterpret_cast<const float4*>(F + q);
+    float4 a[SB], b[SB];
+#pragma unroll
+    for (int j = 0; j < SB; ++j) {
+      a[j] = *reinterpret_cast<const float4*>(O + (sb * SB + j) * tile + q);
+      a[j].x *= f.x;
+      a[j].y *= f.y;
+      a[j].z *= f.z;
+      a[j].w *= f.w;
+      b[j] = *reinterpret_cast<const float4*>(U + (tb * SB + j) * tile + q);
+    }
+#pragma unroll
+    for (int j = 0; j < SB; ++j)
+#pragma unroll
+      for (int k = 0; k < SB; ++k) {
+        acc[j][k] += a[j].x * b[k].x;
+        acc[j][k] += a[j].y * b[k].y;
+        acc[j][k] += a[j].z * b[k].z;
+        acc[j][k] += a[j].w * b[k].w;
+      }
   }
-  __syncthreads();  // stage_o, fac_s and red are free for the next edge
+  if (row) {
+#pragma unroll
+    for (int j = 0; j < SB; ++j)
+#pragma unroll
+      for (int k = 0; k < SB; ++k) pst[side * SS + (sb * SB + j) * S + tb * SB + k] = acc[j][k];
+    __syncwarp();
+    // each child's block: SS consecutive floats of the row, SS / 4 float4s
+    constexpr int W = SS / 4;
+    for (int v = lane; v < 2 * W; v += 32) {
+      const int sv = v / W, w = v - sv * W;
+      reinterpret_cast<float4*>(row + ((size_t)(sv ? st.r : st.l) * C + c) * SS)[w] =
+          reinterpret_cast<const float4*>(pst + sv * SS)[w];
+    }
+    __syncwarp();  // the stage is free for the next step
+  }
+}
+
+// Sum warp w of a block: the walk's barriers in its order (see
+// cluster_reverse_walk), and after each step's named barrier the step's
+// sums of the tile's patterns 16 w .. 16 w + 15 into `row`, before the
+// next step's exchange.
+template <int S>
+__device__ __forceinline__ void sum_warp(const int* __restrict__ steps, int n_steps,
+                                         float* smem, int tile, int n_slots, int w,
+                                         float* row, int C, int c) {
+  const ReverseSmem<S> lay(tile);
+  const float* ust = smem + lay.rows();
+  const float* ost = smem + lay.ost(n_slots);
+  const float* fac = smem + lay.floats(n_slots, C);
+  float* pst = smem + lay.floats(n_slots, C) + 2 * tile + (size_t)w * 2 * S * S;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();            // the walk's, before its first step
+  ring_arrive(blockDim.x);   // step n_steps - 1 opens
+  reverse_barrier(cluster);  // its exchange
+  int k = 0;                 // the ring stage of step i
+  for (int i = n_steps - 1; i >= 0; --i) {
+    const Step st = load_step(steps, i);
+    sums_wait(blockDim.x);  // step i's O and fac are staged
+    if (i > 0) ring_arrive(blockDim.x);  // step i - 1 opens: it reads nothing of ours
+    group_sums<S>(st, ost, fac, ust + (size_t)k * 2 * (S + 1) * tile, tile, w * SUM_PATTERNS,
+                  pst, row, C, c);
+    if (i > 0) reverse_barrier(cluster);  // step i - 1's exchange; the stages are rewritten
+    k = k == REVERSE_STAGES - 1 ? 0 : k + 1;
+  }
 }
 
 template <int S, int RPT>
-__global__ void __launch_bounds__(MAX_THREADS)
+__global__ void __launch_bounds__(TBAR_THREADS_MAX, 2)
 wide_tbar_kernel(const int* __restrict__ steps, int n_steps,
                  const float* __restrict__ trans, const float* __restrict__ rootd,
                  const float* __restrict__ lnl, const float* __restrict__ wp,
                  const float* __restrict__ up, const float* __restrict__ usc, int P,
-                 int n_nodes, float* __restrict__ part, int C, int n_slots, int T,
-                 int block0) {
-  extern __shared__ float smem[];
-  const Lane<S, RPT> L(T, C);
-  const int CS = L.CS, CSS = CS * S, TS = T + 1;  // padded stride: see the reduction
-  const int p_raw = (blockIdx.x + block0) * T + L.p;
-  const bool valid = p_raw < P;
-  const int pg = min(p_raw, P - 1);
-  float* dslots = smem;                              // [n_slots][CS][T]
-  float* dscale = dslots + (size_t)n_slots * CS * T;  // [n_slots][T]
-  float* pst = dscale + (size_t)n_slots * T;          // [2][C][S][S]
-  float* ustage = pst + 2 * CSS;                      // [2][CS][T+1]
-  float* stage_o = ustage + 2 * CS * TS;              // [CS][T+1]
-  float* fac_s = stage_o + CS * TS;                   // [T]
-  float* red = fac_s + T;                             // [G][T]
-  const float lnl_p = __ldg(lnl + pg);
-  const float w_p = valid ? __ldg(wp + pg) : 0.f;
-  float* part_b = part + (size_t)blockIdx.x * n_nodes * CSS;
-
-  for (int i = n_steps - 1; i >= 0; --i) {
-    const Step st = load_step(steps, i);
-    stage_children(pst, trans, st, CSS);
-    stage_partial<S, RPT>(ustage, TS, up, st.l, P, pg, L);
-    stage_partial<S, RPT>(ustage + CS * TS, TS, up, st.r, P, pg, L);
-    float d[RPT], dsc = 0.f;
-    if (i == n_steps - 1) {
-#pragma unroll
-      for (int j = 0; j < RPT; ++j) d[j] = __ldg(rootd + L.row(j));
-    } else {
-      const float* col = dslots + ((size_t)st.out * CS + L.row(0)) * T + L.p;
-#pragma unroll
-      for (int j = 0; j < RPT; ++j) d[j] = col[j * T];
-      dsc = dscale[st.out * T + L.p];
-    }
-    const float sl = __ldg(usc + (size_t)st.l * P + pg);
-    const float sr = __ldg(usc + (size_t)st.r * P + pg);
-    __syncthreads();  // matrices and child partials staged
-    float x[S], ml[RPT], mr[RPT];
-    load_column<S, RPT>(ustage, TS, L, x);
-    message<S, RPT>(pst + L.c * L.SS, L.s0, x, ml);
-    load_column<S, RPT>(ustage + CS * TS, TS, L, x);
-    message<S, RPT>(pst + CSS + L.c * L.SS, L.s0, x, mr);
-    tbar_side<S, RPT>(st.l, st.ls, d, dsc, mr, sr, sl, ustage, pst, lnl_p, w_p, valid,
-                      stage_o, fac_s, red, dslots, dscale, part_b, L, TS);
-    tbar_side<S, RPT>(st.r, st.rs, d, dsc, ml, sl, sr, ustage + CS * TS, pst + CSS,
-                      lnl_p, w_p, valid, stage_o, fac_s, red, dslots, dscale, part_b,
-                      L, TS);
+                 int n_nodes, float* __restrict__ part, int n_slots, int tile,
+                 int cluster0) {
+  constexpr int G = S / RPT, QT = REVERSE_QT, SS = S * S;
+  static_assert(QT == 1, "a walk thread holds one pattern");
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), c = (int)cluster.block_rank();
+  const int cl = (int)(blockIdx.x / C);  // the cluster in this chunk
+  const int p0 = (cluster0 + cl) * tile, groups = tile / SUM_PATTERNS;
+  const int tid = threadIdx.x, walkers = tile / QT * G;
+  float* fac = smem + ReverseSmem<S>(tile).floats(n_slots, C);  // [2][tile]
+  // the part row of the tile's patterns 16 w .. 16 w + 15 (none past P)
+  const auto part_row = [&](int w) {
+    return p0 + w * SUM_PATTERNS < P ? part + ((size_t)cl * groups + w) * n_nodes * C * SS
+                                     : nullptr;
+  };
+  if (tid >= walkers) {
+    const int w = (tid - walkers) >> 5;
+    sum_warp<S>(steps, n_steps, smem, tile, n_slots, w, part_row(w), C, c);
+  } else {
+    const int g = tid % G, q = tid / G, p = p0 + q;
+    const bool valid = p < P;  // a ragged tail computes with P - 1 and adds 0
+    const int pg = min(p, P - 1);
+    const float lnl_p = __ldg(lnl + pg), w_p = valid ? __ldg(wp + pg) : 0.f;
+    const auto hook = [&](const Step& st, const float* ost, const float (&sc)[2][QT],
+                          const float* Uk) {
+      if (g < 2) {  // lane g of the pattern group: child g's fac
+        const float osc = g ? sc[1][0] : sc[0][0];
+        const float usc_e = Uk[(g * (S + 1) + S) * tile + q];
+        fac[g * tile + q] = valid ? expf(fminf(osc + usc_e - lnl_p, 80.f)) * w_p : 0.f;
+      }
+      sums_arrive(blockDim.x);
+    };
+    cluster_reverse_walk<S, RPT>(steps, n_steps, trans, rootd, up, usc, P, p0, tile, n_slots,
+                                 smem, hook);
   }
 }
 
+// tile: patterns a cluster, a multiple of 16 up to 64 (a block has tile x 4
+// walk threads and a sum warp for each 16 patterns); part holds
+// part_blocks rows of 16 patterns, at least tile / 16.
 extern "C" int iqt_wide_tbar(const int* steps, int n_steps, const float* trans,
                              const float* rootd, const float* lnl, const float* wp,
                              const float* up, const float* usc, int P, int n_nodes,
                              float* part, int part_blocks, float* tbar, int C, int S,
                              int n_slots, int tile, void* stream) {
-  const int CS = C * S, TS = tile + 1;
-  const size_t smem = ((size_t)n_slots * (CS + 1) * tile + 2 * (size_t)CS * S +
-                       3 * (size_t)CS * TS + tile) * sizeof(float);
-  const int n_blocks = (P + tile - 1) / tile;
-  const cudaStream_t st = (cudaStream_t)stream;
+  if (C < 1 || C > 8 || tile <= 0 || tile % SUM_PATTERNS) return (int)cudaErrorInvalidValue;
+  const int groups = tile / SUM_PATTERNS, per_chunk = part_blocks / groups;
+  const int clusters = (P + tile - 1) / tile, rows = (P + SUM_PATTERNS - 1) / SUM_PATTERNS;
+  if (per_chunk < 1) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSuccess;
-  if (part_blocks < 1) return (int)cudaErrorInvalidValue;
-  for (int b0 = 0; b0 < n_blocks; b0 += part_blocks) {
-    const int nb = min(part_blocks, n_blocks - b0);
-#define IQT_LAUNCH(SS_, RPT_)                                                     \
-  {                                                                               \
-    const int threads = tile * C * (SS_ / RPT_);                                  \
-    if (threads > MAX_THREADS) return (int)cudaErrorInvalidConfiguration;         \
-    const size_t bytes = smem + (size_t)C * (SS_ / RPT_) * tile * sizeof(float);  \
-    e = iqt::allow_smem(wide_tbar_kernel<SS_, RPT_>, bytes);                      \
-    if (e == cudaSuccess)                                                         \
-      wide_tbar_kernel<SS_, RPT_><<<nb, threads, bytes, st>>>(                    \
-          steps, n_steps, trans, rootd, lnl, wp, up, usc, P, n_nodes, part, C,    \
-          n_slots, tile, b0);                                                     \
+  for (int c0 = 0; c0 < clusters; c0 += per_chunk) {
+    const int nc = min(per_chunk, clusters - c0);
+#define IQT_LAUNCH(SS_, RPT_)                                                             \
+  {                                                                                       \
+    const int walkers = tile / REVERSE_QT * (SS_ / RPT_);                                 \
+    const int threads = walkers + groups * 32;                                            \
+    if (walkers % 32 || threads > TBAR_THREADS_MAX) return (int)cudaErrorInvalidValue;    \
+    e = launch_clusters(wide_tbar_kernel<SS_, RPT_>, nc, C, threads,                      \
+                        wide_tbar_smem<SS_>(C, tile, n_slots), stream, steps, n_steps,    \
+                        trans, rootd, lnl, wp, up, usc, P, n_nodes, part, n_slots, tile, \
+                        c0);                                                              \
   }
     IQT_DISPATCH_S(S, IQT_LAUNCH)
 #undef IQT_LAUNCH
     if (e != cudaSuccess) return (int)e;
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    e = iqt::launch_reduce(part, tbar, nb, n_nodes * CS * S, b0 > 0, st);
+    e = iqt::launch_reduce(part, tbar, min(nc * groups, rows - c0 * groups),
+                           n_nodes * C * S * S, c0 > 0, (cudaStream_t)stream);
     if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaSuccess;

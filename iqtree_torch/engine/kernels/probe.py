@@ -2,7 +2,7 @@
 
     python -m iqtree_torch.engine.kernels.probe [-C N[,N...]] [--base DIR]
         [newton|forward|store|down_store|wide_newton|wide_forward|wide_store|
-         wide_down_store|tbar ...]
+         wide_down_store|tbar|wide_tbar ...]
 
 On a CUDA card, at the bench shapes (bench_data.npz: its tree, 1000 taxa,
 9 962 patterns, GTR+G4 at the model's start values; GTR+GN with -C N, each
@@ -13,7 +13,7 @@ loads it in place of the kernel and prints ms a call of the kernel's
 wrapper (CUDA events around 10 calls after a warm-up) at 32, 64 and 128
 lanes a block (down_store: 8, 32, 64 and 128 patterns a block; tbar: 64
 patterns a block, the only size that keeps its bits; the wide kernels: 16,
-32 and 64 patterns a cluster).  With no kernel named, all nine.
+32 and 64 patterns a cluster).  With no kernel named, all ten.
 
 --base DIR adds the variant `base`: <kernel>.cu and its headers taken
 whole from DIR, e.g. an earlier commit's csrc/ (`git archive COMMIT
@@ -24,7 +24,8 @@ whether the two give the same bits.  The earlier thread-a-pattern
 forward.cu, store.cu and down_store.cu read the block argument as
 patterns a block, the earlier wide_newton.cu and wide_forward.cu as
 patterns a block of C x 4 row groups of threads (a block past 512 threads
-is refused), as do the earlier wide_store.cu and wide_down_store.cu.
+is refused), as do the earlier wide_store.cu, wide_down_store.cu and
+wide_tbar.cu.
 
 newton (newton_sweep; the per-warp sums' zeroing and reduction inside):
   as built         csrc/newton.cu
@@ -92,8 +93,8 @@ wide_store (pruning.fused_upward_store; the same cluster walk):
                    barrier before the blocks leave)
   float division   as for down_store
 
-wide_down_store (cs_kernels.fused_down_store; wide_newton's reverse walk
-with one matrix, one cluster barrier a step):
+wide_down_store (cs_kernels.fused_down_store; the cluster reverse walk of
+wide_common.cuh, wide_newton's with one matrix, one cluster barrier a step):
   as built         csrc/wide_down_store.cu
   partials cached  every step fetches node 0's partials and scales
   matrices cached  every step fetches node 0's [S,S] blocks
@@ -101,13 +102,31 @@ with one matrix, one cluster barrier a step):
   no cluster barrier  the exchange's cluster barrier a block barrier
                    (wrong values; a cluster barrier before the blocks leave)
   stages 3         the cp.async ring three steps deep
-  loads on the chain  as for wide_newton
+  loads on the chain  each step waits for the copies it has just issued
+  fetch at the step's start  step i - 1's copies issued as step i starts,
+                   not after its exchange (the same bits)
   two patterns a thread  QT = 2 (the forward walk's): half the threads
   registers 255    no cap of 128 registers a thread (the cap keeps every
                    cluster resident at C=8)
   no push          nothing pushed into the children's slots (wrong values)
   no division      O = o, no division by the max (wrong values)
   float division, reciprocal  as for down_store
+
+wide_tbar (cs_kernels.fused_downward_tbar; the same reverse walk, the
+ordered cotangent sums in a sum warp for each 16 patterns):
+  as built         csrc/wide_tbar.cu
+  no sums          the sum warps add nothing (wrong values)
+  sums on the walk warps  no sum warps: after the hook the walk threads
+                   wait for each other and one walk warp of each 16
+                   patterns runs their sums (the same bits)
+  no part stores   the sums are not written (wrong values)
+  sums before the next step opens  a sum warp arrives at the next step's
+                   opening barrier after its sums, not before them (the
+                   same bits)
+  no cluster barrier  as for wide_down_store
+  registers 255    no cap of 80 registers a thread (the cap keeps every
+                   cluster resident at C=8)
+  float division   as for down_store
 
 tbar (fused_tbar_cs), down_store's walk and the ordered cotangent sums:
   as built         csrc/tbar.cu
@@ -205,6 +224,18 @@ _TBAR_BUTTERFLY = """    for (int s = 0; s < 1; ++s) {
         part_b[((size_t)(q < SS ? st.l : st.r) * C + c) * SS + q % SS] = acc;
       }
     }"""
+# wide_tbar's sums: the sum warps' (as built), or after the hook each walk
+# warp waits for the others' O and fac and one walk warp of each 16 patterns
+# runs their sums
+_TBAR_SUM_WARPS_ARRIVE = "      sums_arrive(blockDim.x);\n    };"
+_TBAR_WALK_WARPS_SUM = """      sums_wait(blockDim.x);
+      constexpr int WARPS = SUM_PATTERNS * G / 32;  // walk warps a group
+      const int ww = tid >> 5;
+      if (ww % WARPS == 0)
+        group_sums<S>(st, ost, fac, Uk, tile, ww / WARPS * SUM_PATTERNS,
+                      fac + 2 * tile + (size_t)ww / WARPS * 2 * SS, part_row(ww / WARPS),
+                      C, c);
+    };"""
 # the wide store's row stores: each warp's 16 patterns from the pool slot
 # (as built), or each thread's own rows and scale from its registers
 _STORE_FROM_POOL = """  const auto emit = [&](const Step& st, const auto&, const auto&, const float* slot) {
@@ -233,6 +264,38 @@ _MATRICES_CACHED = (("trans + ((size_t)node * C + c) * SS + 4 * r, 16);",
                      "trans + ((size_t)0 * C + c) * SS + 4 * r, 16);"),)
 _WALK_BARRIER = (("    cluster.sync();  // one barrier a step",
                   "    __syncthreads();  // one barrier a step"),)
+# the reverse walk's exchange a block barrier (wrong values), and a cluster
+# barrier before the blocks leave, after the last line of `kernel`'s walk call
+_REVERSE_BARRIER = (("void reverse_barrier(cg::cluster_group& cluster) {\n  cluster.sync();",
+                     "void reverse_barrier(cg::cluster_group& cluster) {\n  __syncthreads();"),)
+
+
+def _no_reverse_barrier(last_line):
+    return (*_REVERSE_BARRIER, (last_line + "\n}", last_line + "\n  cluster.sync();\n}"))
+
+
+# the reverse walk's fetch of step i - 1: after step i's exchange (as
+# built), or at step i's start (into the stage step i + 1 held), or after
+# the exchange and waited for at once
+_REVERSE_FETCH = """    // step i + 1's stage is free: step i - NS + 1 into it
+    const int kf = k == 0 ? NS - 1 : k - 1;
+    if (i >= NS - 1)
+      reverse_fetch<S>(st_f, mst + kf * 2 * SS, ust + (size_t)kf * 2 * (S + 1) * tile, c, C,
+                       tile, p0, T, trans, up, usc, P);
+    __pipeline_commit();
+    if (i >= NS) st_f = load_step(steps, i - NS);
+"""
+_RING_BARRIER = ("    ring_barrier();                 // every thread's\n"
+                 "    const Step st_next = i > 0 ? load_step(steps, i - 1) : st;\n")
+_FETCH_AT_START = ((_REVERSE_FETCH, ""),
+                   (_RING_BARRIER, _RING_BARRIER.replace(
+                       "    const Step", _REVERSE_FETCH.replace(
+                           "step i + 1's stage is free", "at the step's start") + "    const Step")))
+_REVERSE_LOADS_ON_THE_CHAIN = (("    __pipeline_commit();\n    if (i >= NS) st_f",
+                                "    __pipeline_commit();\n    __pipeline_wait_prior(0);\n"
+                                "    __syncthreads();\n    if (i >= NS) st_f"),)
+
+
 _LOADS_ON_THE_CHAIN = (("    __pipeline_commit();\n"
                         "    const Step st_next = i > 0 ? load_step(steps, i - 1) : st;",
                         "    __pipeline_commit();\n"
@@ -317,20 +380,40 @@ KERNELS: Dict[str, Dict[str, Tuple[Tuple[str, str], ...]]] = {
         "no stores": (("    if (stores) {", "    if (false) {"),
                       ("    if (c == 0)\n      for (int v = g;",
                        "    if (false)\n      for (int v = g;")),
-        "no cluster barrier": (
-            ("    cluster.sync();  // the exchange: every block's maxima of step i are written",
-             "    __syncthreads();  // the exchange: every block's maxima of step i are written"),
-            ("    k = k == STAGES - 1 ? 0 : k + 1;\n  }\n}",
-             "    k = k == STAGES - 1 ? 0 : k + 1;\n  }\n  cluster.sync();\n}")),
-        "stages 3": (("constexpr int STAGES = 2;", "constexpr int STAGES = 3;"),),
-        "loads on the chain": _LOADS_ON_THE_CHAIN,
-        "two patterns a thread": (("constexpr int QT = 1;", "constexpr int QT = 2;"),),
+        "no cluster barrier": _no_reverse_barrier("                               smem, hook);"),
+        "stages 3": (("constexpr int REVERSE_STAGES = 2;", "constexpr int REVERSE_STAGES = 3;"),),
+        "loads on the chain": _REVERSE_LOADS_ON_THE_CHAIN,
+        "fetch at the step's start": _FETCH_AT_START,
+        "two patterns a thread": (("constexpr int REVERSE_QT = 1;",
+                                   "constexpr int REVERSE_QT = 2;"),),
         "registers 255": (("__launch_bounds__(CLUSTER_THREADS_MAX, 2)\nwide_down_store_kernel",
                            "__launch_bounds__(CLUSTER_THREADS_MAX)\nwide_down_store_kernel"),),
         "no push": (("      if (cslot < 0) continue;", "      if (true) continue;"),),
         "no division": (("iqt::div_rn(o[side][j][qq], mx[side][qq]);", "o[side][j][qq];"),),
         "float division": _DIVISION["float division"],
         "reciprocal": _DIVISION["reciprocal"],
+    },
+    "wide_tbar": {
+        "as built": (),
+        "no sums": (("        acc[j][k] += a[j].x * b[k].x;\n"
+                     "        acc[j][k] += a[j].y * b[k].y;\n"
+                     "        acc[j][k] += a[j].z * b[k].z;\n"
+                     "        acc[j][k] += a[j].w * b[k].w;\n", ""),),
+        "sums on the walk warps": ((_TBAR_SUM_WARPS_ARRIVE, _TBAR_WALK_WARPS_SUM),
+                                   ("const int threads = walkers + groups * 32;",
+                                    "const int threads = walkers;")),
+        "no part stores": (("  if (row) {", "  if (row && st.node < -1) {"),),
+        "sums before the next step opens": (
+            ("    if (i > 0) ring_arrive(blockDim.x);  // step i - 1 opens: it reads nothing of ours\n"
+             "    group_sums<S>(st, ost, fac, ust + (size_t)k * 2 * (S + 1) * tile, tile, w * SUM_PATTERNS,\n"
+             "                  pst, row, C, c);\n",
+             "    group_sums<S>(st, ost, fac, ust + (size_t)k * 2 * (S + 1) * tile, tile, w * SUM_PATTERNS,\n"
+             "                  pst, row, C, c);\n"
+             "    if (i > 0) ring_arrive(blockDim.x);\n"),),
+        "no cluster barrier": _no_reverse_barrier("                                 smem, hook);\n  }"),
+        "registers 255": (("__launch_bounds__(TBAR_THREADS_MAX, 2)\nwide_tbar_kernel",
+                           "__launch_bounds__(TBAR_THREADS_MAX)\nwide_tbar_kernel"),),
+        "float division": _DIVISION["float division"],
     },
     "tbar": {
         "as built": (),
@@ -370,17 +453,19 @@ LANES = (32, 64, 128)
 CLUSTER_TILES = (16, 32, 64)
 SIZES = {"down_store": (8, 32, 64, 128), "wide_newton": CLUSTER_TILES,
          "wide_forward": CLUSTER_TILES, "wide_store": CLUSTER_TILES,
-         "wide_down_store": CLUSTER_TILES, "tbar": (64,)}
+         "wide_down_store": CLUSTER_TILES, "wide_tbar": CLUSTER_TILES, "tbar": (64,)}
 UNITS = {"down_store": "patterns a block", "wide_newton": "patterns a cluster",
          "wide_forward": "patterns a cluster", "wide_store": "patterns a cluster",
-         "wide_down_store": "patterns a cluster", "tbar": "patterns a block"}
+         "wide_down_store": "patterns a cluster", "wide_tbar": "patterns a cluster",
+         "tbar": "patterns a block"}
 # the block size at which base and as built are compared bit for bit when
 # not the wrapper's: the earlier wide_newton's tile, whose sums it keeps;
 # the earlier row-group wide kernels' tile (their bits do not depend on the
 # tile; they refuse 32 patterns at C=8, 1 024 threads)
-BITS_AT = {"wide_newton": 16, "wide_forward": 16, "wide_store": 16, "wide_down_store": 16}
+BITS_AT = {"wide_newton": 16, "wide_forward": 16, "wide_store": 16, "wide_down_store": 16,
+           "wide_tbar": 16}
 # kernels at the protein bench shapes
-PROTEIN = ("wide_newton", "wide_forward", "wide_store", "wide_down_store")
+PROTEIN = ("wide_newton", "wide_forward", "wide_store", "wide_down_store", "wide_tbar")
 
 
 def source_files(kernel: str):
@@ -465,6 +550,7 @@ def bench_calls(device, categories=4, protein=False):
     csk.fill_tip_rows_cs(up, usc, tips, model.ncat)
     mats = csk.stacked_deriv_mats(model, ta.blen).float().contiguous()
     wp = site.pattern_freq.contiguous()
+    lnl = pruning.fused_site_lnl(steps, n_slots, trans, tips, props, freq, invar)
     if protein:
         return {"wide_newton": lambda: csk.wide_newton_sweep(
                     steps, n_slots, mats, props, freq, wp, invar, up, usc),
@@ -472,8 +558,9 @@ def bench_calls(device, categories=4, protein=False):
                     steps, n_slots, trans, tips, props, freq, invar),
                 "wide_store": lambda: pruning.fused_upward_store(steps, n_slots, trans, tips),
                 "wide_down_store": lambda: csk.fused_down_store(steps, n_slots, trans, up,
-                                                                usc, freq)}
-    lnl = pruning.fused_site_lnl(steps, n_slots, trans, tips, props, freq, invar)
+                                                                usc, freq),
+                "wide_tbar": lambda: csk.fused_downward_tbar(
+                    steps, n_slots, trans, tips, props, freq, lnl, wp, up=up, usc=usc)}
     return {
         "tbar": lambda: csk.fused_tbar_cs(steps, n_slots, trans, tips, props, freq, lnl, wp,
                                           up=up, usc=usc),
@@ -503,7 +590,8 @@ BLOCK_SETTING = {"newton": (csk, "NEWTON_THREADS"), "down_store": (csk, "DOWN_ST
                  "store": (pruning, "UPWARD_LANES"), "tbar": (csk, "TBAR_PATTERNS"),
                  "wide_forward": (pruning, "WIDE_FORWARD_TILE"),
                  "wide_store": (pruning, "WIDE_STORE_TILE"),
-                 "wide_down_store": (csk, "WIDE_DOWN_STORE_TILE")}
+                 "wide_down_store": (csk, "WIDE_DOWN_STORE_TILE"),
+                 "wide_tbar": (csk, "WIDE_TBAR_TILE")}
 
 
 def set_lanes(kernel: str, lanes: int) -> None:

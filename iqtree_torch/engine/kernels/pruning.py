@@ -56,10 +56,6 @@ UPWARD_LANES = 64
 # pool of a 1000-taxon tree (11 slots) under the 48 KB default shared
 # memory and gives ~160 blocks for 10k patterns on the 132 SMs.
 DEFAULT_TILE = 64
-# Patterns per block of the wide kernel on row groups (wide_tbar.cu): 16
-# patterns x C*4 row groups of 5 states (256 threads at C=4); ~123 blocks
-# for 1 958 patterns.
-WIDE_TILE = 16
 # Patterns a cluster of csrc/wide_forward.cu (C blocks, one a rate
 # category, of tile / 2 x 4 threads): 16 gives 123 clusters of 4 one-warp
 # blocks at 1 958 patterns, C=4 (measured fastest at C = 1, 3, 4 and 8,

@@ -244,11 +244,14 @@ def test_wide_gradient_on_card_matches_plain_autograd(protein_card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("part_blocks", [1, 2])
-def test_wide_tbar_in_chunks_of_blocks_matches_twin(protein_card, part_blocks):
-    """The gradient sweep with per-block sums for fewer blocks than the
-    sweep has: the kernel runs in chunks of blocks (the last one ragged)
-    and adds each chunk's sums onto the earlier ones."""
+@pytest.mark.parametrize("tile, part_blocks", [(16, 1), (16, 2), (32, 2), (32, 6),
+                                               (32, 7), (64, 4), (64, 8)])
+def test_wide_tbar_in_chunks_of_blocks_matches_twin(protein_card, tile, part_blocks):
+    """The gradient sweep with per-16-pattern part rows for fewer rows than
+    the sweep has: the kernel runs in chunks of whole clusters (`tile`
+    patterns, tile / 16 rows each; 7 rows at 32 rounds down to 3 clusters),
+    the last chunk ragged where a chunk holds more than one cluster, and
+    adds each chunk's rows onto the earlier ones."""
     ta, model, site = protein_card["tree"], protein_card["model"], protein_card["site"]
     st, ns = protein_card["steps"], protein_card["n_slots"]
     trans = branch_transition_mats(model, ta.blen).float().contiguous()
@@ -259,10 +262,12 @@ def test_wide_tbar_in_chunks_of_blocks_matches_twin(protein_card, part_blocks):
     up, usc = pruning.fused_upward_store(st, ns, trans, tips)
     cs_kernels.fill_tip_rows_cs(up, usc, tips, 4)
     wp = site.pattern_freq.contiguous()
-    n_blocks = -(-tips.shape[2] // pruning.WIDE_TILE)
-    assert n_blocks > 2 and n_blocks % 2 == 1
+    clusters = -(-tips.shape[2] // tile)
+    chunk = part_blocks // (tile // cs_kernels.WIDE_TBAR_SUM_PATTERNS)
+    assert clusters > chunk and (chunk == 1 or clusters % chunk)
     tb = cs_kernels.fused_downward_tbar(st, ns, trans, tips, props, freq, lnl, wp,
-                                        up=up, usc=usc, part_blocks=part_blocks)
+                                        up=up, usc=usc, tile=tile,
+                                        part_blocks=part_blocks)
     tb_p = cs_kernels._tbar_plain(st, trans, props, freq, lnl, wp, up, usc)
     torch.testing.assert_close(tb, tb_p, rtol=1e-4,
                                atol=1e-4 * float(tb_p.abs().max()))
@@ -766,11 +771,11 @@ def test_wide_forward_gives_the_earlier_designs_bits():
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["wide_store", "wide_tbar", "wide_down_store"])
 def test_wide_row_group_kernels_keep_the_earlier_designs_bits(kernel):
-    """At C = 4 the wide store and outside-partial store on clusters give the
-    row-group design's bits at 16, 32 and 64 patterns a cluster, and the
-    row-group gradient sweep, which shares wide_common.cuh with them, keeps
-    its bits (the earlier build, at 16 patterns a block, from
-    IQT_EARLIER_CSRC)."""
+    """At C = 4 the wide store, the outside-partial store and the gradient
+    sweep on clusters (the two reverse sweeps on the walk they share in
+    wide_common.cuh) give the earlier build's bits at 16, 32 and 64
+    patterns a cluster (the earlier build, at 16 patterns a block or
+    cluster, from IQT_EARLIER_CSRC)."""
     earlier = _earlier_csrc()
     k = _lane_case(4, 130, alphabet="ARNDCQEGHILKMFPSTWYV-X", n=30, sites=301)
     model, site = k["model"], k["site"]
@@ -792,13 +797,37 @@ def test_wide_row_group_kernels_keep_the_earlier_designs_bits(kernel):
             k["steps"], k["n_slots"], k["trans"], tips, props, k["freq"], lnl,
             site.pattern_freq.contiguous(), up=k["up"], usc=k["usc"], tile=tile),)
 
-    tiles = (16,) if kernel == "wide_tbar" else (16, 32, 64)
-    got = [run(t) for t in tiles]
+    got = [run(t) for t in (16, 32, 64)]
     with _earlier_design(kernel, earlier):
         want = run(16)
     for gt in got:
         for g, w in zip(gt, want):
             assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [16, 32, 64])
+@pytest.mark.parametrize("C", [1, 4, 8])
+def test_wide_tbar_clusters_match_twin(C, tile):
+    """The wide gradient sweep (a cluster of C blocks, one a category, and a
+    sum warp for each 16 patterns) at `tile` patterns a cluster and an odd
+    pattern count (the last cluster ragged, at 64 with a group past the
+    last pattern): the edges' rows within 1e-4 of the twin relative to its
+    largest entry, the root and dummy rows 0 (the twin's dummy row reads
+    the store's unwritten dummy partials), and two launches bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    k = _lane_case(C, 160 + C, alphabet="ARNDCQEGHILKMFPSTWYV-X", n=30, sites=301)
+    args = _tbar_args(k)
+    before = cs_kernels.fused_downward_tbar.launches
+    got = cs_kernels.fused_downward_tbar(*args, up=k["up"], usc=k["usc"], tile=tile)
+    again = cs_kernels.fused_downward_tbar(*args, up=k["up"], usc=k["usc"], tile=tile)
+    assert cs_kernels.fused_downward_tbar.launches == before + 2
+    assert torch.equal(got, again)
+    want = cs_kernels._tbar_plain(k["steps"], k["trans"], *args[4:], k["up"], k["usc"])
+    edges = 2 * k["ta"].n_taxa - 2  # the device numbering puts the root, then the dummy
+    assert not bool(got[edges:].any())
+    assert float((got[:edges] - want[:edges]).abs().max() / want[:edges].abs().max()) <= 1e-4
 
 
 @pytest.mark.cuda

@@ -143,7 +143,8 @@ def test_upward_probe_variants_apply_to_the_kernel_sources(kernel):
 
 
 @pytest.mark.parametrize("kernel", ["forward", "store", "down_store", "wide_newton",
-                                    "wide_forward", "tbar", "wide_store", "wide_down_store"])
+                                    "wide_forward", "tbar", "wide_store", "wide_down_store",
+                                    "wide_tbar"])
 def test_probe_base_variant_reads_both_files_from_its_directory(kernel, tmp_path):
     """`--base DIR` builds <kernel>.cu and the headers it includes
     (cs_common.cuh; the wide kernels also wide_common.cuh) as DIR holds them
@@ -160,7 +161,7 @@ def test_probe_base_variant_reads_both_files_from_its_directory(kernel, tmp_path
 
 
 @pytest.mark.parametrize("kernel", ["down_store", "wide_newton", "wide_forward", "tbar",
-                                    "wide_store", "wide_down_store"])
+                                    "wide_store", "wide_down_store", "wide_tbar"])
 def test_redesigned_probe_variants_apply_to_the_kernel_sources(kernel):
     """Every variant of the probes of the kernels redesigned on the lane
     layout and on clusters edits csrc/<kernel>.cu or a header it includes,
@@ -249,3 +250,26 @@ def test_wide_store_and_down_store_shared_memory():
         assert ds(20, C, 64, 12) <= block
         assert ds(20, C, 16, 11) - ds(20, 1, 16, 11) == 4 * 4 * (C - 1) * 16
     assert ds(20, 4, 16, 11, stages=3) - ds(20, 4, 16, 11) == 4 * (2 * 400 + 2 * 21 * 16)
+
+
+def test_wide_tbar_shared_memory():
+    """The shared memory of csrc/wide_tbar.cu by its header's formula: the
+    cluster reverse walk's (wide_down_store.cu's), each child's fac for the
+    tile's patterns and a sum warp's stage of both children's [S,S] blocks
+    for each 16 patterns, at S=20, C=4, 16 patterns a cluster and a
+    1000-taxon tree's 11 slots; and the formula at S=61 (codon) under the
+    227 KB a block may have at every C = 1-8.  That is the formula only:
+    no S=61 instance builds, as group_sums needs S % 4 == 0."""
+    block = 232448
+    tb = cs_kernels.wide_tbar_smem
+    S, C, tile, slots = 20, 4, 16, 11
+    ring = 2 * (2 * S * S + 2 * (S + 1) * tile)
+    assert tb(S, C, tile, slots) == 4 * (ring + slots * (S + 1) * tile + 2 * S * tile
+                                         + 4 * C * tile + 2 * tile + 2 * S * S) == 33472
+    assert tb(61, 4, 16, 11) == 157784 <= block
+    walk = cs_kernels.wide_down_store_smem
+    assert tb(20, 4, 16, 11) - walk(20, 4, 16, 11) == 4 * (2 * 16 + 2 * 400)
+    assert tb(20, 4, 64, 11) - walk(20, 4, 64, 11) == 4 * (2 * 64 + 4 * 2 * 400)
+    for C in range(1, 9):
+        assert tb(61, C, 16, 11) <= block, C
+        assert tb(20, C, 64, 12) <= block, C

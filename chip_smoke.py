@@ -66,12 +66,27 @@ Phases (any failure exits non-zero; nothing is caught):
  14. the forward kernel's eight ablation variants at the bench tree's shapes
      (random trans and tips from numpy seed 0), the two precision variants
      (the TPU matrix unit's 3 and 1 bfloat16 passes) among them, timed
-     through the ablation entry point and held against their twins.
+     through the ablation entry point and held against their twins;
+ 15. at the codon path's shapes (bench_data_codon.npz: 80 taxa x 500
+     codons, 457 patterns, GY+F3X4+G4, the 61 states padded to the S=64
+     instances) the four wide kernels against their twins (forward 1e-3
+     absolute, store and down-store 1e-4, tbar 1e-4 relative), two
+     launches bit-equal, timed (the padding copies inside the wrappers
+     timed alone too), their registers and spills (ptxas) and shared
+     memory by formula; also at C = 1 and 8, and at a small shape under
+     genetic codes 2 (S=60) and 6 (S=63);
+ 16. the codon fixed-topology path through the CLI entry point:
+     `-s ALN -st CODON -te TREE -m GY+F3X4+G` on cuda, with the launch
+     counts of the four wide kernels read around that run (the
+     branch-Newton kernels must not launch: codon branch lengths take the
+     theta path), the lnL above the reference binary's, the written tree
+     and model re-evaluated in float64;
+ 17. the codon fit again under torch.profiler.
 Prints the kernels' JSON line (the DNA kernels' launches from the DNA
 search, the wide kernels' and the 32-bit parsimony scorer's from the
 protein search, the multi-tree and ablation kernels' from phases 13 and
-14, which no CLI path reaches), then as its last line
-{"ok": true, "device": {...}}.
+14, which no CLI path reaches, the codon instances' from phase 16), then
+as its last line {"ok": true, "device": {...}}.
 """
 
 import json
@@ -95,6 +110,7 @@ PROTEIN_SEARCH_FLAGS = ["-m", "LG+G", "-n", "2", "-ninit", "4", "-ntop", "2", "-
                         "1", "-bb", "1000", "-wbt"]
 JAX_PROTEIN_SEARCH_LNL = -237901.3  # the JAX package's search without -bb, float32,
 #                                     on a TPU (README.md)
+REF_CODON_LNL = -14816.964  # the binary's -te GY+F3X4+G fit (bench_baseline.json)
 PEAK_F32 = 67e12  # H100 SXM float32 outside the tensor cores, FLOP/s
 PEAK_BF16 = 989e12  # H100 SXM bfloat16 on the tensor cores (float32 sums), FLOP/s
 PEAK_BW = 3.35e12  # H100 SXM HBM3, bytes/s
@@ -867,6 +883,7 @@ def main():
     protein_phases(dev, card, record, results, cli_main)
     protein_search_phases(dev, card, record, results, cli_main)
     multi_tree_phases(dev, card, record, results)
+    codon_phases(dev, card, record, results, cli_main, bdir)
 
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
@@ -1508,6 +1525,247 @@ def multi_tree_phases(dev, card, record, results):
         results[f"forward_ablate_{v}"]["launches"] = launched[v]
     del steps, trans, tips
     torch.cuda.empty_cache()
+
+
+
+def codon_phases(dev, card, record, results, cli_main, bdir):
+    """Phases 15-17: the S=64 instances of the four wide kernels at the
+    codon path's shapes, and the codon -te fit through the CLI, plain and
+    profiled."""
+    import numpy as np
+    import torch
+    from iqtree_torch.engine.kernels import build
+    from iqtree_torch.engine.kernels import cs_kernels as csk
+    from iqtree_torch.engine.kernels import pruning as pk
+    from iqtree_torch.engine.kernels.probe import ptxas_lines
+    from iqtree_torch.engine.likelihood import (ModelArrays, SiteData, TreeArrays,
+                                                branch_transition_mats, ptn_invar,
+                                                tip_partials)
+    from iqtree_torch.io.alignment import Alignment
+    from iqtree_torch.models.codon import NT_ORDER, sense_codons
+    from iqtree_torch.models.factory import parse_model_string
+    from iqtree_torch.models.optimize import ModelOptimizer
+    from iqtree_torch.trees.tree import PhyloTree, random_tree
+
+    phase("15. the wide kernels' codon instances (S=64) against their plain twins "
+          "(codon: 80 taxa x 500 codons)")
+    names, seqs, tree_nwk = load_bench("bench_data_codon.npz")
+    aln = Alignment.from_sequences(names, seqs, "CODON")
+    tree = PhyloTree.from_newick(tree_nwk, aln.names)
+    subst, rate = parse_model_string("GY+F3X4+G", aln)
+    opt = ModelOptimizer(subst, rate, dev)
+    rng = np.random.default_rng(15)
+    params = {k: v + torch.as_tensor(rng.normal(0, 0.3, v.shape), device=dev)
+              for k, v in opt.init_params().items()}
+    model = opt.build(params)
+    site = SiteData.from_alignment(aln, dev, torch.float32)
+    ta = TreeArrays.from_tree(tree, dev)
+    steps_np, n_slots = pk.device_slot_schedule(tree, ta)
+    steps = torch.as_tensor(steps_np, device=dev)
+    N, P = aln.n_taxa, aln.n_patterns
+    C, S = rate.ncat, subst.num_states
+    SK = build.instance_states(S)
+    CS, CSS, R = C * S, C * S * S, 2 * N
+    print(f"{N} taxa, {P} patterns, C={C}, S={S} (the S={SK} instance), {n_slots} slots; "
+          f"kappa {float(torch.exp(params['log_kappa'])):.4f}, omega "
+          f"{float(torch.exp(params['log_omega'])):.4f} (perturbed)")
+    check(SK == 64, "the codon space runs the S=64 instance")
+    for n in ("wide_forward", "wide_store", "wide_down_store", "wide_tbar"):
+        regs = ptxas_lines((bdir / f"{n}.log").read_text(), "ILi64E")
+        print(f"  {n} S=64 instance (ptxas): {'; '.join(regs)}")
+        check(bool(regs), f"ptxas reports the S=64 instance of {n}")
+    print(f"shared memory a block by the formulas at S=64, C={C}, {n_slots} slots: "
+          f"wide_forward / wide_store {pk.wide_forward_smem(SK, C, 16, n_slots)} B, "
+          f"wide_down_store {csk.wide_down_store_smem(SK, C, 16, n_slots)} B, wide_tbar "
+          f"{csk.wide_tbar_smem(SK, C, 16, n_slots)} B ({csk.wide_tbar_threads(SK, 16)} "
+          f"threads) at 16 patterns a cluster (a block may have {SMEM_BLOCK})")
+    trans = branch_transition_mats(model, ta.blen).float().contiguous()
+    tips = tip_partials(site).contiguous()
+    invar = ptn_invar(model, site).float().contiguous()
+    props, freq = model.props.float(), model.state_freq.float()
+    pad_ms = cuda_ms(lambda: (pk.pad_states(trans, SK, 2, 3), pk.pad_states(tips, SK, 1)), 10)
+    print(f"the wrappers' padding of trans and tips to S={SK} alone: {pad_ms:.3f} ms a call")
+    for tile in (16, 32):
+        ms = cuda_ms(lambda: pk.wide_site_lnl(steps, n_slots, trans, tips, props, freq,
+                                              invar, tile=tile), 10)
+        st_ms = cuda_ms(lambda: pk.fused_upward_store(steps, n_slots, trans, tips,
+                                                      tile=tile), 10)
+        print(f"codon wide forward / store at {tile} patterns a cluster of {C} blocks: "
+              f"{ms:.3f} / {st_ms:.3f} ms")
+
+    # the work counted at the codon space's own S (61): the padding is the
+    # kernels' overhead, not the function's
+    fwd_flops = (N - 1) * P * (4 * CSS + 3 * CS) + 2 * CS * P
+    k_out = pk.wide_site_lnl(steps, n_slots, trans, tips, props, freq, invar)
+    bit_equal("wide_forward S=64", [k_out],
+              [pk.wide_site_lnl(steps, n_slots, trans, tips, props, freq, invar)])
+    p_out = pk._site_lnl_plain(steps, trans, tips, props, freq, invar)
+    record("wide_forward_codon", "iqtree_torch/engine/kernels/csrc/wide_forward.cu",
+           "iqtree_tpu/engine/kernels/pruning.py:34",
+           float((k_out - p_out).abs().max()), 1e-3,
+           cuda_ms(lambda: pk.wide_site_lnl(steps, n_slots, trans, tips, props, freq,
+                                            invar), 20),
+           cuda_ms(lambda: pk._site_lnl_plain(steps, trans, tips, props, freq, invar), 3),
+           4 * (N * S * P + R * CSS + 6 * (N - 1) + CS + 2 * P), fwd_flops)
+    up_k, usc_k = pk.fused_upward_store(steps, n_slots, trans, tips)
+    inner = slice(N, 2 * N - 1)
+    up2, usc2 = pk.fused_upward_store(steps, n_slots, trans, tips)
+    bit_equal("wide_store S=64", [up_k[inner], usc_k], [up2[inner], usc2])
+    del up2, usc2
+    up_p, usc_p = pk.upward_plain(steps, trans, tips)
+    record("wide_store_codon", "iqtree_torch/engine/kernels/csrc/wide_store.cu",
+           "iqtree_tpu/engine/kernels/pruning.py:822",
+           store_err(up_k, usc_k, up_p, usc_p, inner), 1e-4,
+           cuda_ms(lambda: pk.fused_upward_store(steps, n_slots, trans, tips), 20),
+           cuda_ms(lambda: pk.upward_plain(steps, trans, tips), 3),
+           4 * (N * S * P + R * CSS + 6 * (N - 1) + (N - 1) * (CS + 1) * P), fwd_flops)
+    del up_p, usc_p
+    csk.fill_tip_rows_cs(up_k, usc_k, tips, C)
+    out_k, osc_k = csk.fused_down_store(steps, n_slots, trans, up_k, usc_k, freq)
+    bit_equal("wide_down_store S=64", (out_k, osc_k),
+              csk.fused_down_store(steps, n_slots, trans, up_k, usc_k, freq))
+    check(not bool(out_k[R - 2:].any()) and not bool(osc_k[R - 2:].any()),
+          "root and dummy rows of the codon outside store are 0")
+    record("wide_down_store_codon", "iqtree_torch/engine/kernels/csrc/wide_down_store.cu",
+           "iqtree_tpu/engine/kernels/pruning.py:1437",
+           outside_err((out_k, osc_k),
+                       csk._down_store_plain(steps, trans, up_k, usc_k, freq), R), 1e-4,
+           cuda_ms(lambda: csk.fused_down_store(steps, n_slots, trans, up_k, usc_k,
+                                                freq), 20),
+           cuda_ms(lambda: csk._down_store_plain(steps, trans, up_k, usc_k, freq), 3),
+           4 * (2 * R * (CS + 1) * P + R * CSS + 6 * (N - 1) + CS),
+           P * (2 * (N - 1) * (2 * CSS + 3 * CS) + (N - 2) * 2 * CSS))
+    del out_k, osc_k
+    lnl = k_out.contiguous()
+    wp = site.pattern_freq.contiguous()
+    tb_k = csk.fused_downward_tbar(steps, n_slots, trans, tips, props, freq, lnl, wp,
+                                   up=up_k, usc=usc_k)
+    bit_equal("wide_tbar S=64", [tb_k], [csk.fused_downward_tbar(
+        steps, n_slots, trans, tips, props, freq, lnl, wp, up=up_k, usc=usc_k)])
+    record("wide_tbar_codon", "iqtree_torch/engine/kernels/csrc/wide_tbar.cu",
+           "iqtree_tpu/engine/kernels/pruning.py:1144",
+           tbar_err(tb_k, csk._tbar_plain(steps, trans, props, freq, lnl, wp, up_k, usc_k),
+                    R), 1e-4,
+           cuda_ms(lambda: csk.fused_downward_tbar(steps, n_slots, trans, tips, props,
+                                                   freq, lnl, wp, up=up_k, usc=usc_k), 10),
+           cuda_ms(lambda: csk._tbar_plain(steps, trans, props, freq, lnl, wp, up_k,
+                                           usc_k), 3),
+           4 * (R * (CS + 1) * P + 2 * P + 2 * R * CSS), tbar_flops(N, P, CS, CSS))
+    del tb_k, up_k, usc_k
+
+    def four(steps, n_slots, trans, tips, m, site, what):
+        """The four codon instances against their twins on one case, each
+        two launches bit-equal; prints errors and ms."""
+        props, freq = m.props.float(), m.state_freq.float()
+        inv = ptn_invar(m, site).float().contiguous()
+        n = tips.shape[0]
+        inner, Rk = slice(n, 2 * n - 1), 2 * n
+        f = pk.wide_site_lnl(steps, n_slots, trans, tips, props, freq, inv)
+        bit_equal(f"wide_forward {what}", [f],
+                  [pk.wide_site_lnl(steps, n_slots, trans, tips, props, freq, inv)])
+        e_f = float((f - pk._site_lnl_plain(steps, trans, tips, props, freq, inv)).abs().max())
+        u, us = pk.fused_upward_store(steps, n_slots, trans, tips)
+        u2, us2 = pk.fused_upward_store(steps, n_slots, trans, tips)
+        bit_equal(f"wide_store {what}", [u[inner], us[inner]], [u2[inner], us2[inner]])
+        e_s = store_err(u, us, *pk.upward_plain(steps, trans, tips), inner)
+        csk.fill_tip_rows_cs(u, us, tips, trans.shape[1])
+        o = csk.fused_down_store(steps, n_slots, trans, u, us, freq)
+        bit_equal(f"wide_down_store {what}", o,
+                  csk.fused_down_store(steps, n_slots, trans, u, us, freq))
+        e_d = outside_err(o, csk._down_store_plain(steps, trans, u, us, freq), Rk)
+        w = site.pattern_freq.contiguous()
+        t = csk.fused_downward_tbar(steps, n_slots, trans, tips, props, freq, f, w, up=u,
+                                    usc=us)
+        bit_equal(f"wide_tbar {what}", [t], [csk.fused_downward_tbar(
+            steps, n_slots, trans, tips, props, freq, f, w, up=u, usc=us)])
+        e_t = tbar_err(t, csk._tbar_plain(steps, trans, props, freq, f, w, u, us), Rk)
+        ms = [cuda_ms(fn, 5) for fn in (
+            lambda: pk.wide_site_lnl(steps, n_slots, trans, tips, props, freq, inv),
+            lambda: pk.fused_upward_store(steps, n_slots, trans, tips),
+            lambda: csk.fused_down_store(steps, n_slots, trans, u, us, freq),
+            lambda: csk.fused_downward_tbar(steps, n_slots, trans, tips, props, freq, f,
+                                            w, up=u, usc=us))]
+        print(f"{what}: errors forward {e_f:.3e} (tol 1e-3), store {e_s:.3e}, down-store "
+              f"{e_d:.3e} (tol 1e-4), tbar {e_t:.3e} (tol 1e-4 relative); ms forward "
+              f"{ms[0]:.3f}, store {ms[1]:.3f}, down-store {ms[2]:.3f}, tbar {ms[3]:.3f}")
+        check(e_f <= 1e-3 and e_s <= 1e-4 and e_d <= 1e-4 and e_t <= 1e-4,
+              f"the codon instances against their twins ({what})")
+
+    for k in (1, 8):
+        s_k, r_k = parse_model_string("GY+F3X4+I" + (f"+G{k}" if k > 1 else ""), aln)
+        r_k.p_invar = 0.05
+        m_k = ModelArrays.from_model(s_k, r_k, dev)
+        tr_k = branch_transition_mats(m_k, ta.blen).float().contiguous()
+        four(steps, n_slots, tr_k, tips, m_k, site, f"C={k} (bench shapes)")
+        del tr_k
+    # the other genetic codes' spaces through the same instance, at a small shape
+    for code in (2, 6):
+        crng = np.random.default_rng(150 + code)
+        sc = sense_codons(code)
+        words = [NT_ORDER[c // 16] + NT_ORDER[(c // 4) % 4] + NT_ORDER[c % 4] for c in sc]
+        cseqs = ["".join(words[crng.integers(len(words))] for _ in range(151))
+                 for _ in range(30)]
+        a_c = Alignment.from_sequences([f"t{i}" for i in range(30)], cseqs, "CODON", code)
+        s_c, r_c = parse_model_string("GY+F3X4+G", a_c)
+        m_c = ModelArrays.from_model(s_c, r_c, dev)
+        t_c = random_tree(30, crng)
+        ta_c = TreeArrays.from_tree(t_c, dev)
+        st_c, ns_c = pk.device_slot_schedule(t_c, ta_c)
+        site_c = SiteData.from_alignment(a_c, dev, torch.float32)
+        four(torch.as_tensor(st_c, device=dev), ns_c,
+             branch_transition_mats(m_c, ta_c.blen).float().contiguous(),
+             tip_partials(site_c).contiguous(), m_c, site_c,
+             f"genetic code {code} (S={a_c.num_states}, 30 taxa x 151 codons, C=4)")
+    del trans, tips, model, site, ta
+    torch.cuda.empty_cache()
+
+    phase("16. codon fixed-topology path: -st CODON -te GY+F3X4+G fit through the CLI "
+          "on cuda")
+    codon_kernels = ("wide_forward", "wide_store", "wide_tbar", "wide_down_store")
+    counters = {"wide_forward": pk.wide_site_lnl, "wide_store": pk.fused_upward_store,
+                "wide_tbar": csk.fused_downward_tbar,
+                "wide_down_store": csk.fused_down_store,
+                "wide_newton": csk.wide_newton_sweep, "forward": pk.fused_site_lnl,
+                "store": csk.fused_upward_store_cs, "tbar": csk.fused_tbar_cs,
+                "newton": csk.newton_sweep, "down_store": csk.fused_down_store_cs}
+    with tempfile.TemporaryDirectory() as tmp:
+        args = write_inputs(tmp, names, seqs, tree_nwk, model="GY+F3X4+G")[0]
+        args = ["-st", "CODON", *args]
+        print("iqtree-torch " + " ".join(["-st", "CODON", "-te", "TREE", "-m",
+                                          "GY+F3X4+G"]))
+        wall, launches, log, nwk = run_cli(cli_main, args, counters)
+    for line in log:
+        if line.startswith(("Likelihood engine", "Branch optimization", "Memory")):
+            print(line)
+    fit_lnl = float(logged(log, "Optimal log-likelihood:"))
+    model_str = logged(log, "Best-fit model parameters:")
+    lnl64, _, _ = reevaluate(nwk, model_str, aln, dev)
+    print(f"fitted model {model_str[:40]}...{model_str[-20:]}")
+    print(f"fitted tree and model re-evaluated in float64 (plain pass): {lnl64:.4f}")
+    print(f"-st CODON -te GY+F3X4+G fit lnL {fit_lnl:.4f}; reference binary "
+          f"{REF_CODON_LNL} (gap {fit_lnl - REF_CODON_LNL:+.4f})")
+    print(f"-te GY+F3X4+G fit wall time {wall:.2f} s on {card}")
+    print(f"-te GY+F3X4+G fit launches: {launches}")
+    k_ms = sum(results[f"{k}_codon"]["ms"] * launches[k] for k in codon_kernels)
+    print(f"kernel time of the codon fit, estimated as launches x phase-15 kernel ms: "
+          f"{k_ms / 1e3:.3f} s of {wall:.2f} s wall")
+    check(abs(lnl64 - fit_lnl) < 1.0, "codon fit lnL vs its float64 re-evaluation")
+    check(fit_lnl > REF_CODON_LNL, "codon fit ends above the reference binary's optimum")
+    out_tree = PhyloTree.from_newick(nwk, aln.names)
+    check(bool(np.all(np.isfinite(out_tree.blen))) and out_tree.n_taxa == N,
+          "finite branch lengths of the written codon tree")
+    for k in codon_kernels:
+        check(launches[k] > 0, f"kernel {k} launched at S=64 on the codon -te path")
+        results[f"{k}_codon"]["launches"] = launches[k]
+    for k in ("wide_newton", "forward", "store", "tbar", "newton", "down_store"):
+        check(launches[k] == 0, f"kernel {k} stays off the codon path (theta path, S=64)")
+
+    phase("17. the codon fit again under torch.profiler")
+    with tempfile.TemporaryDirectory() as tmp:
+        args = ["-st", "CODON",
+                *write_inputs(tmp, names, seqs, tree_nwk, model="GY+F3X4+G")[0]]
+        profile_run(lambda: check(cli_main(args) == 0, "profiled CLI run"), wall,
+                    "codon fit")
 
 
 if __name__ == "__main__":

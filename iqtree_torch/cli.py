@@ -1,6 +1,6 @@
 """Command-line entry: the default tree search, with the ultrafast
 bootstrap under -bb, or the fixed-topology (-te) model and branch fit;
-DNA and protein.
+DNA and protein, and codons (-st CODON[n]) in the fixed-topology fit.
 
     python -m iqtree_torch -s ALN [-st DNA|AA] [-m MODEL]
                            [-t TREE | -starttree BIONJ|PARS]
@@ -8,7 +8,7 @@ DNA and protein.
                            [-maxtime MIN] [-keep-ident] [-pre P] [-seed N]
                            [-bb B [-beps X] [-bcor X] [-nstep N] [-wbt | -wbtl]]
                            [-redo] [-device cuda|cpu]
-    python -m iqtree_torch -s ALN [-st DNA|AA] -te TREE -m MODEL [-blfix] ...
+    python -m iqtree_torch -s ALN [-st DNA|AA|CODON[n]] -te TREE -m MODEL [-blfix] ...
 
 With -te, -bb is accepted and ignored: the fit writes no supports (as the
 JAX CLI does).  Writes PREFIX.treefile (the best tree, with UFBoot supports under -bb),
@@ -56,7 +56,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     from .io.report import write_report
     from .models.factory import default_model
 
-    aln = read_alignment(cfg.aln_file, cfg.seq_type)
+    aln = read_alignment(cfg.aln_file, cfg.seq_type, cfg.genetic_code)
     log(f"Alignment: {aln.n_taxa} sequences, {aln.n_sites} sites, "
         f"{aln.n_patterns} patterns ({aln.states.seq_type})")
     model_str = cfg.model or default_model(aln)
@@ -123,6 +123,8 @@ def write_ufboot_outputs(cfg, prefix: str, aln, ufboot, log) -> None:
 def model_name(subst, rate) -> str:
     """The fitted model as a model string with every parameter pinned."""
     name = subst.name
+    if getattr(subst, "kappa", None) is not None:  # codon: {kappa,omega}
+        name += f"{{{subst.kappa:.6f},{subst.omega:.6f}}}"
     if subst.rate_groups is not None and len(subst.group_rates) > 1:
         name += "{" + ",".join(f"{r:.6f}" for r in subst.group_rates[1:]) + "}"
     name += "+F{" + ",".join(f"{x:.6f}" for x in subst.state_freq) + "}"

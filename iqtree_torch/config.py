@@ -1,6 +1,6 @@
 """Command-line configuration of the port: the fixed-topology fit (-te)
 and the default tree search with its ultrafast bootstrap (-bb), DNA and
-protein."""
+protein; codons (-st CODON[n]) in the fixed-topology fit."""
 
 from __future__ import annotations
 
@@ -33,7 +33,8 @@ class RunConfig:
     max_seconds: Optional[float] = None
     start_tree_mode: str = "BIONJ"
     keep_identical: bool = False
-    seq_type: Optional[str] = None  # -st DNA|AA; None = detected
+    seq_type: Optional[str] = None  # -st DNA|AA|CODON; None = detected
+    genetic_code: int = 1  # -st CODONn: NCBI genetic code n
     ufboot: int = 0  # -bb: ultrafast bootstrap samples
     ufboot_epsilon: float = 0.5  # -beps
     min_correlation: float = 0.99  # -bcor
@@ -64,8 +65,9 @@ def parse_args(argv) -> RunConfig:
                             "PyTorch and hand-written CUDA kernels")
     p.add_argument("-s", dest="aln_file", required=True, help="alignment file")
     p.add_argument("-st", dest="seq_type", default=None, type=str.upper,
-                   help="sequence type DNA or AA (default: detected from "
-                        "the characters)")
+                   help="sequence type DNA, AA or CODON[n] (codons under NCBI "
+                        "genetic code n, default 1; default: DNA or AA detected "
+                        "from the characters)")
     p.add_argument("-te", dest="fixed_tree", default=None,
                    help="user tree file: fit on this fixed topology, no search")
     p.add_argument("-t", dest="start_tree", default=None,
@@ -117,10 +119,25 @@ def parse_args(argv) -> RunConfig:
         p.error("-te and -t exclude each other")
     if a.beps <= 0:
         p.error("-beps epsilon must be positive")
-    if a.seq_type not in (None, "DNA", "AA"):
+    genetic_code = 1
+    if a.seq_type and a.seq_type.startswith("CODON"):
+        from .models.codon import GENETIC_CODES
+
+        code = a.seq_type[5:]
+        if code and (not code.isdigit() or int(code) not in GENETIC_CODES):
+            p.error(f"-st {a.seq_type}: unknown genetic code {code!r} (known: "
+                    f"{', '.join(map(str, GENETIC_CODES))})")
+        genetic_code = int(code) if code else 1
+        a.seq_type = "CODON"
+        if not a.fixed_tree:
+            raise SystemExit(
+                "iqtree-torch: -st CODON is not ported yet (the codon search "
+                "slice) for the tree search; the fixed-topology fit (-te TREE) "
+                "runs")
+    if a.seq_type not in (None, "DNA", "AA", "CODON"):
         raise SystemExit(
             f"iqtree-torch: -st {a.seq_type} is not ported yet; this version "
-            "reads DNA and AA (codon, binary and morphology come with later "
+            "reads DNA, AA and CODON (binary and morphology come with later "
             "slices)")
     return RunConfig(
         a.aln_file, a.fixed_tree, a.start_tree, a.model, a.prefix, a.seed,
@@ -128,8 +145,8 @@ def parse_args(argv) -> RunConfig:
         unsuccess_iteration=a.unsuccess, n_init_trees=a.ninit, n_top_init=a.ntop,
         pers=a.pers, max_seconds=a.maxtime * 60 if a.maxtime else None,
         start_tree_mode=a.starttree, keep_identical=a.keep_ident,
-        seq_type=a.seq_type, ufboot=a.ufboot, ufboot_epsilon=a.beps,
-        min_correlation=a.bcor, step_iterations=a.nstep,
+        seq_type=a.seq_type, genetic_code=genetic_code, ufboot=a.ufboot,
+        ufboot_epsilon=a.beps, min_correlation=a.bcor, step_iterations=a.nstep,
         write_boot_trees=a.wbt or a.wbtl, write_boot_tree_blens=a.wbtl)
 
 

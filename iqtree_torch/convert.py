@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .engine.likelihood import ModelArrays, SiteData, TreeArrays
+from .models.codon import CodonModel
 from .trees.tree import PhyloTree
 
 
@@ -48,6 +49,19 @@ def model_arrays(src, device, dtype=torch.float64) -> ModelArrays:
     return ModelArrays(t(src.eigenvalues), t(src.eigvec), t(src.inv_eigvec),
                        t(src.state_freq), t(src.rates), t(src.props),
                        t(src.p_invar))
+
+
+def codon_model(src) -> CodonModel:
+    """The port's CodonModel from an object with the fields of one (name,
+    num_states, freq_type, state_freq, code_id, kappa, omega, mg, nt_freq,
+    fix_kappa, fix_omega): its exchangeabilities follow from them."""
+    nt = getattr(src, "nt_freq", None)
+    return CodonModel(str(src.name), int(src.num_states), freq_type=str(src.freq_type),
+                      state_freq=_np(src.state_freq).astype(np.float64).copy(),
+                      code_id=int(src.code_id), kappa=float(src.kappa),
+                      omega=float(src.omega), mg=bool(src.mg),
+                      nt_freq=None if nt is None else _np(nt).astype(np.float64).copy(),
+                      fix_kappa=bool(src.fix_kappa), fix_omega=bool(src.fix_omega))
 
 
 def site_data(src, device, dtype=torch.float64) -> SiteData:

@@ -3,8 +3,9 @@
 Names the path the run really takes -- the CUDA kernels on the card, or
 the kernels' plain PyTorch twins on the CPU -- and checks the stored
 partials the reverse sweeps need against the card's free memory before
-anything is allocated.  A tree search also holds the outside partials,
-and sizes the NNI evaluator's edge chunks from what is left.
+anything is allocated.  A tree search, and the codon branch Newton's
+theta path, also hold the outside partials; a search sizes the NNI
+evaluator's edge chunks from what is left.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from typing import NamedTuple
 
 import torch
 
+from .derivatives import newton_serves
+from .kernels import build
 from .kernels.build import check_shape
 
 
@@ -61,8 +64,10 @@ def decide_engine(n_taxa: int, ncat: int, num_states: int, n_patterns: int,
     n_rows = 2 * n_taxa
     item = torch.finfo(dtype).bits // 8
     CS = ncat * num_states
-    # up [2N, C*S, P] + usc [2N, P]; a search also stores out + osc
-    store = n_rows * (CS + 1) * n_patterns * item * (2 if search else 1)
+    # up [2N, C*S, P] + usc [2N, P]; a search and the theta path also store
+    # out + osc
+    both = search or not newton_serves(num_states)
+    store = n_rows * (CS + 1) * n_patterns * item * (2 if both else 1)
     cap = memory_capacity(device)
     kernels = device.type == "cuda"
     if kernels:
@@ -80,17 +85,23 @@ def decide_engine(n_taxa: int, ncat: int, num_states: int, n_patterns: int,
 def engine_banner(dec: EngineDecision, n_taxa: int, ncat: int, num_states: int,
                   n_patterns: int, search: bool = False) -> str:
     """Human-readable engine/memory report (logged at startup)."""
+    theta = not newton_serves(num_states)  # codon: the theta path
     if dec.kernels:
         name = torch.cuda.get_device_name(dec.device)
+        padded = build.instance_states(num_states)
         shape = ("CS-packed" if num_states == 4 else
-                 f"wide [C,S,S] x [C,S,tile], S={num_states}")
+                 f"wide [C,S,S] x [C,S,tile], S={num_states}"
+                 + (f" (padded {padded})" if padded != num_states else ""))
+        last = "outside-partial store" if theta else "branch-Newton sweep"
         path = (f"CUDA kernels on {name} ({shape} forward, upward store, "
-                f"gradient sweep, branch-Newton sweep; CS={ncat * num_states})")
-        newton = "branch-Newton sweep kernel"
+                f"gradient sweep, {last}; CS={ncat * num_states})")
+        newton = ("theta path on the upward-store and outside-partial-store kernels"
+                  if theta else "branch-Newton sweep kernel")
         budget = f"budget {dec.mem_cap / 2**30:.1f} GB"
     else:
         path = "plain PyTorch twins of the kernels on the CPU (float64)"
-        newton = "plain twin of the branch-Newton sweep"
+        newton = ("theta path on the plain twins of the upward and outside-partial "
+                  "stores" if theta else "plain twin of the branch-Newton sweep")
         budget = "host memory"
     lines = [f"Likelihood engine: {path}", f"Branch optimization: {newton}"]
     if search:
@@ -100,7 +111,7 @@ def engine_banner(dec: EngineDecision, n_taxa: int, ncat: int, num_states: int,
                if dec.kernels else "plain twin of the outside-partial store")
             + f", {dec.nni_chunk} edges per evaluator chunk "
             f"(of {n_taxa - 3} internal edges)")
-    what = "up and outside partials" if search else "stored partials"
+    what = "up and outside partials" if search or theta else "stored partials"
     lines.append(f"Memory: {what} ~{dec.store_bytes / 2**20:.0f} MB for "
                  f"{n_taxa} taxa x {n_patterns} patterns x {ncat}x{num_states} "
                  f"({budget})")

@@ -1,23 +1,36 @@
 """Batched branch-length Newton on every branch at once.
 
-One upward store and one reverse sweep (the branch-Newton kernel,
-kernels/cs_kernels.py fused_newton_derivs: the CS-packed kernels for DNA,
-the wide ones for protein, the plain twins on the CPU) give d lnL/dt and
-d2 lnL/dt2 for all 2N-3 branches; Newton then moves every branch simultaneously
-(Jacobi-style sweeps rather than one branch at a time).  Plain Jacobi
-steps oscillate, because neighbouring branches overshoot jointly, so each
-sweep backtracks on the joint step until the lnL does not drop.
+d lnL/dt and d2 lnL/dt2 for all 2N-3 branches come from one of two paths
+(`branch_derivs`):
+
+* the branch-Newton sweep: one upward store and one reverse sweep
+  (kernels/cs_kernels.py fused_newton_derivs: the CS-packed kernels for
+  DNA, the wide ones for protein, the plain twins on the CPU);
+* the theta path, where no branch-Newton kernel serves the shape (the
+  codon spaces, as in the JAX package): the upward store and the
+  outside-partial store (fused_nni_passes_cs, the wide kernels), then
+  every branch's theta buffer theta[v,c,j,p] = (V^T O_v)_j (V^-1 U_v)_j and
+  its derivatives f_k = sum_cj w_c (lam_j r_c)^k e^{lam_j r_c t} theta in
+  plain PyTorch (`thetas`, `theta_derivs`, shared with the NNI
+  evaluator's local Newton, engine/nni.py).
+
+Newton then moves every branch simultaneously (Jacobi-style sweeps rather
+than one branch at a time).  Plain Jacobi steps oscillate, because
+neighbouring branches overshoot jointly, so each sweep backtracks on the
+joint step until the lnL does not drop.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
-from .kernels.cs_kernels import fused_newton_derivs
+from .kernels import build
+from .kernels.cs_kernels import fused_newton_derivs, fused_nni_passes_cs
 from .kernels.pruning import fused_compute_loglik
-from .likelihood import ModelArrays, SiteData, TreeArrays, ptn_invar, tip_partials
+from .likelihood import (SCALE_TINY, ModelArrays, SiteData, TreeArrays,
+                         branch_transition_mats, ptn_invar, tip_partials)
 
 MIN_BLEN = 1e-6
 MAX_BLEN = 100.0
@@ -53,6 +66,89 @@ def newton_target(d1, d2, blen, min_blen=None, max_blen=None) -> torch.Tensor:
     return torch.clamp(target, min_blen, max_blen)
 
 
+class LocalModel(NamedTuple):
+    """The model in the working type, laid out for the theta algebra."""
+    eigvec: torch.Tensor  # [C, S, S]
+    inv_eigvec: torch.Tensor  # [C, S, S]
+    lam: torch.Tensor  # [C, S]
+    rates: torch.Tensor  # [C]
+    lam_r: torch.Tensor  # [CS] eigenvalue x category rate
+    props_cs: torch.Tensor  # [CS]
+    pfreq: torch.Tensor  # [P]
+    invar: torch.Tensor  # [P]
+
+
+def local_model(model: ModelArrays, site: SiteData, dt) -> LocalModel:
+    C, S = model.ncat, model.num_states
+    to = lambda x: x.detach().to(dt)
+    lam, rates = to(model.eigenvalues), to(model.rates)
+    return LocalModel(
+        eigvec=to(model.eigvec), inv_eigvec=to(model.inv_eigvec), lam=lam,
+        rates=rates, lam_r=(lam * rates[:, None]).reshape(C * S),
+        props_cs=to(model.props)[:, None].expand(C, S).reshape(C * S),
+        pfreq=site.pattern_freq.to(dt), invar=to(ptn_invar(model, site)))
+
+
+class Thetas(NamedTuple):
+    theta: torch.Tensor  # [K, CS, P]
+    scale: torch.Tensor  # [K, P] inside + outside log-scale
+    invar: torch.Tensor  # [K, P] the invariant class in the scaled frame
+
+
+def thetas(m: LocalModel, inside, in_scale, outside, out_scale) -> Thetas:
+    """Theta buffers of K branches from their inside and outside partials
+    [K, C, S, P] and log-scales [K, P]: theta[k,c,j,p] = (V^T O)_j (V^-1 U)_j
+    (the JAX package's compute_thetas)."""
+    K, C, S, P = inside.shape
+    scale = in_scale + out_scale
+    invar = torch.where(m.invar > 0,
+                        m.invar * torch.exp(torch.clamp(-scale, max=80.0)),
+                        torch.zeros_like(scale))
+    vt_o = m.eigvec.transpose(-1, -2)[None] @ outside  # [K, C, j, P]
+    vi_u = m.inv_eigvec[None] @ inside
+    return Thetas((vt_o * vi_u).reshape(K, C * S, P), scale, invar)
+
+
+def theta_derivs(m: LocalModel, th: Thetas, t: torch.Tensor):
+    """(d1 [K], d2 [K], denom [K, P]) at branch lengths t [K]: d lnL/dt and
+    d2 lnL/dt2 of each branch and its scaled site likelihoods, from
+    f_k = sum_cj w_c (lam_j r_c)^k e^{lam_j r_c t} theta (the JAX package's
+    branch_lnl_derivs)."""
+    e = m.props_cs[None] * torch.exp(m.lam_r[None] * t[:, None])  # [K, CS]
+    w = torch.stack([e, e * m.lam_r, e * m.lam_r * m.lam_r], dim=1)
+    f = torch.bmm(w, th.theta)  # [K, 3, P]
+    denom = torch.clamp(f[:, 0], min=SCALE_TINY) + th.invar
+    r1, r2 = f[:, 1] / denom, f[:, 2] / denom
+    return (m.pfreq * r1).sum(-1), (m.pfreq * (r2 - r1 * r1)).sum(-1), denom
+
+
+def newton_serves(S: int) -> bool:
+    """Whether a branch-Newton sweep kernel serves S states (DNA and
+    protein); the codon spaces take the theta path."""
+    return S in build.PACKED_STATES + build.WIDE_NEWTON_STATES
+
+
+def branch_derivs(steps, n_slots: int, model: ModelArrays, site: SiteData,
+                  blen: torch.Tensor, tips, invar):
+    """(d1 [2N], d2 [2N]) of every edge (entry v = the edge above v; the
+    root and dummy rows carry no edge): the branch-Newton sweep where a
+    kernel serves the shape, else the theta path on the upward store and
+    the outside-partial store."""
+    if newton_serves(model.num_states):
+        return fused_newton_derivs(steps, n_slots, model, blen, tips,
+                                   site.pattern_freq.contiguous(), invar)
+    dt = tips.dtype
+    trans = branch_transition_mats(model, blen).to(dt).contiguous()
+    up, usc, out, osc = fused_nni_passes_cs(steps, n_slots, trans, tips,
+                                            model.state_freq.to(dt))
+    n, P = up.shape[0], up.shape[2]
+    shape = (n, model.ncat, model.num_states, P)
+    m = local_model(model, site, dt)
+    th = thetas(m, up.reshape(shape), usc, out.reshape(shape), osc)
+    d1, d2, _ = theta_derivs(m, th, blen.to(dt))
+    return d1, d2
+
+
 def optimize_all_branches(
     tree: TreeArrays,
     model: ModelArrays,
@@ -74,7 +170,6 @@ def optimize_all_branches(
     mask = optimize_branch_mask(tree)
     dt = site.code_masks.dtype
     tips = tip_partials(site).contiguous()
-    pfreq = site.pattern_freq.contiguous()
     with torch.no_grad():
         invar = ptn_invar(model, site).to(dt).contiguous()
 
@@ -85,8 +180,7 @@ def optimize_all_branches(
         blen = tree.blen
         last = true_lnl(blen)
         for _ in range(n_sweeps):
-            d1, d2 = fused_newton_derivs(steps, n_slots, model, blen, tips,
-                                         pfreq, invar)
+            d1, d2 = branch_derivs(steps, n_slots, model, site, blen, tips, invar)
             target = newton_target(d1.to(blen.dtype), d2.to(blen.dtype), blen)
             direction = torch.where(mask, target - blen, torch.zeros_like(blen))
             step = 1.0

@@ -58,13 +58,18 @@ SIGNATURES = {
 }
 
 # State counts with a kernel instance: the CS-packed DNA kernels (S=4) and
-# the wide kernels (S=20, protein); 1..8 rate categories.
+# the wide kernels (S=20, protein; S=64, codons); 1..8 rate categories.
 PACKED_STATES = (4,)
-WIDE_STATES = (20,)
+WIDE_STATES = (20, 64)
+# csrc/wide_newton.cu's: protein only (codon branch lengths take the theta
+# path, engine/derivatives.py)
+WIDE_NEWTON_STATES = (20,)
 MAX_CATEGORIES = 8
+# State counts a wider instance serves with its padded rows and columns
+# zero: the codon spaces of the genetic codes (60 to 63 sense codons).
+PADDED_STATES = {S: 64 for S in range(60, 64)}
 # the slice of the port that brings the kernels of a state count not served
-LATER_SLICES = {61: "the codon slice (S=61)",
-                2: "the binary/morphology slice"}
+LATER_SLICES = {2: "the binary/morphology slice"}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -147,9 +152,17 @@ def launch(name: str, *args) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed: {msg} ({rc})")
 
 
+def instance_states(S: int) -> int:
+    """The state count of the kernel instance that serves S states: S, or
+    the padded instance of a codon space."""
+    return PADDED_STATES.get(S, S)
+
+
 def check_shape(C: int, S: int, states=PACKED_STATES + WIDE_STATES) -> None:
     """Raise NotImplementedError unless a kernel of `states` (default: any
-    kernel of the port) serves C categories x S states."""
+    kernel of the port) serves C categories x S states (S padded, for a
+    codon space)."""
+    S = instance_states(S)
     if S in states and 1 <= C <= MAX_CATEGORIES:
         return
     if S in PACKED_STATES + WIDE_STATES and 1 <= C <= MAX_CATEGORIES:
@@ -158,8 +171,8 @@ def check_shape(C: int, S: int, states=PACKED_STATES + WIDE_STATES) -> None:
     later = LATER_SLICES.get(S, "a later slice")
     raise NotImplementedError(
         f"no CUDA kernel for C={C} categories x S={S} states: the port serves "
-        f"DNA (S=4) and protein (S=20) with C<={MAX_CATEGORIES}; this shape is "
-        f"not ported yet ({later})")
+        f"DNA (S=4), protein (S=20) and codons (S=60..63, padded to 64) with "
+        f"C<={MAX_CATEGORIES}; this shape is not ported yet ({later})")
 
 
 def check_inputs(C: int, S: int, steps: torch.Tensor, *tensors: torch.Tensor,

@@ -17,13 +17,17 @@ partials up [2N, CS, P]:
   partial and log-scale (csrc/down_store.cu); `fused_nni_passes_cs` runs
   the store and this sweep for the NNI evaluator (engine/nni.py).
 
-The same sweeps at the wide protein shapes (S=20, the general [C,S,S]
-layout), on the same plain twins; the wrappers above pass S=20 on to them,
-as pruning.fused_site_lnl does, so a caller makes one call at any shape:
+The same sweeps at the wide shapes (the general [C,S,S] layout: protein
+S=20, and the codon spaces, S=60..63, zero-padded to the kernels' S=64
+instance and sliced back), on the same plain twins; the wrappers above
+pass those shapes on to them, as pruning.fused_site_lnl does, so a caller
+makes one call at any shape:
 
 * `pruning.fused_upward_store` -- the upward store (csrc/wide_store.cu);
 * `fused_downward_tbar` -- the gradient sweep (csrc/wide_tbar.cu);
-* `wide_newton_sweep` -- the branch-Newton sweep (csrc/wide_newton.cu);
+* `wide_newton_sweep` -- the branch-Newton sweep (csrc/wide_newton.cu;
+  S=20 only: codon branch lengths take the theta path of
+  engine/derivatives.py, as the JAX package's do);
 * `fused_down_store` -- the outside-partial store (csrc/wide_down_store.cu),
   so `fused_nni_passes_cs` serves the NNI evaluator at both shapes.
 
@@ -38,14 +42,15 @@ import torch
 
 from . import build
 from . import pruning
-from .pruning import fused_upward_store, schedule_tree, upward_plain
+from .pruning import (fused_upward_store, pad_partials, pad_states, schedule_tree,
+                      unpad_partials, upward_plain)
 from ..likelihood import SCALE_TINY, branch_transition_mats, downward_pass
 
 
 def fused_upward_store_cs(steps, n_slots, trans, tips):
     """(up [2N, CS, P], usc [2N, P]) -- every internal node's normalized
     partial and log-scale.  Tip rows are left for fill_tip_rows_cs.  The
-    wide shapes (S=20) run pruning.fused_upward_store.  csrc/store.cu runs
+    wide shapes (S=20, codon) run pruning.fused_upward_store.  csrc/store.cu runs
     pruning.UPWARD_LANES lanes a block."""
     if not trans.is_cuda:
         return upward_plain(steps, trans, tips)
@@ -90,7 +95,7 @@ def fused_tbar_cs(steps, n_slots, trans, tips, props, state_freq, lnl_raw, w_p,
         tbar[e,c,s,t] = sum_p O_e[c,s,p] U_e[c,t,p] exp(osc+usc-lnl_p) w_p
     with the class weights folded into the root seed.  `up`/`usc` may be
     passed from a prior upward store (tip rows are filled here).  The wide
-    shapes (S=20) run fused_downward_tbar."""
+    shapes (S=20, codon) run fused_downward_tbar."""
     n_rows, C, S = trans.shape[:3]
     if S not in build.PACKED_STATES:
         return fused_downward_tbar(steps, n_slots, trans, tips, props, state_freq,
@@ -147,20 +152,37 @@ WIDE_TBAR_TILE = 16
 # design's block, whose sum order (16 patterns a row, in order) it keeps at
 # any tile.
 WIDE_TBAR_SUM_PATTERNS = 16
+# Entries a side of a sum lane's block of a child's [S,S] in
+# csrc/wide_tbar.cu (SumShape): 5 x 5 at S=20, through a stage; 8 x 8 at
+# the codon instance S=64, stored straight (rows of whole float4s).
+WIDE_TBAR_LANE_BLOCK = {20: 5, 64: 8}
+# Largest block of csrc/wide_tbar.cu (TBAR_THREADS_MAX): 256 walk threads
+# and 4 sum warps.
+WIDE_TBAR_THREADS_MAX = 384
 
 
 def wide_tbar_smem(S: int, C: int, tile: int, n_slots: int) -> int:
     """Bytes of shared memory a block of csrc/wide_tbar.cu takes (the
     formula of its header): the reverse walk's (wide_down_store_smem), each
-    child's fac for the tile's patterns and each sum warp's stage of both
-    children's [S,S] blocks."""
-    return (wide_down_store_smem(S, C, tile, n_slots)
-            + 4 * (2 * tile + tile // WIDE_TBAR_SUM_PATTERNS * 2 * S * S))
+    child's fac for the tile's patterns and, where the sum lanes' rows are
+    not whole float4 runs (S=20; any S without an instance), a stage of
+    both children's [S,S] blocks for each 16 patterns."""
+    staged = WIDE_TBAR_LANE_BLOCK.get(S, 1) % 4 != 0
+    stage = tile // WIDE_TBAR_SUM_PATTERNS * 2 * S * S if staged else 0
+    return wide_down_store_smem(S, C, tile, n_slots) + 4 * (2 * tile + stage)
+
+
+def wide_tbar_threads(S: int, tile: int) -> int:
+    """Threads a block of csrc/wide_tbar.cu: tile x S / RPT walk threads and
+    the sum warps, 2 (S / SB)^2 / 32 for each 16 patterns."""
+    nb = S // WIDE_TBAR_LANE_BLOCK[S]
+    return tile * S // pruning.WIDE_RPT[S] + tile // WIDE_TBAR_SUM_PATTERNS * 2 * nb * nb
 
 
 def fused_downward_tbar(steps, n_slots, trans, tips, props, state_freq, lnl_raw,
                         w_p, up=None, usc=None, tile=None, part_blocks=None):
-    """fused_tbar_cs at the wide shapes (S=20): [2N, C, S, S] cotangents
+    """fused_tbar_cs at the wide shapes (S=20; a codon space through the
+    S=64 instance, padded in and sliced out): [2N, C, S, S] cotangents
     through csrc/wide_tbar.cu for CUDA tensors, the plain twin _tbar_plain
     for CPU tensors.  A cluster of C blocks (one a rate category) holds
     `tile` patterns (default WIDE_TBAR_TILE, a multiple of 16) and writes a
@@ -181,23 +203,32 @@ def fused_downward_tbar(steps, n_slots, trans, tips, props, state_freq, lnl_raw,
         raise ValueError(f"wide_tbar: {T} patterns a cluster is not a multiple of "
                          f"{WIDE_TBAR_SUM_PATTERNS}")
     groups = T // WIDE_TBAR_SUM_PATTERNS  # part rows a cluster
-    rootd = (props[:, None] * state_freq).reshape(-1).float().contiguous()
-    build.check_inputs(C, S, steps, trans, rootd, lnl_raw, w_p, up, usc,
+    SK = build.instance_states(S)
+    rootd = (props[:, None] * state_freq).float()
+    if SK != S:
+        trans, up = pad_states(trans, SK, 2, 3), pad_partials(up, C, SK)
+        rootd = pad_states(rootd, SK, 1)
+    rootd = rootd.reshape(-1).contiguous()
+    build.check_inputs(C, SK, steps, trans, rootd, lnl_raw, w_p, up, usc,
                        states=build.WIDE_STATES)
+    if wide_tbar_threads(SK, T) > WIDE_TBAR_THREADS_MAX:
+        raise ValueError(f"wide_tbar: {T} patterns a cluster need "
+                         f"{wide_tbar_threads(SK, T)} threads a block at S={SK}, over "
+                         f"{WIDE_TBAR_THREADS_MAX}")
     if part_blocks is None:
-        per_row = n_rows * C * S * S * 4
+        per_row = n_rows * C * SK * SK * 4
         free = torch.cuda.mem_get_info(trans.device)[0]
         part_blocks = int(free * PART_MEMORY_SHARE) // per_row
     # a chunk is whole clusters' rows
     part_blocks = max(groups, min(-(-P // T) * groups, part_blocks) // groups * groups)
-    part = torch.empty(part_blocks, n_rows, C, S, S, dtype=torch.float32,
+    part = torch.empty(part_blocks, n_rows, C, SK, SK, dtype=torch.float32,
                        device=trans.device)
     part[:, n_rows - 2:].zero_()  # the root and dummy rows are never written
-    tbar = torch.empty(n_rows, C, S, S, dtype=torch.float32, device=trans.device)
+    tbar = torch.empty(n_rows, C, SK, SK, dtype=torch.float32, device=trans.device)
     build.launch("wide_tbar", steps, steps.shape[0], trans, rootd, lnl_raw, w_p, up,
-                 usc, P, n_rows, part, part_blocks, tbar, C, S, n_slots, T)
+                 usc, P, n_rows, part, part_blocks, tbar, C, SK, n_slots, T)
     fused_downward_tbar.launches += 1
-    return tbar
+    return tbar[:, :, :S, :S].contiguous() if SK != S else tbar
 
 
 fused_downward_tbar.launches = 0
@@ -229,7 +260,7 @@ def fused_down_store_cs(steps, n_slots, trans, up, usc, state_freq):
     outside partial (at the parent end of its edge) and log-scale, from
     the upward store's up/usc with the tip rows filled.  The root seed is
     the bare state_freq [C, S]; the root and dummy rows are 0.  The wide
-    shapes (S=20) run fused_down_store."""
+    shapes (S=20, codon) run fused_down_store."""
     if not trans.is_cuda:
         return _down_store_plain(steps, trans, up, usc, state_freq)
     n_rows, C, S = trans.shape[:3]
@@ -270,21 +301,26 @@ def wide_down_store_smem(S: int, C: int, tile: int, n_slots: int, stages: int = 
 
 
 def fused_down_store(steps, n_slots, trans, up, usc, state_freq, tile=None):
-    """fused_down_store_cs at the wide shapes (S=20): csrc/wide_down_store.cu
+    """fused_down_store_cs at the wide shapes (S=20; a codon space through
+    the S=64 instance, padded in and sliced out): csrc/wide_down_store.cu
     for CUDA tensors, the plain twin _down_store_plain for CPU tensors.  A
     cluster of C blocks (one a rate category) holds `tile` patterns
     (default WIDE_DOWN_STORE_TILE; for measuring the kernel)."""
     if not trans.is_cuda:
         return _down_store_plain(steps, trans, up, usc, state_freq)
     n_rows, C, S = trans.shape[:3]
-    P = up.shape[2]
-    rootd = state_freq.reshape(-1).float().contiguous()
-    build.check_inputs(C, S, steps, trans, rootd, up, usc, states=build.WIDE_STATES)
-    out, osc = _zeroed_outside(n_rows, C * S, P, trans.device)
+    P, SK = up.shape[2], build.instance_states(S)
+    rootd = state_freq.float()
+    if SK != S:
+        trans, up = pad_states(trans, SK, 2, 3), pad_partials(up, C, SK)
+        rootd = pad_states(rootd, SK, 1)
+    rootd = rootd.reshape(-1).contiguous()
+    build.check_inputs(C, SK, steps, trans, rootd, up, usc, states=build.WIDE_STATES)
+    out, osc = _zeroed_outside(n_rows, C * SK, P, trans.device)
     build.launch("wide_down_store", steps, steps.shape[0], trans, rootd, up, usc, P,
-                 out, osc, C, S, n_slots, tile or WIDE_DOWN_STORE_TILE)
+                 out, osc, C, SK, n_slots, tile or WIDE_DOWN_STORE_TILE)
     fused_down_store.launches += 1
-    return out, osc
+    return (unpad_partials(out, C, S) if SK != S else out), osc
 
 
 fused_down_store.launches = 0
@@ -293,7 +329,7 @@ fused_down_store.launches = 0
 def fused_nni_passes_cs(steps, n_slots, trans, tips, state_freq):
     """(up, usc, out, osc): the two global passes of the NNI evaluator --
     the upward store (tip rows filled) and the outside-partial store -- at
-    the CS-packed (S=4) and the wide (S=20) shapes alike.  Unlike the TPU's
+    the CS-packed (S=4) and the wide (S=20, codon) shapes alike.  Unlike the TPU's
     general passes nothing is padded: no state axis to 8 rows, no pattern
     axis to 128 lanes."""
     up, usc = fused_upward_store_cs(steps, n_slots, trans, tips)
@@ -407,7 +443,7 @@ def wide_newton_sweep(steps, n_slots, mats, props, state_freq, wp, invar, up, us
     T = tile or WIDE_NEWTON_TILE
     rootd = (props[:, None] * state_freq).reshape(-1).float().contiguous()
     build.check_inputs(C, S, steps, mats, rootd, wp, invar, up, usc,
-                       states=build.WIDE_STATES)
+                       states=build.WIDE_NEWTON_STATES)
     part = torch.zeros(wide_newton_part_rows(P, T), n_rows, 2, dtype=torch.float32,
                        device=mats.device)
     d12 = torch.empty(n_rows, 2, dtype=torch.float32, device=mats.device)

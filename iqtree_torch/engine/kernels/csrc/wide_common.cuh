@@ -1,5 +1,6 @@
 // Shared pieces of the wide likelihood kernels: the general [C,S,S] layout
-// (protein: S = 20 states; 1..8 rate categories; float32).
+// (protein: S = 20 states; codons: S = 64, the codon spaces' 60 to 63
+// states padded with zero rows and columns; 1..8 rate categories; float32).
 //
 // The CS-packed DNA kernels give a lane a whole category column (S = 4
 // floats).  At S = 20 a column is 80 floats per child and an edge's
@@ -15,8 +16,22 @@
 // Each cluster walks the whole slot schedule for its tile, as a TPU grid
 // step walks it (schedule rows: left child, right child, left slot,
 // right slot (-1 = tip), output slot, output node; see cs_common.cuh).
-// The kernels are templates on S and RPT with one instance, S = 20; a
-// new state count (codon, S = 61) adds an instance, not a kernel.
+// The kernels are templates on S and RPT with two instances
+// (IQT_DISPATCH_WIDE_S): S = 20 (RPT = 5) and S = 64 (RPT = CODON_RPT).
+// What differs at S = 64 is compile-time (`if constexpr (S > 32)`), so the
+// S = 20 instance compiles as before:
+//   * a message reads the child's rows from shared memory as it goes
+//     (cluster_message_smem) where S = 20 loads the whole column into
+//     registers first (a [64][QT] column would not fit);
+//   * a pattern's G row groups sit GS = 32 / G lanes apart (WalkLane), not
+//     on consecutive lanes: GS lanes then share a row group, so a
+//     quarter-warp's float4 matrix loads read 8 / GS rows (2 at G = 8)
+//     where consecutive lanes would read 8 rows of 64 floats, all in one
+//     bank (an 8-way conflict).
+// The wrappers pad a codon space's S to 64 with zeros (trans, tips, root
+// weights, stored partials): a padded row stays 0 through every message,
+// product, max and division, so the real rows, the maxima and the scales
+// are those of the unpadded arithmetic.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -68,6 +83,35 @@ using iqt::load_step;
 // ---------------------------------------------------------------------------
 
 namespace cg = cooperative_groups;
+
+// State rows a thread at S = 64: G = 8 row groups a pattern.  The probe
+// (`--codon`, NVIDIA H100, GY+F3X4+G4 at 80 taxa x 457 patterns; PERF.md)
+// measured 8 rows 21% faster than 16 for wide_forward and wide_tbar at
+// C=4 and 5-9% for the store and the outside store: at 16 the upward walk
+// spilled at 128 registers (80 and no spill at 8), and half the threads
+// carry the step's chain; only wide_down_store and wide_tbar at C=8 run
+// 6-12% faster at 16.
+constexpr int CODON_RPT = 8;
+
+// A walk thread's row group g (rows g RPT ..) and pattern-group index pq:
+// a pattern's G lanes consecutive at S <= 32 (g = tid % G), GS = 32 / G
+// lanes apart above (g = lane / GS); shuffles over a pattern's lanes run
+// over the offsets GS, 2 GS, .. < GS G.
+template <int S, int G>
+struct WalkLane {
+  static constexpr int GS = S > 32 ? 32 / G : 1;
+  int g, pq;
+  __device__ __forceinline__ explicit WalkLane(int tid) {
+    if constexpr (GS == 1) {
+      g = tid % G;
+      pq = tid / G;
+    } else {
+      const int lane = tid & 31;
+      g = lane / GS;
+      pq = (tid >> 5) * GS + lane % GS;
+    }
+  }
+};
 
 // Patterns a thread: each staged matrix word loaded feeds CLUSTER_QT
 // multiply-adds.
@@ -177,6 +221,42 @@ __device__ __forceinline__ void cluster_message(const float* M, int s0,
   }
 }
 
+// m[j][qq] = sum_t M[s0+j][t] x[t][q[qq]] with row t of x at xs + t tile
+// in shared memory, read as the sums go, in message's order (t ascending):
+// the form of the wide state counts (S > 32), whose [S][QT] column of x
+// would not fit in registers.  A step of 4 t loads 4 x QT words of x and a
+// float4 of each of the thread's RPT matrix rows.
+template <int S, int RPT, int QT>
+__device__ __forceinline__ void cluster_message_smem(const float* M, int s0,
+                                                     const float* xs, int tile,
+                                                     const int (&q)[QT],
+                                                     float (&m)[RPT][QT]) {
+  static_assert(S % 4 == 0, "matrix rows are float4 runs");
+#pragma unroll
+  for (int j = 0; j < RPT; ++j)
+#pragma unroll
+    for (int qq = 0; qq < QT; ++qq) m[j][qq] = 0.f;
+#pragma unroll 2
+  for (int t = 0; t < S; t += 4) {
+    float x[4][QT];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int qq = 0; qq < QT; ++qq) x[u][qq] = xs[(t + u) * tile + q[qq]];
+#pragma unroll
+    for (int j = 0; j < RPT; ++j) {
+      const float4 w = *reinterpret_cast<const float4*>(M + (s0 + j) * S + t);
+#pragma unroll
+      for (int qq = 0; qq < QT; ++qq) {
+        m[j][qq] += w.x * x[0][qq];
+        m[j][qq] += w.y * x[1][qq];
+        m[j][qq] += w.z * x[2][qq];
+        m[j][qq] += w.w * x[3][qq];
+      }
+    }
+  }
+}
+
 // The whole upward walk for this block's category and tile (patterns p0
 // ..).  After each step emit(step, y, sc, slot) sees this thread's
 // normalized rows y[RPT][QT], its patterns' log-scales sc[QT] and the
@@ -199,7 +279,8 @@ __device__ __forceinline__ int cluster_upward_walk(const int* __restrict__ steps
   static_assert(G % QT == 0, "a block's threads are a multiple of its tile");
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks(), c = (int)cluster.block_rank();
-  const int tid = threadIdx.x, g = tid % G, s0 = g * RPT, pq = tid / G;
+  const WalkLane<S, G> wl(threadIdx.x);
+  const int g = wl.g, s0 = g * RPT, pq = wl.pq, GS = WalkLane<S, G>::GS;
   const ClusterSmem<S> lay(tile);
   float* mst = smem;                   // [NS][2][SS]
   float* tst = smem + lay.tips();      // [NS][2][S][tile]
@@ -231,6 +312,17 @@ __device__ __forceinline__ int cluster_upward_walk(const int* __restrict__ steps
 #pragma unroll
     for (int side = 0; side < 2; ++side) {
       const int slot = side ? st.rs : st.ls;
+      if constexpr (S > 32) {
+        const float* xs = slot < 0 ? Tk + side * S * tile : pool + (size_t)slot * (S + 1) * tile;
+        if (slot >= 0)
+#pragma unroll
+          for (int qq = 0; qq < QT; ++qq) sc[qq] += xs[S * tile + q[qq]];
+        if (side)
+          cluster_message_smem<S, RPT, QT>(Mk + SS, s0, xs, tile, q, m);
+        else
+          cluster_message_smem<S, RPT, QT>(Mk, s0, xs, tile, q, y);
+        continue;
+      }
       float x[S][QT];
       if (slot < 0) {
 #pragma unroll
@@ -262,7 +354,7 @@ __device__ __forceinline__ int cluster_upward_walk(const int* __restrict__ steps
       }
     }
 #pragma unroll
-    for (int off = 1; off < G; off <<= 1)
+    for (int off = GS; off < GS * G; off <<= 1)
 #pragma unroll
       for (int qq = 0; qq < QT; ++qq)
         mx[qq] = fmaxf(mx[qq], __shfl_xor_sync(0xffffffffu, mx[qq], off));
@@ -443,7 +535,8 @@ __device__ __forceinline__ void cluster_reverse_walk(const int* __restrict__ ste
                 "a pattern's row groups are a power of two of consecutive lanes");
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks(), c = (int)cluster.block_rank();
-  const int tid = threadIdx.x, g = tid % G, s0 = g * RPT, pq = tid / G;
+  const WalkLane<S, G> wl(threadIdx.x);
+  const int g = wl.g, s0 = g * RPT, pq = wl.pq, GS = WalkLane<S, G>::GS;
   const int T = tile / QT * G;  // the walk threads
   const ReverseSmem<S> lay(tile);
   float* mst = smem;                   // [NS][2][SS]
@@ -495,6 +588,11 @@ __device__ __forceinline__ void cluster_reverse_walk(const int* __restrict__ ste
     float m[2][RPT][QT];  // both children's messages P U
 #pragma unroll
     for (int side = 0; side < 2; ++side) {
+      if constexpr (S > 32) {
+        cluster_message_smem<S, RPT, QT>(Mk + side * SS, s0, Uk + side * (S + 1) * tile, tile,
+                                         q, m[side]);
+        continue;
+      }
       float x[S][QT];
       const float* U = Uk + side * (S + 1) * tile;
 #pragma unroll
@@ -518,7 +616,7 @@ __device__ __forceinline__ void cluster_reverse_walk(const int* __restrict__ ste
         }
       }
 #pragma unroll
-    for (int off = 1; off < G; off <<= 1)
+    for (int off = GS; off < GS * G; off <<= 1)
 #pragma unroll
       for (int side = 0; side < 2; ++side)
 #pragma unroll
@@ -627,10 +725,20 @@ inline cudaError_t launch_clusters(void (*kernel)(Params...), int clusters, int 
 
 }  // namespace iqtw
 
-// Dispatch over the state count (template arguments S, RPT); each wide
-// kernel has the protein instance S = 20 (4 row groups of 5 states).
+// Dispatch over the state count (template arguments S, RPT): the protein
+// instance S = 20 (4 row groups of 5 states), wide_newton.cu's only one.
 #define IQT_DISPATCH_S(S_RT, CALL)               \
   switch (S_RT) {                                \
     case 20: CALL(20, 5); break;                 \
     default: return (int)cudaErrorInvalidValue;  \
+  }
+
+// The walks' kernels (wide_forward.cu, wide_store.cu, wide_down_store.cu,
+// wide_tbar.cu): S = 20 and the codon instance S = 64 (CODON_RPT rows a
+// thread).
+#define IQT_DISPATCH_WIDE_S(S_RT, CALL)                      \
+  switch (S_RT) {                                            \
+    case 20: CALL(20, 5); break;                             \
+    case 64: CALL(64, iqtw::CODON_RPT); break;               \
+    default: return (int)cudaErrorInvalidValue;              \
   }

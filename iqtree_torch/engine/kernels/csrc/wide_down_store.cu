@@ -1,6 +1,8 @@
 // Wide outside-partial store: every node's normalized outside partial and
-// its log-scale at the general [C,S,S] layout (protein, S = 20), the
-// second of the NNI evaluator's two global passes.
+// its log-scale at the general [C,S,S] layout (protein, S = 20; codons,
+// S = 64, a codon space padded with zeros by the wrapper), the second of
+// the NNI evaluator's two global passes and of the codon branch Newton's
+// theta path.
 //
 // Replaces the TPU kernel _kernel_down_store
 // (iqtree_tpu/engine/kernels/pruning.py).  Reverse walk of the slot
@@ -47,14 +49,18 @@
 //
 // Shared memory a block: ReverseSmem (wide_common.cuh;
 // cs_kernels.wide_down_store_smem), S = 20, C = 4, tile 16, 11 slots:
-// 30 144 bytes; S = 61 (codon): 127 888 bytes, under the 232 448 a block
-// may have.
+// 30 144 bytes; S = 64 (codon): 137 152 bytes, under the 232 448 a block
+// may have: one block an SM, so the codon instance takes no register cap
+// (launch bounds of one block).  Its bound (GY+F3X4+G4, 80 taxa x 457
+// patterns, C = 4, the work at S = 61): reads up and writes out, 2 x 160 x
+// 245 rows x 457 x 4 B = 153 MB (0.046 ms); 3.3 GFLOP by the count above
+// (0.049 ms): bound by operations.
 #include "wide_common.cuh"
 
 using namespace iqtw;
 
 template <int S, int RPT>
-__global__ void __launch_bounds__(CLUSTER_THREADS_MAX, 2)
+__global__ void __launch_bounds__(CLUSTER_THREADS_MAX, S > 32 ? 1 : 2)
 wide_down_store_kernel(const int* __restrict__ steps, int n_steps,
                        const float* __restrict__ trans, const float* __restrict__ rootd,
                        const float* __restrict__ up, const float* __restrict__ usc, int P,
@@ -66,7 +72,9 @@ wide_down_store_kernel(const int* __restrict__ steps, int n_steps,
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks(), c = (int)cluster.block_rank();
-  const int tid = threadIdx.x, g = tid % G, pq = tid / G;
+  const int tid = threadIdx.x;
+  const WalkLane<S, G> wl(tid);
+  const int g = wl.g, pq = wl.pq;
   const int p0 = (int)(blockIdx.x / C) * tile;
   const int r0 = (tid & 31) / WP, qw = (tid >> 5) * WP + (tid & 31) % WP;
   const bool stores = p0 + qw < P;  // this lane's pattern of its warp's row stores
@@ -114,7 +122,7 @@ extern "C" int iqt_wide_down_store(const int* steps, int n_steps, const float* t
                         stream, steps, n_steps, trans, rootd, up, usc, P, out, osc,    \
                         n_slots, tile);                                                \
   }
-  IQT_DISPATCH_S(S, IQT_LAUNCH)
+  IQT_DISPATCH_WIDE_S(S, IQT_LAUNCH)
 #undef IQT_LAUNCH
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

@@ -1,6 +1,7 @@
 // Wide upward-store kernel: the forward sweep at the general [C,S,S]
-// layout (protein, S = 20), also storing every internal node's normalized
-// partial and log-scale for the reverse sweeps.
+// layout (protein, S = 20; codons, S = 64: a codon space padded with zeros
+// by the wrapper), also storing every internal node's normalized partial
+// and log-scale for the reverse sweeps.
 //
 // Replaces the TPU kernel _kernel_store (want_mb=False;
 // iqtree_tpu/engine/kernels/pruning.py), which also feeds the wide
@@ -33,8 +34,11 @@
 //
 // Shared memory: ClusterSmem (wide_common.cuh; pruning.wide_forward_smem),
 // 25 472 bytes a block at S = 20, C = 4, 16 patterns a cluster and 10
-// slots; at S = 61 (codon), C = 4, 16 patterns and 11 slots 119 312 bytes,
-// under the 232 448 a block may have.
+// slots; at S = 64 (codon), C = 4, 16 patterns and 11 slots 128 192 bytes,
+// under the 232 448 a block may have.  The codon instance's bound (GY+F3X4+G4,
+// 80 taxa x 457 patterns, C = 4, the work at S = 61): the forward kernel's
+// 2.2 GFLOP (0.032 ms) against 79 x 245 rows x 457 x 4 B = 35 MB stored
+// and 18 MB read (0.016 ms): bound by operations.
 #include "wide_common.cuh"
 
 using namespace iqtw;
@@ -81,7 +85,7 @@ extern "C" int iqt_wide_store(const int* steps, int n_steps, const float* trans,
                         stream, steps, n_steps, trans, tips, P, up, usc, n_slots,  \
                         tile);                                                     \
   }
-  IQT_DISPATCH_S(S, IQT_LAUNCH)
+  IQT_DISPATCH_WIDE_S(S, IQT_LAUNCH)
 #undef IQT_LAUNCH
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

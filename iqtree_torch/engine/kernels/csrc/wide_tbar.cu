@@ -1,5 +1,6 @@
 // Wide gradient sweep: the cotangent of every edge's transition matrices
-// at the general [C,S,S] layout (protein, S = 20).
+// at the general [C,S,S] layout (protein, S = 20; codons, S = 64, a codon
+// space padded with zeros by the wrapper).
 //
 // Replaces the TPU kernel _kernel_down_tbar
 // (iqtree_tpu/engine/kernels/pruning.py).  Reverse walk of the slot
@@ -62,8 +63,17 @@
 // Shared memory a block: ReverseSmem (wide_common.cuh), fac, 2 tile
 // floats, and the sum warps' stages, tile / 16 x 2 S^2 floats
 // (cs_kernels.wide_tbar_smem); S = 20, C = 4, tile 16, 11 slots: 33 472
-// bytes; S = 61 (codon): 157 784 bytes, under the 232 448 a block may
-// have.
+// bytes.
+//
+// The codon instance (S = 64): a lane's block of a child's [S,S] is 8 x 8
+// entries (SumShape), so a group of 16 patterns has 2 x 8 x 8 = 128 lanes,
+// four sum warps, whose lanes store their entries straight to the part row
+// as float4 runs (no stage: its rows are whole float4s); the walk threads
+// 16 patterns x 8 row groups; one block an SM (137 280 bytes of shared
+// memory at C = 4, tile 16, 11 slots), so no register cap past the block's
+// 384 threads (launch bounds of one block: 170).  Bound (GY+F3X4+G4, 80
+// taxa x 457 patterns, C = 4, the work at S = 61): 5.5 GFLOP by the count
+// above (0.082 ms) against 91 MB read (0.027 ms): bound by operations.
 #include "wide_common.cuh"
 
 using namespace iqtw;
@@ -74,10 +84,31 @@ constexpr int SUM_PATTERNS = 16;
 // Largest block: 64 patterns a cluster, 256 walk threads and 4 sum warps.
 constexpr int TBAR_THREADS_MAX = CLUSTER_THREADS_MAX + 4 * 32;
 
+// The sums' lane map: a lane adds an SB x SB block of a child's [S,S]
+// (S / SB blocks a side), so a 16-pattern group has 2 (S / SB)^2 lanes,
+// WARPS sum warps; STAGED: a lane's rows are no whole float4 runs, so the
+// entries go through the group's stage [2][S][S] to the part row.
+template <int S>
+struct SumShape;
+template <>
+struct SumShape<20> {
+  static constexpr int SB = 5;
+};
+template <>
+struct SumShape<64> {
+  static constexpr int SB = 8;
+};
+template <int S>
+struct SumLanes {
+  static constexpr int SB = SumShape<S>::SB, NB = S / SB, WARPS = 2 * NB * NB / 32;
+  static constexpr bool STAGED = SB % 4 != 0;
+  static_assert(NB * SB == S && 2 * NB * NB % 32 == 0, "the lanes tile both [S,S] blocks");
+};
+
 template <int S>
 inline size_t wide_tbar_smem(int C, int tile, int n_slots) {
-  return (ReverseSmem<S>(tile).floats(n_slots, C) + 2 * (size_t)tile +
-          (size_t)tile / SUM_PATTERNS * 2 * S * S) *
+  const size_t stage = SumLanes<S>::STAGED ? (size_t)tile / SUM_PATTERNS * 2 * S * S : 0;
+  return (ReverseSmem<S>(tile).floats(n_slots, C) + 2 * (size_t)tile + stage) *
          sizeof(float);
 }
 
@@ -94,20 +125,22 @@ __device__ __forceinline__ void ring_arrive(int threads) {
   asm volatile("bar.arrive %0, %1;" ::"r"(RING_BARRIER), "r"(threads) : "memory");
 }
 
-// One step's sums of the 16 patterns g16 .. g16 + 15 of the tile by a
-// warp: lane (side, sb, tb) adds sum_q (O[side][s][q] fac[side][q])
-// U[side][t][q] in q order for s = SB sb + j, t = SB tb + k (SB = S / 4:
-// the lanes' 2 x 4 x 4 blocks tile both children's [S,S]), from the O
-// stage ost [2][S][tile], fac [2][tile] and the ring stage Uk
-// [2][S+1][tile], into the child's [S,S] block of category c in `row`
-// (none: a group past P) through the warp's stage pst [2][S][S].
+// One step's sums of the 16 patterns g16 .. g16 + 15 of the tile by the
+// group's sum warps: lane L = (side, sb, tb) of the group adds sum_q
+// (O[side][s][q] fac[side][q]) U[side][t][q] in q order for s = SB sb + j,
+// t = SB tb + k (SumLanes: the lanes' 2 x NB x NB blocks tile both
+// children's [S,S]), from the O stage ost [2][S][tile], fac [2][tile] and
+// the ring stage Uk [2][S+1][tile], into the child's [S,S] block of
+// category c in `row` (none: a group past P): through the group's stage
+// pst [2][S][S] (one warp) where STAGED, else straight from the lane.
 template <int S>
 __device__ __forceinline__ void group_sums(const Step& st, const float* ost, const float* fac,
-                                           const float* Uk, int tile, int g16, float* pst,
-                                           float* row, int C, int c) {
-  static_assert(S % 4 == 0, "a lane's block is S / 4 entries square; rows are float4 runs");
-  constexpr int SB = S / 4, SS = S * S;
-  const int lane = threadIdx.x & 31, side = lane >> 4, sb = (lane >> 2) & 3, tb = lane & 3;
+                                           const float* Uk, int tile, int g16, int L,
+                                           float* pst, float* row, int C, int c) {
+  static_assert(S % 4 == 0, "patterns and rows are float4 runs");
+  using SL = SumLanes<S>;
+  constexpr int SB = SL::SB, NB = SL::NB, SS = S * S;
+  const int lane = threadIdx.x & 31, side = L / (NB * NB), sb = (L / NB) % NB, tb = L % NB;
   const float* O = ost + side * S * tile + g16;
   const float* F = fac + side * tile + g16;
   const float* U = Uk + side * (S + 1) * tile + g16;
@@ -139,6 +172,18 @@ __device__ __forceinline__ void group_sums(const Step& st, const float* ost, con
         acc[j][k] += a[j].w * b[k].w;
       }
   }
+  if constexpr (!SL::STAGED) {
+    if (row) {
+      float* dst = row + ((size_t)(side ? st.r : st.l) * C + c) * SS + tb * SB;
+#pragma unroll
+      for (int j = 0; j < SB; ++j)
+#pragma unroll
+        for (int k = 0; k < SB; k += 4)
+          *reinterpret_cast<float4*>(dst + (sb * SB + j) * S + k) =
+              make_float4(acc[j][k], acc[j][k + 1], acc[j][k + 2], acc[j][k + 3]);
+    }
+    return;
+  }
   if (row) {
 #pragma unroll
     for (int j = 0; j < SB; ++j)
@@ -156,13 +201,13 @@ __device__ __forceinline__ void group_sums(const Step& st, const float* ost, con
   }
 }
 
-// Sum warp w of a block: the walk's barriers in its order (see
-// cluster_reverse_walk), and after each step's named barrier the step's
-// sums of the tile's patterns 16 w .. 16 w + 15 into `row`, before the
-// next step's exchange.
+// A sum warp of group w of a block (lanes L of the group's SumLanes): the
+// walk's barriers in its order (see cluster_reverse_walk), and after each
+// step's named barrier the step's sums of the tile's patterns 16 w .. 16 w
+// + 15 into `row`, before the next step's exchange.
 template <int S>
 __device__ __forceinline__ void sum_warp(const int* __restrict__ steps, int n_steps,
-                                         float* smem, int tile, int n_slots, int w,
+                                         float* smem, int tile, int n_slots, int w, int L,
                                          float* row, int C, int c) {
   const ReverseSmem<S> lay(tile);
   const float* ust = smem + lay.rows();
@@ -179,14 +224,14 @@ __device__ __forceinline__ void sum_warp(const int* __restrict__ steps, int n_st
     sums_wait(blockDim.x);  // step i's O and fac are staged
     if (i > 0) ring_arrive(blockDim.x);  // step i - 1 opens: it reads nothing of ours
     group_sums<S>(st, ost, fac, ust + (size_t)k * 2 * (S + 1) * tile, tile, w * SUM_PATTERNS,
-                  pst, row, C, c);
+                  L, pst, row, C, c);
     if (i > 0) reverse_barrier(cluster);  // step i - 1's exchange; the stages are rewritten
     k = k == REVERSE_STAGES - 1 ? 0 : k + 1;
   }
 }
 
 template <int S, int RPT>
-__global__ void __launch_bounds__(TBAR_THREADS_MAX, 2)
+__global__ void __launch_bounds__(TBAR_THREADS_MAX, S > 32 ? 1 : 2)
 wide_tbar_kernel(const int* __restrict__ steps, int n_steps,
                  const float* __restrict__ trans, const float* __restrict__ rootd,
                  const float* __restrict__ lnl, const float* __restrict__ wp,
@@ -208,10 +253,13 @@ wide_tbar_kernel(const int* __restrict__ steps, int n_steps,
                                      : nullptr;
   };
   if (tid >= walkers) {
-    const int w = (tid - walkers) >> 5;
-    sum_warp<S>(steps, n_steps, smem, tile, n_slots, w, part_row(w), C, c);
+    constexpr int WARPS = SumLanes<S>::WARPS;
+    const int sw = (tid - walkers) >> 5, w = sw / WARPS;  // the sum warp, its group
+    sum_warp<S>(steps, n_steps, smem, tile, n_slots, w, (sw % WARPS) * 32 + (tid & 31),
+                part_row(w), C, c);
   } else {
-    const int g = tid % G, q = tid / G, p = p0 + q;
+    const WalkLane<S, G> wl(tid);
+    const int g = wl.g, q = wl.pq, p = p0 + q;
     const bool valid = p < P;  // a ragged tail computes with P - 1 and adds 0
     const int pg = min(p, P - 1);
     const float lnl_p = __ldg(lnl + pg), w_p = valid ? __ldg(wp + pg) : 0.f;
@@ -247,14 +295,14 @@ extern "C" int iqt_wide_tbar(const int* steps, int n_steps, const float* trans,
 #define IQT_LAUNCH(SS_, RPT_)                                                             \
   {                                                                                       \
     const int walkers = tile / REVERSE_QT * (SS_ / RPT_);                                 \
-    const int threads = walkers + groups * 32;                                            \
+    const int threads = walkers + groups * SumLanes<SS_>::WARPS * 32;                     \
     if (walkers % 32 || threads > TBAR_THREADS_MAX) return (int)cudaErrorInvalidValue;    \
     e = launch_clusters(wide_tbar_kernel<SS_, RPT_>, nc, C, threads,                      \
                         wide_tbar_smem<SS_>(C, tile, n_slots), stream, steps, n_steps,    \
                         trans, rootd, lnl, wp, up, usc, P, n_nodes, part, n_slots, tile, \
                         c0);                                                              \
   }
-    IQT_DISPATCH_S(S, IQT_LAUNCH)
+    IQT_DISPATCH_WIDE_S(S, IQT_LAUNCH)
 #undef IQT_LAUNCH
     if (e != cudaSuccess) return (int)e;
     e = cudaGetLastError();

@@ -3,6 +3,8 @@
     python -m iqtree_torch.engine.kernels.probe [-C N[,N...]] [--base DIR]
         [newton|forward|store|down_store|wide_newton|wide_forward|wide_store|
          wide_down_store|tbar|wide_tbar ...]
+    python -m iqtree_torch.engine.kernels.probe --codon [-C N[,N...]]
+        [wide_forward|wide_store|wide_down_store|wide_tbar ...]
 
 On a CUDA card, at the bench shapes (bench_data.npz: its tree, 1000 taxa,
 9 962 patterns, GTR+G4 at the model's start values; GTR+GN with -C N, each
@@ -14,6 +16,12 @@ wrapper (CUDA events around 10 calls after a warm-up) at 32, 64 and 128
 lanes a block (down_store: 8, 32, 64 and 128 patterns a block; tbar: 64
 patterns a block, the only size that keeps its bits; the wide kernels: 16,
 32 and 64 patterns a cluster).  With no kernel named, all ten.
+
+--codon times the S=64 instances of the four wide kernels on the codon
+path at bench_data_codon.npz's shapes (80 taxa, 457 patterns, GY+F3X4+GN,
+the codon space's 61 states padded to 64), with the variants
+  as built         CODON_RPT = 8 state rows a thread (8 row groups)
+  rows 16 a thread  CODON_RPT = 16 (4 row groups: half the threads)
 
 --base DIR adds the variant `base`: <kernel>.cu and its headers taken
 whole from DIR, e.g. an earlier commit's csrc/ (`git archive COMMIT
@@ -232,7 +240,7 @@ _TBAR_WALK_WARPS_SUM = """      sums_wait(blockDim.x);
       constexpr int WARPS = SUM_PATTERNS * G / 32;  // walk warps a group
       const int ww = tid >> 5;
       if (ww % WARPS == 0)
-        group_sums<S>(st, ost, fac, Uk, tile, ww / WARPS * SUM_PATTERNS,
+        group_sums<S>(st, ost, fac, Uk, tile, ww / WARPS * SUM_PATTERNS, tid & 31,
                       fac + 2 * tile + (size_t)ww / WARPS * 2 * SS, part_row(ww / WARPS),
                       C, c);
     };"""
@@ -386,7 +394,7 @@ KERNELS: Dict[str, Dict[str, Tuple[Tuple[str, str], ...]]] = {
         "fetch at the step's start": _FETCH_AT_START,
         "two patterns a thread": (("constexpr int REVERSE_QT = 1;",
                                    "constexpr int REVERSE_QT = 2;"),),
-        "registers 255": (("__launch_bounds__(CLUSTER_THREADS_MAX, 2)\nwide_down_store_kernel",
+        "registers 255": (("__launch_bounds__(CLUSTER_THREADS_MAX, S > 32 ? 1 : 2)\nwide_down_store_kernel",
                            "__launch_bounds__(CLUSTER_THREADS_MAX)\nwide_down_store_kernel"),),
         "no push": (("      if (cslot < 0) continue;", "      if (true) continue;"),),
         "no division": (("iqt::div_rn(o[side][j][qq], mx[side][qq]);", "o[side][j][qq];"),),
@@ -400,18 +408,18 @@ KERNELS: Dict[str, Dict[str, Tuple[Tuple[str, str], ...]]] = {
                      "        acc[j][k] += a[j].z * b[k].z;\n"
                      "        acc[j][k] += a[j].w * b[k].w;\n", ""),),
         "sums on the walk warps": ((_TBAR_SUM_WARPS_ARRIVE, _TBAR_WALK_WARPS_SUM),
-                                   ("const int threads = walkers + groups * 32;",
+                                   ("const int threads = walkers + groups * SumLanes<SS_>::WARPS * 32;",
                                     "const int threads = walkers;")),
         "no part stores": (("  if (row) {", "  if (row && st.node < -1) {"),),
         "sums before the next step opens": (
             ("    if (i > 0) ring_arrive(blockDim.x);  // step i - 1 opens: it reads nothing of ours\n"
              "    group_sums<S>(st, ost, fac, ust + (size_t)k * 2 * (S + 1) * tile, tile, w * SUM_PATTERNS,\n"
-             "                  pst, row, C, c);\n",
+             "                  L, pst, row, C, c);\n",
              "    group_sums<S>(st, ost, fac, ust + (size_t)k * 2 * (S + 1) * tile, tile, w * SUM_PATTERNS,\n"
-             "                  pst, row, C, c);\n"
+             "                  L, pst, row, C, c);\n"
              "    if (i > 0) ring_arrive(blockDim.x);\n"),),
         "no cluster barrier": _no_reverse_barrier("                                 smem, hook);\n  }"),
-        "registers 255": (("__launch_bounds__(TBAR_THREADS_MAX, 2)\nwide_tbar_kernel",
+        "registers 255": (("__launch_bounds__(TBAR_THREADS_MAX, S > 32 ? 1 : 2)\nwide_tbar_kernel",
                            "__launch_bounds__(TBAR_THREADS_MAX)\nwide_tbar_kernel"),),
         "float division": _DIVISION["float division"],
     },
@@ -466,20 +474,26 @@ BITS_AT = {"wide_newton": 16, "wide_forward": 16, "wide_store": 16, "wide_down_s
            "wide_tbar": 16}
 # kernels at the protein bench shapes
 PROTEIN = ("wide_newton", "wide_forward", "wide_store", "wide_down_store", "wide_tbar")
+# the wide kernels with a codon instance (S=64), and its variants (--codon)
+CODON = ("wide_forward", "wide_store", "wide_down_store", "wide_tbar")
+CODON_VARIANTS = {"as built": (),
+                  "rows 16 a thread": (("constexpr int CODON_RPT = 8;",
+                                        "constexpr int CODON_RPT = 16;"),)}
 
 
 def source_files(kernel: str):
     return (f"{kernel}.cu", *((WIDE_HEADER,) if kernel.startswith("wide_") else ()), HEADER)
 
 
-def variant_sources(kernel: str, name: str, base=None) -> Dict[str, str]:
+def variant_sources(kernel: str, name: str, base=None, codon=False) -> Dict[str, str]:
     """{file: text} of csrc/<kernel>.cu and its headers with the edits of
-    variant `name` applied; each edit must change one of them.  The
-    variant `base` is the files as they are in the directory `base`."""
+    variant `name` (of CODON_VARIANTS with `codon`) applied; each edit must
+    change one of them.  The variant `base` is the files as they are in the
+    directory `base`."""
     if name == "base":
         return {f: (Path(base) / f).read_text() for f in source_files(kernel)}
     files = {f: (build.CSRC / f).read_text() for f in source_files(kernel)}
-    for old, new in KERNELS[kernel][name]:
+    for old, new in (CODON_VARIANTS if codon else KERNELS[kernel])[name]:
         hits = [f for f, text in files.items() if old in text]
         if not hits:
             raise ValueError(f"variant {name!r} of {kernel}: {old!r} is in neither file")
@@ -488,17 +502,19 @@ def variant_sources(kernel: str, name: str, base=None) -> Dict[str, str]:
     return files
 
 
-def variant_libraries(kernel: str, base=None, names=None) -> Dict[str, ctypes.CDLL]:
-    """Every variant of `kernel` (or those in `names`) built (all at once)
-    and loaded like the kernel, with `base` (module docstring) if a
-    directory is given.  A variant's edited headers sit beside its source,
-    so its #include finds those copies."""
-    root = build.build_all() / "probe"
+def variant_libraries(kernel: str, base=None, names=None,
+                      codon=False) -> Dict[str, ctypes.CDLL]:
+    """Every variant of `kernel` (or those in `names`; CODON_VARIANTS with
+    `codon`) built (all at once) and loaded like the kernel, with `base`
+    (module docstring) if a directory is given.  A variant's edited headers
+    sit beside its source, so its #include finds those copies."""
+    root = build.build_all() / ("probe_codon" if codon else "probe")
     procs = {}
-    for name in names or [*KERNELS[kernel], *(["base"] if base else [])]:
+    variants = CODON_VARIANTS if codon else KERNELS[kernel]
+    for name in names or [*variants, *(["base"] if base else [])]:
         out = root / f"{kernel}_{name.replace(' ', '_')}"
         out.mkdir(parents=True, exist_ok=True)
-        for f, text in variant_sources(kernel, name, base).items():
+        for f, text in variant_sources(kernel, name, base, codon).items():
             (out / f).write_text(text)
         lib = out / f"lib{kernel}.so"
         procs[name] = (lib, subprocess.Popen(
@@ -507,6 +523,7 @@ def variant_libraries(kernel: str, base=None, names=None) -> Dict[str, ctypes.CD
     libs = {}
     for name, (lib, proc) in procs.items():
         log, _ = proc.communicate()
+        lib.with_name("ptxas.log").write_text(log)
         if proc.returncode != 0:
             raise RuntimeError(f"variant {name!r} of {kernel} failed to build:\n{log}")
         dll = ctypes.CDLL(str(lib))
@@ -519,28 +536,29 @@ def variant_libraries(kernel: str, base=None, names=None) -> Dict[str, ctypes.CD
     return libs
 
 
-def bench_calls(device, categories=4, protein=False):
+def bench_calls(device, categories=4, protein=False, codon=False):
     """{kernel: a call of its wrapper} at the bench shapes, GTR+G with
     `categories` rate categories (LG+G at the protein bench's with
-    `protein`)."""
+    `protein`, GY+F3X4+G at the codon bench's with `codon`)."""
     from ..likelihood import (ModelArrays, SiteData, TreeArrays, branch_transition_mats,
                               ptn_invar, tip_partials)
     from ...io.alignment import Alignment
     from ...models.factory import parse_model_string
     from ...trees.tree import PhyloTree
 
-    path = BENCH_DATA.with_name("bench_data_protein.npz") if protein else BENCH_DATA
+    path = BENCH_DATA.with_name("bench_data_codon.npz" if codon else
+                                "bench_data_protein.npz") if protein or codon else BENCH_DATA
     z = np.load(path, allow_pickle=True)
     aln = Alignment.from_sequences([str(n) for n in z["names"]],
                                    [str(s) for s in z["seqs"]],
-                                   "AA" if protein else "DNA")
+                                   "CODON" if codon else "AA" if protein else "DNA")
     tree = PhyloTree.from_newick(str(z["tree"]), aln.names)
     ta = TreeArrays.from_tree(tree, device)
     steps, n_slots = device_slot_schedule(tree, ta)
     steps = torch.as_tensor(steps, device=device)
-    name = "LG" if protein else "GTR"
-    model = ModelArrays.from_model(*parse_model_string(f"{name}+G{categories}", aln),
-                                   device)
+    name = "GY+F3X4" if codon else "LG" if protein else "GTR"
+    model = ModelArrays.from_model(
+        *parse_model_string(f"{name}+G{categories}" if categories > 1 else name, aln), device)
     site = SiteData.from_alignment(aln, device, torch.float32)
     trans = branch_transition_mats(model, ta.blen).float().contiguous()
     tips = tip_partials(site).contiguous()
@@ -548,9 +566,17 @@ def bench_calls(device, categories=4, protein=False):
     invar = ptn_invar(model, site).float().contiguous()
     up, usc = csk.fused_upward_store_cs(steps, n_slots, trans, tips)
     csk.fill_tip_rows_cs(up, usc, tips, model.ncat)
-    mats = csk.stacked_deriv_mats(model, ta.blen).float().contiguous()
     wp = site.pattern_freq.contiguous()
     lnl = pruning.fused_site_lnl(steps, n_slots, trans, tips, props, freq, invar)
+    if codon:
+        return {"wide_forward": lambda: pruning.wide_site_lnl(
+                    steps, n_slots, trans, tips, props, freq, invar),
+                "wide_store": lambda: pruning.fused_upward_store(steps, n_slots, trans, tips),
+                "wide_down_store": lambda: csk.fused_down_store(steps, n_slots, trans, up,
+                                                                usc, freq),
+                "wide_tbar": lambda: csk.fused_downward_tbar(
+                    steps, n_slots, trans, tips, props, freq, lnl, wp, up=up, usc=usc)}
+    mats = csk.stacked_deriv_mats(model, ta.blen).float().contiguous()
     if protein:
         return {"wide_newton": lambda: csk.wide_newton_sweep(
                     steps, n_slots, mats, props, freq, wp, invar, up, usc),
@@ -571,6 +597,18 @@ def bench_calls(device, categories=4, protein=False):
         "store": lambda: csk.fused_upward_store_cs(steps, n_slots, trans, tips),
         "down_store": lambda: csk.fused_down_store_cs(steps, n_slots, trans, up, usc, freq),
     }
+
+
+def ptxas_lines(log: str, instance: str):
+    """The register and spill lines of ptxas's report for the kernels
+    whose mangled name holds `instance` (e.g. "ILi64E": S = 64)."""
+    out, fn = [], ""
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            fn = line.split("for")[-1].strip()
+        elif instance in fn and ("registers" in line or "spill" in line):
+            out.append(line.split(":", 1)[-1].strip())
+    return out
 
 
 def call_ms(fn, reps=10) -> float:
@@ -615,16 +653,29 @@ def main(argv=None) -> int:
             i = args.index(flag)
             options[flag] = args[i + 1]
             del args[i:i + 2]
+    codon = "--codon" in args
+    if codon:
+        args.remove("--codon")
     base = options["--base"]
-    kernels = args or list(KERNELS)
+    kernels = args or list(CODON if codon else KERNELS)
+    if codon and (base or set(kernels) - set(CODON)):
+        raise SystemExit(f"--codon takes the kernels {', '.join(CODON)} and no --base")
     dev = resolve_device()
-    libs = {kernel: variant_libraries(kernel, base) for kernel in kernels}
+    libs = {kernel: variant_libraries(kernel, base, codon=codon) for kernel in kernels}
+    if codon:  # the S=64 instance's registers and spills, each variant
+        root = build.build_dir() / "probe_codon"
+        for kernel in kernels:
+            for name in libs[kernel]:
+                log = (root / f"{kernel}_{name.replace(' ', '_')}" / "ptxas.log").read_text()
+                print(f"{kernel} {name}: " + "; ".join(ptxas_lines(log, "ILi64E")), flush=True)
     blocks0 = {k: getattr(*BLOCK_SETTING[k]) for k in kernels}
     for categories in (int(c) for c in options["-C"].split(",")):
         calls = {}
-        if set(kernels) - set(PROTEIN):
+        if codon:
+            calls.update(bench_calls(dev, categories, codon=True))
+        elif set(kernels) - set(PROTEIN):
             calls.update(bench_calls(dev, categories))
-        if set(kernels) & set(PROTEIN):
+        if set(kernels) & set(PROTEIN) and not codon:
             calls.update(bench_calls(dev, categories, protein=True))
         for kernel in kernels:
             order = list(libs[kernel])
@@ -632,7 +683,8 @@ def main(argv=None) -> int:
                 order = ["base", "as built", *order[1:-1], "as built", "base"]
             sizes = SIZES.get(kernel, LANES)
             unit = UNITS.get(kernel, "lanes a block")
-            print(f"{torch.cuda.get_device_name(dev)}: {kernel} at C={categories}, ms a "
+            print(f"{torch.cuda.get_device_name(dev)}: {kernel}"
+                  f"{' (codon, S=64)' if codon else ''} at C={categories}, ms a "
                   f"call at " + ", ".join(map(str, sizes)) + f" {unit}", flush=True)
             built = build.library(kernel)
             outs = {}
@@ -644,7 +696,7 @@ def main(argv=None) -> int:
                         set_lanes(kernel, t)
                         try:
                             times.append(f"{call_ms(calls[kernel]):9.3f}")
-                        except RuntimeError:  # a block size this design refuses
+                        except (RuntimeError, ValueError):  # a block size this design refuses
                             times.append(f"{'refused':>9s}")
                     set_lanes(kernel, BITS_AT.get(kernel, blocks0[kernel]))
                     if name in ("base", "as built"):

@@ -2,8 +2,9 @@
 
 `fused_site_lnl` launches a hand-written CUDA kernel for a CUDA tensor --
 csrc/forward.cu at the CS-packed DNA shapes (S=4), csrc/wide_forward.cu
-(`wide_site_lnl`) at the wide protein shapes (S=20) -- and runs its plain
-twin for a CPU tensor.  `fused_upward_store` is the wide upward store
+(`wide_site_lnl`) at the wide shapes (protein S=20; codons, S=60..63
+padded to the S=64 instance by `pad_states`) -- and runs its plain twin
+for a CPU tensor.  `fused_upward_store` is the wide upward store
 (csrc/wide_store.cu): the same sweep on the same clusters, storing every
 internal partial for the reverse sweeps.  The kernels evaluate the entire
 post-order for a block of patterns with the live partials in a
@@ -66,6 +67,34 @@ WIDE_FORWARD_TILE = 16
 WIDE_STORE_TILE = 16
 # The cluster walk's ring depth (CLUSTER_STAGES of csrc/wide_common.cuh).
 CLUSTER_STAGES = 2
+# State rows a thread of each wide instance (RPT; csrc/wide_common.cuh
+# IQT_DISPATCH_WIDE_S, CODON_RPT at S=64).
+WIDE_RPT = {20: 5, 64: 8}
+
+
+def pad_states(x: torch.Tensor, S_pad: int, *axes: int) -> torch.Tensor:
+    """x with each state axis in `axes` zero-padded at its end to S_pad
+    entries, contiguous: the codon spaces' way into the S=64 kernel
+    instance.  A padded row or column of a transition matrix, a tip row or
+    a root weight is 0, so every padded partial row stays 0 and the real
+    rows, maxima and scales are the unpadded arithmetic's."""
+    pad = [0] * (2 * x.dim())
+    for a in axes:
+        pad[2 * (x.dim() - 1 - a % x.dim()) + 1] = S_pad - x.shape[a]
+    return torch.nn.functional.pad(x, pad).contiguous()
+
+
+def pad_partials(up: torch.Tensor, C: int, S_pad: int) -> torch.Tensor:
+    """Stored partials [2N, C*S, P] with each category's S rows zero-padded
+    to S_pad: [2N, C*S_pad, P]."""
+    n, CS, P = up.shape
+    return pad_states(up.reshape(n, C, CS // C, P), S_pad, 2).reshape(n, C * S_pad, P)
+
+
+def unpad_partials(up: torch.Tensor, C: int, S: int) -> torch.Tensor:
+    """[2N, C*S_pad, P] -> the first S rows of each category, [2N, C*S, P]."""
+    n, CSp, P = up.shape
+    return up.reshape(n, C, CSp // C, P)[:, :, :S].reshape(n, C * S, P)
 
 
 def device_slot_schedule(tree_host, tree_arrays) -> Tuple[np.ndarray, int]:
@@ -132,8 +161,8 @@ def fused_site_lnl(steps, n_slots, trans, tips, props, state_freq, invar,
     steps [N-1, 6] int32, trans [2N, C, S, S], tips [N, S, P],
     props [C], state_freq [C, S], invar [P] (the invariant-class
     likelihood).  CUDA tensors launch csrc/forward.cu at S=4 and
-    csrc/wide_forward.cu (wide_site_lnl) at S=20; CPU tensors run the
-    plain twin.  `tile` (patterns a cluster) is for measuring the wide
+    csrc/wide_forward.cu (wide_site_lnl) at S=20 and the codon spaces; CPU
+    tensors run the plain twin.  `tile` (patterns a cluster) is for measuring the wide
     kernel; forward.cu runs UPWARD_LANES lanes a block."""
     if not trans.is_cuda:
         return _site_lnl_plain(steps, trans, tips, props, state_freq, invar)
@@ -167,20 +196,25 @@ def wide_forward_smem(S: int, C: int, tile: int, n_slots: int,
 
 def wide_site_lnl(steps, n_slots, trans, tips, props, state_freq, invar,
                   tile=None) -> torch.Tensor:
-    """fused_site_lnl at the wide shapes (S=20): csrc/wide_forward.cu for
-    CUDA tensors, the plain twin for CPU tensors.  A cluster of C blocks
-    (one a rate category) holds `tile` patterns (default
-    WIDE_FORWARD_TILE; for measuring the kernel)."""
+    """fused_site_lnl at the wide shapes (S=20; a codon space through the
+    S=64 instance, its inputs zero-padded): csrc/wide_forward.cu for CUDA
+    tensors, the plain twin for CPU tensors.  A cluster of C blocks (one a
+    rate category) holds `tile` patterns (default WIDE_FORWARD_TILE; for
+    measuring the kernel)."""
     if not trans.is_cuda:
         return _site_lnl_plain(steps, trans, tips, props, state_freq, invar)
     C, S = trans.shape[1], trans.shape[2]
-    P = tips.shape[2]
-    rootw = (props[:, None] * state_freq).reshape(-1).float().contiguous()
-    build.check_inputs(C, S, steps, trans, tips, rootw, invar,
+    P, SK = tips.shape[2], build.instance_states(S)
+    rootw = (props[:, None] * state_freq).float()
+    if SK != S:
+        trans, tips = pad_states(trans, SK, 2, 3), pad_states(tips, SK, 1)
+        rootw = pad_states(rootw, SK, 1)
+    rootw = rootw.reshape(-1).contiguous()
+    build.check_inputs(C, SK, steps, trans, tips, rootw, invar,
                        states=build.WIDE_STATES)
     out = torch.empty(P, dtype=torch.float32, device=trans.device)
     build.launch("wide_forward", steps, steps.shape[0], trans, tips, P, rootw,
-                 invar, out, C, S, n_slots, tile or WIDE_FORWARD_TILE)
+                 invar, out, C, SK, n_slots, tile or WIDE_FORWARD_TILE)
     wide_site_lnl.launches += 1
     return out
 
@@ -189,7 +223,8 @@ wide_site_lnl.launches = 0
 
 
 def fused_upward_store(steps, n_slots, trans, tips, tile=None):
-    """(up [2N, CS, P], usc [2N, P]) at the wide shapes (S=20): every
+    """(up [2N, CS, P], usc [2N, P]) at the wide shapes (S=20; a codon
+    space through the S=64 instance, padded in and sliced out): every
     internal node's normalized partial and log-scale, through
     csrc/wide_store.cu for CUDA tensors and the plain twin upward_plain
     for CPU tensors.  Tip rows are left for fill_tip_rows_cs.  A cluster
@@ -199,14 +234,16 @@ def fused_upward_store(steps, n_slots, trans, tips, tile=None):
     if not trans.is_cuda:
         return upward_plain(steps, trans, tips)
     n_rows, C, S = trans.shape[:3]
-    P = tips.shape[2]
-    build.check_inputs(C, S, steps, trans, tips, states=build.WIDE_STATES)
-    up = torch.empty(n_rows, C * S, P, dtype=torch.float32, device=trans.device)
+    P, SK = tips.shape[2], build.instance_states(S)
+    if SK != S:
+        trans, tips = pad_states(trans, SK, 2, 3), pad_states(tips, SK, 1)
+    build.check_inputs(C, SK, steps, trans, tips, states=build.WIDE_STATES)
+    up = torch.empty(n_rows, C * SK, P, dtype=torch.float32, device=trans.device)
     usc = torch.zeros(n_rows, P, dtype=torch.float32, device=trans.device)
-    build.launch("wide_store", steps, steps.shape[0], trans, tips, P, up, usc, C, S,
+    build.launch("wide_store", steps, steps.shape[0], trans, tips, P, up, usc, C, SK,
                  n_slots, tile or WIDE_STORE_TILE)
     fused_upward_store.launches += 1
-    return up, usc
+    return (unpad_partials(up, C, S) if SK != S else up), usc
 
 
 fused_upward_store.launches = 0

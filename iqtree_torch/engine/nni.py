@@ -27,7 +27,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .derivatives import blen_bounds
+from .derivatives import LocalModel, local_model, newton_target, theta_derivs, thetas
 from .kernels.cs_kernels import fused_nni_passes_cs
 from .likelihood import (
     SCALE_TINY,
@@ -35,7 +35,6 @@ from .likelihood import (
     SiteData,
     TreeArrays,
     branch_transition_mats,
-    ptn_invar,
     tip_partials,
 )
 
@@ -47,19 +46,7 @@ class NNIEval(NamedTuple):
     base_lnl: Optional[torch.Tensor] = None  # [E] identity configuration (paired)
 
 
-class _Local(NamedTuple):
-    """The model in the working type, laid out for the local Newton."""
-    eigvec: torch.Tensor  # [C, S, S]
-    inv_eigvec: torch.Tensor  # [C, S, S]
-    lam: torch.Tensor  # [C, S]
-    rates: torch.Tensor  # [C]
-    lam_r: torch.Tensor  # [CS] eigenvalue x category rate
-    props_cs: torch.Tensor  # [CS]
-    pfreq: torch.Tensor  # [P]
-    invar: torch.Tensor  # [P]
-
-
-def _pmat(m: _Local, t: torch.Tensor) -> torch.Tensor:
+def _pmat(m: LocalModel, t: torch.Tensor) -> torch.Tensor:
     """P(t_k r_c) [K, C, S, S] for branch lengths t [K]."""
     expo = torch.exp(m.lam[None] * (t[:, None] * m.rates[None])[:, :, None])
     return (m.eigvec[None] * expo[:, :, None, :]) @ m.inv_eigvec[None]
@@ -79,37 +66,17 @@ def _rescale(x, scale):
     return x / mx[:, None, None, :], scale + torch.log(mx)
 
 
-def _theta_lnl_newton(m: _Local, inside, in_scale, outside, out_scale, t0,
+def _theta_lnl_newton(m: LocalModel, inside, in_scale, outside, out_scale, t0,
                       newton_iters: int):
     """1-D Newton on each candidate's branch from its theta buffer;
     returns (t* [K], lnl(t*) [K] float64)."""
-    K, C, S, P = inside.shape
-    scale = in_scale + out_scale  # [K, P]
-    invar = torch.where(m.invar > 0,
-                        m.invar * torch.exp(torch.clamp(-scale, max=80.0)),
-                        torch.zeros_like(scale))
-    vt_o = m.eigvec.transpose(-1, -2)[None] @ outside  # [K, C, j, P]
-    vi_u = m.inv_eigvec[None] @ inside
-    theta = (vt_o * vi_u).reshape(K, C * S, P)
-    lo, hi = blen_bounds()
-
-    def derivs(t):
-        e = m.props_cs[None] * torch.exp(m.lam_r[None] * t[:, None])  # [K, CS]
-        w = torch.stack([e, e * m.lam_r, e * m.lam_r * m.lam_r], dim=1)
-        f = torch.bmm(w, theta)  # [K, 3, P]
-        return torch.clamp(f[:, 0], min=SCALE_TINY) + invar, f[:, 1], f[:, 2]
-
+    th = thetas(m, inside, in_scale, outside, out_scale)
     t = t0
     for _ in range(newton_iters):
-        denom, f1, f2 = derivs(t)
-        r1, r2 = f1 / denom, f2 / denom
-        d1 = (m.pfreq * r1).sum(-1)
-        d2 = (m.pfreq * (r2 - r1 * r1)).sum(-1)
-        t_new = torch.where(d2 < -1e-12, t - d1 / torch.clamp(d2, max=-1e-12),
-                            torch.where(d1 > 0, t * 2.0, t * 0.5))
-        t = torch.clamp(t_new, lo, hi)
-    denom, _, _ = derivs(t)
-    site_lnl = scale + torch.log(denom)
+        d1, d2, _ = theta_derivs(m, th, t)
+        t = newton_target(d1, d2, t)
+    _, _, denom = theta_derivs(m, th, t)
+    site_lnl = th.scale + torch.log(denom)
     return t, (m.pfreq.double() * site_lnl.double()).sum(-1)
 
 
@@ -129,17 +96,6 @@ def _candidates(tree: TreeArrays, edges: np.ndarray, n_sw: int):
     r = np.stack([a, b, c], 1)[:, :n_sw]
     rep = lambda x: np.repeat(x[:, None], n_sw, 1)
     return p, q, r, rep(u), rep(v)
-
-
-def _local_model(model: ModelArrays, site: SiteData, dt) -> _Local:
-    C, S = model.ncat, model.num_states
-    to = lambda x: x.detach().to(dt)
-    lam, rates = to(model.eigenvalues), to(model.rates)
-    return _Local(
-        eigvec=to(model.eigvec), inv_eigvec=to(model.inv_eigvec), lam=lam,
-        rates=rates, lam_r=(lam * rates[:, None]).reshape(C * S),
-        props_cs=to(model.props)[:, None].expand(C, S).reshape(C * S),
-        pfreq=site.pattern_freq.to(dt), invar=to(ptn_invar(model, site)))
 
 
 def nni_passes(tree: TreeArrays, model: ModelArrays, site: SiteData, steps,
@@ -180,7 +136,7 @@ def evaluate_nnis(
     dt = up.dtype
     up = up.reshape(n_rows, C, S, P)
     out = out.reshape(n_rows, C, S, P)
-    m = _local_model(model, site, dt)
+    m = local_model(model, site, dt)
     blen = tree.blen.detach().to(dt)
     dev = up.device
 

@@ -5,8 +5,9 @@ patterns; ambiguity codes are kept as integer codes >= num_states with a
 code -> state indicator table, so a tip partial is one gather of that
 table by the tip codes.
 
-The port reads DNA (4 states) and protein (20 states); binary,
-morphology and codon data are not ported yet.
+The port reads DNA (4 states), protein (20 states) and codons (a genetic
+code's sense codons: 61 states for the standard code); binary and
+morphology data are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,8 +24,7 @@ SEQ_BINARY = "BIN"
 SEQ_MORPH = "MORPH"
 SEQ_CODON = "CODON"
 # the slice of the port that reads each type not read yet
-NOT_PORTED = {SEQ_CODON: "the codon slice (S=61)",
-              SEQ_BINARY: "the binary/morphology slice",
+NOT_PORTED = {SEQ_BINARY: "the binary/morphology slice",
               SEQ_MORPH: "the binary/morphology slice"}
 
 # DNA: states 0..3 = A,C,G,T; ambiguity codes are extra integer codes
@@ -65,13 +65,18 @@ class StateSpace:
     num_states: int
     char_to_code: Dict[str, int]
     code_masks: np.ndarray  # [num_codes, num_states] float32
+    genetic_code: Optional[int] = None  # codon alignments only
+    state_to_codon: Optional[np.ndarray] = None  # [S] codon index 0..63
+    codon_to_state: Optional[np.ndarray] = None  # [64]; -1 = stop codon
 
     @classmethod
-    def make(cls, seq_type: str) -> "StateSpace":
+    def make(cls, seq_type: str, genetic_code: int = 1) -> "StateSpace":
+        if seq_type == SEQ_CODON:
+            return cls._make_codon(genetic_code)
         if seq_type not in _TABLES:
             raise NotImplementedError(
                 f"sequence type {seq_type} is not ported yet (the port reads "
-                f"DNA and protein; {seq_type} comes with "
+                f"DNA, protein and codons; {seq_type} comes with "
                 f"{NOT_PORTED.get(seq_type, 'a later slice')})")
         table, ns = _TABLES[seq_type]
         # definite states first, then one code per distinct ambiguity set
@@ -89,7 +94,23 @@ class StateSpace:
             m[code, list(states)] = 1.0
         return cls(seq_type, ns, char_to_code, m)
 
+    @classmethod
+    def _make_codon(cls, genetic_code: int) -> "StateSpace":
+        """The sense codons of a genetic code in index order, and one
+        unknown code (any triplet with a gap or an ambiguity)."""
+        from ..models.codon import sense_codons
+
+        sc = sense_codons(genetic_code)
+        ns = len(sc)
+        codon_to_state = np.full(64, -1, dtype=np.int32)
+        codon_to_state[sc] = np.arange(ns, dtype=np.int32)
+        masks = np.concatenate([np.eye(ns, dtype=np.float32), np.ones((1, ns), np.float32)])
+        return cls(SEQ_CODON, ns, {"?": ns}, masks, genetic_code=genetic_code,
+                   state_to_codon=sc, codon_to_state=codon_to_state)
+
     def encode(self, seq: str) -> np.ndarray:
+        if self.seq_type == SEQ_CODON:
+            return self._encode_codon(seq)
         out = np.empty(len(seq), dtype=np.int32)
         c2c = self.char_to_code
         for i, ch in enumerate(seq):
@@ -97,6 +118,25 @@ class StateSpace:
             if code is None:
                 raise ValueError(f"invalid character {ch!r} for {self.seq_type}")
             out[i] = code
+        return out
+
+    def _encode_codon(self, seq: str) -> np.ndarray:
+        """Triplets of definite nucleotides -> codon states; a gap or an
+        ambiguity in a triplet makes it unknown; a stop codon is an error."""
+        if len(seq) % 3 != 0:
+            raise ValueError(f"codon sequence length {len(seq)} is not a multiple of 3")
+        nt = {"A": 0, "C": 1, "G": 2, "T": 3, "U": 3}
+        out = np.empty(len(seq) // 3, dtype=np.int32)
+        for i in range(0, len(seq), 3):
+            tri = seq[i:i + 3].upper()
+            a, b, c = nt.get(tri[0]), nt.get(tri[1]), nt.get(tri[2])
+            if a is None or b is None or c is None:
+                out[i // 3] = self.num_states
+                continue
+            st = self.codon_to_state[16 * a + 4 * b + c]
+            if st < 0:
+                raise ValueError(f"stop codon {tri} at nucleotide position {i + 1}")
+            out[i // 3] = st
         return out
 
 
@@ -207,6 +247,25 @@ class Alignment:
         informative = (app >= 2).sum(axis=1) >= 2
         return int(self.pattern_freq[informative].sum())
 
+    def codon_nt_frequencies(self, by_position: bool = True) -> np.ndarray:
+        """[3, 4] nucleotide frequencies at each codon position of the
+        definite codons (F3X4); with by_position=False the three rows are
+        the pooled counts (F1X4)."""
+        if self.states.seq_type != SEQ_CODON:
+            raise ValueError("codon nucleotide frequencies need codon data")
+        sc = self.states.state_to_codon
+        ns = self.num_states
+        w = np.broadcast_to(self.pattern_freq, self.patterns.shape)
+        known = self.patterns < ns
+        codons = sc[np.where(known, self.patterns, 0)][known]
+        w = w[known]
+        counts = np.stack([np.bincount(d, weights=w, minlength=4)
+                           for d in (codons // 16, (codons // 4) % 4, codons % 4)])
+        if not by_position:
+            counts = np.broadcast_to(counts.sum(0), (3, 4)).copy()
+        counts = np.maximum(counts, 1e-6)
+        return counts / counts.sum(axis=1, keepdims=True)
+
     def identical_groups(self):
         """(keep, removed_pairs): the taxon indices to analyse, and
         (removed_name, twin_name) for each sequence identical to an
@@ -244,13 +303,14 @@ class Alignment:
         names: List[str],
         seqs: List[str],
         seq_type: Optional[str] = None,
+        genetic_code: int = 1,
     ) -> "Alignment":
         if len(set(len(s) for s in seqs)) != 1:
             lens = {n: len(s) for n, s in zip(names, seqs)}
             raise ValueError(f"sequences have unequal lengths: {lens}")
         if seq_type is None:
             seq_type = detect_seq_type(seqs)
-        states = StateSpace.make(seq_type)
+        states = StateSpace.make(seq_type, genetic_code)
         mat = np.stack([states.encode(s) for s in seqs])  # [taxa, sites]
         uniq, site_to_pattern, counts = np.unique(
             np.ascontiguousarray(mat.T), axis=0,
@@ -265,8 +325,10 @@ class Alignment:
         )
 
 
-def read_alignment(path: str, seq_type: Optional[str] = None) -> Alignment:
-    """Read a PHYLIP (sequential or interleaved) or FASTA alignment."""
+def read_alignment(path: str, seq_type: Optional[str] = None,
+                   genetic_code: int = 1) -> Alignment:
+    """Read a PHYLIP (sequential or interleaved) or FASTA alignment; codon
+    data (seq_type CODON) under the given NCBI genetic code."""
     with open(path) as f:
         text = f.read()
     if not text.strip():
@@ -279,7 +341,7 @@ def read_alignment(path: str, seq_type: Optional[str] = None) -> Alignment:
             "NEXUS/CLUSTAL input is not ported yet; convert to PHYLIP or FASTA")
     else:
         names, seqs = _read_phylip(text)
-    return Alignment.from_sequences(names, seqs, seq_type)
+    return Alignment.from_sequences(names, seqs, seq_type, genetic_code)
 
 
 def _read_fasta(text: str):

@@ -1,4 +1,4 @@
-"""The .iqtree analysis report for DNA and protein models: alignment
+"""The .iqtree analysis report for DNA, protein and codon models: alignment
 summary, the substitution model, rate heterogeneity, the
 maximum-likelihood tree and run information, in the reference report's
 sections."""
@@ -11,12 +11,13 @@ from typing import List
 import numpy as np
 
 from .. import __version__
-from ..io.alignment import AA_ORDER
+from ..io.alignment import AA_ORDER, SEQ_CODON, SEQ_DNA, SEQ_PROTEIN
+from ..models.codon import codon_strings
 from ..models.subst import (FREQ_EMPIRICAL, FREQ_EQUAL, FREQ_ESTIMATE,
                             FREQ_USER, pair_index)
 
-STATE_NAMES = {4: "ACGT", 20: AA_ORDER}
-SITE_KIND = {4: "nucleotide", 20: "amino-acid"}
+STATE_NAMES = {SEQ_DNA: "ACGT", SEQ_PROTEIN: AA_ORDER}
+SITE_KIND = {SEQ_DNA: "nucleotide", SEQ_PROTEIN: "amino-acid", SEQ_CODON: "codon"}
 FREQ_DESC = {
     FREQ_EMPIRICAL: "empirical counts from alignment",
     FREQ_EQUAL: "equal frequencies",
@@ -41,7 +42,7 @@ def write_report(path: str, aln, subst, rate, tree, lnl: float, command: str,
         "SEQUENCE ALIGNMENT",
         "------------------",
         f"Input data: {aln.n_taxa} sequences with {aln.n_sites} "
-        f"{SITE_KIND[aln.num_states]} sites",
+        f"{SITE_KIND[aln.states.seq_type]} sites",
         f"Number of distinct site patterns: {aln.n_patterns}",
         f"Number of constant sites: "
         f"{int(round(aln.frac_const_sites() * aln.n_sites))} "
@@ -54,7 +55,12 @@ def write_report(path: str, aln, subst, rate, tree, lnl: float, command: str,
         "",
     ]
     S = subst.num_states
-    names = STATE_NAMES[S]
+    codon = aln.states.seq_type == SEQ_CODON
+    names = codon_strings(aln.states.genetic_code) if codon else \
+        STATE_NAMES[aln.states.seq_type]
+    if getattr(subst, "kappa", None) is not None:  # a parametric codon model
+        L += [f"Transition/transversion ratio kappa: {subst.kappa:.4f}",
+              f"Nonsynonymous/synonymous ratio omega: {subst.omega:.4f}", ""]
     if subst.rate_groups is not None:  # group-coded (DNA) exchangeabilities
         r = subst.sym_rates()
         L += ["Rate parameter R:", ""]
@@ -62,10 +68,11 @@ def write_report(path: str, aln, subst, rate, tree, lnl: float, command: str,
         L.append("")
     L += [f"State frequencies: ({FREQ_DESC.get(subst.freq_type, subst.freq_type)})", ""]
     L += [f"  pi({n}) = {f:.4g}" for n, f in zip(names, subst.state_freq)]
-    L += ["", "Rate matrix Q:", ""]
-    q = subst.rate_matrix()
-    L += [f"  {names[i]}  " + "  ".join(f"{q[i, j]:8.4f}" for j in range(S))
-          for i in range(S)]
+    if not codon:  # a codon Q (61 x 61) is too wide to print
+        L += ["", "Rate matrix Q:", ""]
+        q = subst.rate_matrix()
+        L += [f"  {names[i]}  " + "  ".join(f"{q[i, j]:8.4f}" for j in range(S))
+              for i in range(S)]
     L += ["", "RATE HETEROGENEITY", "------------------"]
     if rate.has_gamma:
         L.append(f"Model of rate heterogeneity: "

@@ -1,19 +1,23 @@
-"""Model-string parsing for the DNA and protein models the port serves.
+"""Model-string parsing for the DNA, protein and codon models the port serves.
 
 Parses IQ-TREE-style model strings like "GTR+G4+I", "HKY+F{.3,.2,.2,.3}",
 "GTR{1.5,2,0.8,1.2,3}+G{0.5}" or "LG+F+I+G" into a (ReversibleModel,
 RateModel) pair.  The protein names are the empirical matrices of
 models/protein.py, with their published frequencies unless a +F suffix
-says otherwise.
+says otherwise.  The codon names (models/codon.py) are GY (the default,
+counted codon frequencies), MG (F3X4 product frequencies) and the
+empirical KOSI07/ECM, ECMREST and SCHN05, with their own frequencies.
 
 Supported suffixes:
   +F    empirical (counted) frequencies
   +FO   ML-optimized frequencies
   +FQ   equal frequencies
   +F{a,b,...} user frequencies
+  +F1X4, +F3X4  codon frequencies from the pooled / per-position
+                nucleotide frequencies
   +I[{p}]       invariable sites
   +G[n][{a}]    discrete Gamma (default n=4)
-Model parameters may be pinned inline: GTR{1.5,2.0,...}.  Other families
+Model parameters may be pinned inline: GTR{1.5,2.0,...}, GY{kappa,omega}.  Other families
 and suffixes raise NotImplementedError naming the slice that ports them.
 """
 
@@ -24,7 +28,9 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from ..io.alignment import SEQ_DNA, SEQ_PROTEIN, Alignment
+from ..io.alignment import SEQ_CODON, SEQ_DNA, SEQ_PROTEIN, Alignment
+from .codon import (EMPIRICAL_CODON, CodonModel, empirical_codon_model,
+                    product_codon_freqs)
 from .dna import create_dna_model
 from .protein import create_protein_model
 from .rates import RateModel
@@ -68,11 +74,12 @@ def _not_ported(what: str, slice_name: str):
     raise NotImplementedError(f"{what} is not ported yet ({slice_name})")
 
 
-DEFAULT_MODELS = {SEQ_DNA: "HKY+G", SEQ_PROTEIN: "LG+G"}
+DEFAULT_MODELS = {SEQ_DNA: "HKY+G", SEQ_PROTEIN: "LG+G", SEQ_CODON: "GY+G"}
 
 
 def default_model(aln: Alignment) -> str:
-    """The model when -m is omitted: HKY+G for DNA, LG+G for protein."""
+    """The model when -m is omitted: HKY+G for DNA, LG+G for protein, GY+G
+    for codons."""
     return DEFAULT_MODELS[aln.states.seq_type]
 
 
@@ -89,16 +96,25 @@ def parse_model_string(model_str: str, aln: Alignment):
         subst = create_protein_model(bname)
         if bparams is not None:
             raise ModelParseError(f"{bname} takes no rate parameters")
+    elif aln.states.seq_type == SEQ_CODON:
+        subst = _codon_model(bname, aln)
+        if bparams is not None:  # GY{kappa,omega}: both pinned
+            if not isinstance(subst, CodonModel):
+                raise ModelParseError(f"{bname} takes no parameters")
+            if len(bparams) != 2:
+                raise ModelParseError(f"{bname} takes two parameters, {{kappa,omega}}")
+            subst.kappa, subst.omega = bparams
+            subst.fix_kappa = subst.fix_omega = True
     else:
         subst = create_dna_model(bname)
-    if bparams is not None:
-        ngroups = int(subst.rate_groups.max()) + 1
-        if len(bparams) != ngroups - 1:
-            raise ModelParseError(
-                f"{bname} expects {ngroups - 1} rate parameters, got "
-                f"{len(bparams)}")
-        subst.set_rate_param_vector(np.asarray(bparams))
-        subst.fixed_rates = True
+        if bparams is not None:
+            ngroups = int(subst.rate_groups.max()) + 1
+            if len(bparams) != ngroups - 1:
+                raise ModelParseError(
+                    f"{bname} expects {ngroups - 1} rate parameters, got "
+                    f"{len(bparams)}")
+            subst.set_rate_param_vector(np.asarray(bparams))
+            subst.fixed_rates = True
 
     gamma_cats = 0
     invar = False
@@ -127,6 +143,14 @@ def parse_model_string(model_str: str, aln: Alignment):
             else:
                 subst.freq_type = FREQ_USER
             freq_set = True
+        elif up in ("F1X4", "F3X4"):
+            if aln.states.seq_type != SEQ_CODON:
+                raise ModelParseError(f"+{up} needs codon data")
+            nt = aln.codon_nt_frequencies(by_position=up == "F3X4")
+            subst.nt_freq = nt
+            subst.state_freq = product_codon_freqs(nt, aln.states.genetic_code)
+            subst.freq_type = FREQ_USER
+            freq_set = True
         elif up == "I":
             invar = True
             if vals:
@@ -149,7 +173,29 @@ def parse_model_string(model_str: str, aln: Alignment):
         subst.freq_type = FREQ_EMPIRICAL
     if subst.freq_type in (FREQ_EMPIRICAL, FREQ_ESTIMATE):
         subst.state_freq = aln.state_frequencies()
+    if isinstance(subst, CodonModel):  # MG's factors follow the frequencies
+        subst.refresh_exchange()
     rate = RateModel.make(gamma_cats=gamma_cats, invar=invar, alpha=alpha,
                           p_invar=p_invar, fix_alpha=fix_alpha,
                           fix_p_invar=fix_pinv)
     return subst, rate
+
+
+def _codon_model(name: str, aln: Alignment):
+    """GY (counted codon frequencies), MG (F3X4 products) or an empirical
+    codon matrix, under the alignment's genetic code."""
+    upper = name.upper()
+    code = aln.states.genetic_code
+    if upper in EMPIRICAL_CODON:
+        return empirical_codon_model(upper, code)
+    ns = aln.num_states
+    if upper in ("GY", "GY94", ""):
+        m = CodonModel("GY", ns, code_id=code, freq_type=FREQ_EMPIRICAL)
+    elif upper in ("MG", "MG94"):
+        m = CodonModel("MG", ns, code_id=code, mg=True, freq_type=FREQ_USER)
+    else:
+        raise ModelParseError(f"unknown codon model {name!r}")
+    m.nt_freq = aln.codon_nt_frequencies(by_position=True)
+    if m.mg:
+        m.state_freq = product_codon_freqs(m.nt_freq, code)
+    return m

@@ -8,6 +8,7 @@ batched Newton sweeps in between.
 
 Unconstrained parameterization:
   exchangeabilities  r_g = exp(x)
+  codon kappa, omega kappa = exp(x), omega = exp(y)
   frequencies        pi = softmax(x) floored at MIN_FREQ (+FO only)
   gamma shape        alpha = MIN + (MAX-MIN) * sigmoid(x)
   p_invar            p = sigmoid(x) * max_pinv
@@ -26,6 +27,7 @@ from ..engine.grad import loglik
 from ..engine.likelihood import ModelArrays, SiteData, TreeArrays
 from ..utils.gamma_torch import discrete_gamma_rates
 from ..utils.lbfgs import lbfgs_minimize, zero_lbfgs_state
+from .codon import CodonModel
 from .eigen import eigen_reversible
 from .rates import MAX_GAMMA_SHAPE, MIN_GAMMA_SHAPE, RateModel
 from .subst import FREQ_ESTIMATE, ReversibleModel, pair_index
@@ -52,6 +54,16 @@ class ModelOptimizer:
         self.max_pinv = 0.999
         self.opt_freq = s.freq_type == FREQ_ESTIMATE
         self.opt_rates = s.n_rate_params > 0
+        self.is_codon = isinstance(s, CodonModel)
+        self.opt_kappa = self.is_codon and not s.fix_kappa
+        self.opt_omega = self.is_codon and not s.fix_omega
+        if self.is_codon:
+            # the fixed single-step structure; MG's factors are fixed by
+            # the frequencies, which the fit does not move (+F3X4/+F1X4)
+            self._ts = self._t(s.ts)
+            self._nonsyn = self._t(s.nonsyn)
+            fac = s.mg_factor() if s.mg and s.nt_freq is not None else 1.0
+            self._base = self._t(np.where(s.step, 1.0, 0.0) * fac)
         if s.rate_groups is not None:
             pairs = torch.tensor(pair_index(s.num_states), device=self.device)
             self._pairs = (pairs[:, 0], pairs[:, 1])
@@ -63,6 +75,10 @@ class ModelOptimizer:
 
     def init_params(self) -> Dict[str, torch.Tensor]:
         p: Dict[str, torch.Tensor] = {}
+        if self.opt_kappa:
+            p["log_kappa"] = self._t(np.log(self.subst.kappa))
+        if self.opt_omega:
+            p["log_omega"] = self._t(np.log(self.subst.omega))
         if self.opt_rates:
             p["log_rates"] = self._t(np.log(np.maximum(self.subst.group_rates[1:], 1e-4)))
         if self.opt_freq:
@@ -98,7 +114,13 @@ class ModelOptimizer:
 
     def _exchange_matrix(self, params) -> torch.Tensor:
         """[S, S] symmetric exchangeabilities: fixed (an empirical matrix,
-        or rates pinned in the model string) or from the free rates."""
+        or rates pinned in the model string), from the free rates, or a
+        codon model's from kappa and omega over its fixed masks."""
+        if self.is_codon:
+            s = self.subst
+            lk = params["log_kappa"] if self.opt_kappa else self._t(np.log(s.kappa))
+            lo = params["log_omega"] if self.opt_omega else self._t(np.log(s.omega))
+            return self._base * torch.exp(lk * self._ts + lo * self._nonsyn)
         if not self.opt_rates:
             return self._t(self.subst.sym_rates())
         S = self.subst.num_states
@@ -133,6 +155,12 @@ class ModelOptimizer:
         """Write the fitted values back into the host model objects."""
         s, r = self.subst, self.rate
         with torch.no_grad():
+            if self.opt_kappa:
+                s.kappa = float(torch.exp(params["log_kappa"]))
+            if self.opt_omega:
+                s.omega = float(torch.exp(params["log_omega"]))
+            if self.is_codon:
+                s.refresh_exchange()
             if self.opt_rates:
                 s.set_rate_param_vector(np.exp(params["log_rates"].cpu().numpy()))
             if self.opt_freq:

@@ -7,8 +7,10 @@ PyTorch and the CUDA toolkit:
 
 Without a CUDA device they skip.  Inputs: a random 40-taxon DNA alignment
 (700 sites, a numpy seed), GTR+G4+I, and for the wide kernels a random
-30-taxon protein alignment (300 sites), LG+G4+I.  Tolerances are float32
-ones: the kernels and the twins sum in different orders.  Five tests hold
+30-taxon protein alignment (300 sites), LG+G4+I, and for the codon
+instances (S=64) a random 24-taxon codon alignment (101 codons) under
+genetic codes 1, 2 and 6, GY+F3X4+I+G.  Tolerances are float32 ones: the
+kernels and the twins sum in different orders.  Five tests hold
 kernels' bits against their earlier designs, built from the csrc/ directory
 that IQT_EARLIER_CSRC names; they skip without it.
 """
@@ -883,3 +885,126 @@ def test_wide_down_store_clusters_match_twin(C, tile):
     assert float((osc[rows] - osc_p[rows]).abs().max()
                  / osc_p[rows].abs().max()) <= 1e-4
     assert not bool(out[R - 2:].any()) and not bool(osc[R - 2:].any())
+
+
+def _codon_case(C, code, seed, n=24, codons=101):
+    """A random codon alignment under genetic code `code` (60 to 63 sense
+    codons, a share of the triplets gaps) at an odd pattern count, a
+    random tree and GY+F3X4+I+G(C) at kappa 2, omega 0.3, on the card."""
+    from iqtree_torch.models.codon import NT_ORDER, sense_codons
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    sc = sense_codons(code)
+    words = [NT_ORDER[c // 16] + NT_ORDER[(c // 4) % 4] + NT_ORDER[c % 4] for c in sc]
+    seqs = ["".join("---" if rng.random() < 0.05 else words[rng.integers(len(words))]
+                    for _ in range(codons)) for _ in range(n)]
+    aln = Alignment.from_sequences([f"t{i}" for i in range(n)], seqs, "CODON", code)
+    assert aln.n_patterns % 2 == 1 and aln.num_states == len(sc)
+    subst, rate = parse_model_string("GY+F3X4+I" + (f"+G{C}" if C > 1 else ""), aln)
+    subst.kappa, subst.omega = 2.0, 0.3
+    subst.refresh_exchange()
+    rate.p_invar = 0.1
+    tree = random_tree(n, rng)
+    ta = TreeArrays.from_tree(tree, dev)
+    model = ModelArrays.from_model(subst, rate, dev)
+    site = SiteData.from_alignment(aln, dev, torch.float32)
+    steps, n_slots = pruning.device_slot_schedule(tree, ta)
+    return dict(ta=ta, model=model, site=site, steps=torch.as_tensor(steps, device=dev),
+                n_slots=n_slots,
+                trans=branch_transition_mats(model, ta.blen).float().contiguous(),
+                tips=tip_partials(site).contiguous(), freq=model.state_freq.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code", [1, 2, 6])
+@pytest.mark.parametrize("C", [1, 3, 4, 8])
+def test_codon_instances_match_twins(C, code):
+    """The S=64 instances of the four wide kernels, a codon space of 61
+    (code 1), 60 (code 2) or 63 (code 6) states zero-padded on the way in
+    and sliced on the way out, against their twins: forward 1e-3 absolute,
+    the store and the outside-partial store 1e-4 (partials absolutely,
+    scales relative to the largest), the gradient sweep 1e-4 relative to
+    its largest entry with its root and dummy rows 0; each two launches
+    bit-equal, each launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    k = _codon_case(C, code, 200 + 10 * code + C)
+    steps, n_slots, trans, tips, freq = (k[x] for x in ("steps", "n_slots", "trans", "tips",
+                                                         "freq"))
+    model, site = k["model"], k["site"]
+    N, R, S = k["ta"].n_taxa, 2 * k["ta"].n_taxa, trans.shape[2]
+    inner = slice(N, 2 * N - 1)
+    props, invar = model.props.float(), ptn_invar(model, site).float().contiguous()
+    wrappers = (pruning.wide_site_lnl, pruning.fused_upward_store,
+                cs_kernels.fused_down_store, cs_kernels.fused_downward_tbar)
+    before = [w.launches for w in wrappers]
+
+    f_args = (steps, n_slots, trans, tips, props, freq, invar)
+    lnl = pruning.wide_site_lnl(*f_args)
+    assert torch.equal(lnl, pruning.wide_site_lnl(*f_args))
+    assert float((lnl - pruning._site_lnl_plain(steps, trans, tips, props, freq,
+                                                invar)).abs().max()) <= 1e-3
+
+    up, usc = pruning.fused_upward_store(steps, n_slots, trans, tips)
+    up2, usc2 = pruning.fused_upward_store(steps, n_slots, trans, tips)
+    assert up.shape == (R, C * S, tips.shape[2])
+    assert torch.equal(up[inner], up2[inner]) and torch.equal(usc, usc2)
+    up_p, usc_p = pruning.upward_plain(steps, trans, tips)
+    assert float((up[inner] - up_p[inner]).abs().max()) <= 1e-4
+    assert float((usc[inner] - usc_p[inner]).abs().max() / usc_p[inner].abs().max()) <= 1e-4
+
+    cs_kernels.fill_tip_rows_cs(up, usc, tips, C)
+    d_args = (steps, n_slots, trans, up, usc, freq)
+    out, osc = cs_kernels.fused_down_store(*d_args)
+    out2, osc2 = cs_kernels.fused_down_store(*d_args)
+    assert torch.equal(out, out2) and torch.equal(osc, osc2)
+    out_p, osc_p = cs_kernels._down_store_plain(steps, trans, up, usc, freq)
+    rows = [v for v in range(R - 1) if v != k["ta"].root]
+    assert float((out[rows] - out_p[rows]).abs().max()) <= 1e-4
+    assert float((osc[rows] - osc_p[rows]).abs().max() / osc_p[rows].abs().max()) <= 1e-4
+
+    wp = site.pattern_freq.contiguous()
+    t_args = (steps, n_slots, trans, tips, props, freq, lnl, wp)
+    tb = cs_kernels.fused_downward_tbar(*t_args, up=up, usc=usc)
+    assert torch.equal(tb, cs_kernels.fused_downward_tbar(*t_args, up=up, usc=usc))
+    want = cs_kernels._tbar_plain(steps, trans, props, freq, lnl, wp, up, usc)
+    assert tb.shape == (R, C, S, S) and not bool(tb[R - 2:].any())
+    assert float((tb[:R - 2] - want[:R - 2]).abs().max() / want[:R - 2].abs().max()) <= 1e-4
+    assert [w.launches for w in wrappers] == [b + 2 for b in before]
+
+
+@pytest.mark.cuda
+def test_codon_fit_on_card(tmp_path):
+    """`-st CODON -te ... -m GY+F3X4+G` through the CLI on the card: the four
+    wide kernels launch at S=64, the branch-Newton kernels do not (the
+    theta path), and the fit reaches the reference binary's GY+F3X4
+    optimum's neighbourhood with +G4 on top."""
+    import os
+    import re
+
+    from iqtree_torch.cli import main as cli_main
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    data = os.path.join(os.path.dirname(__file__), "data")
+    wrappers = {"wide_forward": pruning.wide_site_lnl,
+                "wide_store": pruning.fused_upward_store,
+                "wide_tbar": cs_kernels.fused_downward_tbar,
+                "wide_down_store": cs_kernels.fused_down_store,
+                "wide_newton": cs_kernels.wide_newton_sweep,
+                "newton": cs_kernels.newton_sweep}
+    for w in wrappers.values():
+        w.launches = 0
+    prefix = str(tmp_path / "gy")
+    assert cli_main(["-s", os.path.join(data, "example_codon.phy"), "-st", "CODON", "-te",
+                     os.path.join(data, "ssf_golden.treefile"), "-m", "GY+F3X4+G",
+                     "-pre", prefix]) == 0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    assert all(launches[k] > 0 for k in list(wrappers)[:4]), launches
+    assert launches["wide_newton"] == launches["newton"] == 0
+    with open(prefix + ".log") as f:
+        log = f.read()
+    assert "S=61 (padded 64)" in log and "theta path" in log
+    lnl = float(re.search(r"Optimal log-likelihood: (\S+)", log).group(1))
+    assert lnl >= -11142.814 - 0.2  # +G4 only adds to the binary's GY+F3X4 optimum

@@ -7,7 +7,7 @@ Phases (any failure exits non-zero; nothing is caught):
   1. the card's name and power limit, torch and CUDA versions;
   2. build the CUDA kernels from iqtree_torch/engine/kernels/csrc, one nvcc
      per source, all at once (the twelve ported TPU kernels and the
-     stepwise-addition parsimony scorer);
+     stepwise-addition parsimony scorer, its 4-, 32- and 64-bit lanes);
   3. at the main path's shapes (bench_data.npz: 1000 taxa x 10k sites,
      GTR+G4) run each kernel and its plain PyTorch twin on the card,
      hold them together, time both (the six redesigned kernels -- forward,
@@ -81,12 +81,28 @@ Phases (any failure exits non-zero; nothing is caught):
      branch-Newton kernels must not launch: codon branch lengths take the
      theta path), the lnL above the reference binary's, the written tree
      and model re-evaluated in float64;
- 17. the codon fit again under torch.profiler.
+ 17. the codon fit again under torch.profiler;
+ 18. the parsimony scorer's 64-bit instance (a codon state set in one
+     64-bit lane) against its twin on the card, exactly: every insertion
+     of one stepwise order on bench_data_codon.npz, the stepwise tree of
+     seed 1, and the last insertion of a full tree timed (50 launches each
+     alone, kernel and wrapper) there and at 1 000 taxa x 2 000 random
+     sense codons (seed 181), with its registers and spills (ptxas);
+ 19. the codon search with ultrafast bootstrap through the CLI entry
+     point: `-st CODON -m GY+F3X4+G -n 2 -ninit 4 -ntop 2 -seed 1 -bb 1000
+     -wbt` on bench_data_codon.npz, with the launch counts of the four
+     wide codon instances, the 64-bit parsimony scorer and every other
+     kernel read around it (wide_newton and the CS-packed kernels must
+     not launch), its score re-evaluated in float64, its bootstrap
+     outputs checked, its peak device memory, the NNI evaluator's working
+     memory at S=61 against decide_engine's model; then the search again
+     under torch.profiler.
 Prints the kernels' JSON line (the DNA kernels' launches from the DNA
 search, the wide kernels' and the 32-bit parsimony scorer's from the
 protein search, the multi-tree and ablation kernels' from phases 13 and
-14, which no CLI path reaches, the codon instances' from phase 16), then
-as its last line {"ok": true, "device": {...}}.
+14, which no CLI path reaches, the codon instances' and the 64-bit
+parsimony scorer's from the codon search of phase 19), then as its last
+line {"ok": true, "device": {...}}.
 """
 
 import json
@@ -111,6 +127,9 @@ PROTEIN_SEARCH_FLAGS = ["-m", "LG+G", "-n", "2", "-ninit", "4", "-ntop", "2", "-
 JAX_PROTEIN_SEARCH_LNL = -237901.3  # the JAX package's search without -bb, float32,
 #                                     on a TPU (README.md)
 REF_CODON_LNL = -14816.964  # the binary's -te GY+F3X4+G fit (bench_baseline.json)
+PORT_CODON_TE_LNL = -14816.79  # the port's -te GY+F3X4+G fit of the true tree (PERF.md)
+CODON_SEARCH_FLAGS = ["-st", "CODON", "-m", "GY+F3X4+G", "-n", "2", "-ninit", "4", "-ntop",
+                      "2", "-seed", "1", "-bb", "1000", "-wbt"]
 PEAK_F32 = 67e12  # H100 SXM float32 outside the tensor cores, FLOP/s
 PEAK_BF16 = 989e12  # H100 SXM bfloat16 on the tensor cores (float32 sums), FLOP/s
 PEAK_BW = 3.35e12  # H100 SXM HBM3, bytes/s
@@ -283,6 +302,18 @@ def partial_adj(tree, N):
     return leaf, adj
 
 
+def insert_taxon(pars, adj, first, v_old, t, nxt):
+    """Attach taxon t on the edge above adjacency node v_old (new node nxt),
+    as parsimony_stepwise_tree does."""
+    p_old = pars._adj_parent(adj, first, v_old)
+    adj[v_old].remove(p_old)
+    adj[p_old].remove(v_old)
+    adj[v_old].append(nxt)
+    adj[p_old].append(nxt)
+    adj[nxt] = [v_old, p_old, t]
+    adj[t] = [nxt]
+
+
 def pars_launch(pars, layout, present, words, leaf, scratch):
     """(the C entry's arguments for one insertion as insertion_costs makes
     them, walk rows): for timing the kernel without its wrapper's host
@@ -295,15 +326,16 @@ def pars_launch(pars, layout, present, words, leaf, scratch):
     cost = torch.zeros(2 * N, dtype=torch.float64, device=words.device)
     return (("pars_insert", torch.as_tensor(rows, device=words.device), n_post,
              len(rows) - n_post, words, N, leaf, wts, n_words, miss, cost,
-             wts.numel() // n_words), len(rows))
+             pars.lane_bits(words, wts)), len(rows))
 
 
-def pars_work(N, n_words, lanes, n_rows):
-    """(bytes, operations) of one insertion: the packed tips, the weights
-    and the walk rows read once, the costs written once; ~14 integer
-    operations a word and row (SWAR Fitch and the miss bits), counted at
-    the float32 rate (the card's table has no int32 rate)."""
-    return (4 * N * n_words + 4 * n_words * lanes + 16 * n_rows + 16 * N,
+def pars_work(N, n_words, lanes, n_rows, word_bytes=4):
+    """(bytes, operations) of one insertion: the packed tips (`word_bytes`
+    a word), the weights and the walk rows read once, the costs written
+    once; ~14 integer operations a word and row (SWAR Fitch and the miss
+    bits), counted at the float32 rate (the card's table has no int32
+    rate)."""
+    return (word_bytes * N * n_words + 4 * n_words * lanes + 16 * n_rows + 16 * N,
             14 * n_rows * n_words)
 
 
@@ -884,6 +916,7 @@ def main():
     protein_search_phases(dev, card, record, results, cli_main)
     multi_tree_phases(dev, card, record, results)
     codon_phases(dev, card, record, results, cli_main, bdir)
+    codon_search_phases(dev, card, record, results, cli_main, bdir, sm_mhz)
 
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
@@ -1766,6 +1799,212 @@ def codon_phases(dev, card, record, results, cli_main, bdir):
                 *write_inputs(tmp, names, seqs, tree_nwk, model="GY+F3X4+G")[0]]
         profile_run(lambda: check(cli_main(args) == 0, "profiled CLI run"), wall,
                     "codon fit")
+
+
+def codon_search_phases(dev, card, record, results, cli_main, bdir, sm_mhz):
+    """Phases 18-19: the parsimony kernel's 64-bit instance against its
+    twin at the codon shapes, and the codon search with ultrafast
+    bootstrap through the CLI, plain and profiled."""
+    import numpy as np
+    import torch
+    from iqtree_torch.engine import parsimony as pars
+    from iqtree_torch.engine.banner import NNI_LIVE_TENSORS, decide_engine
+    from iqtree_torch.engine.kernels import build
+    from iqtree_torch.engine.kernels import cs_kernels as csk
+    from iqtree_torch.engine.kernels import pruning as pk
+    from iqtree_torch.engine.kernels.probe import ptxas_lines
+    from iqtree_torch.engine.likelihood import ModelArrays, SiteData, TreeArrays
+    from iqtree_torch.engine.nni import evaluate_nnis, nni_passes
+    from iqtree_torch.io.alignment import Alignment
+    from iqtree_torch.models.codon import NT_ORDER, sense_codons
+    from iqtree_torch.models.factory import parse_model_string
+    from iqtree_torch.trees.tree import PhyloTree, random_tree
+
+    phase("18. the parsimony kernel's 64-bit instance against its twin (codon: 80 "
+          "taxa x 457 patterns; 1 000 taxa x 2 000 codons)")
+    regs = ptxas_lines((bdir / "pars_insert.log").read_text(), "ILi64E")
+    print(f"  pars_insert 64-bit instance (ptxas; walk, then sums): {'; '.join(regs)}")
+    check(bool(regs), "ptxas reports the 64-bit parsimony instance")
+    names, seqs, tree_nwk = load_bench("bench_data_codon.npz")
+    aln = Alignment.from_sequences(names, seqs, "CODON")
+    true_tree = PhyloTree.from_newick(tree_nwk, aln.names)
+    N, P, S = aln.n_taxa, aln.n_patterns, aln.num_states
+    masks = torch.as_tensor(pars.pack_tip_masks(aln), device=dev)
+    pfreq = torch.as_tensor(aln.pattern_freq, dtype=torch.float64, device=dev)
+    words = pars.kernel_tip_words(masks, S)
+    scratch = pars.kernel_scratch(words, pfreq, S)
+    check(words.dtype == torch.int64 and pars.lane_bits(words, scratch[1]) == 64,
+          "61 states take the 64-bit instance")
+    # every insertion of one stepwise order, the kernel's costs against the
+    # twin's (on the card), exactly
+    order = [int(t) for t in np.random.default_rng(18).permutation(N)]
+    adj = {order[0]: [N], order[1]: [N], order[2]: [N], N: order[:3]}
+    for nxt, t in enumerate(order[3:], N + 1):
+        layout = pars._partial_layout(adj, order[0], N)
+        present = [v for v in adj if v < N]
+        got = pars.insertion_costs(masks, words, pfreq, t, layout, present, scratch)
+        want = pars._edge_costs(
+            pars._insertion_costs_plain(masks, pfreq, t, layout, present), layout)
+        check(np.array_equal(got, want),
+              f"64-bit parsimony: the twin's costs at insertion {nxt - N}")
+        insert_taxon(pars, adj, order[0], layout[0][int(np.argmin(want))], t, nxt)
+    t_k = pars.parsimony_stepwise_tree(aln, np.random.default_rng(1), dev)
+    t_p = pars.parsimony_stepwise_tree(aln, np.random.default_rng(1), torch.device("cpu"))
+    check(np.array_equal(t_k.children, t_p.children) and np.array_equal(t_k.blen, t_p.blen),
+          "the card's stepwise tree is the twin's")
+    print(f"pars_insert_s61: all {N - 3} insertions of a stepwise order give the twin's "
+          f"costs exactly; the stepwise tree of seed 1 equals the twin's")
+
+    def timed(aln_x, tree_x, what):
+        """The last insertion of a full tree: kernel against twin (exact),
+        50 launches each timed alone, kernel and wrapper; (err, kernel ms,
+        plain ms, work, n_rows)."""
+        Nx = aln_x.n_taxa
+        m = torch.as_tensor(pars.pack_tip_masks(aln_x), device=dev)
+        f = torch.as_tensor(aln_x.pattern_freq, dtype=torch.float64, device=dev)
+        w = pars.kernel_tip_words(m, aln_x.num_states)
+        sc = pars.kernel_scratch(w, f, aln_x.num_states)
+        leaf, present, layout = partial_tree(tree_x, Nx)
+        cost_k = pars.insertion_costs(m, w, f, leaf, layout, present, sc)
+        cost_p = pars._edge_costs(pars._insertion_costs_plain(m, f, leaf, layout, present),
+                                  layout)
+        fin = np.isfinite(cost_p)
+        check(np.array_equal(np.isfinite(cost_k), fin), f"{what}: the same edges")
+        err = float(np.abs(cost_k[fin] - cost_p[fin]).max())
+        check(err == 0.0, f"{what}: the twin's costs exactly")
+        launch_args, n_rows = pars_launch(pars, layout, present, w, leaf, sc)
+        each = cuda_ms_each(lambda: build.launch(*launch_args), 50)
+        wrap = cuda_ms_each(lambda: pars.insertion_costs(m, w, f, leaf, layout, present,
+                                                         sc), 50)
+        plain = cuda_ms(lambda: pars._insertion_costs_plain(m, f, leaf, layout, present), 3)
+        work = pars_work(Nx, w.shape[1], 1, n_rows, word_bytes=8)
+        bms, by = bound(*work)
+        floor_ms = n_rows * SMEM_ROUND_TRIP / (sm_mhz * 1e3)
+        print(f"{what} ({Nx} taxa, {w.shape[1]} 64-bit words, {n_rows} walk rows): exact; "
+              f"kernel {spread(each)}; through insertion_costs {spread(wrap)}; plain twin "
+              f"{plain:.3f} ms; bound {bms:.4f} ms ({by}), chain floor {floor_ms:.4f} ms "
+              f"({n_rows} rows x {SMEM_ROUND_TRIP} cycles at {sm_mhz:.0f} MHz)")
+        return err, float(np.mean(each)), plain, work, n_rows
+
+    err, ms, plain, work, _ = timed(aln, true_tree, "pars_insert_s61 at the codon bench")
+    record("pars_insert_s61", "iqtree_torch/engine/kernels/csrc/pars_insert.cu",
+           "iqtree_tpu/engine/parsimony.py:168 (plain XLA, no Pallas kernel)", err, 0.0,
+           ms, plain, *work)
+    # a deep codon shape: 1 000 taxa x 2 000 random sense codons (seed 181),
+    # a walk as long as the DNA bench's
+    crng = np.random.default_rng(181)
+    cw = np.array([NT_ORDER[c // 16] + NT_ORDER[(c // 4) % 4] + NT_ORDER[c % 4]
+                   for c in sense_codons(1)])
+    deep = Alignment.from_sequences(
+        [f"t{i}" for i in range(1000)],
+        ["".join(cw[crng.integers(len(cw), size=2000)]) for _ in range(1000)], "CODON")
+    timed(deep, random_tree(1000, crng), "pars_insert_s61 at 1000 x 2000 codons")
+    del masks, words, scratch, deep
+    torch.cuda.empty_cache()
+
+    phase("19. the codon search with ultrafast bootstrap through the CLI on cuda")
+    codon_kernels = ("wide_forward", "wide_store", "wide_tbar", "wide_down_store")
+    counters = {"wide_forward": pk.wide_site_lnl, "wide_store": pk.fused_upward_store,
+                "wide_tbar": csk.fused_downward_tbar,
+                "wide_down_store": csk.fused_down_store,
+                "pars_insert_s61": pars.insertion_costs,
+                "wide_newton": csk.wide_newton_sweep, "forward": pk.fused_site_lnl,
+                "store": csk.fused_upward_store_cs, "tbar": csk.fused_tbar_cs,
+                "newton": csk.newton_sweep, "down_store": csk.fused_down_store_cs}
+    with tempfile.TemporaryDirectory() as tmp:
+        args, prefix = write_inputs(tmp, names, seqs, tree_nwk, search=CODON_SEARCH_FLAGS)
+        print("iqtree-torch " + " ".join(CODON_SEARCH_FLAGS))
+        torch.cuda.reset_peak_memory_stats()
+        wall, launches, log, nwk = run_cli(cli_main, args, counters)
+        peak = torch.cuda.max_memory_allocated()
+        with open(prefix + ".ufboot") as f:
+            boot = f.read().splitlines()
+        sizes = {ext: os.path.getsize(prefix + ext) for ext in (".contree", ".splits.nex")}
+        with open(prefix + ".contree") as f:
+            contree = PhyloTree.from_newick(f.read(), aln.names)
+    for line in log:
+        if line.startswith(("Likelihood engine", "Branch optimization", "Tree search",
+                            "Parsimony start trees", "Memory")):
+            print(line)
+    best = float(logged(log, "BEST SCORE FOUND :"))
+    model_str = logged(log, "Best-fit model parameters:")
+    lnl64, _, _ = reevaluate(nwk, model_str, aln, dev)
+    out_tree = PhyloTree.from_newick(nwk, aln.names)
+    supports = [int(x) for x in re.findall(r"\)(\d+):", nwk)]
+    print(f"codon search: {wall:.2f} s wall on {card}; BEST SCORE FOUND {best:.4f}; "
+          f"float64 re-evaluation of the written tree and model {lnl64:.4f}; the port's "
+          f"-te fit of the true tree {PORT_CODON_TE_LNL} (gap {best - PORT_CODON_TE_LNL:+.4f}),"
+          f" the binary's {REF_CODON_LNL}")
+    print(f"RF distance of the best tree to the true tree: "
+          f"{out_tree.robinson_foulds(true_tree)} (of {2 * (N - 3)}); consensus to the "
+          f"true tree: {contree.robinson_foulds(true_tree)}")
+    print(f"UFBoot: {len(boot)} sample trees, {len(supports)} supports on the treefile "
+          f"(min {min(supports)}, median {int(np.median(supports))}); files {sizes}; "
+          f"summaries and outputs {logged(log, 'UFBoot summaries and outputs:')}")
+    for line in log[[i for i, l in enumerate(log) if l.startswith("search profile")][-1]:]:
+        if not line.startswith(("search profile", " ")):
+            break
+        print(line)
+    print(f"codon search launches: {launches}")
+    k_ms = (sum(results[f"{k}_codon"]["ms"] * launches[k] for k in codon_kernels)
+            + results["pars_insert_s61"]["ms"] * launches["pars_insert_s61"])
+    print(f"kernel time of the codon search, estimated as launches x phase-15/18 kernel "
+          f"ms: {k_ms / 1e3:.3f} s of {wall:.2f} s wall; peak device memory "
+          f"{peak / 2**20:.0f} MB (torch.cuda.max_memory_allocated)")
+    check(abs(lnl64 - best) < 1.0, "codon search lnL vs its float64 re-evaluation")
+    check(best >= PORT_CODON_TE_LNL - 1.0,
+          "codon search at or above the port's -te fit of the true tree less 1")
+    check(bool(np.all(np.isfinite(out_tree.blen))) and out_tree.n_taxa == N,
+          "a written 80-taxon tree with finite lengths")
+    check(len(boot) == 1000 and all(l.strip().endswith(";") for l in boot),
+          "every one of the 1000 UFBoot samples holds a tree")
+    check(len(supports) == N - 3 and all(0 <= x <= 100 for x in supports),
+          "the treefile carries N-3 supports in 0-100")
+    check(all(v > 0 for v in sizes.values()), ".contree and .splits.nex written")
+    for k in codon_kernels:
+        check(launches[k] > 0, f"kernel {k} launched at S=64 on the codon search")
+        results[f"{k}_codon"]["launches"] = launches[k]
+    check(launches["pars_insert_s61"] > 0, "the 64-bit parsimony instance launched")
+    results["pars_insert_s61"]["launches"] = launches["pars_insert_s61"]
+    for k in ("wide_newton", "forward", "store", "tbar", "newton", "down_store"):
+        check(launches[k] == 0, f"kernel {k} stays off the codon search (theta path, S=64)")
+
+    # the NNI evaluator's working memory at S=61 against decide_engine's
+    # model of it: the bytes above the two passes over the chunk's
+    # candidates, in [C, S, P] float32 tensors a candidate
+    s_fit, r_fit = parse_model_string(model_str, aln)
+    model = ModelArrays.from_model(s_fit, r_fit, dev)
+    site = SiteData.from_alignment(aln, dev, torch.float32)
+    ta = TreeArrays.from_tree(out_tree, dev)
+    steps_np, n_slots = pk.device_slot_schedule(out_tree, ta)
+    steps = torch.as_tensor(steps_np, device=dev)
+    C = r_fit.ncat
+    chunk = decide_engine(N, C, S, P, dev, torch.float32, search=True).nni_chunk
+    edges = ta.h2d.cpu().numpy()[out_tree.internal_edges()]
+    with torch.no_grad():
+        passes = nni_passes(ta, model, site, steps, n_slots)
+        evaluate_nnis(ta, model, site, edges, steps, n_slots, edge_chunk=chunk,
+                      paired=True, passes=passes)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        evaluate_nnis(ta, model, site, edges, steps, n_slots, edge_chunk=chunk,
+                      paired=True, passes=passes)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+    cands = 3 * min(chunk, len(edges))
+    live = extra / (cands * C * S * P * 4)
+    print(f"NNI evaluator at S=61 ({chunk} edges a chunk, {len(edges)} edges): "
+          f"{extra / 2**20:.1f} MB above the passes for {cands} candidates = {live:.2f} "
+          f"[C,S,P] float32 tensors a candidate (decide_engine counts "
+          f"{NNI_LIVE_TENSORS})")
+    check(live <= NNI_LIVE_TENSORS, "the NNI evaluator within decide_engine's memory model")
+    del passes, model, site, ta
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        args = write_inputs(tmp, names, seqs, tree_nwk, search=CODON_SEARCH_FLAGS)[0]
+        profile_run(lambda: check(cli_main(args) == 0, "profiled CLI run"), wall,
+                    "codon search")
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
 """Command-line entry: the default tree search, with the ultrafast
 bootstrap under -bb, or the fixed-topology (-te) model and branch fit;
-DNA and protein, and codons (-st CODON[n]) in the fixed-topology fit.
+DNA, protein and codons (-st CODON[n]).
 
-    python -m iqtree_torch -s ALN [-st DNA|AA] [-m MODEL]
+    python -m iqtree_torch -s ALN [-st DNA|AA|CODON[n]] [-m MODEL]
                            [-t TREE | -starttree BIONJ|PARS]
                            [-n N] [-nstop N] [-ninit N] [-ntop N] [-pers X]
                            [-maxtime MIN] [-keep-ident] [-pre P] [-seed N]

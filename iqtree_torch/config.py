@@ -1,6 +1,6 @@
 """Command-line configuration of the port: the fixed-topology fit (-te)
-and the default tree search with its ultrafast bootstrap (-bb), DNA and
-protein; codons (-st CODON[n]) in the fixed-topology fit."""
+and the default tree search with its ultrafast bootstrap (-bb), for DNA,
+protein and codons (-st CODON[n])."""
 
 from __future__ import annotations
 
@@ -129,11 +129,6 @@ def parse_args(argv) -> RunConfig:
                     f"{', '.join(map(str, GENETIC_CODES))})")
         genetic_code = int(code) if code else 1
         a.seq_type = "CODON"
-        if not a.fixed_tree:
-            raise SystemExit(
-                "iqtree-torch: -st CODON is not ported yet (the codon search "
-                "slice) for the tree search; the fixed-topology fit (-te TREE) "
-                "runs")
     if a.seq_type not in (None, "DNA", "AA", "CODON"):
         raise SystemExit(
             f"iqtree-torch: -st {a.seq_type} is not ported yet; this version "

@@ -17,6 +17,7 @@ import torch
 from .derivatives import newton_serves
 from .kernels import build
 from .kernels.build import check_shape
+from .parsimony import lane_width
 
 
 class EngineDecision(NamedTuple):
@@ -64,12 +65,15 @@ def decide_engine(n_taxa: int, ncat: int, num_states: int, n_patterns: int,
     n_rows = 2 * n_taxa
     item = torch.finfo(dtype).bits // 8
     CS = ncat * num_states
-    # up [2N, C*S, P] + usc [2N, P]; a search and the theta path also store
-    # out + osc
-    both = search or not newton_serves(num_states)
-    store = n_rows * (CS + 1) * n_patterns * item * (2 if both else 1)
-    cap = memory_capacity(device)
     kernels = device.type == "cuda"
+    # up [2N, C*S, P] + usc [2N, P]; a search and the theta path also store
+    # out + osc.  The kernels write a codon space's rows at the padded width
+    # (S=64) and the wrappers slice them, so on the card a pass holds its
+    # rows at that width
+    width = ncat * build.instance_states(num_states) if kernels else CS
+    both = search or not newton_serves(num_states)
+    store = n_rows * (width + 1) * n_patterns * item * (2 if both else 1)
+    cap = memory_capacity(device)
     if kernels:
         check_shape(ncat, num_states)
         if store > cap:
@@ -111,6 +115,12 @@ def engine_banner(dec: EngineDecision, n_taxa: int, ncat: int, num_states: int,
                if dec.kernels else "plain twin of the outside-partial store")
             + f", {dec.nni_chunk} edges per evaluator chunk "
             f"(of {n_taxa - 3} internal edges)")
+        bits = lane_width(num_states)
+        lines.append("Parsimony start trees: " + (
+            f"insertion-cost kernel on {bits}-bit parsimony lanes "
+            f"({num_states} states a set)" if dec.kernels else
+            f"plain twin of the insertion-cost kernel ({bits}-bit parsimony lanes "
+            "on the card)"))
     what = "up and outside partials" if search or theta else "stored partials"
     lines.append(f"Memory: {what} ~{dec.store_bytes / 2**20:.0f} MB for "
                  f"{n_taxa} taxa x {n_patterns} patterns x {ncat}x{num_states} "

@@ -1,9 +1,11 @@
 """Pairwise maximum-likelihood distances, batched over all taxon pairs.
 
-The pair count matrices of all pairs are one matrix product over the
-patterns; the per-pair Newton iterations run as batched tensor code, a
-chunk of pairs at a time.  For a reversible model with rate categories
-the pairwise log-likelihood of count matrix n is
+The pair count matrices of a chunk of taxon rows (every pair (a, b) with
+a in the chunk) are one matrix product over the patterns, and the
+per-pair Newton iterations run on them as batched tensor code; a chunk's
+[pairs, S*S] temporaries are sized to a byte budget, so S=61 codon spaces
+take as little memory as DNA does.  For a reversible model with rate
+categories the pairwise log-likelihood of count matrix n is
     l(t) = sum_st n_st log( sum_c w_c pi_s P_c(t)[s,t] ).
 Everything runs in float64 on the caller's device.
 """
@@ -16,28 +18,47 @@ import torch
 from .derivatives import MAX_BLEN, MIN_BLEN
 from .likelihood import ModelArrays, SiteData
 
-# pairs per Newton chunk: bounds the [chunk, S*S] temporaries
-PAIR_CHUNK = 1 << 18
+# bytes the Newton loop's [pairs, S*S] float64 temporaries may take at once
+# (the chunk's counts and about five products and ratios live together)
+PAIR_BUDGET = 2 << 30
+PAIR_LIVE = 6
 
 
-def pair_count_matrices(site: SiteData) -> torch.Tensor:
-    """[T, T, S, S] pattern-weighted co-occurrence counts of every taxon
-    pair.  An ambiguous code contributes fractionally (mask / mask.sum);
-    gaps and unknowns spread uniformly."""
+def pair_chunk_rows(T: int, S: int) -> int:
+    """Taxon rows a chunk: the pairs of `rows` rows (rows x T) whose
+    [pairs, S*S] float64 temporaries fit PAIR_BUDGET bytes, at least one
+    row.  At S=61 that is ~12 000 pairs a chunk (12 rows at 1 000 taxa); at
+    S=4 every pair of 1 000 taxa in one."""
+    pairs = max(1, PAIR_BUDGET // (PAIR_LIVE * S * S * 8))
+    return max(1, min(T, pairs // T))
+
+
+def _profiles(site: SiteData):
+    """(x [T, S, P] state profiles of the tips, y [T*S, P] the same weighted
+    by the pattern counts).  An ambiguous code contributes fractionally
+    (mask / mask.sum); gaps and unknowns spread uniformly."""
     masks = site.code_masks.double()[site.tip_codes]  # [T, P, S]
     onehot = masks / torch.clamp(masks.sum(-1, keepdim=True), min=1e-30)
     T, P, S = onehot.shape
-    x = onehot.permute(0, 2, 1).reshape(T * S, P)
     y = (onehot * site.pattern_freq.double()[None, :, None]).permute(0, 2, 1)
-    counts = x @ y.reshape(T * S, P).T  # [(a,s), (b,t)]
-    return counts.reshape(T, S, T, S).permute(0, 2, 1, 3)
+    return onehot.permute(0, 2, 1), y.reshape(T * S, P)
+
+
+def _counts(x, y, rows: slice) -> torch.Tensor:
+    """[A, T, S, S] pattern-weighted co-occurrence counts of the taxon
+    pairs (a, b), a in `rows`."""
+    T, S, P = x.shape
+    counts = x[rows].reshape(-1, P) @ y.T  # [(a,s), (b,t)]
+    return counts.reshape(-1, S, T, S).permute(0, 2, 1, 3)
 
 
 def ml_distances(model: ModelArrays, site: SiteData,
                  newton_iters: int = 12) -> np.ndarray:
-    """[T, T] ML distance matrix (diagonal 0) as float64 numpy."""
-    counts = pair_count_matrices(site)
-    T, S = counts.shape[0], counts.shape[2]
+    """[T, T] ML distance matrix (diagonal 0) as float64 numpy.  The pairs
+    run a chunk of taxon rows at a time (pair_chunk_rows): the counts and
+    the Newton temporaries of one chunk are live at once, never all
+    [T, T, S, S] counts."""
+    T, S = site.tip_codes.shape[0], site.code_masks.shape[1]
     f64 = lambda a: a.detach().double()
     lam, v, vinv = f64(model.eigenvalues), f64(model.eigvec), f64(model.inv_eigvec)
     rates, props, pi = f64(model.rates), f64(model.props), f64(model.state_freq)
@@ -48,11 +69,12 @@ def ml_distances(model: ModelArrays, site: SiteData,
     wpi = props[:, None] * pi  # [C, S]
     B = torch.einsum("cij,ci,cjk->cjik", v, wpi, vinv).reshape(C * S, S * S)
 
-    flat = counts.reshape(T * T, S * S)
-    out = torch.empty(T * T, dtype=torch.float64, device=flat.device)
+    out = torch.empty(T * T, dtype=torch.float64, device=B.device)
     b = (S - 1.0) / S
-    for lo in range(0, T * T, PAIR_CHUNK):
-        n = flat[lo:lo + PAIR_CHUNK]
+    x, y = _profiles(site)
+    rows = pair_chunk_rows(T, S)
+    for a0 in range(0, T, rows):
+        n = _counts(x, y, slice(a0, a0 + rows)).reshape(-1, S * S)
         total = torch.clamp(n.sum(-1), min=1e-30)
         diag = n[:, :: S + 1].sum(-1)
         arg = torch.clamp(1.0 - (1.0 - diag / total) / b, min=0.05)
@@ -67,7 +89,7 @@ def ml_distances(model: ModelArrays, site: SiteData,
             t_new = torch.where(d2 < -1e-12, t - d1 / torch.clamp(d2, max=-1e-12),
                                 torch.where(d1 > 0, t * 2.0, t * 0.5))
             t = torch.clamp(t_new, MIN_BLEN, MAX_BLEN)
-        out[lo:lo + PAIR_CHUNK] = t
+        out[a0 * T:a0 * T + t.shape[0]] = t
     d = out.reshape(T, T)
     d = 0.5 * (d + d.T)
     d = d - torch.diag(torch.diag(d))

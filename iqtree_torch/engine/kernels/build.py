@@ -37,7 +37,7 @@ SIGNATURES = {
     "iqt_newton": [P_, I_, P_, P_, P_, P_, P_, P_, I_, I_, P_, P_, I_, I_, I_, P_],
     "iqt_down_store": [P_, I_, P_, P_, P_, P_, I_, P_, P_, I_, I_, I_, P_],
     # (rows, n_post, n_pre, tips, n_taxa, leaf, weights, n_words, miss, cost,
-    #  lanes, stream)
+    #  lane bits 4 / 32 / 64, stream)
     "iqt_pars_insert": [P_, I_, I_, P_, I_, I_, P_, I_, P_, P_, I_, P_],
     # wide kernels: (steps, n_steps, ...inputs..., C, S, n_slots, tile, stream)
     "iqt_wide_forward": [P_, I_, P_, P_, I_, P_, P_, P_, I_, I_, I_, I_, P_],

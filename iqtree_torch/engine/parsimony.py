@@ -17,9 +17,10 @@ for every edge of the current tree at once.  Stepwise-addition trees are
 deep (hundreds of levels at 1000 taxa), so on the card both passes run as
 one kernel that walks the whole tree per word of patterns in shared memory
 (csrc/pars_insert.cu, `insertion_costs`); the level-batched form is its
-plain twin.  The kernel packs a state set into a lane of a 32-bit word:
-4-bit lanes, 8 patterns a word, up to 4 states (DNA); one 32-bit lane up to
-32 (protein) -- `kernel_tip_words`.
+plain twin.  The kernel packs a state set into a lane of a word: 4-bit
+lanes, 8 patterns a 32-bit word, up to 4 states (DNA); one 32-bit lane up
+to 32 (protein); one 64-bit lane up to 64 (codons, W = 2 words of the
+masks in one) -- `kernel_tip_words`.
 """
 
 from __future__ import annotations
@@ -235,7 +236,7 @@ def insertion_costs(tips, tipsw, freq, leaf: int, layout, present, scratch):
     cost = torch.zeros(2 * N, dtype=torch.float64, device=tipsw.device)
     build.launch("pars_insert", torch.as_tensor(rows, device=tipsw.device), n_post,
                  len(rows) - n_post, tipsw, N, leaf, wts, n_words, miss, cost,
-                 wts.numel() // n_words)
+                 lane_bits(tipsw, wts))
     insertion_costs.launches += 1
     return _edge_costs(cost.cpu().numpy(), layout)
 
@@ -253,23 +254,40 @@ def kernel_rows(layout, present):
     return rows, len(post)
 
 
-def word_lanes(num_states: int) -> int:
-    """Patterns a 32-bit word of the insertion-cost kernel: 8 (4-bit state
-    sets) up to 4 states, 1 up to 32.  Wider alphabets (W > 1 words) have
-    no kernel instance."""
-    if num_states > 32:
+def lane_width(num_states: int) -> int:
+    """Bits a state set of the insertion-cost kernel: 4 (8 sets a 32-bit
+    word) up to 4 states, 32 (a 32-bit word a set) up to 32, 64 (a 64-bit
+    word a set) up to 64."""
+    if num_states > 64:
         raise NotImplementedError(
-            f"the parsimony kernel takes up to 32 states (one 32-bit word a set), "
-            f"got {num_states}; the codon alphabet comes with the codon slice")
-    return 8 if num_states <= 4 else 1
+            f"the parsimony kernel takes up to 64 states (one 64-bit word a set), "
+            f"got {num_states}")
+    return 4 if num_states <= 4 else 32 if num_states <= 32 else 64
+
+
+def word_lanes(num_states: int) -> int:
+    """Patterns a word of the insertion-cost kernel: 8 (4-bit sets) up to
+    4 states, else 1."""
+    return 8 if lane_width(num_states) == 4 else 1
+
+
+def lane_bits(tipsw: torch.Tensor, wts: torch.Tensor) -> int:
+    """The kernel instance of kernel_tip_words' words: its lane width in
+    bits (4, 32 or 64), the word's bits over the patterns a word."""
+    return tipsw.element_size() * 8 * tipsw.shape[1] // wts.numel()
 
 
 def kernel_tip_words(tips: torch.Tensor, num_states: int) -> torch.Tensor:
-    """[N, n_words] int32 words of the insertion-cost kernel from the int32
-    masks [N, W, P]: pattern p in lane p % lanes of word p // lanes (lane k
-    of a word is bits 4k..4k+3 for 4-bit sets), lanes past P empty."""
+    """[N, n_words] words of the insertion-cost kernel from the int32 masks
+    [N, W, P]: pattern p in lane p % lanes of word p // lanes (lane k of a
+    word is bits 4k..4k+3 for 4-bit sets), lanes past P empty.  int32
+    words up to 32 states; int64 words (mask word 1 in the high half) past
+    32, where the masks have W = 2 words."""
     lanes = word_lanes(num_states)
     word = tips[:, 0]
+    if lane_width(num_states) == 64:
+        high = tips[:, 1].to(torch.int64) << 32
+        return (high | (word.to(torch.int64) & 0xFFFFFFFF)).contiguous()
     if lanes == 1:
         return word.contiguous()
     N, P = word.shape
@@ -283,8 +301,9 @@ def kernel_tip_words(tips: torch.Tensor, num_states: int) -> torch.Tensor:
 
 def kernel_scratch(tipsw: torch.Tensor, freq: torch.Tensor, num_states: int):
     """(miss [2N, n_words] uint8, weights [n_words * lanes] int32) for
-    insertion_costs on the card: the kernel's per-node miss bits, and the
-    pattern weights as integers (0 past P), so its cost sums are exact."""
+    insertion_costs on the card: the kernel's per-node miss bits (a byte a
+    word, whatever its width), and the pattern weights as integers (0 past
+    P), so its cost sums are exact."""
     N, n_words = tipsw.shape
     lanes = word_lanes(num_states)
     if not bool((freq == freq.round()).all()):

@@ -86,12 +86,12 @@ def default_model(aln: Alignment) -> str:
 def parse_model_string(model_str: str, aln: Alignment):
     """Returns (ReversibleModel, RateModel)."""
     base_tok, suffixes = _split_suffixes(model_str.strip())
+    if base_tok.upper().startswith("MIX") or "*" in base_tok:  # before its braces
+        _not_ported("mixture models", "the mixture slice")
     bname, bparams = _parse_braces(base_tok)
     upper = bname.upper()
     if upper == "UNREST":
         _not_ported("UNREST", "the non-reversible slice")
-    if upper.startswith("MIX") or "*" in bname:
-        _not_ported("mixture models", "the mixture slice")
     if aln.states.seq_type == SEQ_PROTEIN:
         subst = create_protein_model(bname)
         if bparams is not None:

@@ -370,8 +370,9 @@ def test_shapes_and_banner_name_the_codon_instance():
 def test_cli_codon_fit(tmp_path):
     """`-st CODON -te ... -m GY+F3X4 -device cpu` through the CLI: the
     reference binary's optimum, its omega and kappa, a report with codon
-    names; `-st CODON2` picks genetic code 2; the codon search refuses
-    before any work."""
+    names; `-st CODON2` picks genetic code 2; `-st CODON` without -te is
+    the codon search (tests/test_torch_codon_search.py runs it), while an
+    unported sequence type refuses before any work."""
     prefix = str(tmp_path / "gy")
     assert cli_main(["-s", CODON_ALN, "-st", "CODON", "-te", CODON_TREE, "-m", "GY+F3X4",
                      "-device", "cpu", "-pre", prefix]) == 0
@@ -401,8 +402,10 @@ def test_cli_codon_fit(tmp_path):
         parse_model_string("GY{2.0}", a)
     assert parse_args(["-s", "x", "-st", "CODON2", "-te", "t"]).genetic_code == 2
     assert parse_args(["-s", "x", "-st", "CODON", "-te", "t"]).seq_type == "CODON"
-    with pytest.raises(SystemExit, match=r"not ported yet \(the codon search slice\)"):
-        cli_main(["-s", CODON_ALN, "-st", "CODON", "-device", "cpu",
+    search = parse_args(["-s", CODON_ALN, "-st", "CODON", "-device", "cpu"])
+    assert (search.seq_type, search.fixed_tree) == ("CODON", None)
+    with pytest.raises(SystemExit, match="-st MORPH is not ported yet"):
+        cli_main(["-s", CODON_ALN, "-st", "MORPH", "-device", "cpu",
                   "-pre", str(tmp_path / "s")])
     with pytest.raises(SystemExit, match="unknown genetic code"):
         parse_args(["-s", "x", "-st", "CODON7", "-te", "t"])

@@ -9,7 +9,8 @@ Without a CUDA device they skip.  Inputs: a random 40-taxon DNA alignment
 (700 sites, a numpy seed), GTR+G4+I, and for the wide kernels a random
 30-taxon protein alignment (300 sites), LG+G4+I, and for the codon
 instances (S=64) a random 24-taxon codon alignment (101 codons) under
-genetic codes 1, 2 and 6, GY+F3X4+I+G.  Tolerances are float32 ones: the
+genetic codes 1, 2 and 6, GY+F3X4+I+G (the parsimony kernel's 64-bit
+instance: 36 taxa x 150 codons).  Tolerances are float32 ones: the
 kernels and the twins sum in different orders.  Five tests hold
 kernels' bits against their earlier designs, built from the csrc/ directory
 that IQT_EARLIER_CSRC names; they skip without it.
@@ -330,6 +331,59 @@ def test_parsimony_kernel_32bit_sets_match_the_twin():
     words = pars.kernel_tip_words(torch.as_tensor(pars.pack_tip_masks(aln), device=dev),
                                   20)
     assert words.dtype == torch.int32
+    before = pars.insertion_costs.launches
+    got = pars.parsimony_stepwise_tree(aln, np.random.default_rng(1), dev)
+    assert pars.insertion_costs.launches - before == n - 3
+    want = pars.parsimony_stepwise_tree(aln, np.random.default_rng(1),
+                                        torch.device("cpu"))
+    np.testing.assert_array_equal(got.children, want.children)
+    np.testing.assert_array_equal(got.blen, want.blen)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code", [1, 2, 6])
+def test_parsimony_kernel_64bit_sets_match_the_twin(code):
+    """The insertion-cost kernel's 64-bit instance (codons: 60, 61 or 63
+    states and gaps, the masks' two 32-bit words in one lane): the same
+    costs as the plain twin at every insertion, exactly, so the same
+    stepwise-addition tree."""
+    from iqtree_torch.engine import parsimony as pars
+    from iqtree_torch.models.codon import NT_ORDER, sense_codons
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(60 + code)
+    n = 36
+    sc = sense_codons(code)
+    words = [NT_ORDER[c // 16] + NT_ORDER[(c // 4) % 4] + NT_ORDER[c % 4] for c in sc]
+    seqs = ["".join("---" if rng.random() < 0.05 else words[rng.integers(len(words))]
+                    for _ in range(150)) for _ in range(n)]
+    aln = Alignment.from_sequences([f"t{i}" for i in range(n)], seqs, "CODON", code)
+    dev = torch.device("cuda")
+    masks = torch.as_tensor(pars.pack_tip_masks(aln))
+    freq = torch.as_tensor(aln.pattern_freq, dtype=torch.float64)
+    tipsw = pars.kernel_tip_words(masks.to(dev), aln.num_states)
+    scratch = pars.kernel_scratch(tipsw, freq.to(dev), aln.num_states)
+    assert tipsw.dtype == torch.int64 and pars.lane_bits(tipsw, scratch[1]) == 64
+    order = [int(t) for t in rng.permutation(n)]
+    adj = {order[0]: [n], order[1]: [n], order[2]: [n], n: order[:3]}
+    nxt = n + 1
+    for t in order[3:]:
+        layout = pars._partial_layout(adj, order[0], n)
+        present = [v for v in adj if v < n]
+        got = pars.insertion_costs(masks.to(dev), tipsw, freq.to(dev), t, layout,
+                                   present, scratch)
+        want = pars.insertion_costs(masks, None, freq, t, layout, present, None)
+        np.testing.assert_array_equal(got, want)
+        v_old = layout[0][int(np.argmin(want))]
+        p_old = pars._adj_parent(adj, order[0], v_old)
+        adj[v_old].remove(p_old)
+        adj[p_old].remove(v_old)
+        adj[v_old].append(nxt)
+        adj[p_old].append(nxt)
+        adj[nxt] = [v_old, p_old, t]
+        adj[t] = [nxt]
+        nxt += 1
     before = pars.insertion_costs.launches
     got = pars.parsimony_stepwise_tree(aln, np.random.default_rng(1), dev)
     assert pars.insertion_costs.launches - before == n - 3

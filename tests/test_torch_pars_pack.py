@@ -97,8 +97,10 @@ def load(kind):
 def test_word_lanes():
     assert pars.word_lanes(4) == 8 and pars.word_lanes(2) == 8
     assert pars.word_lanes(5) == 1 and pars.word_lanes(20) == 1
-    with pytest.raises(NotImplementedError, match="up to 32 states"):
-        pars.word_lanes(61)
+    assert pars.word_lanes(61) == 1 and pars.word_lanes(64) == 1  # one 64-bit lane
+    assert [pars.lane_width(S) for S in (4, 5, 32, 33, 61)] == [4, 32, 32, 64, 64]
+    with pytest.raises(NotImplementedError, match="up to 64 states"):
+        pars.word_lanes(65)
 
 
 @pytest.mark.parametrize("S,P", [(4, 13), (4, 355), (20, 13)])

@@ -300,8 +300,8 @@ def test_cli_protein_fit_and_search(tmp_path, capsys):
     assert float(re.search(r"BEST SCORE FOUND : (\S+)", log).group(1)) > GOLDEN_LG_LNL
     with open(search + ".treefile") as f:
         assert f.read().count(",") == 26
-    with pytest.raises(SystemExit, match="-st CODON is not ported yet"):
-        cli_main(["-s", PROT, "-st", "CODON", "-device", "cpu"])
+    with pytest.raises(SystemExit, match="-st BIN is not ported yet"):
+        cli_main(["-s", PROT, "-st", "BIN", "-device", "cpu"])
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli_main(["-s", PROT, "-te", PROT_TREE, "-pre", str(tmp_path / "c")])

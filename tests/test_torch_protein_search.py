@@ -198,8 +198,13 @@ def test_parsimony_kernel_walks_with_32bit_sets():
         adj[nxt] = [v_old, p_old, t]
         adj[t] = [nxt]
         nxt += 1
-    with pytest.raises(NotImplementedError, match="codon slice"):
-        pars.kernel_tip_words(torch.zeros(4, 2, 5, dtype=torch.int32), 61)
+    # past 32 states a set's two mask words share one 64-bit kernel word,
+    # word 0 in the low half and word 1 in the high half
+    two = torch.as_tensor(rng.integers(-2**31, 2**31, (4, 2, 5)), dtype=torch.int32)
+    w64 = pars.kernel_tip_words(two, 61)
+    assert w64.dtype == torch.int64 and w64.shape == (4, 5)
+    halves = w64.numpy().view(np.int32).reshape(4, 5, 2)  # little-endian
+    np.testing.assert_array_equal(halves.transpose(0, 2, 1), two.numpy())
 
 
 def test_protein_hill_climb_matches_jax():

@@ -6,7 +6,8 @@
 Phases (any failure exits non-zero; nothing is caught):
   1. the card's name and power limit, torch and CUDA versions;
   2. build the CUDA kernels from iqtree_torch/engine/kernels/csrc, one nvcc
-     per source, all at once (the twelve ported TPU kernels and the
+     per source, all at once (the twelve ported TPU kernels, the wide
+     walks' instances with several categories a block, and the
      stepwise-addition parsimony scorer, its 4-, 32- and 64-bit lanes);
   3. at the main path's shapes (bench_data.npz: 1000 taxa x 10k sites,
      GTR+G4) run each kernel and its plain PyTorch twin on the card,
@@ -96,13 +97,33 @@ Phases (any failure exits non-zero; nothing is caught):
      not launch), its score re-evaluated in float64, its bootstrap
      outputs checked, its peak device memory, the NNI evaluator's working
      memory at S=61 against decide_engine's model; then the search again
-     under torch.profiler.
+     under torch.profiler;
+ 20. at C20's 80 categories (POISSON, 20 frequency classes, Gamma(4)) on
+     bench_data_protein.npz (random branch lengths around the bench
+     tree's, numpy seed 20) the four wide walks' instances with several
+     categories a block (10 a block on 8-block clusters) against their
+     twins at the tolerances of phase 8, two launches bit-equal, timed
+     beside the C=4 instances, their registers and spills (ptxas), their
+     shared memory by formula; C60 (240 categories) run where its shared
+     memory fits the bench tree's slots, else refused by the wrappers;
+ 21. the mixture fixed-topology path through the CLI entry point:
+     `-s ALN -te TREE -m C20` on cuda, with every kernel's launch count
+     read around it (the four wide walks launch; the branch-Newton and
+     CS-packed kernels do not: past 8 categories branch lengths take the
+     theta path), the written tree and model re-evaluated in float64,
+     then the fit again under torch.profiler (the card's busy share);
+ 22. the C20 search with ultrafast bootstrap through the CLI entry point:
+     `-s ALN -m C20 -n 2 -ninit 4 -ntop 2 -seed 1 -bb 1000 -wbt`, with the
+     launch counts read around it, its score re-evaluated in float64, its
+     per-phase profile, its bootstrap outputs checked and its peak device
+     memory.
 Prints the kernels' JSON line (the DNA kernels' launches from the DNA
 search, the wide kernels' and the 32-bit parsimony scorer's from the
 protein search, the multi-tree and ablation kernels' from phases 13 and
 14, which no CLI path reaches, the codon instances' and the 64-bit
-parsimony scorer's from the codon search of phase 19), then as its last
-line {"ok": true, "device": {...}}.
+parsimony scorer's from the codon search of phase 19, the C=80 instances'
+from the C20 search of phase 22), then as its last line {"ok": true,
+"device": {...}}.
 """
 
 import json
@@ -421,9 +442,11 @@ def logged(log, key):
     return [l for l in log if l.startswith(key)][-1][len(key):].strip()
 
 
-def reevaluate(nwk, model_str, aln, dev):
+def reevaluate(nwk, model_str, aln, dev, grad=True):
     """The written tree and model, evaluated in float64 by the plain pass:
-    (lnL, tree arrays with blen as a leaf, autograd d lnL/d blen)."""
+    (lnL, tree arrays with blen as a leaf, autograd d lnL/d blen, or None
+    without `grad`: at C20's 80 categories the float64 partials alone are
+    15 GB, and autograd would keep every level's)."""
     import torch
     from iqtree_torch.engine.likelihood import (ModelArrays, SiteData, TreeArrays,
                                                 compute_loglik)
@@ -432,6 +455,11 @@ def reevaluate(nwk, model_str, aln, dev):
 
     s64, r64 = parse_model_string(model_str, aln)
     ta = TreeArrays.from_tree(PhyloTree.from_newick(nwk, aln.names), dev)
+    if not grad:
+        with torch.no_grad():
+            lnl, _ = compute_loglik(ta, ModelArrays.from_model(s64, r64, dev),
+                                    SiteData.from_alignment(aln, dev, torch.float64))
+        return float(lnl), ta, None
     blen = ta.blen.clone().requires_grad_()
     lnl, _ = compute_loglik(ta.with_blen(blen), ModelArrays.from_model(s64, r64, dev),
                             SiteData.from_alignment(aln, dev, torch.float64))
@@ -917,6 +945,7 @@ def main():
     multi_tree_phases(dev, card, record, results)
     codon_phases(dev, card, record, results, cli_main, bdir)
     codon_search_phases(dev, card, record, results, cli_main, bdir, sm_mhz)
+    mixture_phases(dev, card, record, results, cli_main, bdir)
 
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
@@ -2005,6 +2034,240 @@ def codon_search_phases(dev, card, record, results, cli_main, bdir, sm_mhz):
         args = write_inputs(tmp, names, seqs, tree_nwk, search=CODON_SEARCH_FLAGS)[0]
         profile_run(lambda: check(cli_main(args) == 0, "profiled CLI run"), wall,
                     "codon search")
+
+
+def mixture_phases(dev, card, record, results, cli_main, bdir):
+    """Phases 20-22: the four wide walks with several categories a block at
+    C20's 80 categories on the protein bench, and the C20 fit and search
+    through the CLI."""
+    import numpy as np
+    import torch
+    from iqtree_torch.engine.kernels import build
+    from iqtree_torch.engine.kernels import cs_kernels as csk
+    from iqtree_torch.engine.kernels import pruning as pk
+    from iqtree_torch.engine.kernels.probe import ptxas_lines
+    from iqtree_torch.engine.likelihood import (ModelArrays, SiteData, TreeArrays,
+                                                branch_transition_mats, ptn_invar,
+                                                tip_partials)
+    from iqtree_torch.io.alignment import Alignment
+    from iqtree_torch.models.factory import parse_model_string
+    from iqtree_torch.models.mixture import category_count
+    from iqtree_torch.trees.tree import PhyloTree
+
+    phase("20. the wide walks at C20's 80 categories, several a block, against their "
+          "plain twins (protein: 300 taxa x 2 000 aa)")
+    walks = ("wide_forward", "wide_store", "wide_tbar", "wide_down_store")
+    for n in walks:
+        regs = ptxas_lines((bdir / f"{n}.log").read_text(), "ILi20ELi5ELb1E")
+        print(f"  {n} S=20 instance with several categories a block (ptxas): "
+              f"{'; '.join(regs)}")
+        check(bool(regs), f"ptxas reports the multi-category instance of {n}")
+    names, seqs, tree_nwk = load_bench("bench_data_protein.npz")
+    aln = Alignment.from_sequences(names, seqs, "AA")
+    tree = PhyloTree.from_newick(tree_nwk, aln.names)
+    subst, rate = parse_model_string("C20", aln)
+    C, S = category_count(subst, rate), subst.num_states
+    model = ModelArrays.from_model(subst, rate, dev)
+    check(C == 80 == model.ncat, "C20 is 20 classes x 4 rate categories")
+    site = SiteData.from_alignment(aln, dev, torch.float32)
+    ta = TreeArrays.from_tree(tree, dev)
+    rng = np.random.default_rng(20)  # random branch lengths around the bench tree's
+    blen = ta.blen * torch.as_tensor(rng.uniform(0.5, 1.5, ta.blen.shape), device=dev)
+    steps_np, n_slots = pk.device_slot_schedule(tree, ta)
+    steps = torch.as_tensor(steps_np, device=dev)
+    N, P = aln.n_taxa, aln.n_patterns
+    CS, CSS, R = C * S, C * S * S, 2 * N
+    K, cb = build.wide_layout(C)
+    print(f"{N} taxa, {P} patterns, C={C} ({cb} categories a block on {K}-block "
+          f"clusters), S={S}, {n_slots} slots; shared memory a block by the formulas at "
+          f"16 patterns a cluster: wide_forward / wide_store "
+          f"{pk.wide_forward_smem(S, C, 16, n_slots)} B, wide_down_store "
+          f"{csk.wide_down_store_smem(S, C, 16, n_slots)} B, wide_tbar "
+          f"{csk.wide_tbar_smem(S, C, 16, n_slots)} B (a block may have {SMEM_BLOCK})")
+    trans = branch_transition_mats(model, blen).float().contiguous()
+    tips = tip_partials(site).contiguous()
+    invar = ptn_invar(model, site).float().contiguous()
+    props, freq = model.props.float(), model.state_freq.float()
+    fwd_flops = (N - 1) * P * (4 * CSS + 3 * CS) + 2 * CS * P
+    # the forward kernel: lnL per pattern
+    k_out = pk.wide_site_lnl(steps, n_slots, trans, tips, props, freq, invar)
+    bit_equal("wide_forward C=80", [k_out],
+              [pk.wide_site_lnl(steps, n_slots, trans, tips, props, freq, invar)])
+    record("wide_forward_c80", "iqtree_torch/engine/kernels/csrc/wide_forward.cu",
+           "iqtree_tpu/engine/kernels/pruning.py:34",
+           float((k_out - pk._site_lnl_plain(steps, trans, tips, props, freq,
+                                             invar)).abs().max()), 1e-3,
+           cuda_ms(lambda: pk.wide_site_lnl(steps, n_slots, trans, tips, props, freq,
+                                            invar), 5),
+           cuda_ms(lambda: pk._site_lnl_plain(steps, trans, tips, props, freq, invar), 2),
+           4 * (N * S * P + R * CSS + 6 * (N - 1) + CS + 2 * P), fwd_flops)
+    # the upward store
+    up_k, usc_k = pk.fused_upward_store(steps, n_slots, trans, tips)
+    inner = slice(N, 2 * N - 1)
+    up2, usc2 = pk.fused_upward_store(steps, n_slots, trans, tips)
+    bit_equal("wide_store C=80", [up_k[inner], usc_k], [up2[inner], usc2])
+    del up2, usc2
+    up_p, usc_p = pk.upward_plain(steps, trans, tips)
+    err = store_err(up_k, usc_k, up_p, usc_p, inner)
+    del up_p, usc_p
+    torch.cuda.empty_cache()
+    record("wide_store_c80", "iqtree_torch/engine/kernels/csrc/wide_store.cu",
+           "iqtree_tpu/engine/kernels/pruning.py:822", err, 1e-4,
+           cuda_ms(lambda: pk.fused_upward_store(steps, n_slots, trans, tips), 5),
+           cuda_ms(lambda: pk.upward_plain(steps, trans, tips), 2),
+           4 * (N * S * P + R * CSS + 6 * (N - 1) + (N - 1) * (CS + 1) * P), fwd_flops)
+    # the gradient sweep
+    csk.fill_tip_rows_cs(up_k, usc_k, tips, C)
+    lnl, wp = k_out.contiguous(), site.pattern_freq.contiguous()
+    targs = (steps, n_slots, trans, tips, props, freq, lnl, wp)
+    tb_k = csk.fused_downward_tbar(*targs, up=up_k, usc=usc_k)
+    bit_equal("wide_tbar C=80", [tb_k], [csk.fused_downward_tbar(*targs, up=up_k,
+                                                                 usc=usc_k)])
+    tb_p = csk._tbar_plain(steps, trans, props, freq, lnl, wp, up_k, usc_k)
+    err = tbar_err(tb_k, tb_p, R)
+    del tb_k, tb_p
+    torch.cuda.empty_cache()
+    record("wide_tbar_c80", "iqtree_torch/engine/kernels/csrc/wide_tbar.cu",
+           "iqtree_tpu/engine/kernels/pruning.py:1144", err, 1e-4,
+           cuda_ms(lambda: csk.fused_downward_tbar(*targs, up=up_k, usc=usc_k), 3),
+           cuda_ms(lambda: csk._tbar_plain(steps, trans, props, freq, lnl, wp, up_k,
+                                           usc_k), 2),
+           4 * (R * (CS + 1) * P + 2 * P + 2 * R * CSS), tbar_flops(N, P, CS, CSS))
+    # the outside-partial store
+    dargs = (steps, n_slots, trans, up_k, usc_k, freq)
+    o_k = csk.fused_down_store(*dargs)
+    bit_equal("wide_down_store C=80", o_k, csk.fused_down_store(*dargs))
+    check(not bool(o_k[0][R - 2:].any()) and not bool(o_k[1][R - 2:].any()),
+          "root and dummy rows of the outside store are 0 at C=80")
+    err = outside_err(o_k, csk._down_store_plain(*dargs[:1], *dargs[2:]), R)
+    del o_k
+    torch.cuda.empty_cache()
+    record("wide_down_store_c80", "iqtree_torch/engine/kernels/csrc/wide_down_store.cu",
+           "iqtree_tpu/engine/kernels/pruning.py:1437", err, 1e-4,
+           cuda_ms(lambda: csk.fused_down_store(*dargs), 5),
+           cuda_ms(lambda: csk._down_store_plain(*dargs[:1], *dargs[2:]), 2),
+           4 * (2 * R * (CS + 1) * P + R * CSS + 6 * (N - 1) + CS),
+           P * (2 * (N - 1) * (2 * CSS + 3 * CS) + (N - 2) * 2 * CSS))
+    for k in walks:
+        r_ = results[f"{k}_c80"]
+        print(f"{k} C=80: {r_['ms']:.3f} ms beside {results[k]['ms']:.3f} ms at LG+G4's "
+              f"C=4 ({r_['ms'] / results[k]['ms']:.1f}x for 20x the categories), "
+              f"{r_['bound_ms'] / r_['ms']:.1%} of its bound")
+    del up_k, usc_k, dargs, targs
+    # C60: 240 categories, 30 a block, where the formulas fit this tree's slots
+    need = build.wide_walk_smem(240, S, n_slots)
+    s60, r60 = parse_model_string("C60", aln)
+    m60 = ModelArrays.from_model(s60, r60, dev)
+    tr60 = branch_transition_mats(m60, blen).float().contiguous()
+    if need > SMEM_BLOCK:
+        try:
+            pk.wide_site_lnl(steps, n_slots, tr60, tips, m60.props.float(),
+                             m60.state_freq.float(), ptn_invar(m60, site).float())
+            refused = False
+        except NotImplementedError as e:
+            refused = True
+            print(f"C60 (240 categories, {build.wide_layout(240)[1]} a block) at {n_slots} "
+                  f"slots: {need} B of shared memory a block, over {SMEM_BLOCK}: refused "
+                  f"({str(e)[:80]}...)")
+        check(refused, "C60 refused where its shared memory does not fit")
+    else:
+        f60 = pk.wide_site_lnl(steps, n_slots, tr60, tips, m60.props.float(),
+                               m60.state_freq.float(), ptn_invar(m60, site).float())
+        e60 = float((f60 - pk._site_lnl_plain(steps, tr60, tips, m60.props.float(),
+                                              m60.state_freq.float(),
+                                              ptn_invar(m60, site).float())).abs().max())
+        print(f"wide_forward C=240: max_abs_err {e60:.3e} (tol 1e-3)")
+        check(e60 <= 1e-3, "wide_forward at C=240 against its twin")
+    del m60, tr60, trans, tips, model, site, ta
+    torch.cuda.empty_cache()
+
+    phase("21. mixture fixed-topology path: -te C20 fit through the CLI on cuda")
+    counters = {"wide_forward": pk.wide_site_lnl, "wide_store": pk.fused_upward_store,
+                "wide_tbar": csk.fused_downward_tbar,
+                "wide_down_store": csk.fused_down_store,
+                "wide_newton": csk.wide_newton_sweep, "forward": pk.fused_site_lnl,
+                "store": csk.fused_upward_store_cs, "tbar": csk.fused_tbar_cs,
+                "newton": csk.newton_sweep, "down_store": csk.fused_down_store_cs}
+    with tempfile.TemporaryDirectory() as tmp:
+        args = write_inputs(tmp, names, seqs, tree_nwk, model="C20")[0]
+        wall, launches, log, nwk = run_cli(cli_main, args, counters)
+    for line in log:
+        if line.startswith(("Likelihood engine", "Branch optimization", "Memory")):
+            print(line)
+    fit_lnl = float(logged(log, "Optimal log-likelihood:"))
+    model_str = logged(log, "Best-fit model parameters:")
+    lnl64, _, _ = reevaluate(nwk, model_str, aln, dev, grad=False)
+    print(f"fitted model {model_str[:40]}...{model_str[-24:]}")
+    print(f"-te C20 fit lnL {fit_lnl:.4f}; the written tree and model re-evaluated in "
+          f"float64 (plain pass) {lnl64:.4f}; for information, LG+G4's fit of the same "
+          f"tree by the binary {REF_PROTEIN_LNL}")
+    print(f"-te C20 fit wall time {wall:.2f} s on {card}")
+    print(f"-te C20 fit launches: {launches}")
+    k_ms = sum(results[f"{k}_c80"]["ms"] * launches[k] for k in walks)
+    print(f"kernel time of the C20 fit, estimated as launches x phase-20 kernel ms: "
+          f"{k_ms / 1e3:.3f} s of {wall:.2f} s wall")
+    check(abs(lnl64 - fit_lnl) < 1.0, "C20 fit lnL vs its float64 re-evaluation")
+    check("theta path" in " ".join(log), "C20's branch lengths take the theta path")
+    for k in walks:
+        check(launches[k] > 0, f"kernel {k} launched at C=80 on the C20 fit")
+    for k in ("wide_newton", "forward", "store", "tbar", "newton", "down_store"):
+        check(launches[k] == 0, f"kernel {k} stays off the C20 fit")
+    with tempfile.TemporaryDirectory() as tmp:
+        args = write_inputs(tmp, names, seqs, tree_nwk, model="C20")[0]
+        profile_run(lambda: check(cli_main(args) == 0, "profiled CLI run"), wall,
+                    "C20 fit")
+
+    phase("22. the C20 search with ultrafast bootstrap through the CLI on cuda")
+    flags = ["-m", "C20", "-n", "2", "-ninit", "4", "-ntop", "2", "-seed", "1", "-bb",
+             "1000", "-wbt"]
+    with tempfile.TemporaryDirectory() as tmp:
+        args, prefix = write_inputs(tmp, names, seqs, tree_nwk, search=flags)
+        print("iqtree-torch " + " ".join(flags))
+        torch.cuda.reset_peak_memory_stats()
+        wall, launches, log, nwk = run_cli(cli_main, args, counters)
+        peak = torch.cuda.max_memory_allocated()
+        with open(prefix + ".ufboot") as f:
+            boot = f.read().splitlines()
+        sizes = {ext: os.path.getsize(prefix + ext) for ext in (".contree", ".splits.nex")}
+    for line in log:
+        if line.startswith(("Likelihood engine", "Branch optimization", "Tree search",
+                            "Parsimony start trees", "Memory")):
+            print(line)
+    best = float(logged(log, "BEST SCORE FOUND :"))
+    model_str = logged(log, "Best-fit model parameters:")
+    lnl64, _, _ = reevaluate(nwk, model_str, aln, dev, grad=False)
+    out_tree = PhyloTree.from_newick(nwk, aln.names)
+    supports = [int(x) for x in re.findall(r"\)(\d+):", nwk)]
+    print(f"C20 search: {wall:.2f} s wall on {card}; BEST SCORE FOUND {best:.4f}; float64 "
+          f"re-evaluation of the written tree and model {lnl64:.4f}; the -te C20 fit of "
+          f"the bench tree {fit_lnl:.4f}")
+    print(f"RF distance of the best tree to the bench tree: {out_tree.robinson_foulds(tree)}"
+          f" (of {2 * (N - 3)})")
+    print(f"UFBoot: {len(boot)} sample trees, {len(supports)} supports on the treefile "
+          f"(min {min(supports)}, median {int(np.median(supports))}); files {sizes}; "
+          f"summaries and outputs {logged(log, 'UFBoot summaries and outputs:')}")
+    for line in log[[i for i, l in enumerate(log) if l.startswith("search profile")][-1]:]:
+        if not line.startswith(("search profile", " ")):
+            break
+        print(line)
+    print(f"C20 search launches: {launches}")
+    k_ms = sum(results[f"{k}_c80"]["ms"] * launches[k] for k in walks)
+    print(f"kernel time of the C20 search, estimated as launches x phase-20 kernel ms: "
+          f"{k_ms / 1e3:.3f} s of {wall:.2f} s wall; peak device memory "
+          f"{peak / 2**20:.0f} MB (torch.cuda.max_memory_allocated)")
+    check(abs(lnl64 - best) < 1.0, "C20 search lnL vs its float64 re-evaluation")
+    check(bool(np.all(np.isfinite(out_tree.blen))) and out_tree.n_taxa == N,
+          "a written 300-taxon tree with finite lengths")
+    check(len(boot) == 1000 and all(l.strip().endswith(";") for l in boot),
+          "every one of the 1000 UFBoot samples holds a tree")
+    check(len(supports) == N - 3 and all(0 <= x <= 100 for x in supports),
+          "the treefile carries N-3 supports in 0-100")
+    check(all(v > 0 for v in sizes.values()), ".contree and .splits.nex written")
+    for k in walks:
+        check(launches[k] > 0, f"kernel {k} launched at C=80 on the C20 search")
+        results[f"{k}_c80"]["launches"] = launches[k]
+    for k in ("wide_newton", "forward", "store", "tbar", "newton", "down_store"):
+        check(launches[k] == 0, f"kernel {k} stays off the C20 search")
 
 
 if __name__ == "__main__":

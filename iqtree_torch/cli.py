@@ -1,8 +1,10 @@
 """Command-line entry: the default tree search, with the ultrafast
 bootstrap under -bb, or the fixed-topology (-te) model and branch fit;
-DNA, protein and codons (-st CODON[n]).
+DNA, protein and codons (-st CODON[n]), and the mixture models (-m C10..
+C60, EX2+G, LG4M, MIX{...}, BASE+FMIX{...}; -mwopt frees their pinned
+class weights).
 
-    python -m iqtree_torch -s ALN [-st DNA|AA|CODON[n]] [-m MODEL]
+    python -m iqtree_torch -s ALN [-st DNA|AA|CODON[n]] [-m MODEL] [-mwopt]
                            [-t TREE | -starttree BIONJ|PARS]
                            [-n N] [-nstop N] [-ninit N] [-ntop N] [-pers X]
                            [-maxtime MIN] [-keep-ident] [-pre P] [-seed N]
@@ -47,6 +49,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(msg, flush=True)
 
     t0 = time.time()
+    from .models import mixture
+
+    mixture.FORCE_OPT_WEIGHTS = cfg.optimize_mixmodel_weight
     device = resolve_device(cfg.device)
     command = f"iqtree-torch {' '.join(argv)}"
     log(f"IQ-TREE-torch {__version__} starting: {command}")
@@ -121,18 +126,20 @@ def write_ufboot_outputs(cfg, prefix: str, aln, ufboot, log) -> None:
 
 
 def model_name(subst, rate) -> str:
-    """The fitted model as a model string with every parameter pinned."""
+    """The fitted model as a model string with every parameter pinned (a
+    mixture: its classes' rates and weights)."""
+    from .models.mixture import MixtureModel
+
+    suffix = (f"+I{{{rate.p_invar:.6f}}}" if rate.has_invar else "") + \
+        (f"+G{rate.ncat}{{{rate.alpha:.6f}}}" if rate.has_gamma else "")
+    if isinstance(subst, MixtureModel):
+        return subst.model_string(suffix)
     name = subst.name
     if getattr(subst, "kappa", None) is not None:  # codon: {kappa,omega}
         name += f"{{{subst.kappa:.6f},{subst.omega:.6f}}}"
     if subst.rate_groups is not None and len(subst.group_rates) > 1:
         name += "{" + ",".join(f"{r:.6f}" for r in subst.group_rates[1:]) + "}"
-    name += "+F{" + ",".join(f"{x:.6f}" for x in subst.state_freq) + "}"
-    if rate.has_invar:
-        name += f"+I{{{rate.p_invar:.6f}}}"
-    if rate.has_gamma:
-        name += f"+G{rate.ncat}{{{rate.alpha:.6f}}}"
-    return name
+    return name + "+F{" + ",".join(f"{x:.6f}" for x in subst.state_freq) + "}" + suffix
 
 
 def graft_identical(nwk: str, pairs) -> str:
@@ -180,6 +187,7 @@ def run_fixed_topology(cfg, aln, model_str: str, device: torch.device, log):
     from .engine.kernels.pruning import device_slot_schedule
     from .engine.likelihood import SiteData, TreeArrays
     from .models.factory import parse_model_string
+    from .models.mixture import category_count
     from .models.optimize import (ModelOptimizer, fit_model_step,
                                   optimize_model_and_branches)
     from .trees.tree import PhyloTree
@@ -191,9 +199,9 @@ def run_fixed_topology(cfg, aln, model_str: str, device: torch.device, log):
     dt = work_dtype(device)
     site = SiteData.from_alignment(aln, device, dt)
     ta = TreeArrays.from_tree(tree, device)
-    dec = decide_engine(aln.n_taxa, rate.ncat, subst.num_states, aln.n_patterns,
-                        device, dt)
-    for line in engine_banner(dec, aln.n_taxa, rate.ncat, subst.num_states,
+    C = category_count(subst, rate)
+    dec = decide_engine(aln.n_taxa, C, subst.num_states, aln.n_patterns, device, dt)
+    for line in engine_banner(dec, aln.n_taxa, C, subst.num_states,
                               aln.n_patterns).splitlines():
         log(line)
     steps, n_slots = device_slot_schedule(tree, ta)

@@ -1,6 +1,7 @@
 """Command-line configuration of the port: the fixed-topology fit (-te)
 and the default tree search with its ultrafast bootstrap (-bb), for DNA,
-protein and codons (-st CODON[n])."""
+protein and codons (-st CODON[n]) and the mixture models (-m C10..C60,
+EX2, LG4M, MIX{...}, +FMIX{...}; -mwopt frees pinned class weights)."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from typing import Optional
 PORTED_FLAGS = ("-s", "-st", "-te", "-t", "-m", "-pre", "-seed", "-blfix", "-redo",
                 "-device", "-n", "-nstop", "-ninit", "-ntop", "-pers", "-maxtime",
                 "-starttree", "-keep-ident", "-keep_ident", "-bb", "-beps", "-bcor",
-                "-nstep", "-wbt", "-wbtl")
+                "-nstep", "-wbt", "-wbtl", "-mwopt")
 
 
 @dataclass
@@ -41,6 +42,7 @@ class RunConfig:
     step_iterations: int = 100  # -nstep
     write_boot_trees: bool = False  # -wbt (or -wbtl)
     write_boot_tree_blens: bool = False  # -wbtl
+    optimize_mixmodel_weight: bool = False  # -mwopt: free a mixture's pinned weights
 
     @property
     def out_prefix(self) -> str:
@@ -58,8 +60,8 @@ def parse_args(argv) -> RunConfig:
         if a.startswith("-") and a not in PORTED_FLAGS and not _is_number(a):
             raise SystemExit(
                 f"iqtree-torch: option {a} is not ported yet; this version runs "
-                f"the fixed-topology fit and the default search with its bootstrap "
-                f"({' '.join(PORTED_FLAGS)})")
+                f"the fixed-topology fit and the default search with its bootstrap, "
+                f"for DNA, protein, codon and mixture models ({' '.join(PORTED_FLAGS)})")
     p = _Parser(prog="iqtree-torch",
                 description="IQ-TREE tree search and fixed-topology fit on "
                             "PyTorch and hand-written CUDA kernels")
@@ -73,8 +75,8 @@ def parse_args(argv) -> RunConfig:
     p.add_argument("-t", dest="start_tree", default=None,
                    help="start tree file of the search")
     p.add_argument("-m", dest="model", default=None,
-                   help="model string, e.g. GTR+G, HKY+I+G, LG+G (default HKY+G "
-                        "for DNA, LG+G for protein)")
+                   help="model string, e.g. GTR+G, HKY+I+G, LG+G, C20, EX2+G, LG4M, "
+                        "MIX{WAG,LG}+G (default HKY+G for DNA, LG+G for protein)")
     p.add_argument("-pre", dest="prefix", default=None, help="output prefix")
     p.add_argument("-seed", dest="seed", type=int, default=1)
     p.add_argument("-blfix", dest="fix_branch_lengths", action="store_true",
@@ -114,6 +116,9 @@ def parse_args(argv) -> RunConfig:
                    help="write the UFBoot trees to PREFIX.ufboot")
     p.add_argument("-wbtl", dest="wbtl", action="store_true",
                    help="write the UFBoot trees with branch lengths (implies -wbt)")
+    p.add_argument("-mwopt", dest="mwopt", action="store_true",
+                   help="optimize mixture class weights even where the model "
+                        "pins them (C10..C60)")
     a = p.parse_args(argv)
     if a.fixed_tree and a.start_tree:
         p.error("-te and -t exclude each other")
@@ -142,7 +147,8 @@ def parse_args(argv) -> RunConfig:
         start_tree_mode=a.starttree, keep_identical=a.keep_ident,
         seq_type=a.seq_type, genetic_code=genetic_code, ufboot=a.ufboot,
         ufboot_epsilon=a.beps, min_correlation=a.bcor, step_iterations=a.nstep,
-        write_boot_trees=a.wbt or a.wbtl, write_boot_tree_blens=a.wbtl)
+        write_boot_trees=a.wbt or a.wbtl, write_boot_tree_blens=a.wbtl,
+        optimize_mixmodel_weight=a.mwopt)
 
 
 def _is_number(s: str) -> bool:

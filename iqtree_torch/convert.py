@@ -15,6 +15,8 @@ import torch
 
 from .engine.likelihood import ModelArrays, SiteData, TreeArrays
 from .models.codon import CodonModel
+from .models.mixture import MixtureModel
+from .models.subst import ReversibleModel
 from .trees.tree import PhyloTree
 
 
@@ -62,6 +64,31 @@ def codon_model(src) -> CodonModel:
                       omega=float(src.omega), mg=bool(src.mg),
                       nt_freq=None if nt is None else _np(nt).astype(np.float64).copy(),
                       fix_kappa=bool(src.fix_kappa), fix_omega=bool(src.fix_omega))
+
+
+def reversible_model(src) -> ReversibleModel:
+    """The port's ReversibleModel from an object with the fields of one
+    (name, num_states, rate_groups, group_rates, exchange, freq_type,
+    state_freq, fixed_rates)."""
+    copy = lambda a, t: None if a is None else _np(a).astype(t).copy()
+    return ReversibleModel(str(src.name), int(src.num_states),
+                           rate_groups=copy(src.rate_groups, np.int32),
+                           group_rates=copy(src.group_rates, np.float64),
+                           exchange=copy(src.exchange, np.float64),
+                           freq_type=str(src.freq_type),
+                           state_freq=copy(src.state_freq, np.float64),
+                           fixed_rates=bool(src.fixed_rates))
+
+
+def mixture_model(src) -> MixtureModel:
+    """The port's MixtureModel from an object with the fields of one (name,
+    components, weights, comp_rates, fix_weights, fused_with_rate): each
+    component's matrix and frequencies, the weights and the rates."""
+    return MixtureModel(str(src.name), [reversible_model(c) for c in src.components],
+                        _np(src.weights).astype(np.float64).copy(),
+                        _np(src.comp_rates).astype(np.float64).copy(),
+                        fix_weights=bool(src.fix_weights),
+                        fused_with_rate=bool(src.fused_with_rate))
 
 
 def site_data(src, device, dtype=torch.float64) -> SiteData:

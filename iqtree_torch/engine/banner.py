@@ -3,9 +3,10 @@
 Names the path the run really takes -- the CUDA kernels on the card, or
 the kernels' plain PyTorch twins on the CPU -- and checks the stored
 partials the reverse sweeps need against the card's free memory before
-anything is allocated.  A tree search, and the codon branch Newton's
-theta path, also hold the outside partials; a search sizes the NNI
-evaluator's edge chunks from what is left.
+anything is allocated.  A tree search, and the branch Newton's theta
+path (the codon spaces, the mixtures past 8 categories), also hold the
+outside partials, and the theta path a chunk of branches' theta buffers;
+a search sizes the NNI evaluator's edge chunks from what is left.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import NamedTuple
 
 import torch
 
-from .derivatives import newton_serves
+from .derivatives import THETA_LIVE, newton_serves, theta_chunk_edges
 from .kernels import build
 from .kernels.build import check_shape
 from .parsimony import lane_width
@@ -26,6 +27,7 @@ class EngineDecision(NamedTuple):
     store_bytes: int  # the stored partials + scales (up, and out for a search)
     mem_cap: int  # usable device memory
     nni_chunk: int  # edges whose NNI candidates are evaluated at once
+    theta_bytes: int = 0  # the theta path's chunk of branch buffers (0: no theta path)
 
 
 # live [C, S, P] tensors per NNI candidate in engine/nni.py evaluate_nnis
@@ -71,31 +73,37 @@ def decide_engine(n_taxa: int, ncat: int, num_states: int, n_patterns: int,
     # (S=64) and the wrappers slice them, so on the card a pass holds its
     # rows at that width
     width = ncat * build.instance_states(num_states) if kernels else CS
-    both = search or not newton_serves(num_states)
-    store = n_rows * (width + 1) * n_patterns * item * (2 if both else 1)
+    theta = not newton_serves(ncat, num_states)
+    store = n_rows * (width + 1) * n_patterns * item * (2 if search or theta else 1)
+    # the theta path's buffers, a chunk of branches at a time (derivatives.py)
+    theta_bytes = (theta_chunk_edges(n_rows, CS, n_patterns, item) * THETA_LIVE * CS
+                   * n_patterns * item if theta else 0)
     cap = memory_capacity(device)
     if kernels:
-        check_shape(ncat, num_states)
-        if store > cap:
+        check_shape(ncat, num_states, n_slots=build.max_slots(n_taxa))
+        if store + theta_bytes > cap:
             raise MemoryError(
-                f"stored partials need ~{store / 2**30:.1f} GB, the card has "
-                f"{cap / 2**30:.1f} GB usable")
+                f"stored partials need ~{store / 2**30:.1f} GB and the theta path "
+                f"~{theta_bytes / 2**30:.1f} GB, the card has {cap / 2**30:.1f} GB "
+                "usable")
     per_edge = 3 * NNI_LIVE_TENSORS * CS * n_patterns * item  # 3 swaps (paired)
-    budget = (cap - store) // 2 if kernels else HOST_NNI_BUDGET
+    budget = (cap - store - theta_bytes) // 2 if kernels else HOST_NNI_BUDGET
     chunk = max(1, min(n_taxa, budget // per_edge))
-    return EngineDecision(device, kernels, store, cap, chunk)
+    return EngineDecision(device, kernels, store, cap, chunk, theta_bytes)
 
 
 def engine_banner(dec: EngineDecision, n_taxa: int, ncat: int, num_states: int,
                   n_patterns: int, search: bool = False) -> str:
     """Human-readable engine/memory report (logged at startup)."""
-    theta = not newton_serves(num_states)  # codon: the theta path
+    theta = not newton_serves(ncat, num_states)  # codon, or past 8 categories
     if dec.kernels:
         name = torch.cuda.get_device_name(dec.device)
         padded = build.instance_states(num_states)
+        K, cb = build.wide_layout(ncat)
         shape = ("CS-packed" if num_states == 4 else
                  f"wide [C,S,S] x [C,S,tile], S={num_states}"
-                 + (f" (padded {padded})" if padded != num_states else ""))
+                 + (f" (padded {padded})" if padded != num_states else "")
+                 + (f", {cb} categories a block on {K}-block clusters" if cb > 1 else ""))
         last = "outside-partial store" if theta else "branch-Newton sweep"
         path = (f"CUDA kernels on {name} ({shape} forward, upward store, "
                 f"gradient sweep, {last}; CS={ncat * num_states})")
@@ -124,5 +132,6 @@ def engine_banner(dec: EngineDecision, n_taxa: int, ncat: int, num_states: int,
     what = "up and outside partials" if search or theta else "stored partials"
     lines.append(f"Memory: {what} ~{dec.store_bytes / 2**20:.0f} MB for "
                  f"{n_taxa} taxa x {n_patterns} patterns x {ncat}x{num_states} "
-                 f"({budget})")
+                 + (f"+ theta buffers ~{dec.theta_bytes / 2**20:.0f} MB a chunk of "
+                    "branches " if theta else "") + f"({budget})")
     return "\n".join(lines)

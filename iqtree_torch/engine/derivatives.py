@@ -7,12 +7,14 @@ d lnL/dt and d2 lnL/dt2 for all 2N-3 branches come from one of two paths
   (kernels/cs_kernels.py fused_newton_derivs: the CS-packed kernels for
   DNA, the wide ones for protein, the plain twins on the CPU);
 * the theta path, where no branch-Newton kernel serves the shape (the
-  codon spaces, as in the JAX package): the upward store and the
-  outside-partial store (fused_nni_passes_cs, the wide kernels), then
-  every branch's theta buffer theta[v,c,j,p] = (V^T O_v)_j (V^-1 U_v)_j and
-  its derivatives f_k = sum_cj w_c (lam_j r_c)^k e^{lam_j r_c t} theta in
-  plain PyTorch (`thetas`, `theta_derivs`, shared with the NNI
-  evaluator's local Newton, engine/nni.py).
+  codon spaces and the mixtures past 8 categories, as in the JAX
+  package): the upward store and the outside-partial store
+  (fused_nni_passes_cs, the wide kernels), then every branch's theta
+  buffer theta[v,c,j,p] = (V^T O_v)_j (V^-1 U_v)_j and its derivatives
+  f_k = sum_cj w_c (lam_j r_c)^k e^{lam_j r_c t} theta in plain PyTorch
+  (`thetas`, `theta_derivs`, shared with the NNI evaluator's local
+  Newton, engine/nni.py), a chunk of branches at a time
+  (theta_chunk_edges).
 
 Newton then moves every branch simultaneously (Jacobi-style sweeps rather
 than one branch at a time).  Plain Jacobi steps oscillate, because
@@ -122,10 +124,27 @@ def theta_derivs(m: LocalModel, th: Thetas, t: torch.Tensor):
     return (m.pfreq * r1).sum(-1), (m.pfreq * (r2 - r1 * r1)).sum(-1), denom
 
 
-def newton_serves(S: int) -> bool:
-    """Whether a branch-Newton sweep kernel serves S states (DNA and
-    protein); the codon spaces take the theta path."""
-    return S in build.PACKED_STATES + build.WIDE_NEWTON_STATES
+def newton_serves(C: int, S: int) -> bool:
+    """Whether a branch-Newton sweep kernel serves C categories x S states
+    (DNA and protein, up to 8 categories); the codon spaces and the
+    mixtures past 8 categories take the theta path."""
+    return (S in build.PACKED_STATES + build.WIDE_NEWTON_STATES
+            and C <= build.MAX_CATEGORIES)
+
+
+# Bytes the theta path's per-branch buffers may take at once: the theta
+# buffers [K, C*S, P] and the two transforms they are made of
+# (THETA_LIVE tensors of that size).  At C20 (C*S = 1 600) and 1 958
+# patterns in float32 a branch takes 38 MB, so a chunk holds 28 branches.
+THETA_BUDGET = 1 << 30
+THETA_LIVE = 3
+
+
+def theta_chunk_edges(n_edges: int, CS: int, n_patterns: int, item: int) -> int:
+    """Branches whose theta buffers the theta path builds at once: as many
+    as fit THETA_BUDGET, at least one."""
+    per_edge = THETA_LIVE * CS * n_patterns * item
+    return max(1, min(n_edges, THETA_BUDGET // per_edge))
 
 
 def branch_derivs(steps, n_slots: int, model: ModelArrays, site: SiteData,
@@ -134,7 +153,7 @@ def branch_derivs(steps, n_slots: int, model: ModelArrays, site: SiteData,
     root and dummy rows carry no edge): the branch-Newton sweep where a
     kernel serves the shape, else the theta path on the upward store and
     the outside-partial store."""
-    if newton_serves(model.num_states):
+    if newton_serves(model.ncat, model.num_states):
         return fused_newton_derivs(steps, n_slots, model, blen, tips,
                                    site.pattern_freq.contiguous(), invar)
     dt = tips.dtype
@@ -143,10 +162,19 @@ def branch_derivs(steps, n_slots: int, model: ModelArrays, site: SiteData,
                                             model.state_freq.to(dt))
     n, P = up.shape[0], up.shape[2]
     shape = (n, model.ncat, model.num_states, P)
+    inside, outside = up.reshape(shape), out.reshape(shape)
     m = local_model(model, site, dt)
-    th = thetas(m, up.reshape(shape), usc, out.reshape(shape), osc)
-    d1, d2, _ = theta_derivs(m, th, blen.to(dt))
-    return d1, d2
+    t = blen.to(dt)
+    # each branch's buffers and sums are its own: a chunk of branches gives
+    # the values all of them at once would
+    k = theta_chunk_edges(n, model.ncat * model.num_states, P, up.element_size())
+    d1, d2 = [], []
+    for a in range(0, n, k):
+        e = slice(a, a + k)
+        r = theta_derivs(m, thetas(m, inside[e], usc[e], outside[e], osc[e]), t[e])
+        d1.append(r[0])
+        d2.append(r[1])
+    return torch.cat(d1), torch.cat(d2)
 
 
 def optimize_all_branches(

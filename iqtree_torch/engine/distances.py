@@ -3,8 +3,9 @@
 The pair count matrices of a chunk of taxon rows (every pair (a, b) with
 a in the chunk) are one matrix product over the patterns, and the
 per-pair Newton iterations run on them as batched tensor code; a chunk's
-[pairs, S*S] temporaries are sized to a byte budget, so S=61 codon spaces
-take as little memory as DNA does.  For a reversible model with rate
+[pairs, S*S] and [pairs, C*S] temporaries are sized to a byte budget, so
+S=61 codon spaces and the C=80 categories of a C20 mixture take as little
+memory as DNA does.  For a reversible model with rate
 categories the pairwise log-likelihood of count matrix n is
     l(t) = sum_st n_st log( sum_c w_c pi_s P_c(t)[s,t] ).
 Everything runs in float64 on the caller's device.
@@ -18,18 +19,21 @@ import torch
 from .derivatives import MAX_BLEN, MIN_BLEN
 from .likelihood import ModelArrays, SiteData
 
-# bytes the Newton loop's [pairs, S*S] float64 temporaries may take at once
-# (the chunk's counts and about five products and ratios live together)
+# bytes the Newton loop's float64 temporaries may take at once: the
+# chunk's counts and about five products and ratios live together, each
+# [pairs, S*S] (the counts, the joint) or [pairs, C*S] (expo, expo * lamr,
+# expo * lamr^2), so a pair takes PAIR_LIVE rows of the wider of the two
 PAIR_BUDGET = 2 << 30
 PAIR_LIVE = 6
 
 
-def pair_chunk_rows(T: int, S: int) -> int:
-    """Taxon rows a chunk: the pairs of `rows` rows (rows x T) whose
-    [pairs, S*S] float64 temporaries fit PAIR_BUDGET bytes, at least one
+def pair_chunk_rows(T: int, S: int, C: int = 1) -> int:
+    """Taxon rows a chunk: the pairs of `rows` rows (rows x T) whose float64
+    temporaries, max(S*S, C*S) columns, fit PAIR_BUDGET bytes, at least one
     row.  At S=61 that is ~12 000 pairs a chunk (12 rows at 1 000 taxa); at
-    S=4 every pair of 1 000 taxa in one."""
-    pairs = max(1, PAIR_BUDGET // (PAIR_LIVE * S * S * 8))
+    S=4 every pair of 1 000 taxa in one; at C20's C*S = 1 600 columns, four
+    times S*S, ~28 000 pairs."""
+    pairs = max(1, PAIR_BUDGET // (PAIR_LIVE * max(S * S, C * S) * 8))
     return max(1, min(T, pairs // T))
 
 
@@ -72,7 +76,7 @@ def ml_distances(model: ModelArrays, site: SiteData,
     out = torch.empty(T * T, dtype=torch.float64, device=B.device)
     b = (S - 1.0) / S
     x, y = _profiles(site)
-    rows = pair_chunk_rows(T, S)
+    rows = pair_chunk_rows(T, S, C)
     for a0 in range(0, T, rows):
         n = _counts(x, y, slice(a0, a0 + rows)).reshape(-1, S * S)
         total = torch.clamp(n.sum(-1), min=1e-30)

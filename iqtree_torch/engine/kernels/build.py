@@ -58,18 +58,36 @@ SIGNATURES = {
 }
 
 # State counts with a kernel instance: the CS-packed DNA kernels (S=4) and
-# the wide kernels (S=20, protein; S=64, codons); 1..8 rate categories.
+# the wide kernels (S=20, protein; S=64, codons).
 PACKED_STATES = (4,)
 WIDE_STATES = (20, 64)
 # csrc/wide_newton.cu's: protein only (codon branch lengths take the theta
 # path, engine/derivatives.py)
 WIDE_NEWTON_STATES = (20,)
+# Categories of the CS-packed kernels (a lane a pattern and category) and of
+# csrc/wide_newton.cu (a cluster block a category): 1..8.  The four wide
+# walks (csrc/wide_common.cuh) hold several categories a block past 8, at
+# the S=20 instance, as far as their shared memory allows (wide_layout,
+# wide_walk_smem).
 MAX_CATEGORIES = 8
+# Wide instances that hold several categories a block (MULTI): protein.
+MULTI_CATEGORY_STATES = (20,)
+# The portable thread-block cluster size: a wide walk's cluster has at most
+# 8 blocks (MAX_CLUSTER_BLOCKS of csrc/wide_common.cuh).
+MAX_CLUSTER_BLOCKS = 8
+# Dynamic shared memory a block may opt in to on an H100 (bytes).
+MAX_BLOCK_SMEM = 232448
 # State counts a wider instance serves with its padded rows and columns
 # zero: the codon spaces of the genetic codes (60 to 63 sense codons).
 PADDED_STATES = {S: 64 for S in range(60, 64)}
 # the slice of the port that brings the kernels of a state count not served
 LATER_SLICES = {2: "the binary/morphology slice"}
+# the slice that brings a state count's kernels past MAX_CATEGORIES
+LATER_CATEGORY_SLICES = {
+    4: "the DNA mixture slice (no S=4 instance holds more than 8 categories)",
+    64: "the codon mixture slice (the S=64 instance keeps one category a block)",
+    20: "a later slice (a wide walk whose slot pool outgrows shared memory)",
+}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -158,29 +176,78 @@ def instance_states(S: int) -> int:
     return PADDED_STATES.get(S, S)
 
 
-def check_shape(C: int, S: int, states=PACKED_STATES + WIDE_STATES) -> None:
+def wide_layout(C: int):
+    """(K, CB): a wide walk's C categories on K blocks a cluster, CB a block
+    -- one a block up to 8, else ceil(C / 8) a block on ceil(C / CB)
+    blocks, the last block's missing categories padding (wide_k / wide_cb
+    of csrc/wide_common.cuh)."""
+    cb = -(-C // MAX_CLUSTER_BLOCKS)
+    return -(-C // cb), cb
+
+
+def max_slots(n_taxa: int) -> int:
+    """The most slots a slot schedule of n_taxa takes: the Strahler number
+    of a binary tree, at most ceil(log2 N) + 1 (schedule.py)."""
+    return max(1, (n_taxa - 1).bit_length()) + 1
+
+
+def wide_walk_smem(C: int, S: int, n_slots: int) -> int:
+    """Bytes of shared memory a block of the most demanding of the four wide
+    walks takes at their default tiles (pruning.wide_forward_smem,
+    cs_kernels.wide_down_store_smem, cs_kernels.wide_tbar_smem)."""
+    from . import cs_kernels, pruning
+
+    return max(pruning.wide_forward_smem(S, C, pruning.WIDE_STORE_TILE, n_slots),
+               cs_kernels.wide_down_store_smem(S, C, cs_kernels.WIDE_DOWN_STORE_TILE,
+                                               n_slots),
+               cs_kernels.wide_tbar_smem(S, C, cs_kernels.WIDE_TBAR_TILE, n_slots))
+
+
+def check_shape(C: int, S: int, states=PACKED_STATES + WIDE_STATES,
+                n_slots: int = None, multi: bool = True) -> None:
     """Raise NotImplementedError unless a kernel of `states` (default: any
     kernel of the port) serves C categories x S states (S padded, for a
-    codon space)."""
+    codon space).  Past MAX_CATEGORIES only the wide walks serve (multi:
+    the caller is one; csrc/wide_newton.cu is not), at the S=20 instance,
+    when their shared memory at `n_slots` slots fits a block
+    (MAX_BLOCK_SMEM; n_slots None: no slot count to check yet)."""
     S = instance_states(S)
-    if S in states and 1 <= C <= MAX_CATEGORIES:
-        return
-    if S in PACKED_STATES + WIDE_STATES and 1 <= C <= MAX_CATEGORIES:
+    if S not in PACKED_STATES + WIDE_STATES:
+        raise NotImplementedError(
+            f"no CUDA kernel for C={C} categories x S={S} states: the port serves "
+            f"DNA (S=4), protein (S=20) and codons (S=60..63, padded to 64); this "
+            f"shape is not ported yet ({LATER_SLICES.get(S, 'a later slice')})")
+    if S not in states:
         raise NotImplementedError(
             f"this kernel has instances for S in {states}, got S={S}")
-    later = LATER_SLICES.get(S, "a later slice")
-    raise NotImplementedError(
-        f"no CUDA kernel for C={C} categories x S={S} states: the port serves "
-        f"DNA (S=4), protein (S=20) and codons (S=60..63, padded to 64) with "
-        f"C<={MAX_CATEGORIES}; this shape is not ported yet ({later})")
+    if 1 <= C <= MAX_CATEGORIES:
+        return
+    if S not in MULTI_CATEGORY_STATES:
+        raise NotImplementedError(
+            f"no CUDA kernel for C={C} categories x S={S} states: the port's S={S} "
+            f"kernels serve at most {MAX_CATEGORIES} categories; this shape is not "
+            f"ported yet ({LATER_CATEGORY_SLICES[S]})")
+    if not multi:
+        raise NotImplementedError(
+            f"no CUDA kernel for C={C} categories x S={S} states: this kernel "
+            f"serves at most {MAX_CATEGORIES} categories (past them the wide walks "
+            f"and the theta path serve)")
+    need = 0 if n_slots is None else wide_walk_smem(C, S, n_slots)
+    if need > MAX_BLOCK_SMEM:
+        K, cb = wide_layout(C)
+        raise NotImplementedError(
+            f"no CUDA kernel for C={C} categories x S={S} states at {n_slots} slots: "
+            f"the wide walks' blocks ({cb} categories each, {K} a cluster) need "
+            f"{need} bytes of shared memory, over the {MAX_BLOCK_SMEM} a block may "
+            f"have; this shape is not ported yet ({LATER_CATEGORY_SLICES[S]})")
 
 
 def check_inputs(C: int, S: int, steps: torch.Tensor, *tensors: torch.Tensor,
-                 states=PACKED_STATES) -> None:
+                 states=PACKED_STATES, n_slots: int = None, multi: bool = False) -> None:
     """The kernels take contiguous CUDA tensors: an int32 [R, 6] schedule,
-    float32 data, S in `states` (the kernel's instances) and 1..8 rate
-    categories."""
-    check_shape(C, S, states)
+    float32 data, S in `states` (the kernel's instances) and the categories
+    check_shape allows (multi: a wide walk, at n_slots slots)."""
+    check_shape(C, S, states, n_slots, multi)
     if steps.dtype != torch.int32 or steps.dim() != 2 or steps.shape[1] != 6:
         raise ValueError("the slot schedule must be an int32 [n_steps, 6] tensor")
     for t in (steps, *tensors):

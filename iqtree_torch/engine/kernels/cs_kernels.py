@@ -210,7 +210,7 @@ def fused_downward_tbar(steps, n_slots, trans, tips, props, state_freq, lnl_raw,
         rootd = pad_states(rootd, SK, 1)
     rootd = rootd.reshape(-1).contiguous()
     build.check_inputs(C, SK, steps, trans, rootd, lnl_raw, w_p, up, usc,
-                       states=build.WIDE_STATES)
+                       states=build.WIDE_STATES, n_slots=n_slots, multi=True)
     if wide_tbar_threads(SK, T) > WIDE_TBAR_THREADS_MAX:
         raise ValueError(f"wide_tbar: {T} patterns a cluster need "
                          f"{wide_tbar_threads(SK, T)} threads a block at S={SK}, over "
@@ -292,12 +292,14 @@ WIDE_DOWN_STORE_TILE = 16
 
 def wide_down_store_smem(S: int, C: int, tile: int, n_slots: int, stages: int = 2) -> int:
     """Bytes of shared memory a block of csrc/wide_down_store.cu takes (the
-    formula of its header): the ring of both children's [S,S] blocks and
-    their rows and scales, the slot pool, O's stage and the max buffers
-    (double-buffered by step parity).  A block holds one rate category, so
-    only the max buffers grow with C."""
-    return 4 * (stages * (2 * S * S + 2 * (S + 1) * tile) + n_slots * (S + 1) * tile
-                + 2 * S * tile + 4 * C * tile)
+    formula of its header, ReverseSmem): the ring of one category's [S,S]
+    blocks of both children and their rows and scales, the slot pool of the
+    block's CB categories, O's stage of both children's CB S rows and the
+    max buffers of the K blocks (build.wide_layout; double-buffered by step
+    parity).  The ring does not grow with the categories."""
+    K, cb = build.wide_layout(C)
+    return 4 * (stages * (2 * S * S + 2 * (S + 1) * tile) + n_slots * (cb * S + 1) * tile
+                + 2 * cb * S * tile + 4 * K * tile)
 
 
 def fused_down_store(steps, n_slots, trans, up, usc, state_freq, tile=None):
@@ -315,7 +317,8 @@ def fused_down_store(steps, n_slots, trans, up, usc, state_freq, tile=None):
         trans, up = pad_states(trans, SK, 2, 3), pad_partials(up, C, SK)
         rootd = pad_states(rootd, SK, 1)
     rootd = rootd.reshape(-1).contiguous()
-    build.check_inputs(C, SK, steps, trans, rootd, up, usc, states=build.WIDE_STATES)
+    build.check_inputs(C, SK, steps, trans, rootd, up, usc, states=build.WIDE_STATES,
+                       n_slots=n_slots, multi=True)
     out, osc = _zeroed_outside(n_rows, C * SK, P, trans.device)
     build.launch("wide_down_store", steps, steps.shape[0], trans, rootd, up, usc, P,
                  out, osc, C, SK, n_slots, tile or WIDE_DOWN_STORE_TILE)

@@ -1,23 +1,30 @@
 // Shared pieces of the wide likelihood kernels: the general [C,S,S] layout
 // (protein: S = 20 states; codons: S = 64, the codon spaces' 60 to 63
-// states padded with zero rows and columns; 1..8 rate categories; float32).
+// states padded with zero rows and columns; float32).
 //
 // The CS-packed DNA kernels give a lane a whole category column (S = 4
 // floats).  At S = 20 a column is 80 floats per child and an edge's
 // matrices 1 600 floats, so the wide kernels spread a pattern over threads
-// and a cluster of blocks: a thread-block cluster of C blocks, one a rate
-// category, owns a tile of consecutive patterns, and a thread holds some
-// of them and RPT of its category's state rows.  Two walks of the slot
-// schedule run on that layout: the upward walk (wide_forward.cu,
-// wide_store.cu) and the reverse walk (wide_down_store.cu, wide_tbar.cu;
-// wide_newton.cu keeps its own copy, whose step carries three matrices a
-// child).
+// and a cluster of blocks: a thread-block cluster of K blocks owns a tile
+// of consecutive patterns, block k holding the CB rate (or mixture x rate)
+// categories k CB .. k CB + CB - 1, and a thread holds some of the
+// patterns and RPT of each category's state rows.  CB = 1 up to 8
+// categories (K = C, a block a category); past 8 (the protein mixtures,
+// C = 40 for C10, 80 for C20) CB = ceil(C / 8) and K = ceil(C / CB) <= 8,
+// the portable cluster size, the last block's missing categories padding
+// (build.wide_layout).  Two walks of the slot schedule run on that layout:
+// the upward walk (wide_forward.cu, wide_store.cu) and the reverse walk
+// (wide_down_store.cu, wide_tbar.cu; wide_newton.cu keeps its own copy,
+// whose step carries three matrices a child, at C <= 8).
 //
 // Each cluster walks the whole slot schedule for its tile, as a TPU grid
 // step walks it (schedule rows: left child, right child, left slot,
 // right slot (-1 = tip), output slot, output node; see cs_common.cuh).
 // The kernels are templates on S and RPT with two instances
-// (IQT_DISPATCH_WIDE_S): S = 20 (RPT = 5) and S = 64 (RPT = CODON_RPT).
+// (IQT_DISPATCH_WIDE_S): S = 20 (RPT = 5) and S = 64 (RPT = CODON_RPT),
+// and on MULTI (CB > 1), instanced at S = 20 only: the codon instance
+// keeps CB = 1 (C <= 8).  The CB = 1 instances run the one-category walks
+// (cluster_upward_walk, cluster_reverse_walk).
 // What differs at S = 64 is compile-time (`if constexpr (S > 32)`), so the
 // S = 20 instance compiles as before:
 //   * a message reads the child's rows from shared memory as it goes
@@ -46,39 +53,53 @@ using iqt::load_step;
 // ---------------------------------------------------------------------------
 // The upward walk on thread-block clusters (wide_forward.cu, wide_store.cu).
 //
-// A cluster of C blocks, one a rate category (its rank), owns a tile of
-// consecutive patterns.  Thread (pq, g) of a block holds CLUSTER_QT
-// consecutive patterns q = pq QT + qq and the RPT state rows g RPT .. g RPT
-// + RPT - 1 of its category (G = S / RPT consecutive lanes a pattern
-// group), so a block has tile / QT x G threads.  A block keeps only its
-// category's rows in its slot pool [slot][S+1][tile] (S rows and the
-// patterns' log-scale, which every block of the cluster holds with the same
-// bits).  A step's other inputs -- the block's category's [S,S] blocks of
-// both children and each tip child's S indicator rows for the tile (every
-// block reads its own copy, in 4-byte words: P need not be a multiple of 4)
-// -- are cp.async copies into a ring CLUSTER_STAGES deep, issued as the
-// stage they replace is released.
+// A cluster of K blocks, block k (its rank) holding the categories k CB ..
+// k CB + CB - 1, owns a tile of consecutive patterns.  Thread (pq, g) of a
+// block holds CLUSTER_QT consecutive patterns q = pq QT + qq and the RPT
+// state rows g RPT .. g RPT + RPT - 1 of each of the block's categories (G
+// = S / RPT consecutive lanes a pattern group), so a block has tile / QT x
+// G threads.  A block keeps only its categories' rows in its slot pool
+// [slot][CB S + 1][tile] (category j's S rows at j S, then the patterns'
+// log-scale, which every block of the cluster holds with the same bits).
+// A step runs as CB units, one a category of the block: a unit's inputs
+// -- the category's [S,S] blocks of both children and each tip child's S
+// indicator rows for the tile (every block reads its own copy, in 4-byte
+// words: P need not be a multiple of 4) -- are cp.async copies into a ring
+// CLUSTER_STAGES deep, one unit a stage, issued as the stage they replace
+// is released; so the ring does not grow with CB.
 //
-// The renormalizing max crosses the category's rows in log2(G) shuffle
-// rounds and the categories through distributed shared memory: each block
-// stores its per-pattern max into every block's buffer [parity][rank][tile]
-// (double-buffered by step parity), and one cluster barrier a step, which
-// also publishes the ring's landed copies and releases the stage the step
-// read, precedes the reads.  A pattern's pool rows cross its G lanes, which
-// share a warp, after a __syncwarp.
+// A unit's product rows go to the output slot unnormalized (the last
+// unit's stay in registers), after a __syncwarp that ends the warp's reads
+// of that category's child rows: the output slot may be a child's, whose
+// other categories' rows are still to be read.  Between two units of a
+// step one block barrier releases the stage.  The renormalizing max
+// crosses the block's CB x RPT rows in registers, a pattern's G lanes in
+// log2(G) shuffle rounds and the blocks through distributed shared memory:
+// each block stores its per-pattern max into every block's buffer
+// [parity][rank][tile] (double-buffered by step parity), and one cluster
+// barrier a step, which also publishes the ring's landed copies and
+// releases the stage the step's last unit read, precedes the reads.  Then
+// each thread divides its own rows in place.  A pattern's pool rows cross
+// its G lanes, which share a warp, after a __syncwarp.  A padding category
+// (k CB + j >= C) reads nothing and holds zero rows.
 //
-// The arithmetic is the row-group design's upward step: each message's
-// products in t order, the product of the two messages, the max (exact in
-// any order), the float division's bits (div_rn, without its branches) and
-// the scale chain sl + sr + log(max) in that order.  So the pool holds that
-// design's bits.
+// The arithmetic is the row-group design's upward step for every
+// category: each message's products in t order, the product of the two
+// messages, the max (exact in any order), the float division's bits
+// (div_rn, without its branches) and the scale chain sl + sr + log(max) in
+// that order.  So the pool holds that design's bits, at any CB.
+//
+// cluster_upward_walk is the walk at one category a block (CB = 1, K = C:
+// up to 8 categories); cluster_upward_walk_multi the walk at CB > 1.  The
+// latter at CB = 1 gives the same bits but made wide_forward ~8% slower on
+// an H100 (PERF.md), so both stay, chosen by C.
 //
 // Shared memory a block (floats), with tile patterns, n_slots slots and
 // STAGES = CLUSTER_STAGES:
 //     STAGES x 2 S^2           both children's matrices
 //   + STAGES x 2 S tile        their tip rows
-//   + n_slots (S+1) tile       the pool
-//   + 2 C tile                 the max buffers
+//   + n_slots (CB S + 1) tile  the pool
+//   + 2 K tile                 the max buffers
 // (pruning.wide_forward_smem).
 // ---------------------------------------------------------------------------
 
@@ -121,20 +142,35 @@ constexpr int CLUSTER_STAGES = 2;
 // Largest block of a cluster walk.
 constexpr int CLUSTER_THREADS_MAX = 256;
 
-// Offsets (floats) of a cluster walk's shared-memory arrays.
+// The portable cluster size: a cluster walk has at most 8 blocks.
+constexpr int MAX_CLUSTER_BLOCKS = 8;
+
+// The layout of C categories: CB categories a block (1 up to 8 categories,
+// else ceil(C / 8)) on K = ceil(C / CB) blocks a cluster
+// (build.wide_layout).
+__device__ __host__ inline int wide_cb(int C) {
+  return (C + MAX_CLUSTER_BLOCKS - 1) / MAX_CLUSTER_BLOCKS;
+}
+__device__ __host__ inline int wide_k(int C) {
+  const int cb = wide_cb(C);
+  return (C + cb - 1) / cb;
+}
+
+// Offsets (floats) of a cluster walk's shared-memory arrays, CB categories
+// a block.
 template <int S>
 struct ClusterSmem {
-  int tile;
-  __device__ __host__ ClusterSmem(int tile_) : tile(tile_) {}
+  int tile, CB;
+  __device__ __host__ ClusterSmem(int tile_, int CB_ = 1) : tile(tile_), CB(CB_) {}
   __device__ __host__ size_t tips() const { return (size_t)CLUSTER_STAGES * 2 * S * S; }
   __device__ __host__ size_t pool() const {
     return tips() + (size_t)CLUSTER_STAGES * 2 * S * tile;
   }
   __device__ __host__ size_t xmax(int n_slots) const {
-    return pool() + (size_t)n_slots * (S + 1) * tile;
+    return pool() + (size_t)n_slots * (CB * S + 1) * tile;
   }
-  __device__ __host__ size_t floats(int n_slots, int C) const {
-    return xmax(n_slots) + 2 * (size_t)C * tile;
+  __device__ __host__ size_t floats(int n_slots, int K) const {
+    return xmax(n_slots) + 2 * (size_t)K * tile;
   }
 };
 
@@ -398,6 +434,184 @@ __device__ __forceinline__ int cluster_upward_walk(const int* __restrict__ steps
   return st.out;
 }
 
+// The upward walk at several categories a block (see above): this block's
+// CB categories of the C and the tile of patterns p0 ...  After each step
+// emit(step, slot) sees the step's pool slot [CB S + 1][tile], normalized,
+// whose columns of the warp's patterns its lanes have written (a
+// __syncwarp before); the slot keeps them for the parent step, which may
+// overwrite it after the next step's cluster barrier.  Returns the root's
+// slot.  Every thread of every block of the cluster runs it; the caller
+// passes a cluster barrier before it reads another block's pool.
+template <int S, int RPT, typename Emit>
+__device__ __forceinline__ int cluster_upward_walk_multi(const int* __restrict__ steps,
+                                                         int n_steps,
+                                                         const float* __restrict__ trans,
+                                                         const float* __restrict__ tips,
+                                                         int P, int p0, int tile, int n_slots,
+                                                         int C, int CB, float* smem,
+                                                         Emit emit) {
+  constexpr int G = S / RPT, SS = S * S, QT = CLUSTER_QT, NS = CLUSTER_STAGES;
+  static_assert(S % RPT == 0 && G <= 32 && (G & (G - 1)) == 0,
+                "a pattern's row groups are a power of two of consecutive lanes");
+  static_assert(G % QT == 0, "a block's threads are a multiple of its tile");
+  cg::cluster_group cluster = cg::this_cluster();
+  const int K = (int)cluster.num_blocks(), kb = (int)cluster.block_rank();
+  const WalkLane<S, G> wl(threadIdx.x);
+  const int g = wl.g, s0 = g * RPT, pq = wl.pq, GS = WalkLane<S, G>::GS;
+  const int SR = CB * S;  // a slot's state rows; its scale row follows
+  const ClusterSmem<S> lay(tile, CB);
+  float* mst = smem;                   // [NS][2][SS]
+  float* tst = smem + lay.tips();      // [NS][2][S][tile]
+  float* pool = smem + lay.pool();     // [n_slots][CB S + 1][tile]
+  float* xmax = smem + lay.xmax(n_slots);  // [2][K][tile]
+  int q[QT];
+#pragma unroll
+  for (int qq = 0; qq < QT; ++qq) q[qq] = pq * QT + qq;
+  // unit u: step u / CB, the block's category u % CB, in stage u % NS
+  const int n_units = n_steps * CB;
+  const auto real = [&](int j) { return kb * CB + j < C; };
+  const auto fetch = [&](int u, const Step& sj, int k) {
+    if (real(u % CB))
+      cluster_fetch<S>(sj, mst + k * 2 * SS, tst + (size_t)k * 2 * S * tile,
+                       kb * CB + u % CB, C, tile, p0, trans, tips, P);
+  };
+
+#pragma unroll
+  for (int k = 0; k < NS; ++k) {
+    if (k < n_units) fetch(k, load_step(steps, k / CB), k);
+    __pipeline_commit();
+  }
+  __pipeline_wait_prior(NS - 1);  // unit 0's copies have landed
+  cluster.sync();  // every thread's, and every block of the cluster runs
+  Step st = load_step(steps, 0);
+  int uf = NS;  // the next unit to fetch
+  Step st_f = uf < n_units ? load_step(steps, uf / CB) : st;
+  // unit uf into stage k, and the unit after it
+  const auto fetch_next = [&](int k) {
+    if (uf < n_units) fetch(uf, st_f, k);
+    __pipeline_commit();
+    ++uf;
+    if (uf < n_units && uf % CB == 0) st_f = load_step(steps, uf / CB);
+  };
+  int k = 0;  // the stage of the unit
+  for (int i = 0; i < n_steps; ++i) {
+    const Step st_next = i + 1 < n_steps ? load_step(steps, i + 1) : st;
+    float* out = pool + (size_t)st.out * (SR + 1) * tile;
+    float y[RPT][QT], sc[QT], mx[QT];
+#pragma unroll
+    for (int qq = 0; qq < QT; ++qq) sc[qq] = mx[qq] = 0.f;
+    for (int j = 0; j < CB; ++j) {
+      if (real(j)) {
+        const float* Mk = mst + k * 2 * SS;
+        const float* Tk = tst + (size_t)k * 2 * S * tile;
+        float m[RPT][QT];
+#pragma unroll
+        for (int side = 0; side < 2; ++side) {
+          const int slot = side ? st.rs : st.ls;
+          if constexpr (S > 32) {
+            const float* xs = slot < 0 ? Tk + side * S * tile
+                                       : pool + (size_t)slot * (SR + 1) * tile + j * S * tile;
+            if (slot >= 0 && j == 0)
+#pragma unroll
+              for (int qq = 0; qq < QT; ++qq) sc[qq] += xs[SR * tile + q[qq]];
+            if (side)
+              cluster_message_smem<S, RPT, QT>(Mk + SS, s0, xs, tile, q, m);
+            else
+              cluster_message_smem<S, RPT, QT>(Mk, s0, xs, tile, q, y);
+            continue;
+          }
+          float x[S][QT];
+          if (slot < 0) {
+#pragma unroll
+            for (int t = 0; t < S; ++t)
+#pragma unroll
+              for (int qq = 0; qq < QT; ++qq) x[t][qq] = Tk[(side * S + t) * tile + q[qq]];
+          } else {
+            const float* col = pool + (size_t)slot * (SR + 1) * tile;
+#pragma unroll
+            for (int t = 0; t < S; ++t)
+#pragma unroll
+              for (int qq = 0; qq < QT; ++qq) x[t][qq] = col[(j * S + t) * tile + q[qq]];
+            if (j == 0)
+#pragma unroll
+              for (int qq = 0; qq < QT; ++qq) sc[qq] += col[SR * tile + q[qq]];
+          }
+          if (side)
+            cluster_message<S, RPT, QT>(Mk + SS, s0, x, m);
+          else
+            cluster_message<S, RPT, QT>(Mk, s0, x, y);
+        }
+#pragma unroll
+        for (int qq = 0; qq < QT; ++qq)
+#pragma unroll
+          for (int r = 0; r < RPT; ++r) {
+            y[r][qq] *= m[r][qq];
+            mx[qq] = fmaxf(mx[qq], y[r][qq]);
+          }
+      } else {  // a padding category: zero rows
+#pragma unroll
+        for (int r = 0; r < RPT; ++r)
+#pragma unroll
+          for (int qq = 0; qq < QT; ++qq) y[r][qq] = 0.f;
+      }
+      if (j + 1 == CB) break;  // the last category's rows stay in registers
+      __syncwarp();  // the warp's reads of category j's child rows are done
+#pragma unroll
+      for (int r = 0; r < RPT; ++r)
+#pragma unroll
+        for (int qq = 0; qq < QT; ++qq) out[(j * S + s0 + r) * tile + q[qq]] = y[r][qq];
+      __pipeline_wait_prior(NS - 2);  // this thread's copies of the next unit have landed
+      __syncthreads();                // every thread's; stage k is released
+      fetch_next(k);
+      k = k == NS - 1 ? 0 : k + 1;
+    }
+#pragma unroll
+    for (int off = GS; off < GS * G; off <<= 1)
+#pragma unroll
+      for (int qq = 0; qq < QT; ++qq)
+        mx[qq] = fmaxf(mx[qq], __shfl_xor_sync(0xffffffffu, mx[qq], off));
+    float* xm = xmax + (size_t)(i & 1) * K * tile;
+    for (int r = g; r < K; r += G) {  // the G lanes of a pattern group share the blocks out
+      float* xr = cluster.map_shared_rank(xm, r) + kb * tile;
+#pragma unroll
+      for (int qq = 0; qq < QT; ++qq) xr[q[qq]] = mx[qq];
+    }
+    __pipeline_wait_prior(NS - 2);  // this thread's copies of the next unit have landed
+    cluster.sync();  // one barrier a step: the maxima, the ring, the stage read
+#pragma unroll
+    for (int qq = 0; qq < QT; ++qq) {
+      mx[qq] = 0.f;
+      for (int r = 0; r < K; ++r) mx[qq] = fmaxf(mx[qq], xm[r * tile + q[qq]]);
+      mx[qq] = fmaxf(mx[qq], SCALE_TINY);
+    }
+    // the step's child reads are done: the output slot may be one they
+    // held.  The earlier categories' rows are this thread's own.
+    for (int j = 0; j + 1 < CB; ++j)
+#pragma unroll
+      for (int r = 0; r < RPT; ++r)
+#pragma unroll
+        for (int qq = 0; qq < QT; ++qq) {
+          float* o = out + (j * S + s0 + r) * tile + q[qq];
+          *o = iqt::div_rn(*o, mx[qq]);
+        }
+#pragma unroll
+    for (int qq = 0; qq < QT; ++qq) {
+#pragma unroll
+      for (int r = 0; r < RPT; ++r)
+        out[((CB - 1) * S + s0 + r) * tile + q[qq]] = iqt::div_rn(y[r][qq], mx[qq]);
+      sc[qq] += logf(mx[qq]);
+      if (g == 0) out[SR * tile + q[qq]] = sc[qq];
+    }
+    // stage k is free: the unit NS on into it
+    fetch_next(k);
+    __syncwarp();  // the pattern group's pool rows are written
+    emit(st, static_cast<const float*>(out));
+    st = st_next;
+    k = k == NS - 1 ? 0 : k + 1;
+  }
+  return st.out;
+}
+
 // ---------------------------------------------------------------------------
 // The reverse walk on thread-block clusters (wide_down_store.cu,
 // wide_tbar.cu).
@@ -448,12 +662,28 @@ __device__ __forceinline__ int cluster_upward_walk(const int* __restrict__ steps
 // scale chain dsc + s_sib + log(max) and the push with s ascending.  A
 // ragged last tile computes with pattern P - 1.
 //
-// Shared memory a block (floats), with tile patterns, n_slots slots and
-// STAGES = REVERSE_STAGES (cs_kernels.wide_down_store_smem):
+// Past 8 categories (cluster_reverse_walk_multi) a block holds CB
+// categories, and a step runs as 2 CB units, one a (phase, category), each
+// unit's copies -- the category's [S,S] block of each child and each
+// child's S rows and scale -- in one ring stage.  Phase A: for each
+// category d from the pool (the root seed), both messages, o = d * m_sib
+// unnormalized into O's stage [child][CB S][tile], and the running max.
+// Then the exchange (one cluster barrier) gives the max over the C S rows
+// and the scales.  Phase B: for each category its O rows divided in place
+// (div_rn), the hook, and the push D = P^T O with the category's matrices,
+// fetched again.  Every unit opens with a block barrier over all the
+// block's threads (sum warps included, which wait there: they read the
+// stages in lock step), after which the next unit's copies are issued into
+// the stage the last unit read.  The orders and so the bits of every
+// category are those of one category a block.
+//
+// Shared memory a block (floats), with tile patterns, n_slots slots,
+// STAGES = REVERSE_STAGES and CB categories a block on K blocks
+// (cs_kernels.wide_down_store_smem):
 //     STAGES x (2 S^2 + 2 (S+1) tile)   the ring
-//   + n_slots (S+1) tile                the pool
-//   + 2 S tile                          O's stage
-//   + 4 C tile                          the max buffers
+//   + n_slots (CB S + 1) tile           the pool
+//   + 2 CB S tile                       O's stage
+//   + 4 K tile                          the max buffers
 // ---------------------------------------------------------------------------
 
 // Steps whose matrices and child partials are in flight at once (a
@@ -463,23 +693,24 @@ constexpr int REVERSE_STAGES = 2;
 // (CLUSTER_QT): a reverse step is about twice an upward step's work.
 constexpr int REVERSE_QT = 1;
 
-// Offsets (floats) of a reverse walk's shared-memory arrays.
+// Offsets (floats) of a reverse walk's shared-memory arrays, CB categories
+// a block.
 template <int S>
 struct ReverseSmem {
-  int tile;
-  __device__ __host__ ReverseSmem(int tile_) : tile(tile_) {}
+  int tile, CB;
+  __device__ __host__ ReverseSmem(int tile_, int CB_ = 1) : tile(tile_), CB(CB_) {}
   __device__ __host__ size_t rows() const { return (size_t)REVERSE_STAGES * 2 * S * S; }
   __device__ __host__ size_t pool() const {
     return rows() + (size_t)REVERSE_STAGES * 2 * (S + 1) * tile;
   }
   __device__ __host__ size_t ost(int n_slots) const {
-    return pool() + (size_t)n_slots * (S + 1) * tile;
+    return pool() + (size_t)n_slots * (CB * S + 1) * tile;
   }
   __device__ __host__ size_t xmax(int n_slots) const {
-    return ost(n_slots) + 2 * (size_t)S * tile;
+    return ost(n_slots) + 2 * (size_t)CB * S * tile;
   }
-  __device__ __host__ size_t floats(int n_slots, int C) const {
-    return xmax(n_slots) + 4 * (size_t)C * tile;
+  __device__ __host__ size_t floats(int n_slots, int K) const {
+    return xmax(n_slots) + 4 * (size_t)K * tile;
   }
 };
 
@@ -701,21 +932,203 @@ __device__ __forceinline__ void cluster_reverse_walk(const int* __restrict__ ste
   }
 }
 
-// Launch `kernel` as `clusters` thread-block clusters of C blocks (one a
-// rate category) of `threads` threads and `smem` bytes of shared memory.
+// The reverse walk at CB > 1 categories a block (see above), for the
+// block's categories kb CB .. of the C and the tile of patterns p0 .. p0 +
+// tile - 1.  Every walk thread (the block's first tile x S / RPT) of every
+// block of the cluster runs it; the block's other threads run
+// reverse_units_multi alongside.  hook(st, j, c, O, osc, Uk) runs in each
+// phase B unit, after the __syncwarp that follows the category's O rows:
+// O the category's rows in O's stage (child `side` at O + side CB S tile,
+// S rows of tile patterns), whose columns of the warp's patterns are
+// written, osc[child][qq] this thread's patterns' log-scales, Uk the ring
+// stage [child][S+1][tile]; c >= C is a padding category, whose rows hold
+// nothing.
+template <int S, int RPT, typename Hook>
+__device__ __forceinline__ void cluster_reverse_walk_multi(
+    const int* __restrict__ steps, int n_steps, const float* __restrict__ trans,
+    const float* __restrict__ rootd, const float* __restrict__ up,
+    const float* __restrict__ usc, int P, int p0, int tile, int n_slots, int C, int CB,
+    float* smem, Hook hook) {
+  constexpr int G = S / RPT, SS = S * S, QT = REVERSE_QT, NS = REVERSE_STAGES;
+  static_assert(S <= 32 && QT == 1, "the multi-category walk is the S = 20 instance's");
+  cg::cluster_group cluster = cg::this_cluster();
+  const int K = (int)cluster.num_blocks(), kb = (int)cluster.block_rank();
+  const WalkLane<S, G> wl(threadIdx.x);
+  const int g = wl.g, s0 = g * RPT, q = wl.pq;
+  const int T = tile / QT * G;  // the walk threads
+  const int SR = CB * S;
+  const ReverseSmem<S> lay(tile, CB);
+  float* mst = smem;                   // [NS][2][SS]
+  float* ust = smem + lay.rows();      // [NS][2][S+1][tile]
+  float* pool = smem + lay.pool();     // [n_slots][CB S + 1][tile]
+  float* ost = smem + lay.ost(n_slots);    // [2][CB S][tile]
+  float* xmax = smem + lay.xmax(n_slots);  // [2][K][2][tile]
+  // unit u: step n_steps - 1 - u / (2 CB), phase (u / CB) & 1, category
+  // u % CB, in stage u % NS
+  const int n_units = n_steps * 2 * CB;
+  const auto fetch = [&](int u) {
+    const int c = kb * CB + u % CB, k = u % NS;
+    if (u < n_units && c < C)
+      reverse_fetch<S>(load_step(steps, n_steps - 1 - u / (2 * CB)), mst + k * 2 * SS,
+                       ust + (size_t)k * 2 * (S + 1) * tile, c, C, tile, p0, T, trans, up,
+                       usc, P);
+    __pipeline_commit();
+  };
+  // a unit opens: its copies have landed everywhere, every thread is done
+  // with the last unit, whose stage takes the unit NS - 1 on
+  int u = 0;
+  const auto open = [&]() {
+    __pipeline_wait_prior(NS - 2);
+    ring_barrier();
+    fetch(u + NS - 1);
+  };
+#pragma unroll
+  for (int k = 0; k < NS - 1; ++k) fetch(k);
+  cluster.sync();  // every block of the cluster runs before the first remote store
+  for (int i = n_steps - 1; i >= 0; --i) {
+    const Step st = load_step(steps, i);
+    float dsc = 0.f, s_sib[2] = {0.f, 0.f}, mx[2] = {0.f, 0.f};
+    const float* dcol = pool + (size_t)st.out * (SR + 1) * tile + q;
+    for (int j = 0; j < CB; ++j, ++u) {  // phase A
+      open();
+      const int c = kb * CB + j;
+      const float* Mk = mst + (u % NS) * 2 * SS;
+      const float* Uk = ust + (size_t)(u % NS) * 2 * (S + 1) * tile;
+      if (j == 0) {  // block kb's first category is real (K = ceil(C / CB))
+        s_sib[0] = Uk[(2 * S + 1) * tile + q];
+        s_sib[1] = Uk[S * tile + q];
+        dsc = i == n_steps - 1 ? 0.f : dcol[SR * tile];
+      }
+      if (c >= C) continue;
+      float d[RPT][QT];
+#pragma unroll
+      for (int r = 0; r < RPT; ++r)
+        d[r][0] = i == n_steps - 1 ? __ldg(rootd + c * S + s0 + r)
+                                   : dcol[(j * S + s0 + r) * tile];
+      float m[2][RPT][QT];  // both children's messages P U
+#pragma unroll
+      for (int side = 0; side < 2; ++side) {
+        float x[S][QT];
+        const float* U = Uk + side * (S + 1) * tile;
+#pragma unroll
+        for (int t = 0; t < S; ++t) x[t][0] = U[t * tile + q];
+        cluster_message<S, RPT, QT>(Mk + side * SS, s0, x, m[side]);
+      }
+#pragma unroll
+      for (int side = 0; side < 2; ++side)
+#pragma unroll
+        for (int r = 0; r < RPT; ++r) {
+          const float o = d[r][0] * m[1 - side][r][0];
+          mx[side] = fmaxf(mx[side], o);
+          ost[(side * SR + j * S + s0 + r) * tile + q] = o;
+        }
+    }
+    // the exchange: the max over the pattern's C S rows
+#pragma unroll
+    for (int off = 1; off < G; off <<= 1)
+#pragma unroll
+      for (int side = 0; side < 2; ++side)
+        mx[side] = fmaxf(mx[side], __shfl_xor_sync(0xffffffffu, mx[side], off));
+    float* xm = xmax + (size_t)(i & 1) * K * 2 * tile;
+    for (int r = g; r < K; r += G) {
+      float* xr = cluster.map_shared_rank(xm, r) + kb * 2 * tile;
+#pragma unroll
+      for (int side = 0; side < 2; ++side) xr[side * tile + q] = mx[side];
+    }
+    reverse_barrier(cluster);
+    float sc[2][QT];
+#pragma unroll
+    for (int side = 0; side < 2; ++side) {
+      mx[side] = 0.f;
+      for (int r = 0; r < K; ++r) mx[side] = fmaxf(mx[side], xm[(r * 2 + side) * tile + q]);
+      mx[side] = fmaxf(mx[side], SCALE_TINY);
+      sc[side][0] = dsc + s_sib[side] + logf(mx[side]);
+    }
+    for (int j = 0; j < CB; ++j, ++u) {  // phase B
+      open();
+      const int c = kb * CB + j;
+      const float* Mk = mst + (u % NS) * 2 * SS;
+      const float* Uk = ust + (size_t)(u % NS) * 2 * (S + 1) * tile;
+      float* O = ost + (size_t)j * S * tile;
+      if (c < C)
+#pragma unroll
+        for (int side = 0; side < 2; ++side)
+#pragma unroll
+          for (int r = 0; r < RPT; ++r) {
+            float* o = O + (side * SR + s0 + r) * tile + q;
+            *o = iqt::div_rn(*o, mx[side]);
+          }
+      __syncwarp();  // the pattern group's O rows are normalized
+      hook(st, j, c, static_cast<const float*>(O), sc, Uk);
+      if (c >= C) continue;
+      // the children's outside partials, pushed through their edges (P^T
+      // O), wait in the pool for their own steps (d was read in phase A: a
+      // child may reuse st.out)
+#pragma unroll
+      for (int side = 0; side < 2; ++side) {
+        const int cslot = side ? st.rs : st.ls;
+        if (cslot < 0) continue;
+        const float* M = Mk + side * SS;  // the child's P
+        const float* os = O + side * SR * tile;
+        float dd[RPT];
+#pragma unroll
+        for (int r = 0; r < RPT; ++r) dd[r] = 0.f;
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          const float ov = os[s * tile + q];
+#pragma unroll
+          for (int r = 0; r < RPT; ++r) dd[r] += M[s * S + s0 + r] * ov;
+        }
+        float* col = pool + (size_t)cslot * (SR + 1) * tile + q;
+#pragma unroll
+        for (int r = 0; r < RPT; ++r) col[(j * S + s0 + r) * tile] = dd[r];
+        if (g == 0 && j == 0) col[SR * tile] = sc[side][0];
+      }
+    }
+  }
+}
+
+// The barriers of cluster_reverse_walk_multi for a block's threads outside
+// the walk, in its order; after each phase B unit's hook barrier (the
+// walk's sums_arrive, this side's wait) unit(st, j, c, k) runs with the
+// unit's ring stage k.  Lock step: these threads wait at every unit's
+// opening barrier, so the walk rewrites no stage they read.
+template <typename Wait, typename Unit>
+__device__ __forceinline__ void reverse_units_multi(const int* __restrict__ steps,
+                                                    int n_steps, int CB, Wait wait,
+                                                    Unit unit) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int kb = (int)cluster.block_rank();
+  cluster.sync();
+  int u = 0;
+  for (int i = n_steps - 1; i >= 0; --i) {
+    const Step st = load_step(steps, i);
+    for (int j = 0; j < CB; ++j, ++u) ring_barrier();
+    reverse_barrier(cluster);
+    for (int j = 0; j < CB; ++j, ++u) {
+      ring_barrier();
+      wait();
+      unit(st, j, kb * CB + j, u % REVERSE_STAGES);
+    }
+  }
+}
+
+// Launch `kernel` as `clusters` thread-block clusters of K blocks
+// (wide_k: one a rate category up to 8, else CB categories each) of
+// `threads` threads and `smem` bytes of shared memory.
 template <typename... Params, typename... Args>
-inline cudaError_t launch_clusters(void (*kernel)(Params...), int clusters, int C,
+inline cudaError_t launch_clusters(void (*kernel)(Params...), int clusters, int K,
                                    int threads, size_t smem, void* stream, Args... args) {
   cudaError_t e = iqt::allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(clusters * C);
+  cfg.gridDim = dim3(clusters * K);
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = (cudaStream_t)stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.x = K;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;

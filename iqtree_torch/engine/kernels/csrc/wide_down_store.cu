@@ -47,6 +47,14 @@
 // = 5.9 GFLOP (67 TFLOP/s: 0.09 ms): bound by bytes.  The walk is a chain
 // of 299 dependent steps.
 //
+// Past 8 categories (MULTI) a block holds CB of them and runs
+// cluster_reverse_walk_multi: a step's CB categories in two phases of units
+// through the same ring (o into O's stage, the exchange, then O divided,
+// stored and pushed), so every category keeps the bits of one category a
+// block; the hook writes a real category's O rows, a padding category's
+// none.  Bound (C20, 300 taxa x 1 958 patterns): 15 GB of partials read
+// and written (4.5 ms at 3.35 TB/s), bound by bytes.
+//
 // Shared memory a block: ReverseSmem (wide_common.cuh;
 // cs_kernels.wide_down_store_smem), S = 20, C = 4, tile 16, 11 slots:
 // 30 144 bytes; S = 64 (codon): 137 152 bytes, under the 232 448 a block
@@ -59,25 +67,48 @@
 
 using namespace iqtw;
 
-template <int S, int RPT>
+template <int S, int RPT, bool MULTI>
 __global__ void __launch_bounds__(CLUSTER_THREADS_MAX, S > 32 ? 1 : 2)
 wide_down_store_kernel(const int* __restrict__ steps, int n_steps,
                        const float* __restrict__ trans, const float* __restrict__ rootd,
                        const float* __restrict__ up, const float* __restrict__ usc, int P,
                        float* __restrict__ out, float* __restrict__ osc, int n_slots,
-                       int tile) {
+                       int tile, int C, int CB) {
   constexpr int G = S / RPT, QT = REVERSE_QT;
   // a warp's patterns, and the rows one of its store instructions covers
   constexpr int WP = 32 / G * QT, RW = 32 / WP;
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
-  const int C = (int)cluster.num_blocks(), c = (int)cluster.block_rank();
+  const int K = (int)cluster.num_blocks(), kb = (int)cluster.block_rank();
+  if constexpr (!MULTI) C = K;  // a block a category
   const int tid = threadIdx.x;
   const WalkLane<S, G> wl(tid);
   const int g = wl.g, pq = wl.pq;
-  const int p0 = (int)(blockIdx.x / C) * tile;
+  const int p0 = (int)(blockIdx.x / K) * tile;
   const int r0 = (tid & 31) / WP, qw = (tid >> 5) * WP + (tid & 31) % WP;
   const bool stores = p0 + qw < P;  // this lane's pattern of its warp's row stores
+  if constexpr (MULTI) {
+    // category c's O rows of the warp's patterns to out, and (rank 0, at
+    // the first category) the scales to osc
+    const auto hook = [&](const Step& st, int j, int c, const float* O,
+                          const float (&sc)[2][QT], const float*) {
+      if (c < C && stores)
+#pragma unroll
+        for (int side = 0; side < 2; ++side) {
+          float* dst = out + ((size_t)(side ? st.r : st.l) * C + c) * S * P + p0 + qw;
+          const float* src = O + (size_t)side * CB * S * tile + qw;
+          for (int r = r0; r < S; r += RW) dst[(size_t)r * P] = src[r * tile];
+        }
+      if (kb == 0 && j == 0 && g < 2) {
+        const int p = p0 + pq;
+        if (p < P) osc[(size_t)(g ? st.r : st.l) * P + p] = g ? sc[1][0] : sc[0][0];
+      }
+    };
+    cluster_reverse_walk_multi<S, RPT>(steps, n_steps, trans, rootd, up, usc, P, p0, tile,
+                                       n_slots, C, CB, smem, hook);
+    return;
+  }
+  const int c = kb;
   // the warp's patterns' O rows to out, and (rank 0) their scales to osc: a
   // pattern group's G lanes share out its (child, pattern) pairs
   const auto hook = [&](const Step& st, const float* ost, const float (&sc)[2][QT],
@@ -103,24 +134,44 @@ wide_down_store_kernel(const int* __restrict__ steps, int n_steps,
                                smem, hook);
 }
 
+// One launch of the instance <S, RPT> at CB categories a block (MULTI
+// past one; the codon instance has none).
+template <int S, int RPT>
+cudaError_t launch_wide_down_store(int clusters, int K, int CB, int threads, void* stream,
+                                   const int* steps, int n_steps, const float* trans,
+                                   const float* rootd, const float* up, const float* usc,
+                                   int P, float* out, float* osc, int n_slots, int tile,
+                                   int C) {
+  const size_t smem = ReverseSmem<S>(tile, CB).floats(n_slots, K) * sizeof(float);
+  if (CB == 1)
+    return launch_clusters(wide_down_store_kernel<S, RPT, false>, clusters, K, threads,
+                           smem, stream, steps, n_steps, trans, rootd, up, usc, P, out, osc,
+                           n_slots, tile, C, CB);
+  if constexpr (S <= 32)
+    return launch_clusters(wide_down_store_kernel<S, RPT, true>, clusters, K, threads,
+                           smem, stream, steps, n_steps, trans, rootd, up, usc, P, out, osc,
+                           n_slots, tile, C, CB);
+  return cudaErrorInvalidValue;
+}
+
 // tile: patterns a cluster, a multiple of 8 (a block has tile x 4 threads,
-// whole warps) up to 64.
+// whole warps) up to 64.  C categories on wide_k(C) blocks a cluster,
+// wide_cb(C) a block (past 8 the S = 20 instance only).
 extern "C" int iqt_wide_down_store(const int* steps, int n_steps, const float* trans,
                                    const float* rootd, const float* up,
                                    const float* usc, int P, float* out, float* osc,
                                    int C, int S, int n_slots, int tile, void* stream) {
-  if (C < 1 || C > 8 || tile <= 0 || tile % REVERSE_QT) return (int)cudaErrorInvalidValue;
-  const int clusters = (P + tile - 1) / tile;
+  if (C < 1 || tile <= 0 || tile % REVERSE_QT) return (int)cudaErrorInvalidValue;
+  const int clusters = (P + tile - 1) / tile, K = wide_k(C), CB = wide_cb(C);
   cudaError_t e = cudaSuccess;
-#define IQT_LAUNCH(SS_, RPT_)                                                          \
-  {                                                                                    \
-    const int threads = tile / REVERSE_QT * (SS_ / RPT_);                              \
-    if (threads % 32 || threads > CLUSTER_THREADS_MAX)                                 \
-      return (int)cudaErrorInvalidValue;                                               \
-    e = launch_clusters(wide_down_store_kernel<SS_, RPT_>, clusters, C, threads,       \
-                        ReverseSmem<SS_>(tile).floats(n_slots, C) * sizeof(float),     \
-                        stream, steps, n_steps, trans, rootd, up, usc, P, out, osc,    \
-                        n_slots, tile);                                                \
+#define IQT_LAUNCH(SS_, RPT_)                                                             \
+  {                                                                                       \
+    const int threads = tile / REVERSE_QT * (SS_ / RPT_);                                 \
+    if (threads % 32 || threads > CLUSTER_THREADS_MAX)                                    \
+      return (int)cudaErrorInvalidValue;                                                  \
+    e = launch_wide_down_store<SS_, RPT_>(clusters, K, CB, threads, stream, steps,        \
+                                          n_steps, trans, rootd, up, usc, P, out, osc,    \
+                                          n_slots, tile, C);                              \
   }
   IQT_DISPATCH_WIDE_S(S, IQT_LAUNCH)
 #undef IQT_LAUNCH

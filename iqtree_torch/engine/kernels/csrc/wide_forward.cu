@@ -32,36 +32,56 @@
 // 299 dependent steps; a step costs a block's 2 x 5 x 2 x 20 multiply-adds
 // a thread, a shuffle round trip and a cluster barrier.
 //
+// Past 8 categories (the protein mixtures: C20 is 80) a block holds CB =
+// ceil(C / 8) of them on K = ceil(C / CB) blocks a cluster
+// (cluster_upward_walk_multi streams a block's categories through the
+// ring, one a stage, and keeps their rows in its pool); the root mix
+// reads block r's category j as c = r CB + j, so its order and the lnL's
+// bits are those of one category a block.  Bound on an H100 (C20, 300 taxa x 1 958
+// patterns): 20x the work above, 74 GFLOP (1.1 ms at 67 TFLOP/s), bound by
+// operations.
+//
 // Shared memory: ClusterSmem (wide_common.cuh; pruning.wide_forward_smem).
 #include "wide_common.cuh"
 
 using namespace iqtw;
 
-template <int S, int RPT>
+template <int S, int RPT, bool MULTI>
 __global__ void __launch_bounds__(CLUSTER_THREADS_MAX)
 wide_forward_kernel(const int* __restrict__ steps, int n_steps,
                     const float* __restrict__ trans, const float* __restrict__ tips,
                     int P, const float* __restrict__ rootw,
                     const float* __restrict__ invar, float* __restrict__ out,
-                    int n_slots, int tile) {
+                    int n_slots, int tile, int C, int cb) {
   extern __shared__ __align__(16) float smem[];
+  const int CB = MULTI ? cb : 1;
   cg::cluster_group cluster = cg::this_cluster();
-  const int C = (int)cluster.num_blocks();
-  const int p0 = (int)(blockIdx.x / C) * tile;
-  const int root_slot = cluster_upward_walk<S, RPT>(
-      steps, n_steps, trans, tips, P, p0, tile, n_slots, smem,
-      [](const Step&, const auto&, const auto&, const float*) {});
+  const int K = (int)cluster.num_blocks();
+  const int p0 = (int)(blockIdx.x / K) * tile;
+  int root_slot;
+  if constexpr (MULTI)
+    root_slot = cluster_upward_walk_multi<S, RPT>(steps, n_steps, trans, tips, P, p0, tile,
+                                                  n_slots, C, CB, smem,
+                                                  [](const Step&, const float*) {});
+  else
+    root_slot = cluster_upward_walk<S, RPT>(
+        steps, n_steps, trans, tips, P, p0, tile, n_slots, smem,
+        [](const Step&, const auto&, const auto&, const float*) {});
   cluster.sync();  // every block's root rows are written
   const int q = threadIdx.x;
   if (cluster.block_rank() == 0 && q < tile) {
-    const size_t col = ClusterSmem<S>(tile).pool() + (size_t)root_slot * (S + 1) * tile + q;
+    const int SR = CB * S;
+    const size_t col =
+        ClusterSmem<S>(tile, CB).pool() + (size_t)root_slot * (SR + 1) * tile + q;
     float mix = 0.f;
-    for (int c = 0; c < C; ++c) {
-      const float* rows = cluster.map_shared_rank(smem, c) + col;
+    for (int r = 0; r < K; ++r) {  // category c = r CB + j, ascending
+      const float* rows = cluster.map_shared_rank(smem, r) + col;
+      for (int j = 0; j < CB && (!MULTI || r * CB + j < C); ++j)
 #pragma unroll
-      for (int s = 0; s < S; ++s) mix += __ldg(rootw + c * S + s) * rows[s * tile];
+        for (int s = 0; s < S; ++s)
+          mix += __ldg(rootw + (r * CB + j) * S + s) * rows[(j * S + s) * tile];
     }
-    float lnl = logf(fmaxf(mix, SCALE_TINY)) + smem[col + S * tile];
+    float lnl = logf(fmaxf(mix, SCALE_TINY)) + smem[col + SR * tile];
     const int p_raw = p0 + q;
     const float inv = __ldg(invar + min(p_raw, P - 1));
     if (inv > 0.f) {
@@ -74,24 +94,44 @@ wide_forward_kernel(const int* __restrict__ steps, int n_steps,
   cluster.sync();  // no block leaves while rank 0 reads its pool
 }
 
+// One launch of the instance <S, RPT> at CB categories a block (MULTI
+// past one; the codon instance has none).
+template <int S, int RPT>
+cudaError_t launch_wide_forward(int clusters, int K, int CB, int threads, void* stream,
+                                const int* steps, int n_steps, const float* trans,
+                                const float* tips, int P, const float* rootw,
+                                const float* invar, float* out, int n_slots, int tile,
+                                int C) {
+  const size_t smem = ClusterSmem<S>(tile, CB).floats(n_slots, K) * sizeof(float);
+  if (CB == 1)
+    return launch_clusters(wide_forward_kernel<S, RPT, false>, clusters, K, threads, smem,
+                           stream, steps, n_steps, trans, tips, P, rootw, invar, out,
+                           n_slots, tile, C, CB);
+  if constexpr (S <= 32)
+    return launch_clusters(wide_forward_kernel<S, RPT, true>, clusters, K, threads, smem,
+                           stream, steps, n_steps, trans, tips, P, rootw, invar, out,
+                           n_slots, tile, C, CB);
+  return cudaErrorInvalidValue;
+}
+
 // tile: patterns a cluster, a multiple of 16 (a block has tile / 2 x 4
-// threads, whole warps) up to 128.
+// threads, whole warps) up to 128.  C categories on wide_k(C) blocks a
+// cluster, wide_cb(C) a block (past 8 the S = 20 instance only).
 extern "C" int iqt_wide_forward(const int* steps, int n_steps, const float* trans,
                                 const float* tips, int P, const float* rootw,
                                 const float* invar, float* out, int C, int S,
                                 int n_slots, int tile, void* stream) {
-  if (C < 1 || C > 8 || tile <= 0 || tile % CLUSTER_QT) return (int)cudaErrorInvalidValue;
-  const int clusters = (P + tile - 1) / tile;
+  if (C < 1 || tile <= 0 || tile % CLUSTER_QT) return (int)cudaErrorInvalidValue;
+  const int clusters = (P + tile - 1) / tile, K = wide_k(C), CB = wide_cb(C);
   cudaError_t e = cudaSuccess;
-#define IQT_LAUNCH(SS_, RPT_)                                                      \
-  {                                                                                \
-    const int threads = tile / CLUSTER_QT * (SS_ / RPT_);                          \
-    if (threads % 32 || threads > CLUSTER_THREADS_MAX)                             \
-      return (int)cudaErrorInvalidValue;                                           \
-    e = launch_clusters(wide_forward_kernel<SS_, RPT_>, clusters, C, threads,      \
-                        ClusterSmem<SS_>(tile).floats(n_slots, C) * sizeof(float), \
-                        stream, steps, n_steps, trans, tips, P, rootw, invar, out, \
-                        n_slots, tile);                                            \
+#define IQT_LAUNCH(SS_, RPT_)                                                           \
+  {                                                                                     \
+    const int threads = tile / CLUSTER_QT * (SS_ / RPT_);                               \
+    if (threads % 32 || threads > CLUSTER_THREADS_MAX)                                  \
+      return (int)cudaErrorInvalidValue;                                                \
+    e = launch_wide_forward<SS_, RPT_>(clusters, K, CB, threads, stream, steps, n_steps, \
+                                       trans, tips, P, rootw, invar, out, n_slots, tile, \
+                                       C);                                              \
   }
   IQT_DISPATCH_WIDE_S(S, IQT_LAUNCH)
 #undef IQT_LAUNCH

@@ -32,6 +32,12 @@
 // bytes and operations about even.  Like the forward kernel it runs at the
 // latency of its step chain, 299 dependent steps.
 //
+// Past 8 categories a block holds CB of them (cluster_upward_walk_multi); each
+// warp copies the block's real categories' rows to up (category kb CB + j
+// from pool rows j S ..), a padding category none.  Bound (C20, 300 taxa x
+// 1 958 patterns): 74 GFLOP (1.1 ms) against 3.8 GB of partials stored
+// (1.1 ms): bytes and operations about even.
+//
 // Shared memory: ClusterSmem (wide_common.cuh; pruning.wide_forward_smem),
 // 25 472 bytes a block at S = 20, C = 4, 16 patterns a cluster and 10
 // slots; at S = 64 (codon), C = 4, 16 patterns and 11 slots 128 192 bytes,
@@ -43,47 +49,83 @@
 
 using namespace iqtw;
 
-template <int S, int RPT>
+template <int S, int RPT, bool MULTI>
 __global__ void __launch_bounds__(CLUSTER_THREADS_MAX)
 wide_store_kernel(const int* __restrict__ steps, int n_steps,
                   const float* __restrict__ trans, const float* __restrict__ tips,
                   int P, float* __restrict__ up, float* __restrict__ usc, int n_slots,
-                  int tile) {
+                  int tile, int C, int CB) {
   // a warp's patterns, and the rows one of its store instructions covers
   constexpr int WP = 32 / (S / RPT) * CLUSTER_QT, RW = 32 / WP;
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
-  const int C = (int)cluster.num_blocks(), c = (int)cluster.block_rank();
-  const int p0 = (int)(blockIdx.x / C) * tile;
+  const int K = (int)cluster.num_blocks(), kb = (int)cluster.block_rank();
+  if constexpr (!MULTI) C = K;  // a block a category
+  const int p0 = (int)(blockIdx.x / K) * tile;
   const int lane = threadIdx.x & 31, r0 = lane / WP;
   const int q = (int)(threadIdx.x >> 5) * WP + lane % WP, p = p0 + q;
-  const auto emit = [&](const Step& st, const auto&, const auto&, const float* slot) {
-    if (p < P) {
-      float* dst = up + ((size_t)st.node * C + c) * S * P + p;
-      for (int r = r0; r < S; r += RW) dst[(size_t)r * P] = slot[r * tile + q];
-      if (c == 0 && r0 == 0) usc[(size_t)st.node * P + p] = slot[S * tile + q];
-    }
-  };
-  cluster_upward_walk<S, RPT>(steps, n_steps, trans, tips, P, p0, tile, n_slots, smem, emit);
+  if constexpr (MULTI) {
+    // the block's real categories' rows; a padding category writes none
+    const auto emit = [&](const Step& st, const float* slot) {
+      if (p < P) {
+        for (int j = 0; j < CB && kb * CB + j < C; ++j) {
+          float* dst = up + ((size_t)st.node * C + kb * CB + j) * S * P + p;
+          const float* src = slot + j * S * tile + q;
+          for (int r = r0; r < S; r += RW) dst[(size_t)r * P] = src[r * tile];
+        }
+        if (kb == 0 && r0 == 0) usc[(size_t)st.node * P + p] = slot[CB * S * tile + q];
+      }
+    };
+    cluster_upward_walk_multi<S, RPT>(steps, n_steps, trans, tips, P, p0, tile, n_slots, C, CB,
+                                      smem, emit);
+  } else {
+    const int c = kb;
+    const auto emit = [&](const Step& st, const auto&, const auto&, const float* slot) {
+      if (p < P) {
+        float* dst = up + ((size_t)st.node * C + c) * S * P + p;
+        for (int r = r0; r < S; r += RW) dst[(size_t)r * P] = slot[r * tile + q];
+        if (c == 0 && r0 == 0) usc[(size_t)st.node * P + p] = slot[S * tile + q];
+      }
+    };
+    cluster_upward_walk<S, RPT>(steps, n_steps, trans, tips, P, p0, tile, n_slots, smem, emit);
+  }
+}
+
+// One launch of the instance <S, RPT> at CB categories a block (MULTI
+// past one; the codon instance has none).
+template <int S, int RPT>
+cudaError_t launch_wide_store(int clusters, int K, int CB, int threads, void* stream,
+                              const int* steps, int n_steps, const float* trans,
+                              const float* tips, int P, float* up, float* usc, int n_slots,
+                              int tile, int C) {
+  const size_t smem = ClusterSmem<S>(tile, CB).floats(n_slots, K) * sizeof(float);
+  if (CB == 1)
+    return launch_clusters(wide_store_kernel<S, RPT, false>, clusters, K, threads, smem,
+                           stream, steps, n_steps, trans, tips, P, up, usc, n_slots, tile,
+                           C, CB);
+  if constexpr (S <= 32)
+    return launch_clusters(wide_store_kernel<S, RPT, true>, clusters, K, threads, smem,
+                           stream, steps, n_steps, trans, tips, P, up, usc, n_slots, tile,
+                           C, CB);
+  return cudaErrorInvalidValue;
 }
 
 // tile: patterns a cluster, a multiple of 16 (a block has tile / 2 x 4
-// threads, whole warps) up to 128.
+// threads, whole warps) up to 128.  C categories on wide_k(C) blocks a
+// cluster, wide_cb(C) a block (past 8 the S = 20 instance only).
 extern "C" int iqt_wide_store(const int* steps, int n_steps, const float* trans,
                               const float* tips, int P, float* up, float* usc, int C,
                               int S, int n_slots, int tile, void* stream) {
-  if (C < 1 || C > 8 || tile <= 0 || tile % CLUSTER_QT) return (int)cudaErrorInvalidValue;
-  const int clusters = (P + tile - 1) / tile;
+  if (C < 1 || tile <= 0 || tile % CLUSTER_QT) return (int)cudaErrorInvalidValue;
+  const int clusters = (P + tile - 1) / tile, K = wide_k(C), CB = wide_cb(C);
   cudaError_t e = cudaSuccess;
-#define IQT_LAUNCH(SS_, RPT_)                                                      \
-  {                                                                                \
-    const int threads = tile / CLUSTER_QT * (SS_ / RPT_);                          \
-    if (threads % 32 || threads > CLUSTER_THREADS_MAX)                             \
-      return (int)cudaErrorInvalidValue;                                           \
-    e = launch_clusters(wide_store_kernel<SS_, RPT_>, clusters, C, threads,        \
-                        ClusterSmem<SS_>(tile).floats(n_slots, C) * sizeof(float), \
-                        stream, steps, n_steps, trans, tips, P, up, usc, n_slots,  \
-                        tile);                                                     \
+#define IQT_LAUNCH(SS_, RPT_)                                                          \
+  {                                                                                    \
+    const int threads = tile / CLUSTER_QT * (SS_ / RPT_);                              \
+    if (threads % 32 || threads > CLUSTER_THREADS_MAX)                                 \
+      return (int)cudaErrorInvalidValue;                                               \
+    e = launch_wide_store<SS_, RPT_>(clusters, K, CB, threads, stream, steps, n_steps, \
+                                     trans, tips, P, up, usc, n_slots, tile, C);       \
   }
   IQT_DISPATCH_WIDE_S(S, IQT_LAUNCH)
 #undef IQT_LAUNCH

@@ -65,6 +65,14 @@
 // (cs_kernels.wide_tbar_smem); S = 20, C = 4, tile 16, 11 slots: 33 472
 // bytes.
 //
+// Past 8 categories (MULTI) the walk threads run
+// cluster_reverse_walk_multi and the sum warps reverse_units_multi in lock
+// step with them: after each phase B unit's hook (fac staged at the
+// step's first category) the group's sums of that category go to its
+// [S,S] blocks at c = kb CB + j of the part row, as at one category a
+// block; a padding category's none.  Bound (C20, 300 taxa x 1 958
+// patterns): 198 GFLOP (3.0 ms), bound by operations.
+//
 // The codon instance (S = 64): a lane's block of a child's [S,S] is 8 x 8
 // entries (SumShape), so a group of 16 patterns has 2 x 8 x 8 = 128 lanes,
 // four sum warps, whose lanes store their entries straight to the part row
@@ -106,9 +114,9 @@ struct SumLanes {
 };
 
 template <int S>
-inline size_t wide_tbar_smem(int C, int tile, int n_slots) {
+inline size_t wide_tbar_smem(int K, int CB, int tile, int n_slots) {
   const size_t stage = SumLanes<S>::STAGED ? (size_t)tile / SUM_PATTERNS * 2 * S * S : 0;
-  return (ReverseSmem<S>(tile).floats(n_slots, C) + 2 * (size_t)tile + stage) *
+  return (ReverseSmem<S>(tile, CB).floats(n_slots, K) + 2 * (size_t)tile + stage) *
          sizeof(float);
 }
 
@@ -129,19 +137,21 @@ __device__ __forceinline__ void ring_arrive(int threads) {
 // group's sum warps: lane L = (side, sb, tb) of the group adds sum_q
 // (O[side][s][q] fac[side][q]) U[side][t][q] in q order for s = SB sb + j,
 // t = SB tb + k (SumLanes: the lanes' 2 x NB x NB blocks tile both
-// children's [S,S]), from the O stage ost [2][S][tile], fac [2][tile] and
-// the ring stage Uk [2][S+1][tile], into the child's [S,S] block of
-// category c in `row` (none: a group past P): through the group's stage
-// pst [2][S][S] (one warp) where STAGED, else straight from the lane.
+// children's [S,S]), from the O rows of category c (child `side` at ost +
+// side ostride, S rows of tile patterns), fac [2][tile] and the ring stage
+// Uk [2][S+1][tile], into the child's [S,S] block of category c in `row`
+// (none: a group past P): through the group's stage pst [2][S][S] (one
+// warp) where STAGED, else straight from the lane.
 template <int S>
-__device__ __forceinline__ void group_sums(const Step& st, const float* ost, const float* fac,
-                                           const float* Uk, int tile, int g16, int L,
-                                           float* pst, float* row, int C, int c) {
+__device__ __forceinline__ void group_sums(const Step& st, const float* ost, int ostride,
+                                           const float* fac, const float* Uk, int tile,
+                                           int g16, int L, float* pst, float* row, int C,
+                                           int c) {
   static_assert(S % 4 == 0, "patterns and rows are float4 runs");
   using SL = SumLanes<S>;
   constexpr int SB = SL::SB, NB = SL::NB, SS = S * S;
   const int lane = threadIdx.x & 31, side = L / (NB * NB), sb = (L / NB) % NB, tb = L % NB;
-  const float* O = ost + side * S * tile + g16;
+  const float* O = ost + side * ostride + g16;
   const float* F = fac + side * tile + g16;
   const float* U = Uk + side * (S + 1) * tile + g16;
   float acc[SB][SB];
@@ -223,30 +233,32 @@ __device__ __forceinline__ void sum_warp(const int* __restrict__ steps, int n_st
     const Step st = load_step(steps, i);
     sums_wait(blockDim.x);  // step i's O and fac are staged
     if (i > 0) ring_arrive(blockDim.x);  // step i - 1 opens: it reads nothing of ours
-    group_sums<S>(st, ost, fac, ust + (size_t)k * 2 * (S + 1) * tile, tile, w * SUM_PATTERNS,
-                  L, pst, row, C, c);
+    group_sums<S>(st, ost, S * tile, fac, ust + (size_t)k * 2 * (S + 1) * tile, tile,
+                  w * SUM_PATTERNS, L, pst, row, C, c);
     if (i > 0) reverse_barrier(cluster);  // step i - 1's exchange; the stages are rewritten
     k = k == REVERSE_STAGES - 1 ? 0 : k + 1;
   }
 }
 
-template <int S, int RPT>
+template <int S, int RPT, bool MULTI>
 __global__ void __launch_bounds__(TBAR_THREADS_MAX, S > 32 ? 1 : 2)
 wide_tbar_kernel(const int* __restrict__ steps, int n_steps,
                  const float* __restrict__ trans, const float* __restrict__ rootd,
                  const float* __restrict__ lnl, const float* __restrict__ wp,
                  const float* __restrict__ up, const float* __restrict__ usc, int P,
                  int n_nodes, float* __restrict__ part, int n_slots, int tile,
-                 int cluster0) {
+                 int cluster0, int C, int CB) {
   constexpr int G = S / RPT, QT = REVERSE_QT, SS = S * S;
   static_assert(QT == 1, "a walk thread holds one pattern");
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
-  const int C = (int)cluster.num_blocks(), c = (int)cluster.block_rank();
-  const int cl = (int)(blockIdx.x / C);  // the cluster in this chunk
+  const int K = (int)cluster.num_blocks(), kb = (int)cluster.block_rank();
+  if constexpr (!MULTI) C = K;  // a block a category
+  const int cl = (int)(blockIdx.x / K);  // the cluster in this chunk
   const int p0 = (cluster0 + cl) * tile, groups = tile / SUM_PATTERNS;
   const int tid = threadIdx.x, walkers = tile / QT * G;
-  float* fac = smem + ReverseSmem<S>(tile).floats(n_slots, C);  // [2][tile]
+  const ReverseSmem<S> lay(tile, MULTI ? CB : 1);
+  float* fac = smem + lay.floats(n_slots, K);  // [2][tile]
   // the part row of the tile's patterns 16 w .. 16 w + 15 (none past P)
   const auto part_row = [&](int w) {
     return p0 + w * SUM_PATTERNS < P ? part + ((size_t)cl * groups + w) * n_nodes * C * SS
@@ -255,39 +267,90 @@ wide_tbar_kernel(const int* __restrict__ steps, int n_steps,
   if (tid >= walkers) {
     constexpr int WARPS = SumLanes<S>::WARPS;
     const int sw = (tid - walkers) >> 5, w = sw / WARPS;  // the sum warp, its group
-    sum_warp<S>(steps, n_steps, smem, tile, n_slots, w, (sw % WARPS) * 32 + (tid & 31),
-                part_row(w), C, c);
+    const int L = (sw % WARPS) * 32 + (tid & 31);
+    if constexpr (MULTI) {
+      const float* ust = smem + lay.rows();
+      const float* ost = smem + lay.ost(n_slots);
+      float* pst = fac + 2 * tile + (size_t)w * 2 * S * S;
+      float* row = part_row(w);
+      reverse_units_multi(steps, n_steps, CB, [&]() { sums_wait(blockDim.x); },
+                          [&](const Step& st, int j, int c, int k) {
+                            if (c < C)
+                              group_sums<S>(st, ost + (size_t)j * S * tile, CB * S * tile,
+                                            fac, ust + (size_t)k * 2 * (S + 1) * tile, tile,
+                                            w * SUM_PATTERNS, L, pst, row, C, c);
+                          });
+    } else {
+      sum_warp<S>(steps, n_steps, smem, tile, n_slots, w, L, part_row(w), C, kb);
+    }
   } else {
     const WalkLane<S, G> wl(tid);
     const int g = wl.g, q = wl.pq, p = p0 + q;
     const bool valid = p < P;  // a ragged tail computes with P - 1 and adds 0
     const int pg = min(p, P - 1);
     const float lnl_p = __ldg(lnl + pg), w_p = valid ? __ldg(wp + pg) : 0.f;
-    const auto hook = [&](const Step& st, const float* ost, const float (&sc)[2][QT],
-                          const float* Uk) {
-      if (g < 2) {  // lane g of the pattern group: child g's fac
+    // lane g < 2 of the pattern group: child g's fac
+    const auto stage_fac = [&](const float (&sc)[2][QT], const float* Uk) {
+      if (g < 2) {
         const float osc = g ? sc[1][0] : sc[0][0];
         const float usc_e = Uk[(g * (S + 1) + S) * tile + q];
         fac[g * tile + q] = valid ? expf(fminf(osc + usc_e - lnl_p, 80.f)) * w_p : 0.f;
       }
-      sums_arrive(blockDim.x);
     };
-    cluster_reverse_walk<S, RPT>(steps, n_steps, trans, rootd, up, usc, P, p0, tile, n_slots,
-                                 smem, hook);
+    if constexpr (MULTI) {
+      const auto hook = [&](const Step&, int j, int, const float*, const float (&sc)[2][QT],
+                            const float* Uk) {
+        if (j == 0) stage_fac(sc, Uk);
+        sums_arrive(blockDim.x);
+      };
+      cluster_reverse_walk_multi<S, RPT>(steps, n_steps, trans, rootd, up, usc, P, p0, tile,
+                                         n_slots, C, CB, smem, hook);
+    } else {
+      const auto hook = [&](const Step& st, const float* ost, const float (&sc)[2][QT],
+                            const float* Uk) {
+        stage_fac(sc, Uk);
+        sums_arrive(blockDim.x);
+      };
+      cluster_reverse_walk<S, RPT>(steps, n_steps, trans, rootd, up, usc, P, p0, tile,
+                                   n_slots, smem, hook);
+    }
   }
+}
+
+// One launch of the instance <S, RPT> at CB categories a block (MULTI
+// past one; the codon instance has none).
+template <int S, int RPT>
+cudaError_t launch_wide_tbar(int clusters, int K, int CB, int threads, void* stream,
+                             const int* steps, int n_steps, const float* trans,
+                             const float* rootd, const float* lnl, const float* wp,
+                             const float* up, const float* usc, int P, int n_nodes,
+                             float* part, int n_slots, int tile, int cluster0, int C) {
+  const size_t smem = wide_tbar_smem<S>(K, CB, tile, n_slots);
+  if (CB == 1)
+    return launch_clusters(wide_tbar_kernel<S, RPT, false>, clusters, K, threads, smem,
+                           stream, steps, n_steps, trans, rootd, lnl, wp, up, usc, P,
+                           n_nodes, part, n_slots, tile, cluster0, C, CB);
+  if constexpr (S <= 32)
+    return launch_clusters(wide_tbar_kernel<S, RPT, true>, clusters, K, threads, smem,
+                           stream, steps, n_steps, trans, rootd, lnl, wp, up, usc, P,
+                           n_nodes, part, n_slots, tile, cluster0, C, CB);
+  return cudaErrorInvalidValue;
 }
 
 // tile: patterns a cluster, a multiple of 16 up to 64 (a block has tile x 4
 // walk threads and a sum warp for each 16 patterns); part holds
-// part_blocks rows of 16 patterns, at least tile / 16.
+// part_blocks rows of 16 patterns, at least tile / 16.  C categories on
+// wide_k(C) blocks a cluster, wide_cb(C) a block (past 8 the S = 20
+// instance only).
 extern "C" int iqt_wide_tbar(const int* steps, int n_steps, const float* trans,
                              const float* rootd, const float* lnl, const float* wp,
                              const float* up, const float* usc, int P, int n_nodes,
                              float* part, int part_blocks, float* tbar, int C, int S,
                              int n_slots, int tile, void* stream) {
-  if (C < 1 || C > 8 || tile <= 0 || tile % SUM_PATTERNS) return (int)cudaErrorInvalidValue;
+  if (C < 1 || tile <= 0 || tile % SUM_PATTERNS) return (int)cudaErrorInvalidValue;
   const int groups = tile / SUM_PATTERNS, per_chunk = part_blocks / groups;
   const int clusters = (P + tile - 1) / tile, rows = (P + SUM_PATTERNS - 1) / SUM_PATTERNS;
+  const int K = wide_k(C), CB = wide_cb(C);
   if (per_chunk < 1) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSuccess;
   for (int c0 = 0; c0 < clusters; c0 += per_chunk) {
@@ -297,10 +360,9 @@ extern "C" int iqt_wide_tbar(const int* steps, int n_steps, const float* trans,
     const int walkers = tile / REVERSE_QT * (SS_ / RPT_);                                 \
     const int threads = walkers + groups * SumLanes<SS_>::WARPS * 32;                     \
     if (walkers % 32 || threads > TBAR_THREADS_MAX) return (int)cudaErrorInvalidValue;    \
-    e = launch_clusters(wide_tbar_kernel<SS_, RPT_>, nc, C, threads,                      \
-                        wide_tbar_smem<SS_>(C, tile, n_slots), stream, steps, n_steps,    \
-                        trans, rootd, lnl, wp, up, usc, P, n_nodes, part, n_slots, tile, \
-                        c0);                                                              \
+    e = launch_wide_tbar<SS_, RPT_>(nc, K, CB, threads, stream, steps, n_steps, trans,    \
+                                    rootd, lnl, wp, up, usc, P, n_nodes, part, n_slots,   \
+                                    tile, c0, C);                                         \
   }
     IQT_DISPATCH_WIDE_S(S, IQT_LAUNCH)
 #undef IQT_LAUNCH

@@ -1,6 +1,6 @@
 """Source variants of the redesigned kernels: what their time is made of.
 
-    python -m iqtree_torch.engine.kernels.probe [-C N[,N...]] [--base DIR]
+    python -m iqtree_torch.engine.kernels.probe [-C N[,N...]] [--base DIR] [--only V[,V]]
         [newton|forward|store|down_store|wide_newton|wide_forward|wide_store|
          wide_down_store|tbar|wide_tbar ...]
     python -m iqtree_torch.engine.kernels.probe --codon [-C N[,N...]]
@@ -22,6 +22,9 @@ path at bench_data_codon.npz's shapes (80 taxa, 457 patterns, GY+F3X4+GN,
 the codon space's 61 states padded to 64), with the variants
   as built         CODON_RPT = 8 state rows a thread (8 row groups)
   rows 16 a thread  CODON_RPT = 16 (4 row groups: half the threads)
+
+--only NAME[,NAME...] builds and times only those variants (with `base`
+under --base), e.g. `--only "as built"` for the two designs alone.
 
 --base DIR adds the variant `base`: <kernel>.cu and its headers taken
 whole from DIR, e.g. an earlier commit's csrc/ (`git archive COMMIT
@@ -235,36 +238,38 @@ _TBAR_BUTTERFLY = """    for (int s = 0; s < 1; ++s) {
 # wide_tbar's sums: the sum warps' (as built), or after the hook each walk
 # warp waits for the others' O and fac and one walk warp of each 16 patterns
 # runs their sums
-_TBAR_SUM_WARPS_ARRIVE = "      sums_arrive(blockDim.x);\n    };"
-_TBAR_WALK_WARPS_SUM = """      sums_wait(blockDim.x);
-      constexpr int WARPS = SUM_PATTERNS * G / 32;  // walk warps a group
-      const int ww = tid >> 5;
-      if (ww % WARPS == 0)
-        group_sums<S>(st, ost, fac, Uk, tile, ww / WARPS * SUM_PATTERNS, tid & 31,
-                      fac + 2 * tile + (size_t)ww / WARPS * 2 * SS, part_row(ww / WARPS),
-                      C, c);
+_TBAR_SUM_WARPS_ARRIVE = "        stage_fac(sc, Uk);\n        sums_arrive(blockDim.x);\n      };"
+_TBAR_WALK_WARPS_SUM = """        stage_fac(sc, Uk);
+        sums_wait(blockDim.x);
+        constexpr int WARPS = SUM_PATTERNS * G / 32;  // walk warps a group
+        const int ww = tid >> 5;
+        if (ww % WARPS == 0)
+          group_sums<S>(st, ost, S * tile, fac, Uk, tile, ww / WARPS * SUM_PATTERNS,
+                        tid & 31, fac + 2 * tile + (size_t)ww / WARPS * 2 * SS,
+                        part_row(ww / WARPS), C, kb);
+      };"""
+# the wide store's row stores at one category a block: each warp's 16
+# patterns from the pool slot (as built), or each thread's own rows and
+# scale from its registers
+_STORE_FROM_POOL = """    const auto emit = [&](const Step& st, const auto&, const auto&, const float* slot) {
+      if (p < P) {
+        float* dst = up + ((size_t)st.node * C + c) * S * P + p;
+        for (int r = r0; r < S; r += RW) dst[(size_t)r * P] = slot[r * tile + q];
+        if (c == 0 && r0 == 0) usc[(size_t)st.node * P + p] = slot[S * tile + q];
+      }
     };"""
-# the wide store's row stores: each warp's 16 patterns from the pool slot
-# (as built), or each thread's own rows and scale from its registers
-_STORE_FROM_POOL = """  const auto emit = [&](const Step& st, const auto&, const auto&, const float* slot) {
-    if (p < P) {
-      float* dst = up + ((size_t)st.node * C + c) * S * P + p;
-      for (int r = r0; r < S; r += RW) dst[(size_t)r * P] = slot[r * tile + q];
-      if (c == 0 && r0 == 0) usc[(size_t)st.node * P + p] = slot[S * tile + q];
-    }
-  };"""
-_STORE_FROM_REGISTERS = """  const auto emit = [&](const Step& st, const auto& y, const auto& sc, const float*) {
-    const int g = threadIdx.x % (S / RPT), pq = threadIdx.x / (S / RPT);
+_STORE_FROM_REGISTERS = """    const auto emit = [&](const Step& st, const auto& y, const auto& sc, const float*) {
+      const int g = threadIdx.x % (S / RPT), pq = threadIdx.x / (S / RPT);
 #pragma unroll
-    for (int qq = 0; qq < CLUSTER_QT; ++qq) {
-      const int pr = p0 + pq * CLUSTER_QT + qq;
-      if (pr >= P) continue;
-      float* dst = up + ((size_t)st.node * C + c) * S * P + pr;
+      for (int qq = 0; qq < CLUSTER_QT; ++qq) {
+        const int pr = p0 + pq * CLUSTER_QT + qq;
+        if (pr >= P) continue;
+        float* dst = up + ((size_t)st.node * C + c) * S * P + pr;
 #pragma unroll
-      for (int j = 0; j < RPT; ++j) dst[(size_t)(g * RPT + j) * P] = y[j][qq];
-      if (c == 0 && g == 0) usc[(size_t)st.node * P + pr] = sc[qq];
-    }
-  };"""
+        for (int j = 0; j < RPT; ++j) dst[(size_t)(g * RPT + j) * P] = y[j][qq];
+        if (c == 0 && g == 0) usc[(size_t)st.node * P + pr] = sc[qq];
+      }
+    };"""
 _ONE_PATTERN = (("constexpr int CLUSTER_QT = 2;", "constexpr int CLUSTER_QT = 1;"),)
 _TIPS_CACHED = (("tips + ((size_t)node * S + t) * P + p, 4);",
                  "tips + ((size_t)0 * S + t) * P + p, 4);"),)
@@ -375,8 +380,8 @@ KERNELS: Dict[str, Dict[str, Tuple[Tuple[str, str], ...]]] = {
         "no stores": (("    if (p < P) {", "    if (false) {"),),
         "stores from registers": ((_STORE_FROM_POOL, _STORE_FROM_REGISTERS),),
         "no cluster barrier": (*_WALK_BARRIER,
-                               ("n_slots, smem, emit);\n}",
-                                "n_slots, smem, emit);\n  cluster.sync();\n}")),
+                               ("n_slots, smem, emit);\n  }\n}",
+                                "n_slots, smem, emit);\n  }\n  cluster.sync();\n}")),
         "float division": _DIVISION["float division"],
     },
     "wide_down_store": {
@@ -413,12 +418,12 @@ KERNELS: Dict[str, Dict[str, Tuple[Tuple[str, str], ...]]] = {
         "no part stores": (("  if (row) {", "  if (row && st.node < -1) {"),),
         "sums before the next step opens": (
             ("    if (i > 0) ring_arrive(blockDim.x);  // step i - 1 opens: it reads nothing of ours\n"
-             "    group_sums<S>(st, ost, fac, ust + (size_t)k * 2 * (S + 1) * tile, tile, w * SUM_PATTERNS,\n"
-             "                  L, pst, row, C, c);\n",
-             "    group_sums<S>(st, ost, fac, ust + (size_t)k * 2 * (S + 1) * tile, tile, w * SUM_PATTERNS,\n"
-             "                  L, pst, row, C, c);\n"
+             "    group_sums<S>(st, ost, S * tile, fac, ust + (size_t)k * 2 * (S + 1) * tile, tile,\n"
+             "                  w * SUM_PATTERNS, L, pst, row, C, c);\n",
+             "    group_sums<S>(st, ost, S * tile, fac, ust + (size_t)k * 2 * (S + 1) * tile, tile,\n"
+             "                  w * SUM_PATTERNS, L, pst, row, C, c);\n"
              "    if (i > 0) ring_arrive(blockDim.x);\n"),),
-        "no cluster barrier": _no_reverse_barrier("                                 smem, hook);\n  }"),
+        "no cluster barrier": _no_reverse_barrier("                                   n_slots, smem, hook);\n    }\n  }"),
         "registers 255": (("__launch_bounds__(TBAR_THREADS_MAX, S > 32 ? 1 : 2)\nwide_tbar_kernel",
                            "__launch_bounds__(TBAR_THREADS_MAX)\nwide_tbar_kernel"),),
         "float division": _DIVISION["float division"],
@@ -647,7 +652,7 @@ def main(argv=None) -> int:
     from ... import resolve_device
 
     args = list(argv if argv is not None else sys.argv[1:])
-    options = {"-C": "4", "--base": None}
+    options = {"-C": "4", "--base": None, "--only": None}
     for flag in options:
         if flag in args:
             i = args.index(flag)
@@ -661,7 +666,10 @@ def main(argv=None) -> int:
     if codon and (base or set(kernels) - set(CODON)):
         raise SystemExit(f"--codon takes the kernels {', '.join(CODON)} and no --base")
     dev = resolve_device()
-    libs = {kernel: variant_libraries(kernel, base, codon=codon) for kernel in kernels}
+    only = options["--only"].split(",") if options["--only"] else None
+    libs = {kernel: variant_libraries(
+        kernel, base, codon=codon,
+        names=only and [*only, *(["base"] if base else [])]) for kernel in kernels}
     if codon:  # the S=64 instance's registers and spills, each variant
         root = build.build_dir() / "probe_codon"
         for kernel in kernels:

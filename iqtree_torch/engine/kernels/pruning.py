@@ -187,11 +187,14 @@ def wide_forward_smem(S: int, C: int, tile: int, n_slots: int,
                       stages: int = CLUSTER_STAGES) -> int:
     """Bytes of shared memory a block of csrc/wide_forward.cu or
     csrc/wide_store.cu takes (the cluster walk's ClusterSmem,
-    csrc/wide_common.cuh): the ring of both children's [S,S] blocks and
-    tip rows, the slot pool of the block's category and the max buffers.
-    A block holds one rate category, so only the max buffers grow with C."""
-    return 4 * (stages * 2 * (S * S + S * tile) + n_slots * (S + 1) * tile
-                + 2 * C * tile)
+    csrc/wide_common.cuh): the ring of one category's [S,S] blocks of both
+    children and their tip rows, the slot pool of the block's CB categories
+    ([slot][CB S + 1][tile]) and the max buffers of the K blocks
+    (build.wide_layout).  The ring does not grow with the categories: a
+    block streams its categories through it."""
+    K, cb = build.wide_layout(C)
+    return 4 * (stages * 2 * (S * S + S * tile) + n_slots * (cb * S + 1) * tile
+                + 2 * K * tile)
 
 
 def wide_site_lnl(steps, n_slots, trans, tips, props, state_freq, invar,
@@ -211,7 +214,7 @@ def wide_site_lnl(steps, n_slots, trans, tips, props, state_freq, invar,
         rootw = pad_states(rootw, SK, 1)
     rootw = rootw.reshape(-1).contiguous()
     build.check_inputs(C, SK, steps, trans, tips, rootw, invar,
-                       states=build.WIDE_STATES)
+                       states=build.WIDE_STATES, n_slots=n_slots, multi=True)
     out = torch.empty(P, dtype=torch.float32, device=trans.device)
     build.launch("wide_forward", steps, steps.shape[0], trans, tips, P, rootw,
                  invar, out, C, SK, n_slots, tile or WIDE_FORWARD_TILE)
@@ -237,7 +240,8 @@ def fused_upward_store(steps, n_slots, trans, tips, tile=None):
     P, SK = tips.shape[2], build.instance_states(S)
     if SK != S:
         trans, tips = pad_states(trans, SK, 2, 3), pad_states(tips, SK, 1)
-    build.check_inputs(C, SK, steps, trans, tips, states=build.WIDE_STATES)
+    build.check_inputs(C, SK, steps, trans, tips, states=build.WIDE_STATES,
+                       n_slots=n_slots, multi=True)
     up = torch.empty(n_rows, C * SK, P, dtype=torch.float32, device=trans.device)
     usc = torch.zeros(n_rows, P, dtype=torch.float32, device=trans.device)
     build.launch("wide_store", steps, steps.shape[0], trans, tips, P, up, usc, C, SK,

@@ -151,6 +151,10 @@ class ModelArrays:
 
     @classmethod
     def from_model(cls, subst, rate, device, dtype=torch.float64) -> "ModelArrays":
+        from ..models.mixture import MixtureModel
+
+        if isinstance(subst, MixtureModel):
+            return cls.from_mixture(subst, rate, device, dtype)
         lam, v, vinv = subst.eigen()
         r, w = rate.category_rates()
         C, S = r.shape[0], lam.shape[0]
@@ -165,6 +169,36 @@ class ModelArrays:
             props=t(w),
             p_invar=t(rate.p_invar),
         )
+
+
+    @classmethod
+    def from_mixture(cls, mix, rate, device, dtype=torch.float64) -> "ModelArrays":
+        """The fused (mixture x rate) category axis.  With
+        mix.fused_with_rate (LG4M-style `*G4`) class m pairs with rate class
+        m (C = M); otherwise C = M x R, mixture class first (m-major), each
+        category carrying its class's eigensystem and frequencies, rates
+        r (x) comp_rate and proportions w (x) w_r."""
+        lam_m, v_m, vinv_m, freq_m = mix.eigen_all()  # [M,S], [M,S,S], ...
+        r, w = rate.category_rates()
+        M, R = lam_m.shape[0], r.shape[0]
+        comp_rate = np.asarray(mix.comp_rates, dtype=np.float64)
+        if mix.fused_with_rate:
+            if M != R:
+                raise ValueError(f"fused mixture has {M} classes but rate model has {R}")
+            # the mixture weights scaled by the total non-invariant mass
+            rates = np.asarray(r) * comp_rate
+            props = np.asarray(mix.weights) * np.asarray(w).sum()
+            eigenvalues, eigvec, inv_eigvec, state_freq = lam_m, v_m, vinv_m, freq_m
+        else:
+            rates = (np.asarray(r)[None, :] * comp_rate[:, None]).reshape(-1)
+            props = (np.asarray(mix.weights)[:, None] * np.asarray(w)[None, :]).reshape(-1)
+            eigenvalues, eigvec, inv_eigvec, state_freq = (
+                np.repeat(a, R, axis=0) for a in (lam_m, v_m, vinv_m, freq_m))
+        t = lambda a: torch.tensor(np.asarray(a, dtype=np.float64), dtype=dtype,
+                                   device=device)
+        return cls(eigenvalues=t(eigenvalues), eigvec=t(eigvec), inv_eigvec=t(inv_eigvec),
+                   state_freq=t(state_freq), rates=t(rates), props=t(props),
+                   p_invar=t(rate.p_invar))
 
 
 @dataclass

@@ -1,7 +1,7 @@
-"""The .iqtree analysis report for DNA, protein and codon models: alignment
-summary, the substitution model, rate heterogeneity, the
-maximum-likelihood tree and run information, in the reference report's
-sections."""
+"""The .iqtree analysis report for DNA, protein and codon models and the
+mixtures: alignment summary, the substitution model (a mixture's classes
+with their rates and weights), rate heterogeneity, the maximum-likelihood
+tree and run information, in the reference report's sections."""
 
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import numpy as np
 from .. import __version__
 from ..io.alignment import AA_ORDER, SEQ_CODON, SEQ_DNA, SEQ_PROTEIN
 from ..models.codon import codon_strings
+from ..models.mixture import MixtureModel
 from ..models.subst import (FREQ_EMPIRICAL, FREQ_EQUAL, FREQ_ESTIMATE,
                             FREQ_USER, pair_index)
 
@@ -54,25 +55,17 @@ def write_report(path: str, aln, subst, rate, tree, lnl: float, command: str,
         f"Model of substitution: {subst.name}{rate_name_suffix(rate)}",
         "",
     ]
-    S = subst.num_states
     codon = aln.states.seq_type == SEQ_CODON
     names = codon_strings(aln.states.genetic_code) if codon else \
         STATE_NAMES[aln.states.seq_type]
-    if getattr(subst, "kappa", None) is not None:  # a parametric codon model
-        L += [f"Transition/transversion ratio kappa: {subst.kappa:.4f}",
-              f"Nonsynonymous/synonymous ratio omega: {subst.omega:.4f}", ""]
-    if subst.rate_groups is not None:  # group-coded (DNA) exchangeabilities
-        r = subst.sym_rates()
-        L += ["Rate parameter R:", ""]
-        L += [f"  {names[i]}-{names[j]}: {r[i, j]:.4f}" for i, j in pair_index(S)]
-        L.append("")
-    L += [f"State frequencies: ({FREQ_DESC.get(subst.freq_type, subst.freq_type)})", ""]
-    L += [f"  pi({n}) = {f:.4g}" for n, f in zip(names, subst.state_freq)]
-    if not codon:  # a codon Q (61 x 61) is too wide to print
-        L += ["", "Rate matrix Q:", ""]
-        q = subst.rate_matrix()
-        L += [f"  {names[i]}  " + "  ".join(f"{q[i, j]:8.4f}" for j in range(S))
-              for i in range(S)]
+    if isinstance(subst, MixtureModel):
+        L += ["Mixture model of substitution (class, rate, weight):", ""]
+        L += [f"  {c.name:<16} {rr:.4f}  {ww:.4f}"
+              for c, rr, ww in zip(subst.components, subst.comp_rates, subst.weights)]
+        L += ["", "State frequencies (class-weighted means):", ""]
+        L += [f"  pi({n}) = {f:.4g}" for n, f in zip(names, subst.state_freq)]
+    else:
+        L += _substitution_lines(subst, names, codon)
     L += ["", "RATE HETEROGENEITY", "------------------"]
     if rate.has_gamma:
         L.append(f"Model of rate heterogeneity: "
@@ -101,3 +94,26 @@ def write_report(path: str, aln, subst, rate, tree, lnl: float, command: str,
           f"Wall-clock time used: {wall_time:.3f} sec", ""]
     with open(path, "w") as f:
         f.write("\n".join(L))
+
+
+def _substitution_lines(subst, names, codon: bool) -> List[str]:
+    """A single model's parameters: kappa and omega (codon), the
+    exchangeabilities (DNA), the frequencies and Q (not for codons)."""
+    S = subst.num_states
+    L: List[str] = []
+    if getattr(subst, "kappa", None) is not None:  # a parametric codon model
+        L += [f"Transition/transversion ratio kappa: {subst.kappa:.4f}",
+              f"Nonsynonymous/synonymous ratio omega: {subst.omega:.4f}", ""]
+    if subst.rate_groups is not None:  # group-coded (DNA) exchangeabilities
+        r = subst.sym_rates()
+        L += ["Rate parameter R:", ""]
+        L += [f"  {names[i]}-{names[j]}: {r[i, j]:.4f}" for i, j in pair_index(S)]
+        L.append("")
+    L += [f"State frequencies: ({FREQ_DESC.get(subst.freq_type, subst.freq_type)})", ""]
+    L += [f"  pi({n}) = {f:.4g}" for n, f in zip(names, subst.state_freq)]
+    if not codon:  # a codon Q (61 x 61) is too wide to print
+        L += ["", "Rate matrix Q:", ""]
+        q = subst.rate_matrix()
+        L += [f"  {names[i]}  " + "  ".join(f"{q[i, j]:8.4f}" for j in range(S))
+              for i in range(S)]
+    return L

@@ -1,12 +1,15 @@
 """Model-string parsing for the DNA, protein and codon models the port serves.
 
 Parses IQ-TREE-style model strings like "GTR+G4+I", "HKY+F{.3,.2,.2,.3}",
-"GTR{1.5,2,0.8,1.2,3}+G{0.5}" or "LG+F+I+G" into a (ReversibleModel,
-RateModel) pair.  The protein names are the empirical matrices of
-models/protein.py, with their published frequencies unless a +F suffix
-says otherwise.  The codon names (models/codon.py) are GY (the default,
-counted codon frequencies), MG (F3X4 product frequencies) and the
-empirical KOSI07/ECM, ECMREST and SCHN05, with their own frequencies.
+"GTR{1.5,2,0.8,1.2,3}+G{0.5}", "LG+F+I+G", "C20", "EX2+G", "LG4M" or
+"MIX{WAG,LG}+G" into a (ReversibleModel | MixtureModel, RateModel) pair.
+The protein names are the empirical matrices of models/protein.py, with
+their published frequencies unless a +F suffix says otherwise.  The codon
+names (models/codon.py) are GY (the default, counted codon frequencies),
+MG (F3X4 product frequencies) and the empirical KOSI07/ECM, ECMREST and
+SCHN05, with their own frequencies.  Mixture names (EX2, EX3, EHO, UL2,
+UL3, EX_EHO, LG4M, CF4, C10..C60) resolve from the built-in NEXUS
+definitions (io/modelsblock.py) into a MixtureModel (models/mixture.py).
 
 Supported suffixes:
   +F    empirical (counted) frequencies
@@ -17,6 +20,7 @@ Supported suffixes:
                 nucleotide frequencies
   +I[{p}]       invariable sites
   +G[n][{a}]    discrete Gamma (default n=4)
+  +FMIX{f1:r:w,...}  frequency-mixture classes (CF4/C10..C60 style)
 Model parameters may be pinned inline: GTR{1.5,2.0,...}, GY{kappa,omega}.  Other families
 and suffixes raise NotImplementedError naming the slice that ports them.
 """
@@ -29,12 +33,15 @@ from typing import Optional, Tuple
 import numpy as np
 
 from ..io.alignment import SEQ_CODON, SEQ_DNA, SEQ_PROTEIN, Alignment
+from ..io.modelsblock import ExprDef, MatrixDef, builtin_mixture_defs
 from .codon import (EMPIRICAL_CODON, CodonModel, empirical_codon_model,
                     product_codon_freqs)
 from .dna import create_dna_model
+from .mixture import build_mixture
 from .protein import create_protein_model
 from .rates import RateModel
-from .subst import FREQ_EMPIRICAL, FREQ_EQUAL, FREQ_ESTIMATE, FREQ_USER
+from .subst import (FREQ_EMPIRICAL, FREQ_EQUAL, FREQ_ESTIMATE, FREQ_USER,
+                    ReversibleModel)
 
 
 class ModelParseError(ValueError):
@@ -83,15 +90,22 @@ def default_model(aln: Alignment) -> str:
     return DEFAULT_MODELS[aln.states.seq_type]
 
 
-def parse_model_string(model_str: str, aln: Alignment):
-    """Returns (ReversibleModel, RateModel)."""
-    base_tok, suffixes = _split_suffixes(model_str.strip())
-    if base_tok.upper().startswith("MIX") or "*" in base_tok:  # before its braces
-        _not_ported("mixture models", "the mixture slice")
-    bname, bparams = _parse_braces(base_tok)
+def _resolve_base(name: str, aln: Alignment, defs) -> ReversibleModel:
+    """A plain (non-mixture) model: a matrix of the built-in definitions, or
+    the alignment's family's model of that name with its pinned parameters."""
+    bname, bparams = _parse_braces(name)
     upper = bname.upper()
     if upper == "UNREST":
         _not_ported("UNREST", "the non-reversible slice")
+    d = defs.get(upper)
+    if isinstance(d, MatrixDef):
+        if d.exchange.shape[0] != aln.num_states:
+            raise ModelParseError(f"model {bname} has {d.exchange.shape[0]} states, "
+                                  f"alignment has {aln.num_states}")
+        freq = d.freqs if d.freqs is not None else aln.state_frequencies()
+        return ReversibleModel(name=d.name, num_states=d.exchange.shape[0],
+                               exchange=d.exchange, freq_type=FREQ_USER,
+                               state_freq=np.asarray(freq, float), fixed_rates=True)
     if aln.states.seq_type == SEQ_PROTEIN:
         subst = create_protein_model(bname)
         if bparams is not None:
@@ -115,6 +129,40 @@ def parse_model_string(model_str: str, aln: Alignment):
                     f"{len(bparams)}")
             subst.set_rate_param_vector(np.asarray(bparams))
             subst.fixed_rates = True
+    return subst
+
+
+def parse_model_string(model_str: str, aln: Alignment):
+    """Returns (ReversibleModel | MixtureModel, RateModel)."""
+    defs = builtin_mixture_defs()
+    base_tok, suffixes = _split_suffixes(model_str.strip())
+    # a built-in mixture name stands for its expression (C20, EX2, LG4M, ...)
+    d = defs.get(base_tok.split("*")[0].split("{")[0].upper())
+    if isinstance(d, ExprDef):
+        inner_base, inner_suffixes = _split_suffixes(d.expr)
+        base_tok, suffixes = inner_base, inner_suffixes + suffixes
+    fmix_body = None
+    rest = []
+    for tok in suffixes:
+        if tok.upper().startswith("FMIX{") and tok.endswith("}"):
+            fmix_body = tok[5:-1]
+        else:
+            rest.append(tok)
+    suffixes = rest
+    mix_star = None
+    is_mix = base_tok.upper().startswith("MIX") or fmix_body is not None
+    if is_mix:
+        if aln.states.seq_type == SEQ_CODON:
+            _not_ported("mixture models", "the codon mixture slice")
+        subst, mix_star = build_mixture(base_tok, fmix_body, aln, defs,
+                                        lambda n: _resolve_base(n, aln, defs))
+        if mix_star is not None and mix_star.upper().startswith("R"):
+            _not_ported(f"a mixture fused with FreeRate rates (*{mix_star})",
+                        "the FreeRate slice")
+    elif "*" in base_tok:
+        raise ModelParseError(f"bad model token {base_tok!r}")
+    else:
+        subst = _resolve_base(base_tok, aln, defs)
 
     gamma_cats = 0
     invar = False
@@ -124,6 +172,8 @@ def parse_model_string(model_str: str, aln: Alignment):
     for tok in suffixes:
         name, vals = _parse_braces(tok)
         up = name.upper()
+        if up in ("F", "FO", "FE", "FQ", "FU") and is_mix:
+            raise ModelParseError("frequency suffixes don't apply to mixture models")
         if up in ("F", "FO", "FE", "FQ", "FU"):
             if up == "F" and vals:
                 f = np.asarray(vals)
@@ -163,15 +213,20 @@ def parse_model_string(model_str: str, aln: Alignment):
             _not_ported(f"+{name}", "the FreeRate slice")
         elif up == "ASC":
             _not_ported("+ASC", "the ascertainment-bias slice")
-        elif up.startswith(("FMIX", "GM")):
-            _not_ported(f"+{name}", "the mixture slice")
+        elif up.startswith("GM"):
+            _not_ported(f"+{name}", "a later slice: median Gamma rates")
         else:
             raise ModelParseError(f"unknown model suffix +{name}")
 
+    if is_mix and subst.fused_with_rate:
+        # `MIX{..}*G4` pairs class m with Gamma rate class m (LG4M)
+        if gamma_cats and gamma_cats != subst.n_mix:
+            raise ModelParseError(f"fused mixture {subst.name} needs G{subst.n_mix}")
+        gamma_cats = gamma_cats or subst.n_mix
     # a model's FREQ_ESTIMATE default means empirical counts unless +FO
-    if not freq_set and subst.freq_type == FREQ_ESTIMATE:
+    if not is_mix and not freq_set and subst.freq_type == FREQ_ESTIMATE:
         subst.freq_type = FREQ_EMPIRICAL
-    if subst.freq_type in (FREQ_EMPIRICAL, FREQ_ESTIMATE):
+    if not is_mix and subst.freq_type in (FREQ_EMPIRICAL, FREQ_ESTIMATE):
         subst.state_freq = aln.state_frequencies()
     if isinstance(subst, CodonModel):  # MG's factors follow the frequencies
         subst.refresh_exchange()

@@ -7,6 +7,7 @@ and the differentiable Gamma quadrature); branch lengths move by the
 batched Newton sweeps in between.
 
 Unconstrained parameterization:
+  mixture weights    w = softmax(x) (a mixture's free class weights)
   exchangeabilities  r_g = exp(x)
   codon kappa, omega kappa = exp(x), omega = exp(y)
   frequencies        pi = softmax(x) floored at MIN_FREQ (+FO only)
@@ -29,6 +30,7 @@ from ..utils.gamma_torch import discrete_gamma_rates
 from ..utils.lbfgs import lbfgs_minimize, zero_lbfgs_state
 from .codon import CodonModel
 from .eigen import eigen_reversible
+from .mixture import MixtureModel
 from .rates import MAX_GAMMA_SHAPE, MIN_GAMMA_SHAPE, RateModel
 from .subst import FREQ_ESTIMATE, ReversibleModel, pair_index
 
@@ -52,6 +54,23 @@ class ModelOptimizer:
         self.opt_alpha = r.has_gamma and not r.fix_alpha
         self.opt_pinv = r.has_invar and not r.fix_p_invar
         self.max_pinv = 0.999
+        self.is_mixture = isinstance(s, MixtureModel)
+        if self.is_mixture:
+            # fixed component matrices and frequencies: eigendecomposed once;
+            # the weights (unless pinned) and the rate model are free
+            self.opt_freq = self.opt_rates = self.is_codon = False
+            self.opt_kappa = self.opt_omega = False
+            self.opt_weights = not s.fix_weights and s.n_mix > 1
+            eig = s.eigen_all()
+            if s.fused_with_rate:
+                if s.n_mix != r.ncat:
+                    raise ValueError(f"fused mixture has {s.n_mix} classes, rate model "
+                                     f"{r.ncat}")
+            else:
+                eig = tuple(np.repeat(a, r.ncat, axis=0) for a in eig)
+            self._mix_eigen = tuple(self._t(a) for a in eig)
+            return
+        self.opt_weights = False
         self.opt_freq = s.freq_type == FREQ_ESTIMATE
         self.opt_rates = s.n_rate_params > 0
         self.is_codon = isinstance(s, CodonModel)
@@ -75,6 +94,8 @@ class ModelOptimizer:
 
     def init_params(self) -> Dict[str, torch.Tensor]:
         p: Dict[str, torch.Tensor] = {}
+        if self.opt_weights:
+            p["mix_logits"] = self._t(np.log(np.maximum(self.subst.weights, 1e-6)))
         if self.opt_kappa:
             p["log_kappa"] = self._t(np.log(self.subst.kappa))
         if self.opt_omega:
@@ -129,11 +150,8 @@ class ModelOptimizer:
         sym = sym.index_put(self._pairs, group_rates[self._groups])
         return sym + sym.T
 
-    def build(self, params: Dict[str, torch.Tensor]) -> ModelArrays:
-        S = self.subst.num_states
-        sym = self._exchange_matrix(params)
-        freq = self._freq(params)
-        lam, v, vinv = eigen_reversible(sym, freq)
+    def _rate_part(self, params):
+        """(rates [R], props [R], p_invar) of the rate model."""
         pinv = self._pinv(params)
         C = self.rate.ncat
         if self.rate.has_gamma:
@@ -141,6 +159,35 @@ class ModelOptimizer:
         else:
             rates = torch.ones(1, dtype=torch.float64, device=self.device)
         props = torch.ones(C, dtype=torch.float64, device=self.device) * (1.0 - pinv) / C
+        return rates, props, pinv
+
+    def _build_mixture(self, params) -> ModelArrays:
+        """The fused (mixture x rate) ModelArrays (likelihood.py
+        from_mixture): the components' eigensystems fixed, the weights and
+        the rate model's parameters free."""
+        mix = self.subst
+        lam, v, vinv, freq = self._mix_eigen
+        rates_r, props_r, pinv = self._rate_part(params)
+        w = (torch.softmax(params["mix_logits"], 0) if self.opt_weights
+             else self._t(mix.weights))
+        comp_rate = self._t(mix.comp_rates)
+        if mix.fused_with_rate:
+            rates, props = rates_r * comp_rate, w * props_r.sum()
+        else:
+            rates = (comp_rate[:, None] * rates_r[None, :]).reshape(-1)
+            props = (w[:, None] * props_r[None, :]).reshape(-1)
+        return ModelArrays(eigenvalues=lam, eigvec=v, inv_eigvec=vinv, state_freq=freq,
+                           rates=rates, props=props, p_invar=pinv)
+
+    def build(self, params: Dict[str, torch.Tensor]) -> ModelArrays:
+        if self.is_mixture:
+            return self._build_mixture(params)
+        S = self.subst.num_states
+        sym = self._exchange_matrix(params)
+        freq = self._freq(params)
+        lam, v, vinv = eigen_reversible(sym, freq)
+        rates, props, pinv = self._rate_part(params)
+        C = self.rate.ncat
         return ModelArrays(
             eigenvalues=lam.expand(C, S),
             eigvec=v.expand(C, S, S),
@@ -155,6 +202,9 @@ class ModelOptimizer:
         """Write the fitted values back into the host model objects."""
         s, r = self.subst, self.rate
         with torch.no_grad():
+            if self.opt_weights:
+                w = torch.softmax(params["mix_logits"], 0).cpu().numpy()
+                s.weights = w / w.sum()
             if self.opt_kappa:
                 s.kappa = float(torch.exp(params["log_kappa"]))
             if self.opt_omega:

@@ -37,6 +37,7 @@ from ..engine.likelihood import SiteData, TreeArrays
 from ..engine.parsimony import parsimony_stepwise_tree
 from ..io.alignment import Alignment
 from ..models.factory import parse_model_string
+from ..models.mixture import category_count
 from ..models.optimize import ModelOptimizer, optimize_model_and_branches
 from ..trees.bionj import bionj_tree
 from ..trees.tree import PhyloTree
@@ -100,9 +101,10 @@ def run_search(aln: Alignment, params: SearchParams) -> SearchResult:
     opt = ModelOptimizer(subst, rate, device)
     site = SiteData.from_alignment(aln, device, dt)
     mparams = opt.init_params()
-    dec = decide_engine(aln.n_taxa, rate.ncat, subst.num_states, aln.n_patterns,
-                        device, dt, search=True)
-    for line in engine_banner(dec, aln.n_taxa, rate.ncat, subst.num_states,
+    C = category_count(subst, rate)
+    dec = decide_engine(aln.n_taxa, C, subst.num_states, aln.n_patterns, device, dt,
+                        search=True)
+    for line in engine_banner(dec, aln.n_taxa, C, subst.num_states,
                               aln.n_patterns, search=True).splitlines():
         log(line)
     engine = NNIEngine(opt.build(mparams), site, edge_chunk=dec.nni_chunk)

@@ -1062,3 +1062,103 @@ def test_codon_fit_on_card(tmp_path):
     assert "S=61 (padded 64)" in log and "theta path" in log
     lnl = float(re.search(r"Optimal log-likelihood: (\S+)", log).group(1))
     assert lnl >= -11142.814 - 0.2  # +G4 only adds to the binary's GY+F3X4 optimum
+
+
+def _wide_launch_raw(kernel, k, fill):
+    """One launch of a wide walk's C entry on outputs filled with `fill`
+    (the wrappers' outputs start empty or zeroed): (up, usc) of wide_store,
+    (out, osc) of wide_down_store."""
+    from iqtree_torch.engine.kernels import build
+
+    steps, n_slots, trans = k["steps"], k["n_slots"], k["trans"]
+    n_rows, C, S = trans.shape[:3]
+    P = k["up"].shape[2]
+    a = torch.full((n_rows, C * S, P), fill, device=trans.device)
+    b = torch.full((n_rows, P), fill, device=trans.device)
+    if kernel == "wide_store":
+        build.launch("wide_store", steps, steps.shape[0], trans,
+                     tip_partials(k["site"]).contiguous(), P, a, b, C, S, n_slots,
+                     pruning.WIDE_STORE_TILE)
+    else:
+        build.launch("wide_down_store", steps, steps.shape[0], trans, k["freq"].reshape(-1),
+                     k["up"], k["usc"], P, a, b, C, S, n_slots,
+                     cs_kernels.WIDE_DOWN_STORE_TILE)
+    return a, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [9, 12, 20, 40, 80, 240])
+def test_wide_walks_past_eight_categories_match_twins(C):
+    """The four wide walks with several categories a block (build.wide_layout:
+    C = 9 and 20 leave a padding category in the last block; 40, 80 and 240
+    are C10's, C20's and C60's counts, C60's 30 a block fitting shared
+    memory at this tree's 3 slots) at an odd pattern count: the forward lnL within
+    1e-3 of the twin, the store, the outside store and the gradient sweep
+    within 1e-4 (as at C <= 8), two launches of each bit-equal, and no
+    write outside the real categories' rows: the store leaves the tip and
+    dummy rows as they were, the outside store the root and dummy rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from iqtree_torch.engine.kernels import build
+
+    assert build.wide_layout(C)[1] > 1
+    k = _lane_case(C, 200 + C, alphabet="ARNDCQEGHILKMFPSTWYV-X", n=30, sites=301)
+    assert build.wide_walk_smem(C, 20, k["n_slots"]) <= build.MAX_BLOCK_SMEM
+    model, site = k["model"], k["site"]
+    tips = tip_partials(site).contiguous()
+    N = k["ta"].n_taxa
+    R = 2 * N
+    # forward
+    args = (k["steps"], k["n_slots"], k["trans"], tips, model.props.float(), k["freq"],
+            ptn_invar(model, site).float().contiguous())
+    want = pruning._site_lnl_plain(*args[:1], *args[2:])
+    got = pruning.wide_site_lnl(*args)
+    assert torch.equal(got, pruning.wide_site_lnl(*args))
+    assert float((got - want).abs().max()) <= 1e-3
+    # upward store (k["up"] came from it, tip rows filled)
+    up_p, usc_p = pruning.upward_plain(k["steps"], k["trans"], tips)
+    up, usc = _wide_launch_raw("wide_store", k, float("nan"))
+    inner = slice(N, R - 1)
+    assert torch.equal(up[inner], k["up"][inner]) and torch.equal(usc[inner], k["usc"][inner])
+    assert float((up[inner] - up_p[inner]).abs().max()) <= 1e-4
+    assert float((usc[inner] - usc_p[inner]).abs().max() / usc_p[inner].abs().max()) <= 1e-4
+    assert bool(up[:N].isnan().all()) and bool(up[R - 1].isnan().all())
+    assert bool(usc[:N].isnan().all()) and bool(usc[R - 1].isnan().all())
+    # outside-partial store
+    dargs = (k["steps"], k["n_slots"], k["trans"], k["up"], k["usc"], k["freq"])
+    out, osc = cs_kernels.fused_down_store(*dargs)
+    out2, osc2 = cs_kernels.fused_down_store(*dargs)
+    assert torch.equal(out, out2) and torch.equal(osc, osc2)
+    out_p, osc_p = cs_kernels._down_store_plain(k["steps"], k["trans"], k["up"], k["usc"],
+                                                k["freq"])
+    rows = [v for v in range(R - 1) if v != k["ta"].root]
+    assert float((out[rows] - out_p[rows]).abs().max()) <= 1e-4
+    assert float((osc[rows] - osc_p[rows]).abs().max() / osc_p[rows].abs().max()) <= 1e-4
+    raw, raw_sc = _wide_launch_raw("wide_down_store", k, float("nan"))
+    assert torch.equal(raw[rows], out[rows]) and torch.equal(raw_sc[rows], osc[rows])
+    assert bool(raw[R - 2:].isnan().all()) and bool(raw_sc[R - 2:].isnan().all())
+    # gradient sweep
+    targs = _tbar_args(k)
+    tb = cs_kernels.fused_downward_tbar(*targs, up=k["up"], usc=k["usc"])
+    assert torch.equal(tb, cs_kernels.fused_downward_tbar(*targs, up=k["up"], usc=k["usc"]))
+    tb_p = cs_kernels._tbar_plain(k["steps"], k["trans"], *targs[4:], k["up"], k["usc"])
+    edges = R - 2
+    assert not bool(tb[edges:].any())
+    assert float((tb[:edges] - tb_p[:edges]).abs().max() / tb_p[:edges].abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_wide_walks_refuse_what_their_shared_memory_cannot_hold():
+    """C60's 240 categories take 30 a block: on a 100-taxon tree of 4 slots
+    the slot pool and O's stage need more shared memory than a block may
+    have, and the wrappers say so (no launch, no CPU fallback)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from iqtree_torch.engine.kernels import build
+
+    k = _lane_case(8, 240, alphabet="ARNDCQEGHILKMFPSTWYV-X", n=100, sites=301)
+    assert build.wide_walk_smem(240, 20, k["n_slots"]) > build.MAX_BLOCK_SMEM
+    trans = k["trans"].repeat(1, 30, 1, 1).contiguous()  # 240 categories
+    tips = tip_partials(k["site"]).contiguous()
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        pruning.fused_upward_store(k["steps"], k["n_slots"], trans, tips)

@@ -273,3 +273,168 @@ def test_wide_tbar_shared_memory():
     for C in range(1, 9):
         assert tb(61, C, 16, 11) <= block, C
         assert tb(20, C, 64, 12) <= block, C
+
+
+@pytest.mark.parametrize("C,K,CB", [(12, 6, 2), (40, 8, 5), (80, 8, 10), (240, 8, 30)])
+def test_wide_walks_shared_memory_past_eight_categories(C, K, CB):
+    """Past 8 categories a wide walk's block holds CB = ceil(C / 8) of them
+    on K = ceil(C / CB) blocks a cluster; its ring stays one category's, its
+    slot pool grows to CB S + 1 rows a slot and the reverse walks' O stage
+    to both children's CB S rows, at the wrappers' 16 patterns a cluster.
+    At a 300-taxon tree's 10 slots C = 12, 40 (C10) and 80 (C20) fit the
+    232 448 bytes a block may have, and C = 240 (C60) does not; at 3 slots
+    it does."""
+    from iqtree_torch.engine.kernels import build
+
+    assert build.wide_layout(C) == (K, CB)
+    S, tile, slots = 20, 16, 10
+    ring_up = 2 * 2 * (S * S + S * tile)
+    ring_rev = 2 * (2 * S * S + 2 * (S + 1) * tile)
+    fwd = 4 * (ring_up + slots * (CB * S + 1) * tile + 2 * K * tile)
+    down = 4 * (ring_rev + slots * (CB * S + 1) * tile + 2 * CB * S * tile + 4 * K * tile)
+    assert pruning.wide_forward_smem(S, C, tile, slots) == fwd
+    assert cs_kernels.wide_down_store_smem(S, C, tile, slots) == down
+    assert cs_kernels.wide_tbar_smem(S, C, tile, slots) == down + 4 * (2 * tile + 2 * S * S)
+    assert build.wide_walk_smem(C, S, slots) == down + 4 * (2 * tile + 2 * S * S)
+    assert (build.wide_walk_smem(C, S, slots) <= build.MAX_BLOCK_SMEM) == (C < 240)
+    assert build.wide_walk_smem(C, S, 3) <= build.MAX_BLOCK_SMEM
+    assert build.max_slots(300) == slots
+
+
+def test_check_shape_past_eight_categories():
+    """The wide walks serve S=20 past 8 categories as far as their shared
+    memory allows; the branch-Newton kernel, the CS-packed kernels and the
+    codon instance stop at 8, each naming what serves or will serve."""
+    from iqtree_torch.engine.kernels import build
+
+    build.check_shape(80, 20, n_slots=10)
+    build.check_shape(80, 20, build.WIDE_STATES, 10)
+    with pytest.raises(NotImplementedError, match="the theta path serve"):
+        build.check_shape(80, 20, build.WIDE_NEWTON_STATES, multi=False)
+    with pytest.raises(NotImplementedError, match="the codon mixture slice"):
+        build.check_shape(12, 64)
+    with pytest.raises(NotImplementedError, match="the DNA mixture slice"):
+        build.check_shape(12, 4)
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        build.check_shape(240, 20, n_slots=10)
+
+
+def _forty_case():
+    """C10 (40 categories) on an 8-taxon protein alignment with ambiguity
+    codes and a random tree, float64 on the CPU."""
+    from iqtree_torch.engine.likelihood import ModelArrays, SiteData, TreeArrays
+    from iqtree_torch.io.alignment import AA_ORDER, Alignment
+    from iqtree_torch.models.factory import parse_model_string
+    from iqtree_torch.trees.tree import random_tree
+
+    rng = np.random.default_rng(40)
+    seqs = ["".join(rng.choice(list(AA_ORDER + "-XB"), 90)) for _ in range(8)]
+    aln = Alignment.from_sequences([f"t{i}" for i in range(8)], seqs, "AA")
+    tree = random_tree(8, rng)
+    ta = TreeArrays.from_tree(tree, CPU)
+    model = ModelArrays.from_model(*parse_model_string("C10", aln), CPU)
+    steps, n_slots = pruning.device_slot_schedule(tree, ta)
+    return ta, model, SiteData.from_alignment(aln, CPU, torch.float64), \
+        torch.as_tensor(steps), n_slots
+
+
+def test_plain_twins_take_forty_categories():
+    """The kernels' plain twins at C = 40 (C10): the forward twin equals the
+    plain pass, the gradient sweep's cotangents equal autograd's of the
+    plain lnL, the outside store gives every edge's pattern likelihoods
+    (sum_c w_c O_c . P_c U_c with both scales), and the theta path's d lnL/dt
+    equals autograd's."""
+    from iqtree_torch.engine.derivatives import branch_derivs
+    from iqtree_torch.engine.likelihood import SCALE_TINY, upward_pass
+
+    ta, model, site, steps, n_slots = _forty_case()
+    assert model.ncat == 40
+    tips = tip_partials(site)
+    invar = ptn_invar(model, site)
+    total, pat = fused_compute_loglik(ta, model, site, steps, n_slots)
+    np.testing.assert_allclose(float(total), float(compute_loglik(ta, model, site)[0]),
+                               rtol=1e-12)
+    trans = branch_transition_mats(model, ta.blen).detach().requires_grad_()
+    up, usc = upward_pass(ta.levels, ta.children, trans, tips)
+    rootw = (model.props[:, None] * model.state_freq).reshape(-1)
+    lnl = torch.log(rootw @ up[ta.root].reshape(-1, up.shape[-1])) + usc[ta.root]
+    want = torch.autograd.grad((site.pattern_freq * lnl).sum(), trans)[0]
+    got = fused_tbar_cs(steps, n_slots, trans.detach(), tips, model.props, model.state_freq,
+                        lnl.detach(), site.pattern_freq)
+    edges = 2 * ta.n_taxa - 2
+    np.testing.assert_allclose(got[:edges].numpy(), want[:edges].numpy(), rtol=1e-9,
+                               atol=1e-9 * float(want.abs().max()))
+    up_s, usc_s = fused_upward_store_cs(steps, n_slots, trans.detach(), tips)
+    cs_kernels.fill_tip_rows_cs(up_s, usc_s, tips, 40)
+    out, osc = cs_kernels.fused_down_store_cs(steps, n_slots, trans.detach(), up_s, usc_s,
+                                              model.state_freq)
+    C, S, P = 40, 20, up_s.shape[2]
+    msg = trans.detach() @ up_s.reshape(-1, C, S, P)  # P_e U_e, [2N, C, S, P]
+    like = (model.props[None, :, None, None] * out.reshape(-1, C, S, P) * msg).sum((1, 2))
+    for e in range(edges):
+        if e == ta.root:
+            continue
+        np.testing.assert_allclose((torch.log(torch.clamp(like[e], min=SCALE_TINY))
+                                    + osc[e] + usc_s[e]).numpy(), lnl.detach().numpy(),
+                                   rtol=1e-10)
+    blen = ta.blen.clone().requires_grad_()
+    d_blen = torch.autograd.grad(compute_loglik(ta.with_blen(blen), model, site)[0], blen)[0]
+    d1, _ = branch_derivs(steps, n_slots, model, site, ta.blen, tips.contiguous(),
+                          invar.contiguous())
+    mask = torch.ones_like(d1, dtype=torch.bool)
+    mask[[ta.root, ta.dummy]] = False
+    np.testing.assert_allclose(d1[mask].numpy(), d_blen[mask].numpy(), rtol=1e-7,
+                               atol=1e-9 * float(d_blen.abs().max()))
+
+
+def test_theta_path_in_chunks_equals_all_at_once(monkeypatch):
+    """The theta path's branches in chunks under THETA_BUDGET give the
+    values of every branch at once, bit for bit (C10: the theta path)."""
+    from iqtree_torch.engine import derivatives
+
+    ta, model, site, steps, n_slots = _forty_case()
+    assert not derivatives.newton_serves(40, 20) and derivatives.newton_serves(8, 20)
+    args = (steps, n_slots, model, site, ta.blen, tip_partials(site).contiguous(),
+            ptn_invar(model, site).contiguous())
+    whole = derivatives.branch_derivs(*args)
+    per_edge = derivatives.THETA_LIVE * 40 * 20 * site.pattern_freq.shape[0] * 8
+    for edges in (1, 3):
+        monkeypatch.setattr(derivatives, "THETA_BUDGET", edges * per_edge)
+        assert derivatives.theta_chunk_edges(16, 800, site.pattern_freq.shape[0], 8) == edges
+        for got, want in zip(derivatives.branch_derivs(*args), whole):
+            assert torch.equal(got, want)
+
+
+def test_distance_chunks_count_the_categories(monkeypatch):
+    """pair_chunk_rows sizes a chunk by the wider of the Newton loop's S*S
+    and C*S temporaries (C20: C*S = 1 600 = 4 S*S, so a quarter of the rows
+    of LG+G4); the ML distances of C10 in one-row chunks equal those in one
+    chunk, bit for bit."""
+    from iqtree_torch.engine import distances
+
+    f = distances.pair_chunk_rows
+    assert f(300, 20, 4) == f(300, 20) == 300
+    budget = distances.PAIR_BUDGET // (distances.PAIR_LIVE * 8)
+    assert f(300, 20, 80) == budget // 1600 // 300 < f(300, 20, 4)
+    assert f(1000, 61, 4) == f(1000, 61) == 12
+    ta, model, site, _, _ = _forty_case()
+    whole = distances.ml_distances(model, site)
+    monkeypatch.setattr(distances, "PAIR_BUDGET", distances.PAIR_LIVE * 800 * 8 * 8)
+    assert f(8, 20, 40) == 1
+    assert np.array_equal(distances.ml_distances(model, site), whole)
+
+
+def test_engine_decision_counts_the_theta_chunk():
+    """C20 (80 categories) takes the theta path: the decision keeps up and
+    out and reckons a chunk of branches' theta buffers; LG+G4's numbers are
+    as before (no theta path)."""
+    from iqtree_torch.engine import derivatives
+    from iqtree_torch.engine.banner import decide_engine, engine_banner
+
+    dec = decide_engine(300, 80, 20, 1958, CPU, torch.float32)
+    per_edge = derivatives.THETA_LIVE * 1600 * 1958 * 4
+    assert dec.store_bytes == 2 * 600 * 1601 * 1958 * 4
+    assert dec.theta_bytes == derivatives.THETA_BUDGET // per_edge * per_edge
+    assert "theta buffers" in engine_banner(dec, 300, 80, 20, 1958)
+    lg = decide_engine(300, 4, 20, 1958, CPU, torch.float32)
+    assert lg.store_bytes == 600 * 81 * 1958 * 4 and lg.theta_bytes == 0

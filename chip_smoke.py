@@ -164,6 +164,10 @@ EARLIER_MS = {"forward": 3.139, "store": 3.315, "newton": 12.361, "pars_insert":
               "pars_insert_s20": 0.556, "down_store": 14.706, "wide_newton": 7.063,
               "wide_forward": 2.102, "tbar": 13.848, "wide_store": 2.236,
               "wide_down_store": 3.961, "wide_tbar": 5.862}
+# The C = 80 instances' times on their first design (one warp a block, the
+# categories in series; PERF.md section 6, rows 7m and 8m), ms a call of
+# wide_site_lnl and fused_upward_store at C20 on the protein bench
+EARLIER_C80_MS = {"wide_forward": 32.665, "wide_store": 35.669}
 SMEM_BLOCK = 232448  # bytes of shared memory an H100 block may have
 SMEM_ROUND_TRIP = 30  # cycles from a shared-memory load to its use, about
 
@@ -2062,6 +2066,9 @@ def mixture_phases(dev, card, record, results, cli_main, bdir):
         print(f"  {n} S=20 instance with several categories a block (ptxas): "
               f"{'; '.join(regs)}")
         check(bool(regs), f"ptxas reports the multi-category instance of {n}")
+    for n in walks[:2]:  # the upward walk's one-category instance keeps its bound
+        print(f"  {n} S=20 instance at one category a block (ptxas): "
+              f"{'; '.join(ptxas_lines((bdir / f'{n}.log').read_text(), 'ILi20ELi5ELb0E'))}")
     names, seqs, tree_nwk = load_bench("bench_data_protein.npz")
     aln = Alignment.from_sequences(names, seqs, "AA")
     tree = PhyloTree.from_newick(tree_nwk, aln.names)
@@ -2078,12 +2085,24 @@ def mixture_phases(dev, card, record, results, cli_main, bdir):
     N, P = aln.n_taxa, aln.n_patterns
     CS, CSS, R = C * S, C * S * S, 2 * N
     K, cb = build.wide_layout(C)
+    warps = pk.wide_forward_warps(S, C, 16, n_slots)
     print(f"{N} taxa, {P} patterns, C={C} ({cb} categories a block on {K}-block "
           f"clusters), S={S}, {n_slots} slots; shared memory a block by the formulas at "
           f"16 patterns a cluster: wide_forward / wide_store "
-          f"{pk.wide_forward_smem(S, C, 16, n_slots)} B, wide_down_store "
+          f"{pk.wide_forward_smem(S, C, 16, n_slots, warps=warps)} B ({warps} category "
+          f"warps; {pk.wide_forward_smem(S, C, 16, n_slots)} B at one), wide_down_store "
           f"{csk.wide_down_store_smem(S, C, 16, n_slots)} B, wide_tbar "
           f"{csk.wide_tbar_smem(S, C, 16, n_slots)} B (a block may have {SMEM_BLOCK})")
+    for n in walks[:2]:
+        lay = build.upward_launch(n, C, S, n_slots, 16)
+        print(f"{n} C={C}: its C entry's launch: {lay['warps']} category warps a block "
+              f"({-(-cb // lay['warps'])} units a step), {lay['threads']} threads, "
+              f"{lay['smem']} B of shared memory a block, at most {lay['clusters']} "
+              f"clusters of {K} blocks at once ({-(-((P + 15) // 16) // max(lay['clusters'], 1))}"
+              f" waves of {(P + 15) // 16} clusters)")
+        check(lay["warps"] == warps and lay["clusters"] > 0 and lay["smem"] ==
+              pk.wide_forward_smem(S, C, 16, n_slots, warps=warps),
+              f"{n}'s launch takes the chooser's {warps} warps and places its clusters")
     trans = branch_transition_mats(model, blen).float().contiguous()
     tips = tip_partials(site).contiguous()
     invar = ptn_invar(model, site).float().contiguous()
@@ -2152,7 +2171,10 @@ def mixture_phases(dev, card, record, results, cli_main, bdir):
         r_ = results[f"{k}_c80"]
         print(f"{k} C=80: {r_['ms']:.3f} ms beside {results[k]['ms']:.3f} ms at LG+G4's "
               f"C=4 ({r_['ms'] / results[k]['ms']:.1f}x for 20x the categories), "
-              f"{r_['bound_ms'] / r_['ms']:.1%} of its bound")
+              f"{r_['bound_ms'] / r_['ms']:.1%} of its bound"
+              + (f"; the earlier design (one warp a block, PR 14's build on an NVIDIA "
+                 f"H100 80GB HBM3 at 700 W) {EARLIER_C80_MS[k]} ms" if k in EARLIER_C80_MS
+                 else ""))
     del up_k, usc_k, dargs, targs
     # C60: 240 categories, 30 a block, where the formulas fit this tree's slots
     need = build.wide_walk_smem(240, S, n_slots)

@@ -77,6 +77,13 @@ MULTI_CATEGORY_STATES = (20,)
 MAX_CLUSTER_BLOCKS = 8
 # Dynamic shared memory a block may opt in to on an H100 (bytes).
 MAX_BLOCK_SMEM = 232448
+# An SM's shared memory and what the card keeps of it for each resident
+# block (bytes; csrc/wide_common.cuh).
+SM_SMEM = 233472
+BLOCK_SMEM_RESERVED = 1024
+# The largest block of the upward walk past 8 categories (W category warps;
+# MULTI_THREADS_MAX of csrc/wide_common.cuh).
+MULTI_THREADS_MAX = 320
 # State counts a wider instance serves with its padded rows and columns
 # zero: the codon spaces of the genetic codes (60 to 63 sense codons).
 PADDED_STATES = {S: 64 for S in range(60, 64)}
@@ -168,6 +175,23 @@ def launch(name: str, *args) -> None:
     if rc != 0:
         msg = lib.iqt_error_string(rc).decode()
         raise RuntimeError(f"CUDA kernel {name} failed: {msg} ({rc})")
+
+
+def upward_launch(name: str, C: int, S: int, n_slots: int, tile: int) -> Dict[str, int]:
+    """The launch csrc/<name>.cu (wide_forward or wide_store) makes at these
+    sizes, as its C entry chooses it: category warps `warps`, `threads` and
+    shared memory bytes `smem` a block, and the most of its clusters the
+    card holds at once (`clusters`, cudaOccupancyMaxActiveClusters)."""
+    lib = library(name)
+    fn = getattr(lib, f"iqt_{name}_layout")
+    fn.argtypes = [I_, I_, I_, I_, P_]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * 4)()
+    rc = fn(C, S, n_slots, tile, info)
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} layout failed: "
+                           f"{lib.iqt_error_string(rc).decode()} ({rc})")
+    return dict(zip(("warps", "threads", "smem", "clusters"), info))
 
 
 def instance_states(S: int) -> int:

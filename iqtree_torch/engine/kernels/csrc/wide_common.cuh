@@ -56,50 +56,65 @@ using iqt::load_step;
 // A cluster of K blocks, block k (its rank) holding the categories k CB ..
 // k CB + CB - 1, owns a tile of consecutive patterns.  Thread (pq, g) of a
 // block holds CLUSTER_QT consecutive patterns q = pq QT + qq and the RPT
-// state rows g RPT .. g RPT + RPT - 1 of each of the block's categories (G
-// = S / RPT consecutive lanes a pattern group), so a block has tile / QT x
-// G threads.  A block keeps only its categories' rows in its slot pool
-// [slot][CB S + 1][tile] (category j's S rows at j S, then the patterns'
-// log-scale, which every block of the cluster holds with the same bits).
-// A step runs as CB units, one a category of the block: a unit's inputs
-// -- the category's [S,S] blocks of both children and each tip child's S
-// indicator rows for the tile (every block reads its own copy, in 4-byte
-// words: P need not be a multiple of 4) -- are cp.async copies into a ring
-// CLUSTER_STAGES deep, one unit a stage, issued as the stage they replace
-// is released; so the ring does not grow with CB.
+// state rows g RPT .. g RPT + RPT - 1 of each of its categories (G = S /
+// RPT consecutive lanes a pattern group), so a category warp (below) has
+// tile / QT x G threads.  A block keeps only its categories' rows in its
+// slot pool [slot][CB S + 1][tile] (category j's S rows at j S, then the
+// patterns' log-scale, which every block of the cluster holds with the
+// same bits).
+// The walk at one category a block (CB = 1, K = C: up to 8 categories),
+// cluster_upward_walk, runs a step as one unit: the category's [S,S] blocks
+// of both children and each tip child's S indicator rows for the tile
+// (every block reads its own copy, in 4-byte words: P need not be a
+// multiple of 4) are cp.async copies into a ring CLUSTER_STAGES deep, one
+// step a stage, issued as the stage they replace is released.
+//
+// Past 8 categories (cluster_upward_walk_multi) a block has W category
+// warps of tile / QT x G threads each (wide_warps; a "warp" is one at the
+// wrappers' 16 patterns a cluster), warp w taking the block's categories
+// w, w + W, w + 2 W, ...: a step runs as U = ceil(CB / W) units, unit u
+// the categories u W .. u W + W - 1, one a warp.  A ring stage holds a
+// unit's W pairs of [S,S] blocks ([child][W][S*S], each child's blocks one
+// run of trans); the tip rows, which do not depend on the category, are
+// fetched once a step, with its first unit, into a tip area of their own
+// ([step % STAGES][child][S][tile]: a stage's unit is released before the
+// area of the step STAGES back is refilled).  Units past CB read nothing;
+// a padding category (k CB + j >= C) reads nothing and holds zero rows.
 //
 // A unit's product rows go to the output slot unnormalized (the last
 // unit's stay in registers), after a __syncwarp that ends the warp's reads
 // of that category's child rows: the output slot may be a child's, whose
-// other categories' rows are still to be read.  Between two units of a
-// step one block barrier releases the stage.  The renormalizing max
-// crosses the block's CB x RPT rows in registers, a pattern's G lanes in
-// log2(G) shuffle rounds and the blocks through distributed shared memory:
-// each block stores its per-pattern max into every block's buffer
-// [parity][rank][tile] (double-buffered by step parity), and one cluster
-// barrier a step, which also publishes the ring's landed copies and
-// releases the stage the step's last unit read, precedes the reads.  Then
-// each thread divides its own rows in place.  A pattern's pool rows cross
-// its G lanes, which share a warp, after a __syncwarp.  A padding category
-// (k CB + j >= C) reads nothing and holds zero rows.
+// other categories' rows are still to be read, and only the warp that
+// writes a category reads its rows.  Between two units of a step one block
+// barrier releases the stage.  The renormalizing max crosses a warp's
+// categories' rows in registers, a pattern's G lanes in log2(G) shuffle
+// rounds and the warps of every block through distributed shared memory:
+// each warp stores its per-pattern max into every block's buffer
+// [parity][rank W + warp][tile] (double-buffered by step parity), and one
+// cluster barrier a step, which also publishes the ring's landed copies
+// and releases the stage the step's last unit read, precedes the reads
+// (a pattern's G lanes read a share each and meet in shuffles).  Then each
+// thread divides its own rows in place, and every warp writes the
+// patterns' scale row with the same bits, so that each warp's scale chain
+// reads its own write (the next step reads a child's scale row with no
+// barrier after the write).  A pattern's pool rows cross its G lanes,
+// which share a warp, after a __syncwarp.
 //
 // The arithmetic is the row-group design's upward step for every
 // category: each message's products in t order, the product of the two
 // messages, the max (exact in any order), the float division's bits
 // (div_rn, without its branches) and the scale chain sl + sr + log(max) in
-// that order.  So the pool holds that design's bits, at any CB.
+// that order.  So the pool holds that design's bits, at any CB and W.
 //
-// cluster_upward_walk is the walk at one category a block (CB = 1, K = C:
-// up to 8 categories); cluster_upward_walk_multi the walk at CB > 1.  The
-// latter at CB = 1 gives the same bits but made wide_forward ~8% slower on
-// an H100 (PERF.md), so both stay, chosen by C.
+// cluster_upward_walk_multi at CB = 1 gives the same bits but made
+// wide_forward ~8% slower on an H100 (PERF.md), so both stay, chosen by C.
 //
-// Shared memory a block (floats), with tile patterns, n_slots slots and
-// STAGES = CLUSTER_STAGES:
-//     STAGES x 2 S^2           both children's matrices
-//   + STAGES x 2 S tile        their tip rows
+// Shared memory a block (floats), with tile patterns, n_slots slots,
+// STAGES = CLUSTER_STAGES and W category warps (1 at CB = 1):
+//     STAGES x W x 2 S^2       the ring: W categories' blocks of both children
+//   + STAGES x 2 S tile        the tip areas
 //   + n_slots (CB S + 1) tile  the pool
-//   + 2 K tile                 the max buffers
+//   + 2 K W tile               the max buffers
 // (pruning.wide_forward_smem).
 // ---------------------------------------------------------------------------
 
@@ -141,6 +156,16 @@ constexpr int CLUSTER_QT = 2;
 constexpr int CLUSTER_STAGES = 2;
 // Largest block of a cluster walk.
 constexpr int CLUSTER_THREADS_MAX = 256;
+// Largest block of the upward walk past 8 categories (W category warps of
+// tile / QT x G threads): ten warps of 32 at C = 80, a register budget of
+// 204 a thread (the launch bound of the walk's MULTI instances).
+constexpr int MULTI_THREADS_MAX = 320;
+// Dynamic shared memory a block may opt in to on an H100 (bytes;
+// build.MAX_BLOCK_SMEM), an SM's (SM_SMEM) and what the card keeps of it
+// for each resident block (BLOCK_SMEM_RESERVED).
+constexpr size_t MAX_BLOCK_SMEM = 232448;
+constexpr size_t SM_SMEM = 233472;
+constexpr size_t BLOCK_SMEM_RESERVED = 1024;
 
 // The portable cluster size: a cluster walk has at most 8 blocks.
 constexpr int MAX_CLUSTER_BLOCKS = 8;
@@ -156,13 +181,19 @@ __device__ __host__ inline int wide_k(int C) {
   return (C + cb - 1) / cb;
 }
 
-// Offsets (floats) of a cluster walk's shared-memory arrays, CB categories
-// a block.
-template <int S>
+// Offsets (floats) of an upward walk's shared-memory arrays, CB categories
+// a block on W category warps (MULTI; else one, and the offsets never read
+// W: with W in them the one-category instances took 115 / 113 registers
+// for 127 / 117 and wide_forward ran 7% slower at C = 4 on an H100,
+// PERF.md).
+template <int S, bool MULTI = false>
 struct ClusterSmem {
-  int tile, CB;
-  __device__ __host__ ClusterSmem(int tile_, int CB_ = 1) : tile(tile_), CB(CB_) {}
-  __device__ __host__ size_t tips() const { return (size_t)CLUSTER_STAGES * 2 * S * S; }
+  int tile, CB, W;
+  __device__ __host__ ClusterSmem(int tile_, int CB_ = 1, int W_ = 1)
+      : tile(tile_), CB(CB_), W(W_) {}
+  __device__ __host__ size_t tips() const {
+    return (size_t)CLUSTER_STAGES * (MULTI ? W : 1) * 2 * S * S;
+  }
   __device__ __host__ size_t pool() const {
     return tips() + (size_t)CLUSTER_STAGES * 2 * S * tile;
   }
@@ -170,9 +201,37 @@ struct ClusterSmem {
     return pool() + (size_t)n_slots * (CB * S + 1) * tile;
   }
   __device__ __host__ size_t floats(int n_slots, int K) const {
-    return xmax(n_slots) + 2 * (size_t)K * tile;
+    return xmax(n_slots) + 2 * (size_t)K * (MULTI ? W : 1) * tile;
   }
 };
+
+// Category warps a block of the upward walk at C categories (past 8),
+// tile patterns a cluster, n_slots slots and `team` threads a warp (tile /
+// QT x G): of the W = ceil(CB / U) whose block fits MULTI_THREADS_MAX
+// threads and the shared memory a block may have, the one of least (U +
+// 2) / b for b = min(2, blocks an SM's shared memory holds), then the
+// most blocks an SM, then the most warps; 1 when none fits
+// (pruning.wide_forward_warps).  A step costs about two units' time of
+// exchange and cluster barrier besides its U units, and b blocks an SM run
+// side by side: at C20's 80 categories on an H100 (PERF.md) that ranks
+// every pair the probe timed at 5, 6 and 10 slots as the card did (5
+// slots: 5 warps, two blocks an SM, 9.9 ms, against 10 warps, one block,
+// 13.2; 6 slots: 4 warps, two blocks, 11.2, against 10, one block, 13.2).
+// Registers (145-167 a thread) keep a third block of 5 warps off an SM.
+template <int S>
+inline int wide_warps(int C, int tile, int n_slots, int team) {
+  const int CB = wide_cb(C), K = wide_k(C);
+  int best = 1, bu = CB, bb = 0;  // the best W, its units and its blocks an SM
+  for (int U = 1; U <= CB; ++U) {
+    const int W = (CB + U - 1) / U;
+    const size_t bytes = ClusterSmem<S, true>(tile, CB, W).floats(n_slots, K) * sizeof(float);
+    if (W * team > MULTI_THREADS_MAX || bytes > MAX_BLOCK_SMEM) continue;
+    const int b = SM_SMEM / (bytes + BLOCK_SMEM_RESERVED) > 1 ? 2 : 1;
+    if ((U + 2) * bb < (bu + 2) * b || ((U + 2) * bb == (bu + 2) * b && b > bb))
+      best = W, bu = U, bb = b;
+  }
+  return best;
+}
 
 // Step j's [S,S] blocks of category c for both children (mst_k
 // [child][S*S]), as cp.async copies by the block's first T threads.
@@ -198,17 +257,33 @@ __device__ __forceinline__ void fetch_blocks(const Step& sj, float* mst_k, int c
   }
 }
 
-// Step j's inputs for category c into stage k: both children's [S,S]
-// blocks (mst_k [child][S*S]) and each tip child's S rows for the tile's
-// patterns (tst_k [child][S][tile]; a ragged tail repeats P - 1).
+// Step j's [S,S] blocks of the n categories c .. c + n - 1 for both
+// children into a ring stage of W categories' (mst_k [child][W][S*S]; each
+// child's n blocks one run of trans), as cp.async copies by the block's
+// threads.
 template <int S>
-__device__ __forceinline__ void cluster_fetch(const Step& sj, float* mst_k, float* tst_k,
-                                              int c, int C, int tile, int p0,
-                                              const float* __restrict__ trans,
-                                              const float* __restrict__ tips, int P) {
+__device__ __forceinline__ void fetch_unit_blocks(const Step& sj, float* mst_k, int c, int n,
+                                                  int W, int C,
+                                                  const float* __restrict__ trans) {
+  constexpr int SS = S * S;
+  static_assert(SS % 4 == 0, "a block is a run of 16-byte rows");
+  const int V = n * SS / 4;  // 16-byte rows a child
+  for (int q = threadIdx.x; q < 2 * V; q += blockDim.x) {
+    const int side = q >= V, r = q - side * V;
+    const int node = side ? sj.r : sj.l;
+    __pipeline_memcpy_async(mst_k + (size_t)side * W * SS + 4 * r,
+                            trans + ((size_t)node * C + c) * SS + 4 * r, 16);
+  }
+}
+
+// Step j's tip children's S rows for the tile's patterns (tst_k
+// [child][S][tile]; a ragged tail repeats P - 1), as cp.async copies by
+// the block's threads, one pattern's words a thread (blockDim.x % tile ==
+// 0).
+template <int S>
+__device__ __forceinline__ void fetch_tip_rows(const Step& sj, float* tst_k, int tile, int p0,
+                                               const float* __restrict__ tips, int P) {
   const int T = blockDim.x, tid = threadIdx.x;
-  fetch_blocks<S>(sj, mst_k, c, C, trans, T);
-  // a thread copies one pattern's words (T % tile == 0)
   const int qq = tid % tile, p = min(p0 + qq, P - 1);
 #pragma unroll
   for (int side = 0; side < 2; ++side) {
@@ -218,6 +293,18 @@ __device__ __forceinline__ void cluster_fetch(const Step& sj, float* mst_k, floa
       __pipeline_memcpy_async(tst_k + (side * S + t) * tile + qq,
                               tips + ((size_t)node * S + t) * P + p, 4);
   }
+}
+
+// Step j's inputs for category c into stage k: both children's [S,S]
+// blocks (mst_k [child][S*S]) and each tip child's S rows for the tile's
+// patterns (tst_k [child][S][tile]).
+template <int S>
+__device__ __forceinline__ void cluster_fetch(const Step& sj, float* mst_k, float* tst_k,
+                                              int c, int C, int tile, int p0,
+                                              const float* __restrict__ trans,
+                                              const float* __restrict__ tips, int P) {
+  fetch_blocks<S>(sj, mst_k, c, C, trans, blockDim.x);
+  fetch_tip_rows<S>(sj, tst_k, tile, p0, tips, P);
 }
 
 // m[j][qq] = sum_t M[s0+j][t] x[t][qq] for this thread's rows and patterns,
@@ -434,110 +521,110 @@ __device__ __forceinline__ int cluster_upward_walk(const int* __restrict__ steps
   return st.out;
 }
 
-// The upward walk at several categories a block (see above): this block's
-// CB categories of the C and the tile of patterns p0 ...  After each step
-// emit(step, slot) sees the step's pool slot [CB S + 1][tile], normalized,
-// whose columns of the warp's patterns its lanes have written (a
-// __syncwarp before); the slot keeps them for the parent step, which may
-// overwrite it after the next step's cluster barrier.  Returns the root's
-// slot.  Every thread of every block of the cluster runs it; the caller
-// passes a cluster barrier before it reads another block's pool.
+// The upward walk at several categories a block on W category warps (see
+// above): this block's CB categories of the C and the tile of patterns p0
+// ...  After each step emit(step, slot) sees the step's pool slot [CB S +
+// 1][tile], normalized, whose columns of the warp's patterns the warp's
+// lanes have written for the warp's categories (a __syncwarp before); the
+// slot keeps them for the parent step, which may overwrite it after the
+// next step's cluster barrier.  Returns the root's slot.  Every thread of
+// every block of the cluster runs it; the caller passes a cluster barrier
+// before it reads another block's pool.
 template <int S, int RPT, typename Emit>
 __device__ __forceinline__ int cluster_upward_walk_multi(const int* __restrict__ steps,
                                                          int n_steps,
                                                          const float* __restrict__ trans,
                                                          const float* __restrict__ tips,
                                                          int P, int p0, int tile, int n_slots,
-                                                         int C, int CB, float* smem,
+                                                         int C, int CB, int W, float* smem,
                                                          Emit emit) {
   constexpr int G = S / RPT, SS = S * S, QT = CLUSTER_QT, NS = CLUSTER_STAGES;
+  static_assert(S <= 32, "several categories a block at the register-column instance");
   static_assert(S % RPT == 0 && G <= 32 && (G & (G - 1)) == 0,
                 "a pattern's row groups are a power of two of consecutive lanes");
   static_assert(G % QT == 0, "a block's threads are a multiple of its tile");
   cg::cluster_group cluster = cg::this_cluster();
   const int K = (int)cluster.num_blocks(), kb = (int)cluster.block_rank();
-  const WalkLane<S, G> wl(threadIdx.x);
-  const int g = wl.g, s0 = g * RPT, pq = wl.pq, GS = WalkLane<S, G>::GS;
-  const int SR = CB * S;  // a slot's state rows; its scale row follows
-  const ClusterSmem<S> lay(tile, CB);
-  float* mst = smem;                   // [NS][2][SS]
-  float* tst = smem + lay.tips();      // [NS][2][S][tile]
-  float* pool = smem + lay.pool();     // [n_slots][CB S + 1][tile]
-  float* xmax = smem + lay.xmax(n_slots);  // [2][K][tile]
+  const int w = (int)threadIdx.x / (tile / QT * G);  // this thread's category warp
+  const int g = (int)threadIdx.x % G, s0 = g * RPT, pq = (int)threadIdx.x / G % (tile / QT);
+  const int SR = CB * S;            // a slot's state rows; its scale row follows
+  const int U = (CB + W - 1) / W;   // units a step
+  const int jl = (U - 1) * W + w;   // this warp's category of a step's last unit
+  const ClusterSmem<S, true> lay(tile, CB, W);
+  float* mst = smem;                       // [NS][2][W][SS]
+  float* tst = smem + lay.tips();          // [NS][2][S][tile], a step's
+  float* pool = smem + lay.pool();         // [n_slots][CB S + 1][tile]
+  float* xmax = smem + lay.xmax(n_slots);  // [2][K W][tile]
   int q[QT];
 #pragma unroll
   for (int qq = 0; qq < QT; ++qq) q[qq] = pq * QT + qq;
-  // unit u: step u / CB, the block's category u % CB, in stage u % NS
-  const int n_units = n_steps * CB;
-  const auto real = [&](int j) { return kb * CB + j < C; };
+  // unit u: step u / U, the block's categories (u % U) W .., in stage u %
+  // NS; the step's first unit also fetches its tip rows
+  const int n_units = n_steps * U;
   const auto fetch = [&](int u, const Step& sj, int k) {
-    if (real(u % CB))
-      cluster_fetch<S>(sj, mst + k * 2 * SS, tst + (size_t)k * 2 * S * tile,
-                       kb * CB + u % CB, C, tile, p0, trans, tips, P);
+    const int j0 = u % U * W, c0 = kb * CB + j0;
+    const int n = min(W, min(CB - j0, C - c0));  // the unit's real categories
+    if (n > 0) fetch_unit_blocks<S>(sj, mst + (size_t)k * 2 * W * SS, c0, n, W, C, trans);
+    if (u % U == 0)
+      fetch_tip_rows<S>(sj, tst + (size_t)(u / U % NS) * 2 * S * tile, tile, p0, tips, P);
   };
 
 #pragma unroll
   for (int k = 0; k < NS; ++k) {
-    if (k < n_units) fetch(k, load_step(steps, k / CB), k);
+    if (k < n_units) fetch(k, load_step(steps, k / U), k);
     __pipeline_commit();
   }
   __pipeline_wait_prior(NS - 1);  // unit 0's copies have landed
   cluster.sync();  // every thread's, and every block of the cluster runs
   Step st = load_step(steps, 0);
   int uf = NS;  // the next unit to fetch
-  Step st_f = uf < n_units ? load_step(steps, uf / CB) : st;
+  Step st_f = uf < n_units ? load_step(steps, uf / U) : st;
   // unit uf into stage k, and the unit after it
   const auto fetch_next = [&](int k) {
     if (uf < n_units) fetch(uf, st_f, k);
     __pipeline_commit();
     ++uf;
-    if (uf < n_units && uf % CB == 0) st_f = load_step(steps, uf / CB);
+    if (uf < n_units && uf % U == 0) st_f = load_step(steps, uf / U);
   };
   int k = 0;  // the stage of the unit
   for (int i = 0; i < n_steps; ++i) {
     const Step st_next = i + 1 < n_steps ? load_step(steps, i + 1) : st;
     float* out = pool + (size_t)st.out * (SR + 1) * tile;
+    const float* Tt = tst + (size_t)(i % NS) * 2 * S * tile;
     float y[RPT][QT], sc[QT], mx[QT];
 #pragma unroll
     for (int qq = 0; qq < QT; ++qq) sc[qq] = mx[qq] = 0.f;
-    for (int j = 0; j < CB; ++j) {
-      if (real(j)) {
-        const float* Mk = mst + k * 2 * SS;
-        const float* Tk = tst + (size_t)k * 2 * S * tile;
+#pragma unroll
+    for (int side = 0; side < 2; ++side) {  // the children's scales, left then right
+      const int slot = side ? st.rs : st.ls;
+      if (slot >= 0)
+#pragma unroll
+        for (int qq = 0; qq < QT; ++qq)
+          sc[qq] += pool[((size_t)slot * (SR + 1) + SR) * tile + q[qq]];
+    }
+    for (int u = 0; u < U; ++u) {
+      const int j = u * W + w;  // this warp's category of the unit
+      if (j < CB && kb * CB + j < C) {
+        const float* Mk = mst + (size_t)k * 2 * W * SS + w * SS;  // [child] W SS apart
         float m[RPT][QT];
 #pragma unroll
         for (int side = 0; side < 2; ++side) {
           const int slot = side ? st.rs : st.ls;
-          if constexpr (S > 32) {
-            const float* xs = slot < 0 ? Tk + side * S * tile
-                                       : pool + (size_t)slot * (SR + 1) * tile + j * S * tile;
-            if (slot >= 0 && j == 0)
-#pragma unroll
-              for (int qq = 0; qq < QT; ++qq) sc[qq] += xs[SR * tile + q[qq]];
-            if (side)
-              cluster_message_smem<S, RPT, QT>(Mk + SS, s0, xs, tile, q, m);
-            else
-              cluster_message_smem<S, RPT, QT>(Mk, s0, xs, tile, q, y);
-            continue;
-          }
           float x[S][QT];
           if (slot < 0) {
 #pragma unroll
             for (int t = 0; t < S; ++t)
 #pragma unroll
-              for (int qq = 0; qq < QT; ++qq) x[t][qq] = Tk[(side * S + t) * tile + q[qq]];
+              for (int qq = 0; qq < QT; ++qq) x[t][qq] = Tt[(side * S + t) * tile + q[qq]];
           } else {
-            const float* col = pool + (size_t)slot * (SR + 1) * tile;
+            const float* col = pool + ((size_t)slot * (SR + 1) + j * S) * tile;
 #pragma unroll
             for (int t = 0; t < S; ++t)
 #pragma unroll
-              for (int qq = 0; qq < QT; ++qq) x[t][qq] = col[(j * S + t) * tile + q[qq]];
-            if (j == 0)
-#pragma unroll
-              for (int qq = 0; qq < QT; ++qq) sc[qq] += col[SR * tile + q[qq]];
+              for (int qq = 0; qq < QT; ++qq) x[t][qq] = col[t * tile + q[qq]];
           }
           if (side)
-            cluster_message<S, RPT, QT>(Mk + SS, s0, x, m);
+            cluster_message<S, RPT, QT>(Mk + W * SS, s0, x, m);
           else
             cluster_message<S, RPT, QT>(Mk, s0, x, y);
         }
@@ -548,13 +635,13 @@ __device__ __forceinline__ int cluster_upward_walk_multi(const int* __restrict__
             y[r][qq] *= m[r][qq];
             mx[qq] = fmaxf(mx[qq], y[r][qq]);
           }
-      } else {  // a padding category: zero rows
+      } else {  // a padding category, or none: zero rows
 #pragma unroll
         for (int r = 0; r < RPT; ++r)
 #pragma unroll
           for (int qq = 0; qq < QT; ++qq) y[r][qq] = 0.f;
       }
-      if (j + 1 == CB) break;  // the last category's rows stay in registers
+      if (u + 1 == U) break;  // the last unit's rows stay in registers
       __syncwarp();  // the warp's reads of category j's child rows are done
 #pragma unroll
       for (int r = 0; r < RPT; ++r)
@@ -566,27 +653,33 @@ __device__ __forceinline__ int cluster_upward_walk_multi(const int* __restrict__
       k = k == NS - 1 ? 0 : k + 1;
     }
 #pragma unroll
-    for (int off = GS; off < GS * G; off <<= 1)
+    for (int off = 1; off < G; off <<= 1)
 #pragma unroll
       for (int qq = 0; qq < QT; ++qq)
         mx[qq] = fmaxf(mx[qq], __shfl_xor_sync(0xffffffffu, mx[qq], off));
-    float* xm = xmax + (size_t)(i & 1) * K * tile;
+    float* xm = xmax + (size_t)(i & 1) * K * W * tile;
     for (int r = g; r < K; r += G) {  // the G lanes of a pattern group share the blocks out
-      float* xr = cluster.map_shared_rank(xm, r) + kb * tile;
+      float* xr = cluster.map_shared_rank(xm, r) + (kb * W + w) * tile;
 #pragma unroll
       for (int qq = 0; qq < QT; ++qq) xr[q[qq]] = mx[qq];
     }
     __pipeline_wait_prior(NS - 2);  // this thread's copies of the next unit have landed
     cluster.sync();  // one barrier a step: the maxima, the ring, the stage read
 #pragma unroll
-    for (int qq = 0; qq < QT; ++qq) {
+    for (int qq = 0; qq < QT; ++qq) {  // a pattern's G lanes read K W / G maxima each
       mx[qq] = 0.f;
-      for (int r = 0; r < K; ++r) mx[qq] = fmaxf(mx[qq], xm[r * tile + q[qq]]);
-      mx[qq] = fmaxf(mx[qq], SCALE_TINY);
+      for (int r = g; r < K * W; r += G) mx[qq] = fmaxf(mx[qq], xm[r * tile + q[qq]]);
     }
+#pragma unroll
+    for (int off = 1; off < G; off <<= 1)
+#pragma unroll
+      for (int qq = 0; qq < QT; ++qq)
+        mx[qq] = fmaxf(mx[qq], __shfl_xor_sync(0xffffffffu, mx[qq], off));
+#pragma unroll
+    for (int qq = 0; qq < QT; ++qq) mx[qq] = fmaxf(mx[qq], SCALE_TINY);
     // the step's child reads are done: the output slot may be one they
-    // held.  The earlier categories' rows are this thread's own.
-    for (int j = 0; j + 1 < CB; ++j)
+    // held.  The earlier units' rows are this thread's own.
+    for (int j = w; j < jl; j += W)
 #pragma unroll
       for (int r = 0; r < RPT; ++r)
 #pragma unroll
@@ -596,11 +689,12 @@ __device__ __forceinline__ int cluster_upward_walk_multi(const int* __restrict__
         }
 #pragma unroll
     for (int qq = 0; qq < QT; ++qq) {
+      if (jl < CB)
 #pragma unroll
-      for (int r = 0; r < RPT; ++r)
-        out[((CB - 1) * S + s0 + r) * tile + q[qq]] = iqt::div_rn(y[r][qq], mx[qq]);
+        for (int r = 0; r < RPT; ++r)
+          out[(jl * S + s0 + r) * tile + q[qq]] = iqt::div_rn(y[r][qq], mx[qq]);
       sc[qq] += logf(mx[qq]);
-      if (g == 0) out[SR * tile + q[qq]] = sc[qq];
+      if (g == 0) out[SR * tile + q[qq]] = sc[qq];  // every warp: the same bits
     }
     // stage k is free: the unit NS on into it
     fetch_next(k);
@@ -1113,28 +1207,65 @@ __device__ __forceinline__ void reverse_units_multi(const int* __restrict__ step
   }
 }
 
-// Launch `kernel` as `clusters` thread-block clusters of K blocks
-// (wide_k: one a rate category up to 8, else CB categories each) of
-// `threads` threads and `smem` bytes of shared memory.
+// The launch of `clusters` thread-block clusters of K blocks (wide_k: one a
+// rate category up to 8, else CB categories each) of `threads` threads and
+// `smem` bytes of shared memory.
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  ClusterLaunch(int clusters, int K, int threads, size_t smem, void* stream) {
+    cfg.gridDim = dim3(clusters * K);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = (cudaStream_t)stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = K;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  ClusterLaunch(const ClusterLaunch&) = delete;
+};
+
+// Launch `kernel` as a ClusterLaunch.
 template <typename... Params, typename... Args>
 inline cudaError_t launch_clusters(void (*kernel)(Params...), int clusters, int K,
                                    int threads, size_t smem, void* stream, Args... args) {
   cudaError_t e = iqt::allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(clusters * K);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = K;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, args...);
+  ClusterLaunch l(clusters, K, threads, smem, stream);
+  return cudaLaunchKernelEx(&l.cfg, kernel, args...);
 }
+
+// The most clusters of `kernel`'s launch the card holds at once
+// (cudaOccupancyMaxActiveClusters) into *n.
+template <typename... Params>
+inline cudaError_t active_clusters(void (*kernel)(Params...), int K, int threads, size_t smem,
+                                   int* n) {
+  cudaError_t e = iqt::allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  ClusterLaunch l(1, K, threads, smem, nullptr);
+  return cudaOccupancyMaxActiveClusters(n, kernel, &l.cfg);
+}
+
+// An upward walk's launch at C categories, tile patterns a cluster and
+// n_slots slots: K blocks of CB categories, W category warps of `team`
+// threads (wide_warps past 8 categories, else 1) and the shared memory of
+// ClusterSmem.  `team` is 0 for a tile whose warps are not whole or too
+// large.
+template <int S, int RPT>
+struct UpwardLaunch {
+  int K, CB, team, W, threads;
+  size_t smem;
+  UpwardLaunch(int C, int tile, int n_slots)
+      : K(wide_k(C)), CB(wide_cb(C)), team(tile / CLUSTER_QT * (S / RPT)) {
+    if (team % 32 || team > CLUSTER_THREADS_MAX) team = 0;
+    W = CB > 1 && team ? wide_warps<S>(C, tile, n_slots, team) : 1;
+    threads = W * team;
+    smem = ClusterSmem<S, true>(tile, CB, W).floats(n_slots, K) * sizeof(float);
+  }
+};
 
 }  // namespace iqtw
 

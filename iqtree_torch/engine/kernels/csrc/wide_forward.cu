@@ -33,13 +33,16 @@
 // a thread, a shuffle round trip and a cluster barrier.
 //
 // Past 8 categories (the protein mixtures: C20 is 80) a block holds CB =
-// ceil(C / 8) of them on K = ceil(C / CB) blocks a cluster
-// (cluster_upward_walk_multi streams a block's categories through the
-// ring, one a stage, and keeps their rows in its pool); the root mix
+// ceil(C / 8) of them on K = ceil(C / CB) blocks a cluster, on W category
+// warps (cluster_upward_walk_multi: a step runs ceil(CB / W) units, each
+// warp a category a unit; W by wide_warps: at C = 80 and 16 patterns a
+// cluster 5 warps, two units a step and two blocks an SM at the bench
+// tree's 5 slots, 4 at 6, 10 warps, one unit and one block an SM from 7 to
+// 11).  The block keeps its categories' rows in its pool, and the root mix
 // reads block r's category j as c = r CB + j, so its order and the lnL's
-// bits are those of one category a block.  Bound on an H100 (C20, 300 taxa x 1 958
-// patterns): 20x the work above, 74 GFLOP (1.1 ms at 67 TFLOP/s), bound by
-// operations.
+// bits are those of one category a block.  Bound on an H100 (C20, 300 taxa
+// x 1 958 patterns): 20x the work above, 74 GFLOP (1.1 ms at 67 TFLOP/s),
+// bound by operations.
 //
 // Shared memory: ClusterSmem (wide_common.cuh; pruning.wide_forward_smem).
 #include "wide_common.cuh"
@@ -47,7 +50,7 @@
 using namespace iqtw;
 
 template <int S, int RPT, bool MULTI>
-__global__ void __launch_bounds__(CLUSTER_THREADS_MAX)
+__global__ void __launch_bounds__(MULTI ? MULTI_THREADS_MAX : CLUSTER_THREADS_MAX)
 wide_forward_kernel(const int* __restrict__ steps, int n_steps,
                     const float* __restrict__ trans, const float* __restrict__ tips,
                     int P, const float* __restrict__ rootw,
@@ -59,9 +62,10 @@ wide_forward_kernel(const int* __restrict__ steps, int n_steps,
   const int K = (int)cluster.num_blocks();
   const int p0 = (int)(blockIdx.x / K) * tile;
   int root_slot;
+  const int W = MULTI ? (int)blockDim.x / (tile / CLUSTER_QT * (S / RPT)) : 1;
   if constexpr (MULTI)
     root_slot = cluster_upward_walk_multi<S, RPT>(steps, n_steps, trans, tips, P, p0, tile,
-                                                  n_slots, C, CB, smem,
+                                                  n_slots, C, CB, W, smem,
                                                   [](const Step&, const float*) {});
   else
     root_slot = cluster_upward_walk<S, RPT>(
@@ -72,7 +76,7 @@ wide_forward_kernel(const int* __restrict__ steps, int n_steps,
   if (cluster.block_rank() == 0 && q < tile) {
     const int SR = CB * S;
     const size_t col =
-        ClusterSmem<S>(tile, CB).pool() + (size_t)root_slot * (SR + 1) * tile + q;
+        ClusterSmem<S, MULTI>(tile, CB, W).pool() + (size_t)root_slot * (SR + 1) * tile + q;
     float mix = 0.f;
     for (int r = 0; r < K; ++r) {  // category c = r CB + j, ascending
       const float* rows = cluster.map_shared_rank(smem, r) + col;
@@ -94,47 +98,55 @@ wide_forward_kernel(const int* __restrict__ steps, int n_steps,
   cluster.sync();  // no block leaves while rank 0 reads its pool
 }
 
-// One launch of the instance <S, RPT> at CB categories a block (MULTI
-// past one; the codon instance has none).
+// The instance <S, RPT> at CB categories a block (MULTI past one; the
+// codon instance has none), or nullptr.
 template <int S, int RPT>
-cudaError_t launch_wide_forward(int clusters, int K, int CB, int threads, void* stream,
-                                const int* steps, int n_steps, const float* trans,
-                                const float* tips, int P, const float* rootw,
-                                const float* invar, float* out, int n_slots, int tile,
-                                int C) {
-  const size_t smem = ClusterSmem<S>(tile, CB).floats(n_slots, K) * sizeof(float);
-  if (CB == 1)
-    return launch_clusters(wide_forward_kernel<S, RPT, false>, clusters, K, threads, smem,
-                           stream, steps, n_steps, trans, tips, P, rootw, invar, out,
-                           n_slots, tile, C, CB);
+auto wide_forward_instance(int CB) {
   if constexpr (S <= 32)
-    return launch_clusters(wide_forward_kernel<S, RPT, true>, clusters, K, threads, smem,
-                           stream, steps, n_steps, trans, tips, P, rootw, invar, out,
-                           n_slots, tile, C, CB);
-  return cudaErrorInvalidValue;
+    return CB > 1 ? wide_forward_kernel<S, RPT, true> : wide_forward_kernel<S, RPT, false>;
+  return CB > 1 ? nullptr : wide_forward_kernel<S, RPT, false>;
 }
 
-// tile: patterns a cluster, a multiple of 16 (a block has tile / 2 x 4
-// threads, whole warps) up to 128.  C categories on wide_k(C) blocks a
-// cluster, wide_cb(C) a block (past 8 the S = 20 instance only).
+// tile: patterns a cluster, a multiple of 16 (a category warp has tile / 2
+// x 4 threads, whole warps) up to 128.  C categories on wide_k(C) blocks a
+// cluster, wide_cb(C) a block (past 8 the S = 20 instance only) on
+// UpwardLaunch's W category warps.
 extern "C" int iqt_wide_forward(const int* steps, int n_steps, const float* trans,
                                 const float* tips, int P, const float* rootw,
                                 const float* invar, float* out, int C, int S,
                                 int n_slots, int tile, void* stream) {
   if (C < 1 || tile <= 0 || tile % CLUSTER_QT) return (int)cudaErrorInvalidValue;
-  const int clusters = (P + tile - 1) / tile, K = wide_k(C), CB = wide_cb(C);
+  const int clusters = (P + tile - 1) / tile;
   cudaError_t e = cudaSuccess;
-#define IQT_LAUNCH(SS_, RPT_)                                                           \
-  {                                                                                     \
-    const int threads = tile / CLUSTER_QT * (SS_ / RPT_);                               \
-    if (threads % 32 || threads > CLUSTER_THREADS_MAX)                                  \
-      return (int)cudaErrorInvalidValue;                                                \
-    e = launch_wide_forward<SS_, RPT_>(clusters, K, CB, threads, stream, steps, n_steps, \
-                                       trans, tips, P, rootw, invar, out, n_slots, tile, \
-                                       C);                                              \
+#define IQT_LAUNCH(SS_, RPT_)                                                              \
+  {                                                                                        \
+    const UpwardLaunch<SS_, RPT_> l(C, tile, n_slots);                                     \
+    const auto kernel = wide_forward_instance<SS_, RPT_>(l.CB);                            \
+    if (!l.team || !kernel) return (int)cudaErrorInvalidValue;                             \
+    e = launch_clusters(kernel, clusters, l.K, l.threads, l.smem, stream, steps, n_steps,  \
+                        trans, tips, P, rootw, invar, out, n_slots, tile, C, l.CB);        \
   }
   IQT_DISPATCH_WIDE_S(S, IQT_LAUNCH)
 #undef IQT_LAUNCH
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// The launch iqt_wide_forward makes at these sizes: info = {category warps
+// W, threads a block, shared memory bytes a block, the most clusters the
+// card holds at once}.
+extern "C" int iqt_wide_forward_layout(int C, int S, int n_slots, int tile, int* info) {
+  if (C < 1 || tile <= 0 || tile % CLUSTER_QT) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSuccess;
+#define IQT_LAYOUT(SS_, RPT_)                                                     \
+  {                                                                               \
+    const UpwardLaunch<SS_, RPT_> l(C, tile, n_slots);                            \
+    const auto kernel = wide_forward_instance<SS_, RPT_>(l.CB);                   \
+    if (!l.team || !kernel) return (int)cudaErrorInvalidValue;                    \
+    info[0] = l.W, info[1] = l.threads, info[2] = (int)l.smem;                    \
+    e = active_clusters(kernel, l.K, l.threads, l.smem, info + 3);                \
+  }
+  IQT_DISPATCH_WIDE_S(S, IQT_LAYOUT)
+#undef IQT_LAYOUT
+  return (int)e;
 }

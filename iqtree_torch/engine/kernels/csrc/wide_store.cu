@@ -32,11 +32,13 @@
 // bytes and operations about even.  Like the forward kernel it runs at the
 // latency of its step chain, 299 dependent steps.
 //
-// Past 8 categories a block holds CB of them (cluster_upward_walk_multi); each
-// warp copies the block's real categories' rows to up (category kb CB + j
-// from pool rows j S ..), a padding category none.  Bound (C20, 300 taxa x
-// 1 958 patterns): 74 GFLOP (1.1 ms) against 3.8 GB of partials stored
-// (1.1 ms): bytes and operations about even.
+// Past 8 categories a block holds CB of them on W category warps
+// (cluster_upward_walk_multi, as in wide_forward.cu); each warp copies its
+// own real categories' rows to up (category kb CB + j from pool rows j S
+// .., j = w, w + W, ..), a padding category none, and the first warp of
+// rank 0 the scale row to usc.  Bound (C20, 300 taxa x 1 958 patterns): 74
+// GFLOP (1.1 ms) against 3.8 GB of partials stored (1.1 ms): bytes and
+// operations about even.
 //
 // Shared memory: ClusterSmem (wide_common.cuh; pruning.wide_forward_smem),
 // 25 472 bytes a block at S = 20, C = 4, 16 patterns a cluster and 10
@@ -50,7 +52,7 @@
 using namespace iqtw;
 
 template <int S, int RPT, bool MULTI>
-__global__ void __launch_bounds__(CLUSTER_THREADS_MAX)
+__global__ void __launch_bounds__(MULTI ? MULTI_THREADS_MAX : CLUSTER_THREADS_MAX)
 wide_store_kernel(const int* __restrict__ steps, int n_steps,
                   const float* __restrict__ trans, const float* __restrict__ tips,
                   int P, float* __restrict__ up, float* __restrict__ usc, int n_slots,
@@ -63,22 +65,26 @@ wide_store_kernel(const int* __restrict__ steps, int n_steps,
   if constexpr (!MULTI) C = K;  // a block a category
   const int p0 = (int)(blockIdx.x / K) * tile;
   const int lane = threadIdx.x & 31, r0 = lane / WP;
-  const int q = (int)(threadIdx.x >> 5) * WP + lane % WP, p = p0 + q;
   if constexpr (MULTI) {
-    // the block's real categories' rows; a padding category writes none
+    // category warp w's real categories' rows from its warps' patterns; a
+    // padding category writes none
+    const int team = tile / CLUSTER_QT * (S / RPT), W = (int)blockDim.x / team;
+    const int w = (int)threadIdx.x / team;
+    const int q = (int)(threadIdx.x % team >> 5) * WP + lane % WP, p = p0 + q;
     const auto emit = [&](const Step& st, const float* slot) {
       if (p < P) {
-        for (int j = 0; j < CB && kb * CB + j < C; ++j) {
+        for (int j = w; j < CB && kb * CB + j < C; j += W) {
           float* dst = up + ((size_t)st.node * C + kb * CB + j) * S * P + p;
           const float* src = slot + j * S * tile + q;
           for (int r = r0; r < S; r += RW) dst[(size_t)r * P] = src[r * tile];
         }
-        if (kb == 0 && r0 == 0) usc[(size_t)st.node * P + p] = slot[CB * S * tile + q];
+        if (kb == 0 && w == 0 && r0 == 0) usc[(size_t)st.node * P + p] = slot[CB * S * tile + q];
       }
     };
     cluster_upward_walk_multi<S, RPT>(steps, n_steps, trans, tips, P, p0, tile, n_slots, C, CB,
-                                      smem, emit);
+                                      W, smem, emit);
   } else {
+    const int q = (int)(threadIdx.x >> 5) * WP + lane % WP, p = p0 + q;
     const int c = kb;
     const auto emit = [&](const Step& st, const auto&, const auto&, const float* slot) {
       if (p < P) {
@@ -91,44 +97,54 @@ wide_store_kernel(const int* __restrict__ steps, int n_steps,
   }
 }
 
-// One launch of the instance <S, RPT> at CB categories a block (MULTI
-// past one; the codon instance has none).
+// The instance <S, RPT> at CB categories a block (MULTI past one; the
+// codon instance has none), or nullptr.
 template <int S, int RPT>
-cudaError_t launch_wide_store(int clusters, int K, int CB, int threads, void* stream,
-                              const int* steps, int n_steps, const float* trans,
-                              const float* tips, int P, float* up, float* usc, int n_slots,
-                              int tile, int C) {
-  const size_t smem = ClusterSmem<S>(tile, CB).floats(n_slots, K) * sizeof(float);
-  if (CB == 1)
-    return launch_clusters(wide_store_kernel<S, RPT, false>, clusters, K, threads, smem,
-                           stream, steps, n_steps, trans, tips, P, up, usc, n_slots, tile,
-                           C, CB);
+auto wide_store_instance(int CB) {
   if constexpr (S <= 32)
-    return launch_clusters(wide_store_kernel<S, RPT, true>, clusters, K, threads, smem,
-                           stream, steps, n_steps, trans, tips, P, up, usc, n_slots, tile,
-                           C, CB);
-  return cudaErrorInvalidValue;
+    return CB > 1 ? wide_store_kernel<S, RPT, true> : wide_store_kernel<S, RPT, false>;
+  return CB > 1 ? nullptr : wide_store_kernel<S, RPT, false>;
 }
 
-// tile: patterns a cluster, a multiple of 16 (a block has tile / 2 x 4
-// threads, whole warps) up to 128.  C categories on wide_k(C) blocks a
-// cluster, wide_cb(C) a block (past 8 the S = 20 instance only).
+// tile: patterns a cluster, a multiple of 16 (a category warp has tile / 2
+// x 4 threads, whole warps) up to 128.  C categories on wide_k(C) blocks a
+// cluster, wide_cb(C) a block (past 8 the S = 20 instance only) on
+// UpwardLaunch's W category warps.
 extern "C" int iqt_wide_store(const int* steps, int n_steps, const float* trans,
                               const float* tips, int P, float* up, float* usc, int C,
                               int S, int n_slots, int tile, void* stream) {
   if (C < 1 || tile <= 0 || tile % CLUSTER_QT) return (int)cudaErrorInvalidValue;
-  const int clusters = (P + tile - 1) / tile, K = wide_k(C), CB = wide_cb(C);
+  const int clusters = (P + tile - 1) / tile;
   cudaError_t e = cudaSuccess;
-#define IQT_LAUNCH(SS_, RPT_)                                                          \
-  {                                                                                    \
-    const int threads = tile / CLUSTER_QT * (SS_ / RPT_);                              \
-    if (threads % 32 || threads > CLUSTER_THREADS_MAX)                                 \
-      return (int)cudaErrorInvalidValue;                                               \
-    e = launch_wide_store<SS_, RPT_>(clusters, K, CB, threads, stream, steps, n_steps, \
-                                     trans, tips, P, up, usc, n_slots, tile, C);       \
+#define IQT_LAUNCH(SS_, RPT_)                                                             \
+  {                                                                                       \
+    const UpwardLaunch<SS_, RPT_> l(C, tile, n_slots);                                    \
+    const auto kernel = wide_store_instance<SS_, RPT_>(l.CB);                             \
+    if (!l.team || !kernel) return (int)cudaErrorInvalidValue;                            \
+    e = launch_clusters(kernel, clusters, l.K, l.threads, l.smem, stream, steps, n_steps, \
+                        trans, tips, P, up, usc, n_slots, tile, C, l.CB);                 \
   }
   IQT_DISPATCH_WIDE_S(S, IQT_LAUNCH)
 #undef IQT_LAUNCH
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// The launch iqt_wide_store makes at these sizes: info = {category warps W,
+// threads a block, shared memory bytes a block, the most clusters the card
+// holds at once}.
+extern "C" int iqt_wide_store_layout(int C, int S, int n_slots, int tile, int* info) {
+  if (C < 1 || tile <= 0 || tile % CLUSTER_QT) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSuccess;
+#define IQT_LAYOUT(SS_, RPT_)                                                     \
+  {                                                                               \
+    const UpwardLaunch<SS_, RPT_> l(C, tile, n_slots);                            \
+    const auto kernel = wide_store_instance<SS_, RPT_>(l.CB);                     \
+    if (!l.team || !kernel) return (int)cudaErrorInvalidValue;                    \
+    info[0] = l.W, info[1] = l.threads, info[2] = (int)l.smem;                    \
+    e = active_clusters(kernel, l.K, l.threads, l.smem, info + 3);                \
+  }
+  IQT_DISPATCH_WIDE_S(S, IQT_LAYOUT)
+#undef IQT_LAYOUT
+  return (int)e;
 }

@@ -1,8 +1,8 @@
 """Source variants of the redesigned kernels: what their time is made of.
 
     python -m iqtree_torch.engine.kernels.probe [-C N[,N...]] [--base DIR] [--only V[,V]]
-        [newton|forward|store|down_store|wide_newton|wide_forward|wide_store|
-         wide_down_store|tbar|wide_tbar ...]
+        [--slots N] [newton|forward|store|down_store|wide_newton|wide_forward|
+         wide_store|wide_down_store|tbar|wide_tbar ...]
     python -m iqtree_torch.engine.kernels.probe --codon [-C N[,N...]]
         [wide_forward|wide_store|wide_down_store|wide_tbar ...]
 
@@ -25,6 +25,12 @@ the codon space's 61 states padded to 64), with the variants
 
 --only NAME[,NAME...] builds and times only those variants (with `base`
 under --base), e.g. `--only "as built"` for the two designs alone.
+
+--slots N gives the kernels a slot pool of N slots where the bench tree
+takes fewer (a deeper tree's shared memory; the extra slots stay unused).
+For wide_forward and wide_store the probe prints the launch each makes at
+each size (build.upward_launch: category warps, threads, shared memory,
+the most clusters at once).
 
 --base DIR adds the variant `base`: <kernel>.cu and its headers taken
 whole from DIR, e.g. an earlier commit's csrc/ (`git archive COMMIT
@@ -85,24 +91,33 @@ wide_forward (wide_site_lnl; the cluster walk of wide_common.cuh):
   as built         csrc/wide_forward.cu
   one pattern a thread  CLUSTER_QT = 1, as for wide_newton
   tips cached      every tip child fetches tip 0's rows
-  matrices cached  every step fetches node 0's [S,S] blocks
+  matrices cached  (one category a block) every step fetches node 0's
+                   [S,S] blocks
   no cluster barrier  the step's cluster barrier a block barrier (wrong
                    values)
-  stages 3         the cp.async ring three steps deep
+  stages 3         the cp.async ring three steps (past 8 categories: units)
+                   deep
   float division, scaled division, reciprocal  as for down_store
-  loads on the chain  each step waits for the copies it has just issued
+  loads on the chain  (one category a block) each step waits for the
+                   copies it has just issued
+  warps 10, warps 5, warps 4, warps 2, warps 1  (past 8 categories) W
+                   category warps a block (at most CB), not the chooser's
+                   (at C = 80 and the bench tree's 5 slots 5 as built: two
+                   blocks an SM; 10 takes one); a block that does not fit
+                   is refused (the same bits)
 
 wide_store (pruning.fused_upward_store; the same cluster walk):
   as built         csrc/wide_store.cu
   one pattern a thread  CLUSTER_QT = 1 (a warp's row stores 8 patterns)
   tips cached      as for wide_forward
   no stores        nothing written to up and usc
-  stores from registers  each thread writes its own 2 patterns x 5 rows
-                   (and the scale) from registers: half of each 64-byte
-                   run an instruction, no copy from the pool
+  stores from registers  (one category a block) each thread writes its own
+                   2 patterns x 5 rows (and the scale) from registers: half
+                   of each 64-byte run an instruction, no copy from the pool
   no cluster barrier  as for wide_forward (wrong values; a cluster
                    barrier before the blocks leave)
   float division   as for down_store
+  stages 3, warps 10, warps 5, warps 4, warps 2, warps 1  as for wide_forward
 
 wide_down_store (cs_kernels.fused_down_store; the cluster reverse walk of
 wide_common.cuh, wide_newton's with one matrix, one cluster barrier a step):
@@ -271,6 +286,11 @@ _STORE_FROM_REGISTERS = """    const auto emit = [&](const Step& st, const auto&
       }
     };"""
 _ONE_PATTERN = (("constexpr int CLUSTER_QT = 2;", "constexpr int CLUSTER_QT = 1;"),)
+_STAGES_3 = (("constexpr int CLUSTER_STAGES = 2;", "constexpr int CLUSTER_STAGES = 3;"),)
+# the upward walk's category warps past 8 categories: the chooser's (as
+# built) or W (wide_warps of wide_common.cuh)
+_WARPS = {f"warps {w}": (("bb = b;\n  }\n  return best;", f"bb = b;\n  }}\n  return {w} < CB ? {w} : CB;"),)
+          for w in (10, 5, 4, 2, 1)}
 _TIPS_CACHED = (("tips + ((size_t)node * S + t) * P + p, 4);",
                  "tips + ((size_t)0 * S + t) * P + p, 4);"),)
 _MATRICES_CACHED = (("trans + ((size_t)node * C + c) * SS + 4 * r, 16);",
@@ -365,13 +385,14 @@ KERNELS: Dict[str, Dict[str, Tuple[Tuple[str, str], ...]]] = {
         "tips cached": _TIPS_CACHED,
         "matrices cached": _MATRICES_CACHED,
         "no cluster barrier": _WALK_BARRIER,
-        "stages 3": (("constexpr int CLUSTER_STAGES = 2;", "constexpr int CLUSTER_STAGES = 3;"),),
+        "stages 3": _STAGES_3,
         **_DIVISION,
         "loads on the chain": (("    __pipeline_commit();\n"
                                 "    __syncwarp();  // the pattern group's pool rows are written",
                                 "    __pipeline_commit();\n"
                                 "    __pipeline_wait_prior(0);\n"
                                 "    __syncwarp();  // the pattern group's pool rows are written"),),
+        **_WARPS,
     },
     "wide_store": {
         "as built": (),
@@ -383,6 +404,8 @@ KERNELS: Dict[str, Dict[str, Tuple[Tuple[str, str], ...]]] = {
                                ("n_slots, smem, emit);\n  }\n}",
                                 "n_slots, smem, emit);\n  }\n  cluster.sync();\n}")),
         "float division": _DIVISION["float division"],
+        "stages 3": _STAGES_3,
+        **_WARPS,
     },
     "wide_down_store": {
         "as built": (),
@@ -541,10 +564,11 @@ def variant_libraries(kernel: str, base=None, names=None,
     return libs
 
 
-def bench_calls(device, categories=4, protein=False, codon=False):
-    """{kernel: a call of its wrapper} at the bench shapes, GTR+G with
-    `categories` rate categories (LG+G at the protein bench's with
-    `protein`, GY+F3X4+G at the codon bench's with `codon`)."""
+def bench_calls(device, categories=4, protein=False, codon=False, slots=0):
+    """({kernel: a call of its wrapper}, n_slots) at the bench shapes, GTR+G
+    with `categories` rate categories (LG+G at the protein bench's with
+    `protein`, GY+F3X4+G at the codon bench's with `codon`), on a slot pool
+    of n_slots: the tree's slots, or `slots` if more."""
     from ..likelihood import (ModelArrays, SiteData, TreeArrays, branch_transition_mats,
                               ptn_invar, tip_partials)
     from ...io.alignment import Alignment
@@ -560,6 +584,7 @@ def bench_calls(device, categories=4, protein=False, codon=False):
     tree = PhyloTree.from_newick(str(z["tree"]), aln.names)
     ta = TreeArrays.from_tree(tree, device)
     steps, n_slots = device_slot_schedule(tree, ta)
+    n_slots = max(n_slots, slots)
     steps = torch.as_tensor(steps, device=device)
     name = "GY+F3X4" if codon else "LG" if protein else "GTR"
     model = ModelArrays.from_model(
@@ -580,7 +605,7 @@ def bench_calls(device, categories=4, protein=False, codon=False):
                 "wide_down_store": lambda: csk.fused_down_store(steps, n_slots, trans, up,
                                                                 usc, freq),
                 "wide_tbar": lambda: csk.fused_downward_tbar(
-                    steps, n_slots, trans, tips, props, freq, lnl, wp, up=up, usc=usc)}
+                    steps, n_slots, trans, tips, props, freq, lnl, wp, up=up, usc=usc)}, n_slots
     mats = csk.stacked_deriv_mats(model, ta.blen).float().contiguous()
     if protein:
         return {"wide_newton": lambda: csk.wide_newton_sweep(
@@ -591,7 +616,7 @@ def bench_calls(device, categories=4, protein=False, codon=False):
                 "wide_down_store": lambda: csk.fused_down_store(steps, n_slots, trans, up,
                                                                 usc, freq),
                 "wide_tbar": lambda: csk.fused_downward_tbar(
-                    steps, n_slots, trans, tips, props, freq, lnl, wp, up=up, usc=usc)}
+                    steps, n_slots, trans, tips, props, freq, lnl, wp, up=up, usc=usc)}, n_slots
     return {
         "tbar": lambda: csk.fused_tbar_cs(steps, n_slots, trans, tips, props, freq, lnl, wp,
                                           up=up, usc=usc),
@@ -601,7 +626,7 @@ def bench_calls(device, categories=4, protein=False, codon=False):
                                                   freq, invar),
         "store": lambda: csk.fused_upward_store_cs(steps, n_slots, trans, tips),
         "down_store": lambda: csk.fused_down_store_cs(steps, n_slots, trans, up, usc, freq),
-    }
+    }, n_slots
 
 
 def ptxas_lines(log: str, instance: str):
@@ -652,7 +677,7 @@ def main(argv=None) -> int:
     from ... import resolve_device
 
     args = list(argv if argv is not None else sys.argv[1:])
-    options = {"-C": "4", "--base": None, "--only": None}
+    options = {"-C": "4", "--base": None, "--only": None, "--slots": "0"}
     for flag in options:
         if flag in args:
             i = args.index(flag)
@@ -679,12 +704,15 @@ def main(argv=None) -> int:
     blocks0 = {k: getattr(*BLOCK_SETTING[k]) for k in kernels}
     for categories in (int(c) for c in options["-C"].split(",")):
         calls = {}
+        slots = int(options["--slots"])
         if codon:
-            calls.update(bench_calls(dev, categories, codon=True))
+            c, n_slots = bench_calls(dev, categories, codon=True, slots=slots)
+            calls.update(c)
         elif set(kernels) - set(PROTEIN):
-            calls.update(bench_calls(dev, categories))
+            calls.update(bench_calls(dev, categories, slots=slots)[0])
         if set(kernels) & set(PROTEIN) and not codon:
-            calls.update(bench_calls(dev, categories, protein=True))
+            c, n_slots = bench_calls(dev, categories, protein=True, slots=slots)
+            calls.update(c)
         for kernel in kernels:
             order = list(libs[kernel])
             if base:
@@ -694,6 +722,15 @@ def main(argv=None) -> int:
             print(f"{torch.cuda.get_device_name(dev)}: {kernel}"
                   f"{' (codon, S=64)' if codon else ''} at C={categories}, ms a "
                   f"call at " + ", ".join(map(str, sizes)) + f" {unit}", flush=True)
+            if kernel in ("wide_forward", "wide_store"):
+                S = 64 if codon else 20
+                for t in sizes:
+                    try:
+                        print(f"  as built at {t}, {n_slots} slots: "
+                              f"{build.upward_launch(kernel, categories, S, n_slots, t)}",
+                              flush=True)
+                    except RuntimeError as e:
+                        print(f"  as built at {t}: {e}", flush=True)
             built = build.library(kernel)
             outs = {}
             try:

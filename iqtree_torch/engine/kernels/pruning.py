@@ -184,17 +184,40 @@ fused_site_lnl.launches = 0
 
 
 def wide_forward_smem(S: int, C: int, tile: int, n_slots: int,
-                      stages: int = CLUSTER_STAGES) -> int:
+                      stages: int = CLUSTER_STAGES, warps: int = 1) -> int:
     """Bytes of shared memory a block of csrc/wide_forward.cu or
-    csrc/wide_store.cu takes (the cluster walk's ClusterSmem,
-    csrc/wide_common.cuh): the ring of one category's [S,S] blocks of both
-    children and their tip rows, the slot pool of the block's CB categories
-    ([slot][CB S + 1][tile]) and the max buffers of the K blocks
-    (build.wide_layout).  The ring does not grow with the categories: a
-    block streams its categories through it."""
+    csrc/wide_store.cu takes on `warps` category warps (the upward walk's
+    ClusterSmem, csrc/wide_common.cuh): a ring stage of W categories' [S,S]
+    blocks of both children, a tip area of both children's rows a stage,
+    the slot pool of the block's CB categories ([slot][CB S + 1][tile]) and
+    the max buffers of the K blocks' W warps (build.wide_layout)."""
     K, cb = build.wide_layout(C)
-    return 4 * (stages * 2 * (S * S + S * tile) + n_slots * (cb * S + 1) * tile
-                + 2 * K * tile)
+    return 4 * (stages * (warps * 2 * S * S + 2 * S * tile)
+                + n_slots * (cb * S + 1) * tile + 2 * K * warps * tile)
+
+
+def wide_forward_warps(S: int, C: int, tile: int, n_slots: int) -> int:
+    """Category warps a block of csrc/wide_forward.cu and csrc/wide_store.cu
+    (wide_warps of csrc/wide_common.cuh): 1 at one category a block; past 8
+    categories, of the W = ceil(CB / U) whose block (W warps of tile / 2 x
+    S / RPT threads) fits build.MULTI_THREADS_MAX threads and whose
+    wide_forward_smem fits build.MAX_BLOCK_SMEM, the one of least (U + 2) /
+    b for b = min(2, blocks an SM's shared memory holds), then the most
+    blocks an SM, then the most warps; 1 if none fits."""
+    cb = build.wide_layout(C)[1]
+    if cb == 1:
+        return 1
+    team = tile // 2 * (S // WIDE_RPT[S])
+    best, bu, bb = 1, cb, 0
+    for units in range(1, cb + 1):
+        w = -(-cb // units)
+        smem = wide_forward_smem(S, C, tile, n_slots, warps=w)
+        if w * team > build.MULTI_THREADS_MAX or smem > build.MAX_BLOCK_SMEM:
+            continue
+        b = 2 if build.SM_SMEM // (smem + build.BLOCK_SMEM_RESERVED) > 1 else 1
+        if (units + 2) * bb < (bu + 2) * b or ((units + 2) * bb == (bu + 2) * b and b > bb):
+            best, bu, bb = w, units, b
+    return best
 
 
 def wide_site_lnl(steps, n_slots, trans, tips, props, state_freq, invar,

@@ -11,7 +11,7 @@ Without a CUDA device they skip.  Inputs: a random 40-taxon DNA alignment
 instances (S=64) a random 24-taxon codon alignment (101 codons) under
 genetic codes 1, 2 and 6, GY+F3X4+I+G (the parsimony kernel's 64-bit
 instance: 36 taxa x 150 codons).  Tolerances are float32 ones: the
-kernels and the twins sum in different orders.  Five tests hold
+kernels and the twins sum in different orders.  Nine tests hold
 kernels' bits against their earlier designs, built from the csrc/ directory
 that IQT_EARLIER_CSRC names; they skip without it.
 """
@@ -1086,6 +1086,50 @@ def _wide_launch_raw(kernel, k, fill):
     return a, b
 
 
+def _upward_warp_counts(C, n_slots):
+    """(slots, W): from the tree's n_slots up, the first slot count at which
+    the upward walk's chooser takes each of its category warp counts W, as
+    far as its block fits (a larger slot pool is valid: the walk leaves the
+    extra slots unused)."""
+    from iqtree_torch.engine.kernels import build
+
+    out, seen = [], set()
+    while True:
+        w = pruning.wide_forward_warps(20, C, pruning.WIDE_FORWARD_TILE, n_slots)
+        if pruning.wide_forward_smem(20, C, pruning.WIDE_FORWARD_TILE, n_slots,
+                                     warps=w) > build.MAX_BLOCK_SMEM:
+            return out
+        if w not in seen:
+            seen.add(w)
+            out.append((n_slots, w))
+        n_slots += 1
+
+
+def _upward_raw(kernel, k, n_slots):
+    """One launch of wide_forward's or wide_store's C entry at n_slots slots
+    (the wrappers take the tree's): the lnL [P], or (up, usc) filled with
+    NaN where the store writes nothing."""
+    from iqtree_torch.engine.kernels import build
+
+    steps, trans = k["steps"], k["trans"]
+    n_rows, C, S = trans.shape[:3]
+    tips = tip_partials(k["site"]).contiguous()
+    P = tips.shape[2]
+    if kernel == "wide_store":
+        up = torch.full((n_rows, C * S, P), float("nan"), device=trans.device)
+        usc = torch.full((n_rows, P), float("nan"), device=trans.device)
+        build.launch("wide_store", steps, steps.shape[0], trans, tips, P, up, usc, C, S,
+                     n_slots, pruning.WIDE_STORE_TILE)
+        return up, usc
+    model = k["model"]
+    rootw = (model.props.float()[:, None] * k["freq"]).reshape(-1).contiguous()
+    out = torch.empty(P, device=trans.device)
+    build.launch("wide_forward", steps, steps.shape[0], trans, tips, P, rootw,
+                 ptn_invar(model, k["site"]).float().contiguous(), out, C, S, n_slots,
+                 pruning.WIDE_FORWARD_TILE)
+    return (out,)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("C", [9, 12, 20, 40, 80, 240])
 def test_wide_walks_past_eight_categories_match_twins(C):
@@ -1096,7 +1140,10 @@ def test_wide_walks_past_eight_categories_match_twins(C):
     1e-3 of the twin, the store, the outside store and the gradient sweep
     within 1e-4 (as at C <= 8), two launches of each bit-equal, and no
     write outside the real categories' rows: the store leaves the tip and
-    dummy rows as they were, the outside store the root and dummy rows."""
+    dummy rows as they were, the outside store the root and dummy rows.
+    The upward walks also at every count of category warps their chooser
+    takes as the slot pool grows (each count's launch as the C entry makes
+    it): the same bits at each, twice."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from iqtree_torch.engine.kernels import build
@@ -1124,6 +1171,20 @@ def test_wide_walks_past_eight_categories_match_twins(C):
     assert float((usc[inner] - usc_p[inner]).abs().max() / usc_p[inner].abs().max()) <= 1e-4
     assert bool(up[:N].isnan().all()) and bool(up[R - 1].isnan().all())
     assert bool(usc[:N].isnan().all()) and bool(usc[R - 1].isnan().all())
+    # the upward walks at every count of category warps
+    counts = _upward_warp_counts(C, k["n_slots"])
+    assert counts[0] == (k["n_slots"], pruning.wide_forward_warps(20, C, 16, k["n_slots"]))
+    for n_slots, w in counts:
+        for kernel in ("wide_forward", "wide_store"):
+            lay = build.upward_launch(kernel, C, 20, n_slots, 16)
+            assert lay["warps"] == w and lay["threads"] == 32 * w and lay["clusters"] > 0
+            assert lay["smem"] == pruning.wide_forward_smem(20, C, 16, n_slots, warps=w)
+        assert torch.equal(_upward_raw("wide_forward", k, n_slots)[0], got)
+        assert torch.equal(_upward_raw("wide_forward", k, n_slots)[0], got)
+        for _ in range(2):
+            up_w, usc_w = _upward_raw("wide_store", k, n_slots)
+            assert torch.equal(up_w[inner], up[inner]) and torch.equal(usc_w[inner], usc[inner])
+            assert bool(up_w[:N].isnan().all()) and bool(usc_w[R - 1].isnan().all())
     # outside-partial store
     dargs = (k["steps"], k["n_slots"], k["trans"], k["up"], k["usc"], k["freq"])
     out, osc = cs_kernels.fused_down_store(*dargs)
@@ -1145,6 +1206,27 @@ def test_wide_walks_past_eight_categories_match_twins(C):
     edges = R - 2
     assert not bool(tb[edges:].any())
     assert float((tb[:edges] - tb_p[:edges]).abs().max() / tb_p[:edges].abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["wide_forward", "wide_store"])
+def test_upward_walks_past_eight_categories_give_the_earlier_designs_bits(kernel):
+    """Past 8 categories the upward walk on W category warps keeps the
+    one-warp walk's arithmetic for every category, so the forward lnL and
+    the stored partials and scales are the earlier build's bit for bit at C
+    = 9, 20 and 80, at every count of category warps the chooser takes as
+    the slot pool grows (the earlier build from IQT_EARLIER_CSRC, at the
+    same slots)."""
+    earlier = _earlier_csrc()
+    for C in (9, 20, 80):
+        k = _lane_case(C, 300 + C, alphabet="ARNDCQEGHILKMFPSTWYV-X", n=30, sites=301)
+        counts = _upward_warp_counts(C, k["n_slots"])
+        got = [_upward_raw(kernel, k, n) for n, _ in counts]
+        with _earlier_design(kernel, earlier):
+            want = [_upward_raw(kernel, k, n) for n, _ in counts]
+        for gs, ws in zip(got, want):
+            for g, w in zip(gs, ws):
+                assert torch.equal(g.nan_to_num(-1.0), w.nan_to_num(-1.0)), (C, kernel)
 
 
 @pytest.mark.cuda

@@ -319,6 +319,77 @@ def test_check_shape_past_eight_categories():
         build.check_shape(240, 20, n_slots=10)
 
 
+@pytest.mark.parametrize("warps,slots,want", [(1, 5, 76864), (5, 5, 106560),
+                                               (10, 5, 143680), (10, 10, 208000)])
+def test_upward_walk_shared_memory_on_category_warps(warps, slots, want):
+    """Past 8 categories the upward walk's block has W category warps: a
+    ring stage holds W categories' [S,S] blocks of both children, the tip
+    rows once a stage (a step's), the max buffers K W rows.  At C20's 80
+    categories (10 a block on 8 blocks), 16 patterns a cluster: 4 (2 (W 2
+    S^2 + 2 S tile) + slots (CB S + 1) tile + 2 K W tile) bytes, the
+    one-warp layout's at W = 1."""
+    S, C, tile, K, cb = 20, 80, 16, 8, 10
+    got = pruning.wide_forward_smem(S, C, tile, slots, warps=warps)
+    assert got == want == 4 * (2 * (warps * 2 * S * S + 2 * S * tile)
+                               + slots * (cb * S + 1) * tile + 2 * K * warps * tile)
+    assert pruning.wide_forward_smem(S, C, tile, slots) == \
+        pruning.wide_forward_smem(S, C, tile, slots, warps=1)
+
+
+@pytest.mark.parametrize("C,slots,want", [
+    (80, 5, 5), (80, 6, 4), (80, 7, 10), (80, 10, 10), (80, 11, 10), (80, 12, 5),
+    (80, 15, 4), (80, 16, 2), (80, 17, 1), (40, 5, 5), (40, 10, 5), (240, 3, 10),
+    (240, 5, 4), (9, 3, 2), (4, 10, 1), (8, 10, 1)])
+def test_upward_walk_category_warps_chooser(C, slots, want):
+    """The wrappers' launch takes, of the W = ceil(CB / U) category warps
+    whose block fits 320 threads (32 a warp at 16 patterns a cluster) and
+    the 232 448 bytes a block may have, the least (U + 2) / b for b =
+    min(2, blocks an SM's 233 472 bytes hold at 1 024 reserved a block),
+    then the most blocks an SM, then the most warps.  C20 (80 categories,
+    10 a block): 5 warps two blocks an SM at the bench tree's 5 slots, 4 at
+    6, 10 one block an SM from 7 to 11, then 5, 4, 2 and 1 as the pool
+    grows; C10 (40, 5 a block) 5; C60 (240, 30 a block) 10 at 3 slots (the
+    thread bound), 4 at 5; C <= 8 one category and one warp a block."""
+    from iqtree_torch.engine.kernels import build
+
+    S, tile = 20, 16
+    assert pruning.wide_forward_warps(S, C, tile, slots) == want
+    K, cb = build.wide_layout(C)
+    if cb == 1:
+        return
+    cands = []
+    for u in range(1, cb + 1):
+        w = -(-cb // u)
+        smem = pruning.wide_forward_smem(S, C, tile, slots, warps=w)
+        if w * 32 <= 320 and smem <= 232448:
+            b = min(2, 233472 // (smem + 1024))
+            cands.append(((u + 2) / b, -b, -w))
+    assert -min(cands)[2] == want
+
+
+@pytest.mark.parametrize("C", [12, 40, 80, 240])
+def test_check_shape_refuses_exactly_what_fits_at_no_warps(C):
+    """A wide walk at C categories is served at n_slots slots exactly when
+    each of the four walks fits a block: the upward walk on one category
+    warp (its smallest block; the chooser takes more warps only where they
+    fit) and both reverse walks."""
+    from iqtree_torch.engine.kernels import build
+
+    S, tile = 20, 16
+    cb = build.wide_layout(C)[1]
+    for slots in range(1, 24):
+        smallest = min(pruning.wide_forward_smem(S, C, tile, slots, warps=-(-cb // u))
+                       for u in range(1, cb + 1))
+        assert smallest == pruning.wide_forward_smem(S, C, tile, slots, warps=1)
+        fits = max(smallest, cs_kernels.wide_down_store_smem(S, C, tile, slots),
+                   cs_kernels.wide_tbar_smem(S, C, tile, slots)) <= build.MAX_BLOCK_SMEM
+        if fits:
+            build.check_shape(C, S, n_slots=slots)
+        else:
+            with pytest.raises(NotImplementedError, match="shared memory"):
+                build.check_shape(C, S, n_slots=slots)
+
+
 def _forty_case():
     """C10 (40 categories) on an 8-taxon protein alignment with ambiguity
     codes and a random tree, float64 on the CPU."""

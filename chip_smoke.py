@@ -164,10 +164,12 @@ EARLIER_MS = {"forward": 3.139, "store": 3.315, "newton": 12.361, "pars_insert":
               "pars_insert_s20": 0.556, "down_store": 14.706, "wide_newton": 7.063,
               "wide_forward": 2.102, "tbar": 13.848, "wide_store": 2.236,
               "wide_down_store": 3.961, "wide_tbar": 5.862}
-# The C = 80 instances' times on their first design (one warp a block, the
-# categories in series; PERF.md section 6, rows 7m and 8m), ms a call of
-# wide_site_lnl and fused_upward_store at C20 on the protein bench
-EARLIER_C80_MS = {"wide_forward": 32.665, "wide_store": 35.669}
+# The C = 80 instances' times on their first design (one warp or one team
+# a block, the categories in series; PERF.md section 6, rows 7m-10m), ms a
+# call of wide_site_lnl, fused_upward_store, fused_downward_tbar and
+# fused_down_store at C20 on the protein bench
+EARLIER_C80_MS = {"wide_forward": 32.665, "wide_store": 35.669, "wide_tbar": 88.552,
+                  "wide_down_store": 62.079}
 SMEM_BLOCK = 232448  # bytes of shared memory an H100 block may have
 SMEM_ROUND_TRIP = 30  # cycles from a shared-memory load to its use, about
 
@@ -2066,7 +2068,7 @@ def mixture_phases(dev, card, record, results, cli_main, bdir):
         print(f"  {n} S=20 instance with several categories a block (ptxas): "
               f"{'; '.join(regs)}")
         check(bool(regs), f"ptxas reports the multi-category instance of {n}")
-    for n in walks[:2]:  # the upward walk's one-category instance keeps its bound
+    for n in walks:  # the one-category instances keep their bounds
         print(f"  {n} S=20 instance at one category a block (ptxas): "
               f"{'; '.join(ptxas_lines((bdir / f'{n}.log').read_text(), 'ILi20ELi5ELb0E'))}")
     names, seqs, tree_nwk = load_bench("bench_data_protein.npz")
@@ -2086,28 +2088,46 @@ def mixture_phases(dev, card, record, results, cli_main, bdir):
     CS, CSS, R = C * S, C * S * S, 2 * N
     K, cb = build.wide_layout(C)
     warps = pk.wide_forward_warps(S, C, 16, n_slots)
+    teams = {"wide_forward": warps, "wide_store": warps,
+             "wide_down_store": csk.wide_reverse_teams(S, C, 16, n_slots),
+             "wide_tbar": csk.wide_reverse_teams(S, C, 16, n_slots, sums=True)}
     print(f"{N} taxa, {P} patterns, C={C} ({cb} categories a block on {K}-block "
           f"clusters), S={S}, {n_slots} slots; shared memory a block by the formulas at "
           f"16 patterns a cluster: wide_forward / wide_store "
           f"{pk.wide_forward_smem(S, C, 16, n_slots, warps=warps)} B ({warps} category "
           f"warps; {pk.wide_forward_smem(S, C, 16, n_slots)} B at one), wide_down_store "
-          f"{csk.wide_down_store_smem(S, C, 16, n_slots)} B, wide_tbar "
-          f"{csk.wide_tbar_smem(S, C, 16, n_slots)} B (a block may have {SMEM_BLOCK})")
-    for n in walks[:2]:
-        lay = build.upward_launch(n, C, S, n_slots, 16)
-        print(f"{n} C={C}: its C entry's launch: {lay['warps']} category warps a block "
-              f"({-(-cb // lay['warps'])} units a step), {lay['threads']} threads, "
+          f"{csk.wide_down_store_smem(S, C, 16, n_slots, warps=teams['wide_down_store'])} B "
+          f"({teams['wide_down_store']} category teams; "
+          f"{csk.wide_down_store_smem(S, C, 16, n_slots)} B at one), wide_tbar "
+          f"{csk.wide_tbar_smem(S, C, 16, n_slots, warps=teams['wide_tbar'])} B "
+          f"({teams['wide_tbar']} teams; {csk.wide_tbar_smem(S, C, 16, n_slots)} B at one) "
+          f"(a block may have {SMEM_BLOCK})")
+    for n in walks:
+        lay = build.walk_launch(n, C, S, n_slots, 16)
+        w, upward = teams[n], n in walks[:2]
+        units = -(-cb // lay["warps"])
+        print(f"{n} C={C}: its C entry's launch: {lay['warps']} category "
+              f"{'warps' if upward else 'teams'} a block ({units} units a "
+              f"{'step' if upward else 'phase'}), {lay['threads']} threads, "
               f"{lay['smem']} B of shared memory a block, at most {lay['clusters']} "
               f"clusters of {K} blocks at once ({-(-((P + 15) // 16) // max(lay['clusters'], 1))}"
               f" waves of {(P + 15) // 16} clusters)")
-        check(lay["warps"] == warps and lay["clusters"] > 0 and lay["smem"] ==
-              pk.wide_forward_smem(S, C, 16, n_slots, warps=warps),
-              f"{n}'s launch takes the chooser's {warps} warps and places its clusters")
+        smem = (pk.wide_forward_smem(S, C, 16, n_slots, warps=w) if upward else
+                csk.wide_tbar_smem(S, C, 16, n_slots, warps=w) if n == "wide_tbar" else
+                csk.wide_down_store_smem(S, C, 16, n_slots, warps=w))
+        check(lay["warps"] == w and lay["clusters"] > 0 and lay["smem"] == smem,
+              f"{n}'s launch takes the chooser's {w} {'warps' if upward else 'teams'} and "
+              f"places its clusters")
     trans = branch_transition_mats(model, blen).float().contiguous()
     tips = tip_partials(site).contiguous()
     invar = ptn_invar(model, site).float().contiguous()
     props, freq = model.props.float(), model.state_freq.float()
     fwd_flops = (N - 1) * P * (4 * CSS + 3 * CS) + 2 * CS * P
+
+    def c80_ms(name, fn):  # three 10-launch means, and their mean
+        ms = [cuda_ms(fn, 10) for _ in range(3)]
+        print(f"{name} C=80: three 10-launch means {', '.join(f'{m:.3f}' for m in ms)} ms")
+        return sum(ms) / len(ms)
     # the forward kernel: lnL per pattern
     k_out = pk.wide_site_lnl(steps, n_slots, trans, tips, props, freq, invar)
     bit_equal("wide_forward C=80", [k_out],
@@ -2148,7 +2168,7 @@ def mixture_phases(dev, card, record, results, cli_main, bdir):
     torch.cuda.empty_cache()
     record("wide_tbar_c80", "iqtree_torch/engine/kernels/csrc/wide_tbar.cu",
            "iqtree_tpu/engine/kernels/pruning.py:1144", err, 1e-4,
-           cuda_ms(lambda: csk.fused_downward_tbar(*targs, up=up_k, usc=usc_k), 3),
+           c80_ms("wide_tbar", lambda: csk.fused_downward_tbar(*targs, up=up_k, usc=usc_k)),
            cuda_ms(lambda: csk._tbar_plain(steps, trans, props, freq, lnl, wp, up_k,
                                            usc_k), 2),
            4 * (R * (CS + 1) * P + 2 * P + 2 * R * CSS), tbar_flops(N, P, CS, CSS))
@@ -2163,18 +2183,18 @@ def mixture_phases(dev, card, record, results, cli_main, bdir):
     torch.cuda.empty_cache()
     record("wide_down_store_c80", "iqtree_torch/engine/kernels/csrc/wide_down_store.cu",
            "iqtree_tpu/engine/kernels/pruning.py:1437", err, 1e-4,
-           cuda_ms(lambda: csk.fused_down_store(*dargs), 5),
+           c80_ms("wide_down_store", lambda: csk.fused_down_store(*dargs)),
            cuda_ms(lambda: csk._down_store_plain(*dargs[:1], *dargs[2:]), 2),
            4 * (2 * R * (CS + 1) * P + R * CSS + 6 * (N - 1) + CS),
            P * (2 * (N - 1) * (2 * CSS + 3 * CS) + (N - 2) * 2 * CSS))
     for k in walks:
         r_ = results[f"{k}_c80"]
+        ms0 = EARLIER_C80_MS[k]
         print(f"{k} C=80: {r_['ms']:.3f} ms beside {results[k]['ms']:.3f} ms at LG+G4's "
               f"C=4 ({r_['ms'] / results[k]['ms']:.1f}x for 20x the categories), "
-              f"{r_['bound_ms'] / r_['ms']:.1%} of its bound"
-              + (f"; the earlier design (one warp a block, PR 14's build on an NVIDIA "
-                 f"H100 80GB HBM3 at 700 W) {EARLIER_C80_MS[k]} ms" if k in EARLIER_C80_MS
-                 else ""))
+              f"{r_['bound_ms'] / r_['ms']:.1%} of its bound; the earlier design (one "
+              f"{'warp' if k in walks[:2] else 'team'} a block, on an NVIDIA H100 80GB HBM3 "
+              f"at 700 W) {ms0} ms ({ms0 / r_['ms']:.2f}x)")
     del up_k, usc_k, dargs, targs
     # C60: 240 categories, 30 a block, where the formulas fit this tree's slots
     need = build.wide_walk_smem(240, S, n_slots)

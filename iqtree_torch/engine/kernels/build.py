@@ -82,8 +82,10 @@ MAX_BLOCK_SMEM = 232448
 SM_SMEM = 233472
 BLOCK_SMEM_RESERVED = 1024
 # The largest block of the upward walk past 8 categories (W category warps;
-# MULTI_THREADS_MAX of csrc/wide_common.cuh).
+# MULTI_THREADS_MAX of csrc/wide_common.cuh) and of csrc/wide_down_store.cu
+# past 8 categories (W category teams; REVERSE_MULTI_THREADS_MAX).
 MULTI_THREADS_MAX = 320
+REVERSE_MULTI_THREADS_MAX = 320
 # State counts a wider instance serves with its padded rows and columns
 # zero: the codon spaces of the genetic codes (60 to 63 sense codons).
 PADDED_STATES = {S: 64 for S in range(60, 64)}
@@ -177,11 +179,32 @@ def launch(name: str, *args) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed: {msg} ({rc})")
 
 
-def upward_launch(name: str, C: int, S: int, n_slots: int, tile: int) -> Dict[str, int]:
-    """The launch csrc/<name>.cu (wide_forward or wide_store) makes at these
-    sizes, as its C entry chooses it: category warps `warps`, `threads` and
-    shared memory bytes `smem` a block, and the most of its clusters the
-    card holds at once (`clusters`, cudaOccupancyMaxActiveClusters)."""
+def least_units(cb: int, x: int, per_warp: int, threads_max: int, smem_of) -> int:
+    """Category warps (or teams) a block of a wide walk past 8 categories
+    (least_units of csrc/wide_common.cuh): of the W = ceil(cb / U) whose
+    block of W x per_warp threads fits threads_max and whose smem_of(W)
+    bytes fit MAX_BLOCK_SMEM, the one of least (U + x) / b for b = min(2,
+    blocks an SM's shared memory holds), then the most blocks an SM, then
+    the most W; 1 if none fits.  x = 2 for the upward walk (U units a step
+    and about two of exchange), 1 for the reverse walk (2 U and two)."""
+    best, bu, bb = 1, cb, 0
+    for units in range(1, cb + 1):
+        w = -(-cb // units)
+        smem = smem_of(w)
+        if w * per_warp > threads_max or smem > MAX_BLOCK_SMEM:
+            continue
+        b = 2 if SM_SMEM // (smem + BLOCK_SMEM_RESERVED) > 1 else 1
+        if (units + x) * bb < (bu + x) * b or ((units + x) * bb == (bu + x) * b and b > bb):
+            best, bu, bb = w, units, b
+    return best
+
+
+def walk_launch(name: str, C: int, S: int, n_slots: int, tile: int) -> Dict[str, int]:
+    """The launch csrc/<name>.cu (one of the four wide walks) makes at these
+    sizes, as its C entry chooses it: category warps or teams `warps`,
+    `threads` and shared memory bytes `smem` a block, and the most of its
+    clusters the card holds at once (`clusters`,
+    cudaOccupancyMaxActiveClusters)."""
     lib = library(name)
     fn = getattr(lib, f"iqt_{name}_layout")
     fn.argtypes = [I_, I_, I_, I_, P_]

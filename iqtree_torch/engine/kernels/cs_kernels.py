@@ -159,24 +159,51 @@ WIDE_TBAR_LANE_BLOCK = {20: 5, 64: 8}
 # Largest block of csrc/wide_tbar.cu (TBAR_THREADS_MAX): 256 walk threads
 # and 4 sum warps.
 WIDE_TBAR_THREADS_MAX = 384
+# Largest block of csrc/wide_tbar.cu past 8 categories
+# (TBAR_MULTI_THREADS_MAX): five category teams of 64 walk threads and a sum
+# warp at 16 patterns a cluster.
+WIDE_TBAR_MULTI_THREADS_MAX = 480
 
 
-def wide_tbar_smem(S: int, C: int, tile: int, n_slots: int) -> int:
-    """Bytes of shared memory a block of csrc/wide_tbar.cu takes (the
-    formula of its header): the reverse walk's (wide_down_store_smem), each
-    child's fac for the tile's patterns and, where the sum lanes' rows are
-    not whole float4 runs (S=20; any S without an instance), a stage of
-    both children's [S,S] blocks for each 16 patterns."""
+def wide_tbar_smem(S: int, C: int, tile: int, n_slots: int, warps: int = 1) -> int:
+    """Bytes of shared memory a block of csrc/wide_tbar.cu takes on `warps`
+    category teams (the formula of its header, wide_tbar_smem): the reverse
+    walk's (wide_down_store_smem), its ring a stage deeper past one team
+    (the sums lag a unit behind the walk), each child's fac for the tile's
+    patterns and, where the sum lanes' rows are not whole float4 runs (S=20;
+    any S without an instance), a stage of both children's [S,S] blocks for
+    each 16 patterns of each team."""
     staged = WIDE_TBAR_LANE_BLOCK.get(S, 1) % 4 != 0
-    stage = tile // WIDE_TBAR_SUM_PATTERNS * 2 * S * S if staged else 0
-    return wide_down_store_smem(S, C, tile, n_slots) + 4 * (2 * tile + stage)
+    stage = warps * tile // WIDE_TBAR_SUM_PATTERNS * 2 * S * S if staged else 0
+    return (wide_down_store_smem(S, C, tile, n_slots, stages=3 if warps > 1 else 2,
+                                 warps=warps) + 4 * (2 * tile + stage))
 
 
-def wide_tbar_threads(S: int, tile: int) -> int:
-    """Threads a block of csrc/wide_tbar.cu: tile x S / RPT walk threads and
-    the sum warps, 2 (S / SB)^2 / 32 for each 16 patterns."""
+def wide_tbar_threads(S: int, tile: int, warps: int = 1) -> int:
+    """Threads a block of csrc/wide_tbar.cu: for each of `warps` category
+    teams tile x S / RPT walk threads and the sum warps, 2 (S / SB)^2 / 32
+    for each 16 patterns."""
     nb = S // WIDE_TBAR_LANE_BLOCK[S]
-    return tile * S // pruning.WIDE_RPT[S] + tile // WIDE_TBAR_SUM_PATTERNS * 2 * nb * nb
+    return warps * (tile * S // pruning.WIDE_RPT[S]
+                    + tile // WIDE_TBAR_SUM_PATTERNS * 2 * nb * nb)
+
+
+def wide_reverse_teams(S: int, C: int, tile: int, n_slots: int, sums: bool = False) -> int:
+    """Category teams a block of csrc/wide_down_store.cu (csrc/wide_tbar.cu
+    with `sums`): 1 at one category a block; past 8 categories
+    build.least_units over teams of tile x S / RPT walk threads (with the
+    sum warps: wide_tbar_threads), build.REVERSE_MULTI_THREADS_MAX
+    (WIDE_TBAR_MULTI_THREADS_MAX) threads a block and wide_down_store_smem
+    (wide_tbar_smem), least (2 U + 2) / b."""
+    cb = build.wide_layout(C)[1]
+    if cb == 1:
+        return 1
+    if sums:
+        return build.least_units(cb, 1, wide_tbar_threads(S, tile), WIDE_TBAR_MULTI_THREADS_MAX,
+                                 lambda w: wide_tbar_smem(S, C, tile, n_slots, warps=w))
+    return build.least_units(cb, 1, tile * S // pruning.WIDE_RPT[S],
+                             build.REVERSE_MULTI_THREADS_MAX,
+                             lambda w: wide_down_store_smem(S, C, tile, n_slots, warps=w))
 
 
 def fused_downward_tbar(steps, n_slots, trans, tips, props, state_freq, lnl_raw,
@@ -290,16 +317,17 @@ DOWN_STORE_PATTERNS = 64
 WIDE_DOWN_STORE_TILE = 16
 
 
-def wide_down_store_smem(S: int, C: int, tile: int, n_slots: int, stages: int = 2) -> int:
-    """Bytes of shared memory a block of csrc/wide_down_store.cu takes (the
-    formula of its header, ReverseSmem): the ring of one category's [S,S]
-    blocks of both children and their rows and scales, the slot pool of the
-    block's CB categories, O's stage of both children's CB S rows and the
-    max buffers of the K blocks (build.wide_layout; double-buffered by step
-    parity).  The ring does not grow with the categories."""
+def wide_down_store_smem(S: int, C: int, tile: int, n_slots: int, stages: int = 2,
+                         warps: int = 1) -> int:
+    """Bytes of shared memory a block of csrc/wide_down_store.cu takes on
+    `warps` category teams (the formula of its header, ReverseSmem): a ring
+    of `stages` stages of W categories' [S,S] blocks of both children and
+    their rows and scales, the slot pool of the block's CB categories, O's
+    stage of both children's CB S rows and the max buffers of the K blocks
+    (build.wide_layout; double-buffered by step parity)."""
     K, cb = build.wide_layout(C)
-    return 4 * (stages * (2 * S * S + 2 * (S + 1) * tile) + n_slots * (cb * S + 1) * tile
-                + 2 * cb * S * tile + 4 * K * tile)
+    return 4 * (stages * warps * (2 * S * S + 2 * (S + 1) * tile)
+                + n_slots * (cb * S + 1) * tile + 2 * cb * S * tile + 4 * K * tile)
 
 
 def fused_down_store(steps, n_slots, trans, up, usc, state_freq, tile=None):

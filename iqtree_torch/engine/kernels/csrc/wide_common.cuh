@@ -70,7 +70,7 @@ using iqt::load_step;
 // step a stage, issued as the stage they replace is released.
 //
 // Past 8 categories (cluster_upward_walk_multi) a block has W category
-// warps of tile / QT x G threads each (wide_warps; a "warp" is one at the
+// warps of tile / QT x G threads each (least_units; a "warp" is one at the
 // wrappers' 16 patterns a cluster), warp w taking the block's categories
 // w, w + W, w + 2 W, ...: a step runs as U = ceil(CB / W) units, unit u
 // the categories u W .. u W + W - 1, one a warp.  A ring stage holds a
@@ -205,29 +205,29 @@ struct ClusterSmem {
   }
 };
 
-// Category warps a block of the upward walk at C categories (past 8),
-// tile patterns a cluster, n_slots slots and `team` threads a warp (tile /
-// QT x G): of the W = ceil(CB / U) whose block fits MULTI_THREADS_MAX
+// Category warps (or teams) a block of a walk past 8 categories, at CB
+// categories a block, `per_warp` threads each and bytes(W) bytes of shared
+// memory a block: of the W = ceil(CB / U) whose block fits `threads_max`
 // threads and the shared memory a block may have, the one of least (U +
-// 2) / b for b = min(2, blocks an SM's shared memory holds), then the
-// most blocks an SM, then the most warps; 1 when none fits
-// (pruning.wide_forward_warps).  A step costs about two units' time of
-// exchange and cluster barrier besides its U units, and b blocks an SM run
-// side by side: at C20's 80 categories on an H100 (PERF.md) that ranks
-// every pair the probe timed at 5, 6 and 10 slots as the card did (5
-// slots: 5 warps, two blocks an SM, 9.9 ms, against 10 warps, one block,
-// 13.2; 6 slots: 4 warps, two blocks, 11.2, against 10, one block, 13.2).
-// Registers (145-167 a thread) keep a third block of 5 warps off an SM.
-template <int S>
-inline int wide_warps(int C, int tile, int n_slots, int team) {
-  const int CB = wide_cb(C), K = wide_k(C);
+// x) / b for b = min(2, blocks an SM's shared memory holds), then the most
+// blocks an SM, then the most W; 1 when none fits (build.least_units).  b
+// blocks an SM run side by side, and a step costs U units and about two
+// units' time of exchange and cluster barrier upward (x = 2), 2 U units
+// and as much reverse ((2 U + 2) / b: x = 1).  At C20's 80 categories on
+// an H100 (PERF.md) that ranks every pair the probe timed as the card did
+// (upward, 5 slots: 5 warps, two blocks an SM, 9.9 ms, against 10 warps,
+// one block, 13.2; reverse, 38-39 ms at 2 teams and two blocks an SM or 5
+// and one, 40.6 at 4, 48.7 at 3).  Registers (145-168 a thread) keep a
+// third block of 5 upward warps off an SM.
+template <typename Bytes>
+inline int least_units(int CB, int x, int per_warp, int threads_max, Bytes bytes) {
   int best = 1, bu = CB, bb = 0;  // the best W, its units and its blocks an SM
   for (int U = 1; U <= CB; ++U) {
     const int W = (CB + U - 1) / U;
-    const size_t bytes = ClusterSmem<S, true>(tile, CB, W).floats(n_slots, K) * sizeof(float);
-    if (W * team > MULTI_THREADS_MAX || bytes > MAX_BLOCK_SMEM) continue;
-    const int b = SM_SMEM / (bytes + BLOCK_SMEM_RESERVED) > 1 ? 2 : 1;
-    if ((U + 2) * bb < (bu + 2) * b || ((U + 2) * bb == (bu + 2) * b && b > bb))
+    const size_t by = bytes(W);
+    if (W * per_warp > threads_max || by > MAX_BLOCK_SMEM) continue;
+    const int b = SM_SMEM / (by + BLOCK_SMEM_RESERVED) > 1 ? 2 : 1;
+    if ((U + x) * bb < (bu + x) * b || ((U + x) * bb == (bu + x) * b && b > bb))
       best = W, bu = U, bb = b;
   }
   return best;
@@ -757,27 +757,47 @@ __device__ __forceinline__ int cluster_upward_walk_multi(const int* __restrict__
 // ragged last tile computes with pattern P - 1.
 //
 // Past 8 categories (cluster_reverse_walk_multi) a block holds CB
-// categories, and a step runs as 2 CB units, one a (phase, category), each
-// unit's copies -- the category's [S,S] block of each child and each
-// child's S rows and scale -- in one ring stage.  Phase A: for each
-// category d from the pool (the root seed), both messages, o = d * m_sib
-// unnormalized into O's stage [child][CB S][tile], and the running max.
-// Then the exchange (one cluster barrier) gives the max over the C S rows
-// and the scales.  Phase B: for each category its O rows divided in place
-// (div_rn), the hook, and the push D = P^T O with the category's matrices,
-// fetched again.  Every unit opens with a block barrier over all the
-// block's threads (sum warps included, which wait there: they read the
-// stages in lock step), after which the next unit's copies are issued into
-// the stage the last unit read.  The orders and so the bits of every
-// category are those of one category a block.
+// categories on W category teams of tile / REVERSE_QT x G threads each
+// (one team is the walk of one category a block), team w taking the
+// block's categories w, w + W, w + 2 W, ...: each phase of a step runs as U
+// = ceil(CB / W) units, unit u the categories u W .. u W + W - 1, one a
+// team.  A ring stage holds a unit's inputs for its W categories -- both
+// children's [S,S] blocks ([child][W][S*S], each child's blocks one run of
+// trans) and their S rows and scale for the tile ([W][child][S+1][tile]).
+// Phase A: each unit, for each of its categories, d from the pool (the
+// root seed), both messages and o = d * m_sib, unnormalized into O's stage
+// [child][CB S][tile] (the last unit's stay in registers), and the running
+// max.  Then the exchange: each team's per-pattern maxima go into every
+// block's buffer [parity][rank][child][tile] (past one team an atomic
+// integer max of the float bits: o >= 0, so it is the float max, exact in
+// any order; each buffer zeroed again at the step after its reads) and one
+// cluster barrier.  Phase B: each unit, its categories' O rows divided
+// (div_rn), the hook and the push D = P^T O with the unit's matrices,
+// fetched again, except at U = 1, where phase B reads phase A's stage and
+// opens no unit.  A unit opens with a block barrier over all the block's
+// threads, after which the copies of the unit REVERSE_STAGES - 1 on are
+// issued into a free stage of the ring of NS stages (NS = REVERSE_STAGES,
+// or one more where wide_tbar's sums lag a unit behind the walk:
+// reverse_sums_multi).  A unit's copies are indexed by counters, not
+// divisions: at one or two warps a scheduler every instruction between a
+// unit's barrier and its arithmetic is on the chain (the first build,
+// with a division or two a unit, ran 50% slower at one team than the
+// one-team walk before it, on an H100; PERF.md).  A team's categories
+// stay its own, so the d it reads in phase A and the child rows it pushes
+// in phase B are rows of the same categories (a child may reuse st.out),
+// and only team 0 writes a child slot's scale row, which every team reads
+// at the child's step, after at least one block barrier.  The orders, and
+// so the bits of every category, are those of one category a block, at
+// any W.
 //
-// Shared memory a block (floats), with tile patterns, n_slots slots,
-// STAGES = REVERSE_STAGES and CB categories a block on K blocks
-// (cs_kernels.wide_down_store_smem):
-//     STAGES x (2 S^2 + 2 (S+1) tile)   the ring
-//   + n_slots (CB S + 1) tile           the pool
-//   + 2 CB S tile                       O's stage
-//   + 4 K tile                          the max buffers
+// Shared memory a block (floats), with tile patterns, n_slots slots, CB
+// categories a block on K blocks, NS ring stages of W categories (NS =
+// REVERSE_STAGES and W = 1 at one category a block;
+// cs_kernels.wide_down_store_smem):
+//     NS W (2 S^2 + 2 (S+1) tile)   the ring
+//   + n_slots (CB S + 1) tile       the pool
+//   + 2 CB S tile                   O's stage
+//   + 4 K tile                      the max buffers
 // ---------------------------------------------------------------------------
 
 // Steps whose matrices and child partials are in flight at once (a
@@ -786,17 +806,27 @@ constexpr int REVERSE_STAGES = 2;
 // Patterns a walk thread: one, where the upward walk's threads hold two
 // (CLUSTER_QT): a reverse step is about twice an upward step's work.
 constexpr int REVERSE_QT = 1;
+// Largest block of wide_down_store past 8 categories (W category teams of
+// tile / REVERSE_QT x G threads): five teams of 64 at 16 patterns a
+// cluster (the launch bound of its MULTI instance).
+constexpr int REVERSE_MULTI_THREADS_MAX = 320;
 
-// Offsets (floats) of a reverse walk's shared-memory arrays, CB categories
-// a block.
-template <int S>
+// Offsets (floats) of a reverse walk's shared-memory arrays: CB categories
+// a block on W category teams and a ring of NS stages of W categories'
+// inputs (MULTI; at one category a block the ring is REVERSE_STAGES
+// stages of one, and the offsets never read W or NS).
+template <int S, bool MULTI = false>
 struct ReverseSmem {
-  int tile, CB;
-  __device__ __host__ ReverseSmem(int tile_, int CB_ = 1) : tile(tile_), CB(CB_) {}
-  __device__ __host__ size_t rows() const { return (size_t)REVERSE_STAGES * 2 * S * S; }
-  __device__ __host__ size_t pool() const {
-    return rows() + (size_t)REVERSE_STAGES * 2 * (S + 1) * tile;
+  int tile, CB, W, NS;
+  __device__ __host__ ReverseSmem(int tile_, int CB_ = 1, int W_ = 1,
+                                  int NS_ = REVERSE_STAGES)
+      : tile(tile_), CB(CB_), W(W_), NS(NS_) {}
+  // the ring's stages of one category's inputs
+  __device__ __host__ size_t ring() const {
+    return MULTI ? (size_t)NS * W : (size_t)REVERSE_STAGES;
   }
+  __device__ __host__ size_t rows() const { return ring() * 2 * S * S; }
+  __device__ __host__ size_t pool() const { return rows() + ring() * 2 * (S + 1) * tile; }
   __device__ __host__ size_t ost(int n_slots) const {
     return pool() + (size_t)n_slots * (CB * S + 1) * tile;
   }
@@ -1026,95 +1056,164 @@ __device__ __forceinline__ void cluster_reverse_walk(const int* __restrict__ ste
   }
 }
 
-// The reverse walk at CB > 1 categories a block (see above), for the
-// block's categories kb CB .. of the C and the tile of patterns p0 .. p0 +
-// tile - 1.  Every walk thread (the block's first tile x S / RPT) of every
-// block of the cluster runs it; the block's other threads run
-// reverse_units_multi alongside.  hook(st, j, c, O, osc, Uk) runs in each
-// phase B unit, after the __syncwarp that follows the category's O rows:
-// O the category's rows in O's stage (child `side` at O + side CB S tile,
-// S rows of tile patterns), whose columns of the warp's patterns are
-// written, osc[child][qq] this thread's patterns' log-scales, Uk the ring
-// stage [child][S+1][tile]; c >= C is a padding category, whose rows hold
-// nothing.
+// A unit's inputs of the reverse walk past 8 categories: the n categories
+// c0 .. c0 + n - 1 of step sj (n <= W) into a ring stage of W categories
+// (mst_k [child][W][S*S], ust_k [W][child][S+1][tile]; a ragged tail
+// repeats P - 1), as cp.async copies by the T walk threads.  A thread
+// copies the words of pattern p (its column qq of the tile) in rows r0,
+// r0 + rstep, ... of each category's 2 (S+1) (T % tile == 0).  The copies
+// open every unit of the walk's chain, so they take no division.
+template <int S>
+__device__ __forceinline__ void reverse_fetch_unit(const Step& sj, float* mst_k, float* ust_k,
+                                                   int c0, int n, int W, int C, int tile,
+                                                   int T, int qq, int r0, int rstep, int p,
+                                                   const float* __restrict__ trans,
+                                                   const float* __restrict__ up,
+                                                   const float* __restrict__ usc, int P) {
+  constexpr int SS = S * S;
+  static_assert(SS % 4 == 0, "a block is a run of 16-byte rows");
+  const int V = n * SS / 4;  // 16-byte rows a child
+  const float* ml = trans + ((size_t)sj.l * C + c0) * SS;
+  const float* mr = trans + ((size_t)sj.r * C + c0) * SS;
+  for (int x = threadIdx.x; x < 2 * V; x += T) {
+    const int side = x >= V, r = x - side * V;
+    __pipeline_memcpy_async(mst_k + (size_t)side * W * SS + 4 * r, (side ? mr : ml) + 4 * r, 16);
+  }
+  const float* scl = usc + (size_t)sj.l * P + p;
+  const float* scr = usc + (size_t)sj.r * P + p;
+  for (int jj = 0; jj < n; ++jj) {
+    const float* bl = up + ((size_t)sj.l * C + c0 + jj) * S * P + p;
+    const float* br = up + ((size_t)sj.r * C + c0 + jj) * S * P + p;
+    float* dst = ust_k + (size_t)jj * 2 * (S + 1) * tile + qq;
+    for (int row = r0; row < 2 * (S + 1); row += rstep) {
+      const int side = row > S, t = row - side * (S + 1);
+      const float* src = t < S ? (side ? br : bl) + (size_t)t * P : side ? scr : scl;
+      __pipeline_memcpy_async(dst + row * tile, src, 4);
+    }
+  }
+}
+
+// The reverse walk at CB > 1 categories a block on W category teams and a
+// ring of NS stages (see above), for the block's categories kb CB .. of the
+// C and the tile of patterns p0 .. p0 + tile - 1.  Every walk thread (the
+// block's first W x tile x S / RPT) of every block of the cluster runs it;
+// the block's other threads run reverse_sums_multi alongside.  hook(st, j,
+// c, O, osc, Uk) runs in each phase B unit, after the __syncwarp that
+// follows the team's category j's O rows: O those rows in O's stage (child
+// `side` at O + side CB S tile, S rows of tile patterns), whose columns of
+// the warp's patterns are written, osc[child][qq] this thread's patterns'
+// log-scales, Uk the category's rows in the ring stage [child][S+1][tile];
+// c >= C is no real category (padding, or j >= CB in a ragged last unit),
+// whose rows hold nothing.  j = 0 is team 0's, at each step's first phase
+// B unit.
 template <int S, int RPT, typename Hook>
 __device__ __forceinline__ void cluster_reverse_walk_multi(
     const int* __restrict__ steps, int n_steps, const float* __restrict__ trans,
     const float* __restrict__ rootd, const float* __restrict__ up,
-    const float* __restrict__ usc, int P, int p0, int tile, int n_slots, int C, int CB,
-    float* smem, Hook hook) {
-  constexpr int G = S / RPT, SS = S * S, QT = REVERSE_QT, NS = REVERSE_STAGES;
+    const float* __restrict__ usc, int P, int p0, int tile, int n_slots, int C, int CB, int W,
+    int NS, float* smem, Hook hook) {
+  constexpr int G = S / RPT, SS = S * S, QT = REVERSE_QT;
   static_assert(S <= 32 && QT == 1, "the multi-category walk is the S = 20 instance's");
   cg::cluster_group cluster = cg::this_cluster();
   const int K = (int)cluster.num_blocks(), kb = (int)cluster.block_rank();
-  const WalkLane<S, G> wl(threadIdx.x);
+  const int T = tile / QT * G;  // a team's threads
+  const int w = (int)threadIdx.x / T;  // this thread's team
+  const WalkLane<S, G> wl((int)threadIdx.x % T);
   const int g = wl.g, s0 = g * RPT, q = wl.pq;
-  const int T = tile / QT * G;  // the walk threads
-  const int SR = CB * S;
-  const ReverseSmem<S> lay(tile, CB);
-  float* mst = smem;                   // [NS][2][SS]
-  float* ust = smem + lay.rows();      // [NS][2][S+1][tile]
-  float* pool = smem + lay.pool();     // [n_slots][CB S + 1][tile]
+  const int SR = CB * S, U = (CB + W - 1) / W;  // a slot's state rows; units a phase
+  const int F = U == 1 ? 1 : 2 * U;  // fetch units a step
+  const int RS = 2 * (S + 1) * tile;  // a category's rows in a stage
+  const ReverseSmem<S, true> lay(tile, CB, W, NS);
+  float* mst = smem;                       // [NS][2][W][SS]
+  float* ust = smem + lay.rows();          // [NS][W][2][S+1][tile]
+  float* pool = smem + lay.pool();         // [n_slots][CB S + 1][tile]
   float* ost = smem + lay.ost(n_slots);    // [2][CB S][tile]
   float* xmax = smem + lay.xmax(n_slots);  // [2][K][2][tile]
-  // unit u: step n_steps - 1 - u / (2 CB), phase (u / CB) & 1, category
-  // u % CB, in stage u % NS
-  const int n_units = n_steps * 2 * CB;
-  const auto fetch = [&](int u) {
-    const int c = kb * CB + u % CB, k = u % NS;
-    if (u < n_units && c < C)
-      reverse_fetch<S>(load_step(steps, n_steps - 1 - u / (2 * CB)), mst + k * 2 * SS,
-                       ust + (size_t)k * 2 * (S + 1) * tile, c, C, tile, p0, T, trans, up,
-                       usc, P);
+  const int MS = 2 * W * SS, US = W * RS;  // a stage's floats of each
+  // the next fetch unit: its step i (its schedule row sf), its unit fu of
+  // the step (phase A's, then B's), its stage fk; a thread copies the
+  // words of its pattern column of the rows fr0, fr0 + frs, ...
+  const int fq = (int)threadIdx.x % tile, fr0 = (int)threadIdx.x / tile, frs = W * T / tile;
+  const int fp = min(p0 + fq, P - 1);
+  int fi = n_steps - 1, fu = 0, fk = 0;
+  Step sf = load_step(steps, fi);
+  const auto fetch = [&]() {
+    if (fi >= 0) {
+      const int j0 = (fu < U ? fu : fu - U) * W, c0 = kb * CB + j0;
+      const int n = min(W, min(CB - j0, C - c0));  // the unit's real categories
+      if (n > 0)
+        reverse_fetch_unit<S>(sf, mst + (size_t)fk * MS, ust + (size_t)fk * US, c0, n, W, C,
+                              tile, W * T, fq, fr0, frs, fp, trans, up, usc, P);
+      if (++fu == F) {
+        fu = 0;
+        if (--fi >= 0) sf = load_step(steps, fi);  // landed by the next fetch
+      }
+      fk = fk + 1 == NS ? 0 : fk + 1;
+    }
     __pipeline_commit();
   };
   // a unit opens: its copies have landed everywhere, every thread is done
-  // with the last unit, whose stage takes the unit NS - 1 on
-  int u = 0;
+  // with the unit NS - REVERSE_STAGES + 1 back, whose stage takes the unit
+  // REVERSE_STAGES - 1 on; returns the unit's stage
+  int k = 0;  // the stage of the unit that opens next
   const auto open = [&]() {
-    __pipeline_wait_prior(NS - 2);
+    __pipeline_wait_prior(REVERSE_STAGES - 2);
     ring_barrier();
-    fetch(u + NS - 1);
+    fetch();
+    const int ko = k;
+    k = k + 1 == NS ? 0 : k + 1;
+    return ko;
   };
 #pragma unroll
-  for (int k = 0; k < NS - 1; ++k) fetch(k);
+  for (int x = 0; x < REVERSE_STAGES - 1; ++x) fetch();
+  if (W > 1)  // the max buffers start at 0 (atomic maxima)
+    for (int x = threadIdx.x; x < 4 * K * tile; x += W * T) xmax[x] = 0.f;
   cluster.sync();  // every block of the cluster runs before the first remote store
+  Step st = load_step(steps, n_steps - 1);
   for (int i = n_steps - 1; i >= 0; --i) {
-    const Step st = load_step(steps, i);
-    float dsc = 0.f, s_sib[2] = {0.f, 0.f}, mx[2] = {0.f, 0.f};
+    const Step st_next = i > 0 ? load_step(steps, i - 1) : st;
+    float dsc = 0.f, s_sib[2] = {0.f, 0.f}, mx[2] = {0.f, 0.f}, o[2][RPT];
     const float* dcol = pool + (size_t)st.out * (SR + 1) * tile + q;
-    for (int j = 0; j < CB; ++j, ++u) {  // phase A
-      open();
-      const int c = kb * CB + j;
-      const float* Mk = mst + (u % NS) * 2 * SS;
-      const float* Uk = ust + (size_t)(u % NS) * 2 * (S + 1) * tile;
-      if (j == 0) {  // block kb's first category is real (K = ceil(C / CB))
-        s_sib[0] = Uk[(2 * S + 1) * tile + q];
-        s_sib[1] = Uk[S * tile + q];
+    int ka = 0;  // the stage of phase A's last unit
+    for (int u = 0; u < U; ++u) {  // phase A
+      ka = open();
+      const float* Us = ust + (size_t)ka * US;
+      if (u == 0) {  // from the unit's first category, real (K = ceil(C / CB))
+        s_sib[0] = Us[(2 * S + 1) * tile + q];
+        s_sib[1] = Us[S * tile + q];
         dsc = i == n_steps - 1 ? 0.f : dcol[SR * tile];
+        if (W > 1 && i < n_steps - 1) {  // step i + 1's maxima are read: zeroed for step i - 1
+          float* xp = xmax + (size_t)((i + 1) & 1) * K * 2 * tile;
+          for (int x = threadIdx.x; x < 2 * K * tile; x += W * T) xp[x] = 0.f;
+        }
       }
-      if (c >= C) continue;
-      float d[RPT][QT];
+      const int j = u * W + w, c = kb * CB + j;  // this team's category of the unit
+      if (j >= CB || c >= C) continue;
+      const float* Mk = mst + (size_t)ka * MS + w * SS;  // [child] W SS apart
+      const float* Uk = Us + w * RS;
+      float d[RPT];
 #pragma unroll
       for (int r = 0; r < RPT; ++r)
-        d[r][0] = i == n_steps - 1 ? __ldg(rootd + c * S + s0 + r)
-                                   : dcol[(j * S + s0 + r) * tile];
+        d[r] = i == n_steps - 1 ? __ldg(rootd + c * S + s0 + r) : dcol[(j * S + s0 + r) * tile];
       float m[2][RPT][QT];  // both children's messages P U
 #pragma unroll
       for (int side = 0; side < 2; ++side) {
         float x[S][QT];
-        const float* U = Uk + side * (S + 1) * tile;
+        const float* Ux = Uk + side * (S + 1) * tile;
 #pragma unroll
-        for (int t = 0; t < S; ++t) x[t][0] = U[t * tile + q];
-        cluster_message<S, RPT, QT>(Mk + side * SS, s0, x, m[side]);
+        for (int t = 0; t < S; ++t) x[t][0] = Ux[t * tile + q];
+        cluster_message<S, RPT, QT>(Mk + side * W * SS, s0, x, m[side]);
       }
 #pragma unroll
       for (int side = 0; side < 2; ++side)
 #pragma unroll
         for (int r = 0; r < RPT; ++r) {
-          const float o = d[r][0] * m[1 - side][r][0];
-          mx[side] = fmaxf(mx[side], o);
-          ost[(side * SR + j * S + s0 + r) * tile + q] = o;
+          const float ov = d[r] * m[1 - side][r][0];
+          mx[side] = fmaxf(mx[side], ov);
+          if (u + 1 < U)
+            ost[(side * SR + j * S + s0 + r) * tile + q] = ov;
+          else
+            o[side][r] = ov;  // the last unit's rows stay in registers
         }
     }
     // the exchange: the max over the pattern's C S rows
@@ -1127,7 +1226,12 @@ __device__ __forceinline__ void cluster_reverse_walk_multi(
     for (int r = g; r < K; r += G) {
       float* xr = cluster.map_shared_rank(xm, r) + kb * 2 * tile;
 #pragma unroll
-      for (int side = 0; side < 2; ++side) xr[side * tile + q] = mx[side];
+      for (int side = 0; side < 2; ++side) {
+        if (W == 1)
+          xr[side * tile + q] = mx[side];
+        else
+          atomicMax(reinterpret_cast<unsigned*>(xr + side * tile + q), __float_as_uint(mx[side]));
+      }
     }
     reverse_barrier(cluster);
     float sc[2][QT];
@@ -1138,31 +1242,32 @@ __device__ __forceinline__ void cluster_reverse_walk_multi(
       mx[side] = fmaxf(mx[side], SCALE_TINY);
       sc[side][0] = dsc + s_sib[side] + logf(mx[side]);
     }
-    for (int j = 0; j < CB; ++j, ++u) {  // phase B
-      open();
-      const int c = kb * CB + j;
-      const float* Mk = mst + (u % NS) * 2 * SS;
-      const float* Uk = ust + (size_t)(u % NS) * 2 * (S + 1) * tile;
+    for (int u = 0; u < U; ++u) {  // phase B
+      const int kB = U > 1 ? open() : ka;
+      const int j = u * W + w, c = kb * CB + j;
+      const bool real = j < CB && c < C;
+      const float* Mk = mst + (size_t)kB * MS + w * SS;
+      const float* Uk = ust + (size_t)kB * US + w * RS;
       float* O = ost + (size_t)j * S * tile;
-      if (c < C)
+      if (real)
 #pragma unroll
         for (int side = 0; side < 2; ++side)
 #pragma unroll
           for (int r = 0; r < RPT; ++r) {
-            float* o = O + (side * SR + s0 + r) * tile + q;
-            *o = iqt::div_rn(*o, mx[side]);
+            float* ov = O + (side * SR + s0 + r) * tile + q;
+            *ov = iqt::div_rn(u + 1 < U ? *ov : o[side][r], mx[side]);
           }
       __syncwarp();  // the pattern group's O rows are normalized
-      hook(st, j, c, static_cast<const float*>(O), sc, Uk);
-      if (c >= C) continue;
+      hook(st, j, real ? c : C, static_cast<const float*>(O), sc, Uk);
+      if (!real) continue;
       // the children's outside partials, pushed through their edges (P^T
-      // O), wait in the pool for their own steps (d was read in phase A: a
-      // child may reuse st.out)
+      // O), wait in the pool for their own steps (d was read in phase A by
+      // this team: a child may reuse st.out)
 #pragma unroll
       for (int side = 0; side < 2; ++side) {
         const int cslot = side ? st.rs : st.ls;
         if (cslot < 0) continue;
-        const float* M = Mk + side * SS;  // the child's P
+        const float* M = Mk + side * W * SS;  // the child's P
         const float* os = O + side * SR * tile;
         float dd[RPT];
 #pragma unroll
@@ -1179,32 +1284,61 @@ __device__ __forceinline__ void cluster_reverse_walk_multi(
         if (g == 0 && j == 0) col[SR * tile] = sc[side][0];
       }
     }
+    st = st_next;
   }
+  ring_barrier();  // the last unit's O rows are written for threads outside the walk
 }
 
 // The barriers of cluster_reverse_walk_multi for a block's threads outside
-// the walk, in its order; after each phase B unit's hook barrier (the
-// walk's sums_arrive, this side's wait) unit(st, j, c, k) runs with the
-// unit's ring stage k.  Lock step: these threads wait at every unit's
-// opening barrier, so the walk rewrites no stage they read.
+// the walk (wide_tbar's sum warps), in its order, and their work: unit(st,
+// u, k) runs once for each phase B unit u of step st, with the unit's ring
+// stage k.  In lock step (a ring of REVERSE_STAGES) after the unit's hook
+// barrier (the walk's sums_arrive, `wait` here) and before the next unit
+// opens, so the walk waits for it there.  With a deeper ring a unit's work
+// lags one unit behind the walk: it runs after the next unit's opening
+// barrier (at U = 1 the next step's first), beside the walk's next unit.
+// Its stage is refilled only at the opening after that, its O rows only in
+// the next step (phase A keeps its last unit's rows in registers, and a
+// unit before the last writes other categories' rows) and fac at the next
+// step's phase B, after the exchange these threads join once their work is
+// done.  The walk ends with a block barrier more, after which the last
+// unit's work runs.
 template <typename Wait, typename Unit>
-__device__ __forceinline__ void reverse_units_multi(const int* __restrict__ steps,
-                                                    int n_steps, int CB, Wait wait,
-                                                    Unit unit) {
+__device__ __forceinline__ void reverse_sums_multi(const int* __restrict__ steps,
+                                                   int n_steps, int CB, int W, int NS,
+                                                   Wait wait, Unit unit) {
   cg::cluster_group cluster = cg::this_cluster();
-  const int kb = (int)cluster.block_rank();
+  const int U = (CB + W - 1) / W;
+  const bool lag = NS > REVERSE_STAGES;
+  Step ps = {};        // the lagging unit's step
+  int pu = -1, pk = 0;  // the lagging unit (none: -1) and its stage
+  int k = 0;           // the stage of the unit that opens next
+  const auto open = [&]() {
+    ring_barrier();
+    if (pu >= 0) unit(ps, pu, pk);
+    pu = -1;
+    const int ko = k;
+    k = k + 1 == NS ? 0 : k + 1;
+    return ko;
+  };
   cluster.sync();
-  int u = 0;
   for (int i = n_steps - 1; i >= 0; --i) {
     const Step st = load_step(steps, i);
-    for (int j = 0; j < CB; ++j, ++u) ring_barrier();
+    int ka = 0;
+    for (int u = 0; u < U; ++u) ka = open();
     reverse_barrier(cluster);
-    for (int j = 0; j < CB; ++j, ++u) {
-      ring_barrier();
-      wait();
-      unit(st, j, kb * CB + j, u % REVERSE_STAGES);
+    for (int u = 0; u < U; ++u) {
+      const int k = U > 1 ? open() : ka;
+      if (lag) {
+        ps = st, pu = u, pk = k;
+      } else {
+        wait();
+        unit(st, u, k);
+      }
     }
   }
+  ring_barrier();  // the walk's last
+  if (pu >= 0) unit(ps, pu, pk);
 }
 
 // The launch of `clusters` thread-block clusters of K blocks (wide_k: one a
@@ -1251,7 +1385,7 @@ inline cudaError_t active_clusters(void (*kernel)(Params...), int K, int threads
 
 // An upward walk's launch at C categories, tile patterns a cluster and
 // n_slots slots: K blocks of CB categories, W category warps of `team`
-// threads (wide_warps past 8 categories, else 1) and the shared memory of
+// threads (least_units past 8 categories, else 1) and the shared memory of
 // ClusterSmem.  `team` is 0 for a tile whose warps are not whole or too
 // large.
 template <int S, int RPT>
@@ -1261,7 +1395,10 @@ struct UpwardLaunch {
   UpwardLaunch(int C, int tile, int n_slots)
       : K(wide_k(C)), CB(wide_cb(C)), team(tile / CLUSTER_QT * (S / RPT)) {
     if (team % 32 || team > CLUSTER_THREADS_MAX) team = 0;
-    W = CB > 1 && team ? wide_warps<S>(C, tile, n_slots, team) : 1;
+    const auto bytes = [&](int w) {
+      return ClusterSmem<S, true>(tile, CB, w).floats(n_slots, K) * sizeof(float);
+    };
+    W = CB > 1 && team ? least_units(CB, 2, team, MULTI_THREADS_MAX, bytes) : 1;
     threads = W * team;
     smem = ClusterSmem<S, true>(tile, CB, W).floats(n_slots, K) * sizeof(float);
   }

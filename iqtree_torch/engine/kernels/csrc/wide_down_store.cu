@@ -32,7 +32,8 @@
 // The walk is a chain of dependent steps whose latency a few warps an SM
 // hide: one pattern a thread gives twice the warps of two (1 958 patterns,
 // C=4: 980 warps, 7.4 an SM).  At most 128 registers a thread keep every
-// cluster resident at C=8 (984 blocks of 64 threads need at most 136).
+// cluster resident at C=8 (984 blocks of 64 threads need at most 136);
+// past 8 categories a block of up to REVERSE_MULTI_THREADS_MAX threads.
 //
 // The walk keeps the row-group design's orders, so out and osc are that
 // design's bit for bit.  A ragged last tile computes with pattern P - 1 and
@@ -47,13 +48,16 @@
 // = 5.9 GFLOP (67 TFLOP/s: 0.09 ms): bound by bytes.  The walk is a chain
 // of 299 dependent steps.
 //
-// Past 8 categories (MULTI) a block holds CB of them and runs
-// cluster_reverse_walk_multi: a step's CB categories in two phases of units
-// through the same ring (o into O's stage, the exchange, then O divided,
-// stored and pushed), so every category keeps the bits of one category a
-// block; the hook writes a real category's O rows, a padding category's
-// none.  Bound (C20, 300 taxa x 1 958 patterns): 15 GB of partials read
-// and written (4.5 ms at 3.35 TB/s), bound by bytes.
+// Past 8 categories (MULTI) a block holds CB of them on W category teams
+// of tile x 4 threads and runs cluster_reverse_walk_multi: each phase of a
+// step (o into O's stage, the exchange, then O divided, stored and
+// pushed) as ceil(CB / W) units, each team a category a unit, so every
+// category keeps the bits of one category a block; the hook writes a real
+// category's O rows, a padding category's none.  W by least_units
+// (DownStoreLaunch): at C = 80 and 16 patterns a cluster 2 teams, five
+// units a phase and two blocks an SM at the bench tree's 5 slots.  Bound
+// (C20, 300 taxa x 1 958 patterns): 15 GB of partials read and written
+// (4.5 ms at 3.35 TB/s), bound by bytes.
 //
 // Shared memory a block: ReverseSmem (wide_common.cuh;
 // cs_kernels.wide_down_store_smem), S = 20, C = 4, tile 16, 11 slots:
@@ -68,7 +72,8 @@
 using namespace iqtw;
 
 template <int S, int RPT, bool MULTI>
-__global__ void __launch_bounds__(CLUSTER_THREADS_MAX, S > 32 ? 1 : 2)
+__global__ void __launch_bounds__(MULTI ? REVERSE_MULTI_THREADS_MAX : CLUSTER_THREADS_MAX,
+                                  MULTI || S > 32 ? 1 : 2)
 wide_down_store_kernel(const int* __restrict__ steps, int n_steps,
                        const float* __restrict__ trans, const float* __restrict__ rootd,
                        const float* __restrict__ up, const float* __restrict__ usc, int P,
@@ -81,7 +86,9 @@ wide_down_store_kernel(const int* __restrict__ steps, int n_steps,
   cg::cluster_group cluster = cg::this_cluster();
   const int K = (int)cluster.num_blocks(), kb = (int)cluster.block_rank();
   if constexpr (!MULTI) C = K;  // a block a category
-  const int tid = threadIdx.x;
+  // the thread's index in its category team (past 8 categories W teams of
+  // T threads a block, else one)
+  const int T = tile / QT * G, tid = MULTI ? (int)threadIdx.x % T : (int)threadIdx.x;
   const WalkLane<S, G> wl(tid);
   const int g = wl.g, pq = wl.pq;
   const int p0 = (int)(blockIdx.x / K) * tile;
@@ -105,7 +112,8 @@ wide_down_store_kernel(const int* __restrict__ steps, int n_steps,
       }
     };
     cluster_reverse_walk_multi<S, RPT>(steps, n_steps, trans, rootd, up, usc, P, p0, tile,
-                                       n_slots, C, CB, smem, hook);
+                                       n_slots, C, CB, (int)blockDim.x / T, REVERSE_STAGES,
+                                       smem, hook);
     return;
   }
   const int c = kb;
@@ -134,47 +142,74 @@ wide_down_store_kernel(const int* __restrict__ steps, int n_steps,
                                smem, hook);
 }
 
-// One launch of the instance <S, RPT> at CB categories a block (MULTI
-// past one; the codon instance has none).
+// The launch of the instance <S, RPT> at C categories, tile patterns a
+// cluster and n_slots slots: K blocks of CB categories on W category teams
+// of T walk threads (least_units past 8 categories, else one), the
+// shared memory of ReverseSmem, and the kernel (nullptr: no instance).  T
+// is 0 for a tile whose teams are not whole warps or too large.
 template <int S, int RPT>
-cudaError_t launch_wide_down_store(int clusters, int K, int CB, int threads, void* stream,
-                                   const int* steps, int n_steps, const float* trans,
-                                   const float* rootd, const float* up, const float* usc,
-                                   int P, float* out, float* osc, int n_slots, int tile,
-                                   int C) {
-  const size_t smem = ReverseSmem<S>(tile, CB).floats(n_slots, K) * sizeof(float);
-  if (CB == 1)
-    return launch_clusters(wide_down_store_kernel<S, RPT, false>, clusters, K, threads,
-                           smem, stream, steps, n_steps, trans, rootd, up, usc, P, out, osc,
-                           n_slots, tile, C, CB);
-  if constexpr (S <= 32)
-    return launch_clusters(wide_down_store_kernel<S, RPT, true>, clusters, K, threads,
-                           smem, stream, steps, n_steps, trans, rootd, up, usc, P, out, osc,
-                           n_slots, tile, C, CB);
-  return cudaErrorInvalidValue;
-}
+struct DownStoreLaunch {
+  int K, CB, T, W, threads;
+  size_t smem;
+  void (*kernel)(const int*, int, const float*, const float*, const float*, const float*, int,
+                 float*, float*, int, int, int, int);
+  DownStoreLaunch(int C, int tile, int n_slots)
+      : K(wide_k(C)), CB(wide_cb(C)), T(tile / REVERSE_QT * (S / RPT)) {
+    if (T % 32 || T > CLUSTER_THREADS_MAX) T = 0;
+    const auto bytes = [&](int w) {
+      return ReverseSmem<S, true>(tile, CB, w).floats(n_slots, K) * sizeof(float);
+    };
+    W = CB > 1 && T ? least_units(CB, 1, T, REVERSE_MULTI_THREADS_MAX, bytes) : 1;
+    threads = W * T;
+    smem = bytes(W);
+    kernel = wide_down_store_kernel<S, RPT, false>;
+    if constexpr (S <= 32) {
+      if (CB > 1) kernel = wide_down_store_kernel<S, RPT, true>;
+    } else if (CB > 1) {
+      kernel = nullptr;
+    }
+  }
+};
 
-// tile: patterns a cluster, a multiple of 8 (a block has tile x 4 threads,
+// tile: patterns a cluster, a multiple of 8 (a team has tile x 4 threads,
 // whole warps) up to 64.  C categories on wide_k(C) blocks a cluster,
-// wide_cb(C) a block (past 8 the S = 20 instance only).
+// wide_cb(C) a block (past 8 the S = 20 instance only) on
+// DownStoreLaunch's W category teams.
 extern "C" int iqt_wide_down_store(const int* steps, int n_steps, const float* trans,
                                    const float* rootd, const float* up,
                                    const float* usc, int P, float* out, float* osc,
                                    int C, int S, int n_slots, int tile, void* stream) {
   if (C < 1 || tile <= 0 || tile % REVERSE_QT) return (int)cudaErrorInvalidValue;
-  const int clusters = (P + tile - 1) / tile, K = wide_k(C), CB = wide_cb(C);
+  const int clusters = (P + tile - 1) / tile;
   cudaError_t e = cudaSuccess;
-#define IQT_LAUNCH(SS_, RPT_)                                                             \
-  {                                                                                       \
-    const int threads = tile / REVERSE_QT * (SS_ / RPT_);                                 \
-    if (threads % 32 || threads > CLUSTER_THREADS_MAX)                                    \
-      return (int)cudaErrorInvalidValue;                                                  \
-    e = launch_wide_down_store<SS_, RPT_>(clusters, K, CB, threads, stream, steps,        \
-                                          n_steps, trans, rootd, up, usc, P, out, osc,    \
-                                          n_slots, tile, C);                              \
+#define IQT_LAUNCH(SS_, RPT_)                                                              \
+  {                                                                                        \
+    const DownStoreLaunch<SS_, RPT_> l(C, tile, n_slots);                                  \
+    if (!l.T || !l.kernel) return (int)cudaErrorInvalidValue;                              \
+    e = launch_clusters(l.kernel, clusters, l.K, l.threads, l.smem, stream, steps,         \
+                        n_steps, trans, rootd, up, usc, P, out, osc, n_slots, tile, C,     \
+                        l.CB);                                                             \
   }
   IQT_DISPATCH_WIDE_S(S, IQT_LAUNCH)
 #undef IQT_LAUNCH
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// The launch iqt_wide_down_store makes at these sizes: info = {category
+// teams W, threads a block, shared memory bytes a block, the most clusters
+// the card holds at once}.
+extern "C" int iqt_wide_down_store_layout(int C, int S, int n_slots, int tile, int* info) {
+  if (C < 1 || tile <= 0 || tile % REVERSE_QT) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSuccess;
+#define IQT_LAYOUT(SS_, RPT_)                                                     \
+  {                                                                               \
+    const DownStoreLaunch<SS_, RPT_> l(C, tile, n_slots);                         \
+    if (!l.T || !l.kernel) return (int)cudaErrorInvalidValue;                     \
+    info[0] = l.W, info[1] = l.threads, info[2] = (int)l.smem;                    \
+    e = active_clusters(l.kernel, l.K, l.threads, l.smem, info + 3);              \
+  }
+  IQT_DISPATCH_WIDE_S(S, IQT_LAYOUT)
+#undef IQT_LAYOUT
+  return (int)e;
 }

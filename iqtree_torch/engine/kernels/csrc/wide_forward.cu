@@ -35,7 +35,7 @@
 // Past 8 categories (the protein mixtures: C20 is 80) a block holds CB =
 // ceil(C / 8) of them on K = ceil(C / CB) blocks a cluster, on W category
 // warps (cluster_upward_walk_multi: a step runs ceil(CB / W) units, each
-// warp a category a unit; W by wide_warps: at C = 80 and 16 patterns a
+// warp a category a unit; W by least_units: at C = 80 and 16 patterns a
 // cluster 5 warps, two units a step and two blocks an SM at the bench
 // tree's 5 slots, 4 at 6, 10 warps, one unit and one block an SM from 7 to
 // 11).  The block keeps its categories' rows in its pool, and the root mix

@@ -58,20 +58,29 @@
 //
 // Registers: at most 80 a thread (launch bounds), so that every cluster
 // stays resident at C=8 (984 blocks of 96 threads at 16 patterns a
-// cluster need 8 an SM).
+// cluster need 8 an SM); past 8 categories a block of up to
+// TBAR_MULTI_THREADS_MAX threads, one an SM.
 //
 // Shared memory a block: ReverseSmem (wide_common.cuh), fac, 2 tile
-// floats, and the sum warps' stages, tile / 16 x 2 S^2 floats
+// floats, and the sum warps' stages, W x tile / 16 x 2 S^2 floats
 // (cs_kernels.wide_tbar_smem); S = 20, C = 4, tile 16, 11 slots: 33 472
 // bytes.
 //
-// Past 8 categories (MULTI) the walk threads run
-// cluster_reverse_walk_multi and the sum warps reverse_units_multi in lock
-// step with them: after each phase B unit's hook (fac staged at the
-// step's first category) the group's sums of that category go to its
-// [S,S] blocks at c = kb CB + j of the part row, as at one category a
-// block; a padding category's none.  Bound (C20, 300 taxa x 1 958
-// patterns): 198 GFLOP (3.0 ms), bound by operations.
+// Past 8 categories (MULTI) a block has W category teams, each of tile x 4
+// walk threads running cluster_reverse_walk_multi and a sum warp for each
+// 16 patterns running reverse_sums_multi: after each phase B unit (fac
+// staged by team 0 at the step's first) a team's sum warps add its
+// category's sums to the category's [S,S] blocks at c = kb CB + j of the
+// part row, as at one category a block; a padding category's none.  At
+// one team (W = 1) the sums run in lock step with the walk; past one they
+// lag a unit behind it, beside the walk's next unit, on a ring a stage
+// deeper (tbar_stages), so no unit waits for the last one's sums.  W by
+// least_units (TbarLaunch): at C = 80 and 16 patterns a cluster 5
+// teams, two units a phase and one block an SM at the bench tree's 5
+// slots.  Bound (C20, 300 taxa x 1 958 patterns): 198 GFLOP (3.0 ms),
+// bound by operations; a design that keeps the bits also writes its 123
+// part rows of 600 x 80 x 20 x 20 floats (9.45 GB) and reads them back,
+// ~18.9 GB: ~5.6 ms at 3.35 TB/s.
 //
 // The codon instance (S = 64): a lane's block of a child's [S,S] is 8 x 8
 // entries (SumShape), so a group of 16 patterns has 2 x 8 x 8 = 128 lanes,
@@ -91,6 +100,11 @@ using namespace iqtw;
 constexpr int SUM_PATTERNS = 16;
 // Largest block: 64 patterns a cluster, 256 walk threads and 4 sum warps.
 constexpr int TBAR_THREADS_MAX = CLUSTER_THREADS_MAX + 4 * 32;
+// Largest block past 8 categories: W category teams, each of tile x S /
+// RPT walk threads and the sum warps of its 16-pattern groups: five teams
+// of 64 + 32 at 16 patterns a cluster (the launch bound of the MULTI
+// instance).
+constexpr int TBAR_MULTI_THREADS_MAX = 480;
 
 // The sums' lane map: a lane adds an SB x SB block of a child's [S,S]
 // (S / SB blocks a side), so a 16-pattern group has 2 (S / SB)^2 lanes,
@@ -113,10 +127,20 @@ struct SumLanes {
   static_assert(NB * SB == S && 2 * NB * NB % 32 == 0, "the lanes tile both [S,S] blocks");
 };
 
+// The ring's stages at W category teams: past one team the sums lag a
+// unit behind the walk (reverse_sums_multi), which takes a stage more.
+__device__ __host__ inline int tbar_stages(int W) {
+  return W > 1 ? REVERSE_STAGES + 1 : REVERSE_STAGES;
+}
+
+// Bytes of shared memory a block: the reverse walk's (ReverseSmem, W
+// category teams and tbar_stages), fac [2][tile] and, where STAGED, a
+// stage [2][S][S] for each sum warp group of each team.
 template <int S>
-inline size_t wide_tbar_smem(int K, int CB, int tile, int n_slots) {
-  const size_t stage = SumLanes<S>::STAGED ? (size_t)tile / SUM_PATTERNS * 2 * S * S : 0;
-  return (ReverseSmem<S>(tile, CB).floats(n_slots, K) + 2 * (size_t)tile + stage) *
+inline size_t wide_tbar_smem(int K, int CB, int tile, int n_slots, int W = 1) {
+  const size_t stage = SumLanes<S>::STAGED ? (size_t)W * tile / SUM_PATTERNS * 2 * S * S : 0;
+  return (ReverseSmem<S, true>(tile, CB, W, tbar_stages(W)).floats(n_slots, K) +
+          2 * (size_t)tile + stage) *
          sizeof(float);
 }
 
@@ -241,14 +265,15 @@ __device__ __forceinline__ void sum_warp(const int* __restrict__ steps, int n_st
 }
 
 template <int S, int RPT, bool MULTI>
-__global__ void __launch_bounds__(TBAR_THREADS_MAX, S > 32 ? 1 : 2)
+__global__ void __launch_bounds__(MULTI ? TBAR_MULTI_THREADS_MAX : TBAR_THREADS_MAX,
+                                  MULTI || S > 32 ? 1 : 2)
 wide_tbar_kernel(const int* __restrict__ steps, int n_steps,
                  const float* __restrict__ trans, const float* __restrict__ rootd,
                  const float* __restrict__ lnl, const float* __restrict__ wp,
                  const float* __restrict__ up, const float* __restrict__ usc, int P,
                  int n_nodes, float* __restrict__ part, int n_slots, int tile,
                  int cluster0, int C, int CB) {
-  constexpr int G = S / RPT, QT = REVERSE_QT, SS = S * S;
+  constexpr int G = S / RPT, QT = REVERSE_QT, SS = S * S, WARPS = SumLanes<S>::WARPS;
   static_assert(QT == 1, "a walk thread holds one pattern");
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -256,8 +281,11 @@ wide_tbar_kernel(const int* __restrict__ steps, int n_steps,
   if constexpr (!MULTI) C = K;  // a block a category
   const int cl = (int)(blockIdx.x / K);  // the cluster in this chunk
   const int p0 = (cluster0 + cl) * tile, groups = tile / SUM_PATTERNS;
-  const int tid = threadIdx.x, walkers = tile / QT * G;
-  const ReverseSmem<S> lay(tile, MULTI ? CB : 1);
+  // W category teams (past 8 categories; else one) of T walk threads, the
+  // sum warps after all the walk threads
+  const int T = tile / QT * G, tid = threadIdx.x;
+  const int W = MULTI ? (int)blockDim.x / (T + groups * WARPS * 32) : 1, walkers = W * T;
+  const ReverseSmem<S, MULTI> lay(tile, MULTI ? CB : 1, W, tbar_stages(W));
   float* fac = smem + lay.floats(n_slots, K);  // [2][tile]
   // the part row of the tile's patterns 16 w .. 16 w + 15 (none past P)
   const auto part_row = [&](int w) {
@@ -265,26 +293,30 @@ wide_tbar_kernel(const int* __restrict__ steps, int n_steps,
                                      : nullptr;
   };
   if (tid >= walkers) {
-    constexpr int WARPS = SumLanes<S>::WARPS;
-    const int sw = (tid - walkers) >> 5, w = sw / WARPS;  // the sum warp, its group
+    const int sw = (tid - walkers) >> 5;  // the sum warp
+    const int w = MULTI ? sw / WARPS % groups : sw / WARPS;  // its group
     const int L = (sw % WARPS) * 32 + (tid & 31);
     if constexpr (MULTI) {
+      // the sum warps of team wt: category j = u W + wt of each phase B unit u
+      const int wt = sw / (WARPS * groups);
       const float* ust = smem + lay.rows();
       const float* ost = smem + lay.ost(n_slots);
-      float* pst = fac + 2 * tile + (size_t)w * 2 * S * S;
+      float* pst = fac + 2 * tile + (size_t)(wt * groups + w) * 2 * S * S;
       float* row = part_row(w);
-      reverse_units_multi(steps, n_steps, CB, [&]() { sums_wait(blockDim.x); },
-                          [&](const Step& st, int j, int c, int k) {
-                            if (c < C)
-                              group_sums<S>(st, ost + (size_t)j * S * tile, CB * S * tile,
-                                            fac, ust + (size_t)k * 2 * (S + 1) * tile, tile,
-                                            w * SUM_PATTERNS, L, pst, row, C, c);
-                          });
+      reverse_sums_multi(steps, n_steps, CB, W, tbar_stages(W),
+                         [&]() { sums_wait(blockDim.x); },
+                         [&](const Step& st, int u, int k) {
+                           const int j = u * W + wt, c = kb * CB + j;
+                           if (j < CB && c < C)
+                             group_sums<S>(st, ost + (size_t)j * S * tile, CB * S * tile, fac,
+                                           ust + ((size_t)k * W + wt) * 2 * (S + 1) * tile,
+                                           tile, w * SUM_PATTERNS, L, pst, row, C, c);
+                         });
     } else {
       sum_warp<S>(steps, n_steps, smem, tile, n_slots, w, L, part_row(w), C, kb);
     }
   } else {
-    const WalkLane<S, G> wl(tid);
+    const WalkLane<S, G> wl(MULTI ? tid % T : tid);
     const int g = wl.g, q = wl.pq, p = p0 + q;
     const bool valid = p < P;  // a ragged tail computes with P - 1 and adds 0
     const int pg = min(p, P - 1);
@@ -298,13 +330,16 @@ wide_tbar_kernel(const int* __restrict__ steps, int n_steps,
       }
     };
     if constexpr (MULTI) {
+      // team 0 stages fac at a step's first phase B unit; in lock step (one
+      // team) every unit's sums wait for its hook
+      const bool lock_step = W == 1;
       const auto hook = [&](const Step&, int j, int, const float*, const float (&sc)[2][QT],
                             const float* Uk) {
         if (j == 0) stage_fac(sc, Uk);
-        sums_arrive(blockDim.x);
+        if (lock_step) sums_arrive(blockDim.x);
       };
       cluster_reverse_walk_multi<S, RPT>(steps, n_steps, trans, rootd, up, usc, P, p0, tile,
-                                         n_slots, C, CB, smem, hook);
+                                         n_slots, C, CB, W, tbar_stages(W), smem, hook);
     } else {
       const auto hook = [&](const Step& st, const float* ost, const float (&sc)[2][QT],
                             const float* Uk) {
@@ -317,31 +352,40 @@ wide_tbar_kernel(const int* __restrict__ steps, int n_steps,
   }
 }
 
-// One launch of the instance <S, RPT> at CB categories a block (MULTI
-// past one; the codon instance has none).
+// The launch of the instance <S, RPT> at C categories, tile patterns a
+// cluster and n_slots slots: K blocks of CB categories on W category teams
+// (least_units past 8 categories, else one) of T walk threads and the
+// sum warps of their 16-pattern groups, the shared memory of
+// wide_tbar_smem, and the kernel (nullptr: no instance).  T is 0 for a
+// tile whose teams are not whole warps or too large.
 template <int S, int RPT>
-cudaError_t launch_wide_tbar(int clusters, int K, int CB, int threads, void* stream,
-                             const int* steps, int n_steps, const float* trans,
-                             const float* rootd, const float* lnl, const float* wp,
-                             const float* up, const float* usc, int P, int n_nodes,
-                             float* part, int n_slots, int tile, int cluster0, int C) {
-  const size_t smem = wide_tbar_smem<S>(K, CB, tile, n_slots);
-  if (CB == 1)
-    return launch_clusters(wide_tbar_kernel<S, RPT, false>, clusters, K, threads, smem,
-                           stream, steps, n_steps, trans, rootd, lnl, wp, up, usc, P,
-                           n_nodes, part, n_slots, tile, cluster0, C, CB);
-  if constexpr (S <= 32)
-    return launch_clusters(wide_tbar_kernel<S, RPT, true>, clusters, K, threads, smem,
-                           stream, steps, n_steps, trans, rootd, lnl, wp, up, usc, P,
-                           n_nodes, part, n_slots, tile, cluster0, C, CB);
-  return cudaErrorInvalidValue;
-}
+struct TbarLaunch {
+  int K, CB, T, W, threads;
+  size_t smem;
+  void (*kernel)(const int*, int, const float*, const float*, const float*, const float*,
+                 const float*, const float*, int, int, float*, int, int, int, int, int);
+  TbarLaunch(int C, int tile, int n_slots)
+      : K(wide_k(C)), CB(wide_cb(C)), T(tile / REVERSE_QT * (S / RPT)) {
+    const int sums = tile / SUM_PATTERNS * SumLanes<S>::WARPS * 32;
+    if (T % 32 || T + sums > TBAR_THREADS_MAX) T = 0;
+    const auto bytes = [&](int w) { return wide_tbar_smem<S>(K, CB, tile, n_slots, w); };
+    W = CB > 1 && T ? least_units(CB, 1, T + sums, TBAR_MULTI_THREADS_MAX, bytes) : 1;
+    threads = W * (T + sums);
+    smem = bytes(W);
+    kernel = wide_tbar_kernel<S, RPT, false>;
+    if constexpr (S <= 32) {
+      if (CB > 1) kernel = wide_tbar_kernel<S, RPT, true>;
+    } else if (CB > 1) {
+      kernel = nullptr;
+    }
+  }
+};
 
-// tile: patterns a cluster, a multiple of 16 up to 64 (a block has tile x 4
-// walk threads and a sum warp for each 16 patterns); part holds
+// tile: patterns a cluster, a multiple of 16 up to 64 (a team has tile x
+// 4 walk threads and a sum warp for each 16 patterns); part holds
 // part_blocks rows of 16 patterns, at least tile / 16.  C categories on
 // wide_k(C) blocks a cluster, wide_cb(C) a block (past 8 the S = 20
-// instance only).
+// instance only) on TbarLaunch's W category teams.
 extern "C" int iqt_wide_tbar(const int* steps, int n_steps, const float* trans,
                              const float* rootd, const float* lnl, const float* wp,
                              const float* up, const float* usc, int P, int n_nodes,
@@ -350,19 +394,17 @@ extern "C" int iqt_wide_tbar(const int* steps, int n_steps, const float* trans,
   if (C < 1 || tile <= 0 || tile % SUM_PATTERNS) return (int)cudaErrorInvalidValue;
   const int groups = tile / SUM_PATTERNS, per_chunk = part_blocks / groups;
   const int clusters = (P + tile - 1) / tile, rows = (P + SUM_PATTERNS - 1) / SUM_PATTERNS;
-  const int K = wide_k(C), CB = wide_cb(C);
   if (per_chunk < 1) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSuccess;
   for (int c0 = 0; c0 < clusters; c0 += per_chunk) {
     const int nc = min(per_chunk, clusters - c0);
-#define IQT_LAUNCH(SS_, RPT_)                                                             \
-  {                                                                                       \
-    const int walkers = tile / REVERSE_QT * (SS_ / RPT_);                                 \
-    const int threads = walkers + groups * SumLanes<SS_>::WARPS * 32;                     \
-    if (walkers % 32 || threads > TBAR_THREADS_MAX) return (int)cudaErrorInvalidValue;    \
-    e = launch_wide_tbar<SS_, RPT_>(nc, K, CB, threads, stream, steps, n_steps, trans,    \
-                                    rootd, lnl, wp, up, usc, P, n_nodes, part, n_slots,   \
-                                    tile, c0, C);                                         \
+#define IQT_LAUNCH(SS_, RPT_)                                                              \
+  {                                                                                        \
+    const TbarLaunch<SS_, RPT_> l(C, tile, n_slots);                                       \
+    if (!l.T || !l.kernel) return (int)cudaErrorInvalidValue;                              \
+    e = launch_clusters(l.kernel, nc, l.K, l.threads, l.smem, stream, steps, n_steps,      \
+                        trans, rootd, lnl, wp, up, usc, P, n_nodes, part, n_slots, tile,   \
+                        c0, C, l.CB);                                                      \
   }
     IQT_DISPATCH_WIDE_S(S, IQT_LAUNCH)
 #undef IQT_LAUNCH
@@ -374,4 +416,22 @@ extern "C" int iqt_wide_tbar(const int* steps, int n_steps, const float* trans,
     if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaSuccess;
+}
+
+// The launch iqt_wide_tbar makes at these sizes: info = {category teams W,
+// threads a block, shared memory bytes a block, the most clusters the card
+// holds at once}.
+extern "C" int iqt_wide_tbar_layout(int C, int S, int n_slots, int tile, int* info) {
+  if (C < 1 || tile <= 0 || tile % SUM_PATTERNS) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSuccess;
+#define IQT_LAYOUT(SS_, RPT_)                                                     \
+  {                                                                               \
+    const TbarLaunch<SS_, RPT_> l(C, tile, n_slots);                              \
+    if (!l.T || !l.kernel) return (int)cudaErrorInvalidValue;                     \
+    info[0] = l.W, info[1] = l.threads, info[2] = (int)l.smem;                    \
+    e = active_clusters(l.kernel, l.K, l.threads, l.smem, info + 3);              \
+  }
+  IQT_DISPATCH_WIDE_S(S, IQT_LAYOUT)
+#undef IQT_LAYOUT
+  return (int)e;
 }

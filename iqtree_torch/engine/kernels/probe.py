@@ -28,8 +28,8 @@ under --base), e.g. `--only "as built"` for the two designs alone.
 
 --slots N gives the kernels a slot pool of N slots where the bench tree
 takes fewer (a deeper tree's shared memory; the extra slots stay unused).
-For wide_forward and wide_store the probe prints the launch each makes at
-each size (build.upward_launch: category warps, threads, shared memory,
+For the four wide walks the probe prints the launch each makes at each
+size (build.walk_launch: category warps or teams, threads, shared memory,
 the most clusters at once).
 
 --base DIR adds the variant `base`: <kernel>.cu and its headers taken
@@ -127,7 +127,8 @@ wide_common.cuh, wide_newton's with one matrix, one cluster barrier a step):
   no stores        nothing written to out and osc
   no cluster barrier  the exchange's cluster barrier a block barrier
                    (wrong values; a cluster barrier before the blocks leave)
-  stages 3         the cp.async ring three steps deep
+  stages 3         the cp.async ring three steps (past 8 categories:
+                   units) deep, the copies two ahead
   loads on the chain  each step waits for the copies it has just issued
   fetch at the step's start  step i - 1's copies issued as step i starts,
                    not after its exchange (the same bits)
@@ -137,14 +138,19 @@ wide_common.cuh, wide_newton's with one matrix, one cluster barrier a step):
   no push          nothing pushed into the children's slots (wrong values)
   no division      O = o, no division by the max (wrong values)
   float division, reciprocal  as for down_store
+  teams 5, teams 4, teams 3, teams 2, teams 1  (past 8 categories) W
+                   category teams a block (at most CB), not the chooser's
+                   (least_units; at C = 80 and the bench tree's 5 slots 2
+                   as built, two blocks an SM); a block that does not fit
+                   is refused (the same bits)
 
 wide_tbar (cs_kernels.fused_downward_tbar; the same reverse walk, the
 ordered cotangent sums in a sum warp for each 16 patterns):
   as built         csrc/wide_tbar.cu
   no sums          the sum warps add nothing (wrong values)
-  sums on the walk warps  no sum warps: after the hook the walk threads
-                   wait for each other and one walk warp of each 16
-                   patterns runs their sums (the same bits)
+  sums on the walk warps  (one category a block) no sum warps: after the
+                   hook the walk threads wait for each other and one walk
+                   warp of each 16 patterns runs their sums (the same bits)
   no part stores   the sums are not written (wrong values)
   sums before the next step opens  a sum warp arrives at the next step's
                    opening barrier after its sums, not before them (the
@@ -153,6 +159,10 @@ ordered cotangent sums in a sum warp for each 16 patterns):
   registers 255    no cap of 80 registers a thread (the cap keeps every
                    cluster resident at C=8)
   float division   as for down_store
+  stages 3         as for wide_down_store (past one team a ring of 4)
+  teams 5, teams 4, teams 3, teams 2, teams 1  as for wide_down_store (at
+                   C = 80 and 5 slots 5 as built: the sum warps lag a unit
+                   behind the walk on a ring a stage deeper)
 
 tbar (fused_tbar_cs), down_store's walk and the ordered cotangent sums:
   as built         csrc/tbar.cu
@@ -287,10 +297,17 @@ _STORE_FROM_REGISTERS = """    const auto emit = [&](const Step& st, const auto&
     };"""
 _ONE_PATTERN = (("constexpr int CLUSTER_QT = 2;", "constexpr int CLUSTER_QT = 1;"),)
 _STAGES_3 = (("constexpr int CLUSTER_STAGES = 2;", "constexpr int CLUSTER_STAGES = 3;"),)
-# the upward walk's category warps past 8 categories: the chooser's (as
-# built) or W (wide_warps of wide_common.cuh)
-_WARPS = {f"warps {w}": (("bb = b;\n  }\n  return best;", f"bb = b;\n  }}\n  return {w} < CB ? {w} : CB;"),)
-          for w in (10, 5, 4, 2, 1)}
+# the category warps (upward) or teams (reverse) of the walks past 8
+# categories: the chooser's (as built) or W (least_units of wide_common.cuh)
+def _forced_warps(w):
+    return (("bb = b;\n  }\n  return best;", f"bb = b;\n  }}\n  return {w} < CB ? {w} : CB;"),)
+
+
+_WARPS = {f"warps {w}": _forced_warps(w) for w in (10, 5, 4, 2, 1)}
+_TEAMS = {f"teams {w}": _forced_warps(w) for w in (5, 4, 3, 2, 1)}
+# the reverse walks' copies REVERSE_STAGES - 1 steps (past 8 categories:
+# units) ahead on a ring a stage deeper
+_REVERSE_STAGES_3 = (("constexpr int REVERSE_STAGES = 2;", "constexpr int REVERSE_STAGES = 3;"),)
 _TIPS_CACHED = (("tips + ((size_t)node * S + t) * P + p, 4);",
                  "tips + ((size_t)0 * S + t) * P + p, 4);"),)
 _MATRICES_CACHED = (("trans + ((size_t)node * C + c) * SS + 4 * r, 16);",
@@ -417,17 +434,18 @@ KERNELS: Dict[str, Dict[str, Tuple[Tuple[str, str], ...]]] = {
                       ("    if (c == 0)\n      for (int v = g;",
                        "    if (false)\n      for (int v = g;")),
         "no cluster barrier": _no_reverse_barrier("                               smem, hook);"),
-        "stages 3": (("constexpr int REVERSE_STAGES = 2;", "constexpr int REVERSE_STAGES = 3;"),),
+        "stages 3": _REVERSE_STAGES_3,
         "loads on the chain": _REVERSE_LOADS_ON_THE_CHAIN,
         "fetch at the step's start": _FETCH_AT_START,
         "two patterns a thread": (("constexpr int REVERSE_QT = 1;",
                                    "constexpr int REVERSE_QT = 2;"),),
-        "registers 255": (("__launch_bounds__(CLUSTER_THREADS_MAX, S > 32 ? 1 : 2)\nwide_down_store_kernel",
-                           "__launch_bounds__(CLUSTER_THREADS_MAX)\nwide_down_store_kernel"),),
+        "registers 255": (("MULTI || S > 32 ? 1 : 2)\nwide_down_store_kernel",
+                           "1)\nwide_down_store_kernel"),),
         "no push": (("      if (cslot < 0) continue;", "      if (true) continue;"),),
         "no division": (("iqt::div_rn(o[side][j][qq], mx[side][qq]);", "o[side][j][qq];"),),
         "float division": _DIVISION["float division"],
         "reciprocal": _DIVISION["reciprocal"],
+        **_TEAMS,
     },
     "wide_tbar": {
         "as built": (),
@@ -436,8 +454,8 @@ KERNELS: Dict[str, Dict[str, Tuple[Tuple[str, str], ...]]] = {
                      "        acc[j][k] += a[j].z * b[k].z;\n"
                      "        acc[j][k] += a[j].w * b[k].w;\n", ""),),
         "sums on the walk warps": ((_TBAR_SUM_WARPS_ARRIVE, _TBAR_WALK_WARPS_SUM),
-                                   ("const int threads = walkers + groups * SumLanes<SS_>::WARPS * 32;",
-                                    "const int threads = walkers;")),
+                                   ("const int sums = tile / SUM_PATTERNS * SumLanes<S>::WARPS * 32;",
+                                    "const int sums = 0;")),
         "no part stores": (("  if (row) {", "  if (row && st.node < -1) {"),),
         "sums before the next step opens": (
             ("    if (i > 0) ring_arrive(blockDim.x);  // step i - 1 opens: it reads nothing of ours\n"
@@ -447,9 +465,11 @@ KERNELS: Dict[str, Dict[str, Tuple[Tuple[str, str], ...]]] = {
              "                  w * SUM_PATTERNS, L, pst, row, C, c);\n"
              "    if (i > 0) ring_arrive(blockDim.x);\n"),),
         "no cluster barrier": _no_reverse_barrier("                                   n_slots, smem, hook);\n    }\n  }"),
-        "registers 255": (("__launch_bounds__(TBAR_THREADS_MAX, S > 32 ? 1 : 2)\nwide_tbar_kernel",
-                           "__launch_bounds__(TBAR_THREADS_MAX)\nwide_tbar_kernel"),),
+        "registers 255": (("MULTI || S > 32 ? 1 : 2)\nwide_tbar_kernel",
+                           "1)\nwide_tbar_kernel"),),
         "float division": _DIVISION["float division"],
+        "stages 3": _REVERSE_STAGES_3,
+        **_TEAMS,
     },
     "tbar": {
         "as built": (),
@@ -722,12 +742,12 @@ def main(argv=None) -> int:
             print(f"{torch.cuda.get_device_name(dev)}: {kernel}"
                   f"{' (codon, S=64)' if codon else ''} at C={categories}, ms a "
                   f"call at " + ", ".join(map(str, sizes)) + f" {unit}", flush=True)
-            if kernel in ("wide_forward", "wide_store"):
+            if kernel in CODON:  # the four wide walks' launches
                 S = 64 if codon else 20
                 for t in sizes:
                     try:
                         print(f"  as built at {t}, {n_slots} slots: "
-                              f"{build.upward_launch(kernel, categories, S, n_slots, t)}",
+                              f"{build.walk_launch(kernel, categories, S, n_slots, t)}",
                               flush=True)
                     except RuntimeError as e:
                         print(f"  as built at {t}: {e}", flush=True)

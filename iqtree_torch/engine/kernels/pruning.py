@@ -197,27 +197,15 @@ def wide_forward_smem(S: int, C: int, tile: int, n_slots: int,
 
 
 def wide_forward_warps(S: int, C: int, tile: int, n_slots: int) -> int:
-    """Category warps a block of csrc/wide_forward.cu and csrc/wide_store.cu
-    (wide_warps of csrc/wide_common.cuh): 1 at one category a block; past 8
-    categories, of the W = ceil(CB / U) whose block (W warps of tile / 2 x
-    S / RPT threads) fits build.MULTI_THREADS_MAX threads and whose
-    wide_forward_smem fits build.MAX_BLOCK_SMEM, the one of least (U + 2) /
-    b for b = min(2, blocks an SM's shared memory holds), then the most
-    blocks an SM, then the most warps; 1 if none fits."""
+    """Category warps a block of csrc/wide_forward.cu and csrc/wide_store.cu:
+    1 at one category a block; past 8 categories build.least_units over
+    warps of tile / 2 x S / RPT threads, build.MULTI_THREADS_MAX threads a
+    block and wide_forward_smem, least (U + 2) / b."""
     cb = build.wide_layout(C)[1]
     if cb == 1:
         return 1
-    team = tile // 2 * (S // WIDE_RPT[S])
-    best, bu, bb = 1, cb, 0
-    for units in range(1, cb + 1):
-        w = -(-cb // units)
-        smem = wide_forward_smem(S, C, tile, n_slots, warps=w)
-        if w * team > build.MULTI_THREADS_MAX or smem > build.MAX_BLOCK_SMEM:
-            continue
-        b = 2 if build.SM_SMEM // (smem + build.BLOCK_SMEM_RESERVED) > 1 else 1
-        if (units + 2) * bb < (bu + 2) * b or ((units + 2) * bb == (bu + 2) * b and b > bb):
-            best, bu, bb = w, units, b
-    return best
+    return build.least_units(cb, 2, tile // 2 * (S // WIDE_RPT[S]), build.MULTI_THREADS_MAX,
+                             lambda w: wide_forward_smem(S, C, tile, n_slots, warps=w))
 
 
 def wide_site_lnl(steps, n_slots, trans, tips, props, state_freq, invar,

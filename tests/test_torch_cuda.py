@@ -11,7 +11,7 @@ Without a CUDA device they skip.  Inputs: a random 40-taxon DNA alignment
 instances (S=64) a random 24-taxon codon alignment (101 codons) under
 genetic codes 1, 2 and 6, GY+F3X4+I+G (the parsimony kernel's 64-bit
 instance: 36 taxa x 150 codons).  Tolerances are float32 ones: the
-kernels and the twins sum in different orders.  Nine tests hold
+kernels and the twins sum in different orders.  Eleven tests hold
 kernels' bits against their earlier designs, built from the csrc/ directory
 that IQT_EARLIER_CSRC names; they skip without it.
 """
@@ -1130,6 +1130,54 @@ def _upward_raw(kernel, k, n_slots):
     return (out,)
 
 
+def _reverse_team_counts(C, n_slots, sums):
+    """(slots, W): from the tree's n_slots up, the first slot count at which
+    the reverse walk's chooser takes each of its category team counts W for
+    wide_down_store (wide_tbar with `sums`), as far as the kernel's block
+    fits (a larger slot pool is valid: the walk leaves the extra slots
+    unused)."""
+    from iqtree_torch.engine.kernels import build
+
+    smem = cs_kernels.wide_tbar_smem if sums else cs_kernels.wide_down_store_smem
+    out, seen = [], set()
+    while True:
+        w = cs_kernels.wide_reverse_teams(20, C, 16, n_slots, sums=sums)
+        if smem(20, C, 16, n_slots, warps=w) > build.MAX_BLOCK_SMEM:
+            return out
+        if w not in seen:
+            seen.add(w)
+            out.append((n_slots, w))
+        n_slots += 1
+
+
+def _reverse_raw(kernel, k, n_slots, targs):
+    """One launch of wide_down_store's or wide_tbar's C entry at n_slots
+    slots (the wrappers take the tree's): (out, osc) filled with NaN where
+    the outside store writes nothing, or (tbar,) from part rows of 16
+    patterns in one chunk (targs: _tbar_args(k))."""
+    from iqtree_torch.engine.kernels import build
+
+    steps, trans = k["steps"], k["trans"]
+    n_rows, C, S = trans.shape[:3]
+    P = k["up"].shape[2]
+    if kernel == "wide_down_store":
+        out = torch.full((n_rows, C * S, P), float("nan"), device=trans.device)
+        osc = torch.full((n_rows, P), float("nan"), device=trans.device)
+        build.launch("wide_down_store", steps, steps.shape[0], trans,
+                     k["freq"].reshape(-1).contiguous(), k["up"], k["usc"], P, out, osc, C, S,
+                     n_slots, cs_kernels.WIDE_DOWN_STORE_TILE)
+        return out, osc
+    tile = cs_kernels.WIDE_TBAR_TILE
+    blocks = -(-P // tile) * (tile // 16)
+    part = torch.zeros(blocks, n_rows, C, S, S, device=trans.device)
+    tbar = torch.empty(n_rows, C, S, S, device=trans.device)
+    rootd = (k["model"].props.float()[:, None] * k["freq"]).reshape(-1).contiguous()
+    build.launch("wide_tbar", steps, steps.shape[0], trans, rootd, targs[6].contiguous(),
+                 targs[7], k["up"], k["usc"], P, n_rows, part, blocks, tbar, C, S, n_slots,
+                 tile)
+    return (tbar,)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("C", [9, 12, 20, 40, 80, 240])
 def test_wide_walks_past_eight_categories_match_twins(C):
@@ -1142,7 +1190,8 @@ def test_wide_walks_past_eight_categories_match_twins(C):
     write outside the real categories' rows: the store leaves the tip and
     dummy rows as they were, the outside store the root and dummy rows.
     The upward walks also at every count of category warps their chooser
-    takes as the slot pool grows (each count's launch as the C entry makes
+    takes as the slot pool grows, and the reverse walks at every count of
+    category teams theirs takes (each count's launch as the C entry makes
     it): the same bits at each, twice."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -1176,7 +1225,7 @@ def test_wide_walks_past_eight_categories_match_twins(C):
     assert counts[0] == (k["n_slots"], pruning.wide_forward_warps(20, C, 16, k["n_slots"]))
     for n_slots, w in counts:
         for kernel in ("wide_forward", "wide_store"):
-            lay = build.upward_launch(kernel, C, 20, n_slots, 16)
+            lay = build.walk_launch(kernel, C, 20, n_slots, 16)
             assert lay["warps"] == w and lay["threads"] == 32 * w and lay["clusters"] > 0
             assert lay["smem"] == pruning.wide_forward_smem(20, C, 16, n_slots, warps=w)
         assert torch.equal(_upward_raw("wide_forward", k, n_slots)[0], got)
@@ -1206,6 +1255,49 @@ def test_wide_walks_past_eight_categories_match_twins(C):
     edges = R - 2
     assert not bool(tb[edges:].any())
     assert float((tb[:edges] - tb_p[:edges]).abs().max() / tb_p[:edges].abs().max()) <= 1e-4
+    # the reverse walks at every count of category teams
+    for kernel, sums in (("wide_down_store", False), ("wide_tbar", True)):
+        counts = _reverse_team_counts(C, k["n_slots"], sums)
+        assert counts[0] == (k["n_slots"],
+                             cs_kernels.wide_reverse_teams(20, C, 16, k["n_slots"], sums=sums))
+        for n_slots, w in counts:
+            lay = build.walk_launch(kernel, C, 20, n_slots, 16)
+            smem = (cs_kernels.wide_tbar_smem if sums else cs_kernels.wide_down_store_smem)(
+                20, C, 16, n_slots, warps=w)
+            threads = cs_kernels.wide_tbar_threads(20, 16, w) if sums else 64 * w
+            assert lay["warps"] == w and lay["threads"] == threads and lay["clusters"] > 0
+            assert lay["smem"] == smem
+            for _ in range(2):
+                got = _reverse_raw(kernel, k, n_slots, targs)
+                if sums:
+                    assert torch.equal(got[0], tb), (kernel, n_slots, w)
+                else:
+                    assert torch.equal(got[0][rows], out[rows]), (kernel, n_slots, w)
+                    assert torch.equal(got[1][rows], osc[rows]), (kernel, n_slots, w)
+                    assert bool(got[0][R - 2:].isnan().all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["wide_down_store", "wide_tbar"])
+def test_reverse_walks_past_eight_categories_give_the_earlier_designs_bits(kernel):
+    """Past 8 categories the reverse walk on W category teams (and, in the
+    gradient sweep, sums that lag a unit behind the walk) keeps the one-team
+    walk's arithmetic for every category and the sums' part rows, so the
+    outside partials and scales and the cotangents are the earlier build's
+    bit for bit at C = 9, 20 and 80, at every count of category teams the
+    chooser takes as the slot pool grows (the earlier build from
+    IQT_EARLIER_CSRC, at the same slots)."""
+    earlier = _earlier_csrc()
+    for C in (9, 20, 80):
+        k = _lane_case(C, 400 + C, alphabet="ARNDCQEGHILKMFPSTWYV-X", n=30, sites=301)
+        targs = _tbar_args(k)
+        counts = _reverse_team_counts(C, k["n_slots"], kernel == "wide_tbar")
+        got = [_reverse_raw(kernel, k, n, targs) for n, _ in counts]
+        with _earlier_design(kernel, earlier):
+            want = [_reverse_raw(kernel, k, n, targs) for n, _ in counts]
+        for (n, w), gs, ws in zip(counts, got, want):
+            for g, v in zip(gs, ws):
+                assert torch.equal(g.nan_to_num(-1.0), v.nan_to_num(-1.0)), (C, n, w)
 
 
 @pytest.mark.cuda

@@ -390,6 +390,99 @@ def test_check_shape_refuses_exactly_what_fits_at_no_warps(C):
                 build.check_shape(C, S, n_slots=slots)
 
 
+@pytest.mark.parametrize("warps,down,grad", [(1, 103744, 107072), (2, 115520, 133824),
+                                             (4, 139072, 175552), (5, 150848, 196416)])
+def test_reverse_walk_shared_memory_on_category_teams(warps, down, grad):
+    """Past 8 categories the reverse walks' block has W category teams: a
+    ring stage holds W categories' [S,S] blocks of both children and their
+    rows and scales, the max buffers stay a block's (4 K tile), and the
+    gradient sweep's ring is a stage deeper past one team (its sums lag a
+    unit behind the walk), with a sum warp's stage for each team.  At C20's
+    80 categories (10 a block on 8 blocks), 16 patterns a cluster and the
+    bench tree's 5 slots: 4 (NS W (2 S^2 + 2 (S+1) tile) + slots (CB S + 1)
+    tile + 2 CB S tile + 4 K tile) bytes, and for the gradient sweep 4 (2
+    tile + W 2 S^2) more; at W = 1 the one-team layout's 103 744 and 107 072
+    bytes."""
+    S, C, tile, slots, K, cb = 20, 80, 16, 5, 8, 10
+    ring = 2 * S * S + 2 * (S + 1) * tile
+    rest = slots * (cb * S + 1) * tile + 2 * cb * S * tile + 4 * K * tile
+    stages = 3 if warps > 1 else 2
+    assert cs_kernels.wide_down_store_smem(S, C, tile, slots, warps=warps) == down == \
+        4 * (2 * warps * ring + rest)
+    assert cs_kernels.wide_tbar_smem(S, C, tile, slots, warps=warps) == grad == \
+        4 * (stages * warps * ring + rest + 2 * tile + warps * 2 * S * S)
+    assert cs_kernels.wide_tbar_threads(S, tile, warps) == 96 * warps
+
+
+@pytest.mark.parametrize("C", [9, 40, 80, 240])
+def test_reverse_walk_category_teams_chooser(C):
+    """The reverse walks' launch takes, of the W = ceil(CB / U) category
+    teams whose block fits its thread bound (64 walk threads a team at 16
+    patterns a cluster, 320 a block; the gradient sweep 96 with its sum
+    warp, 480) and the 232 448 bytes a block may have, the least (2 U + 2)
+    / b for b = min(2, blocks an SM's 233 472 bytes hold at 1 024 reserved
+    a block), then the most blocks an SM, then the most teams: a
+    restatement over 1-15 slots.  C20 at the bench tree's 5 slots: 2 teams
+    and two blocks an SM for the outside store, 5 and one for the gradient
+    sweep; C9 (2 a block) 2 teams."""
+    from iqtree_torch.engine.kernels import build
+
+    S, tile = 20, 16
+    cb = build.wide_layout(C)[1]
+    for slots in range(1, 16):
+        for sums, smem in ((False, cs_kernels.wide_down_store_smem),
+                           (True, cs_kernels.wide_tbar_smem)):
+            cands = []
+            for u in range(1, cb + 1):
+                w = -(-cb // u)
+                by = smem(S, C, tile, slots, warps=w)
+                if w * (96 if sums else 64) <= (480 if sums else 320) and by <= 232448:
+                    b = min(2, 233472 // (by + 1024))
+                    cands.append(((2 * u + 2) / b, -b, -w))
+            want = -min(cands)[2] if cands else 1
+            assert cs_kernels.wide_reverse_teams(S, C, tile, slots, sums=sums) == want
+    if C == 80:
+        assert cs_kernels.wide_reverse_teams(S, C, tile, 5) == 2
+        assert cs_kernels.wide_reverse_teams(S, C, tile, 5, sums=True) == 5
+    if C == 9:
+        assert cs_kernels.wide_reverse_teams(S, C, tile, 5) == 2
+    assert cs_kernels.wide_reverse_teams(S, 8, tile, 5) == 1
+
+
+@pytest.mark.parametrize("C", [12, 40, 80, 240])
+def test_check_shape_serves_what_one_team_served(C):
+    """The reverse walks' shared memory at one category team is the layout
+    they had before category teams (a ring of two stages of one category),
+    the least of any team count, so check_shape accepts and refuses exactly
+    the (C, slots) that layout and the upward walk's one-warp layout fit;
+    and wherever it accepts, the launch each of the four walks' choosers
+    picks fits a block."""
+    from iqtree_torch.engine.kernels import build
+
+    S, tile = 20, 16
+    K, cb = build.wide_layout(C)
+    ds, tb = cs_kernels.wide_down_store_smem, cs_kernels.wide_tbar_smem
+    for slots in range(1, 24):
+        one = 4 * (2 * (2 * S * S + 2 * (S + 1) * tile) + slots * (cb * S + 1) * tile
+                   + 2 * cb * S * tile + 4 * K * tile)
+        assert ds(S, C, tile, slots) == one
+        assert tb(S, C, tile, slots) == one + 4 * (2 * tile + 2 * S * S)
+        for f in (ds, tb):
+            assert min(f(S, C, tile, slots, warps=-(-cb // u))
+                       for u in range(1, cb + 1)) == f(S, C, tile, slots)
+        up = 4 * (2 * 2 * (S * S + S * tile) + slots * (cb * S + 1) * tile + 2 * K * tile)
+        if max(up, one + 4 * (2 * tile + 2 * S * S)) <= build.MAX_BLOCK_SMEM:
+            build.check_shape(C, S, n_slots=slots)
+            for sums, f in ((False, ds), (True, tb)):
+                w = cs_kernels.wide_reverse_teams(S, C, tile, slots, sums=sums)
+                assert f(S, C, tile, slots, warps=w) <= build.MAX_BLOCK_SMEM
+            w = pruning.wide_forward_warps(S, C, tile, slots)
+            assert pruning.wide_forward_smem(S, C, tile, slots, warps=w) <= build.MAX_BLOCK_SMEM
+        else:
+            with pytest.raises(NotImplementedError, match="shared memory"):
+                build.check_shape(C, S, n_slots=slots)
+
+
 def _forty_case():
     """C10 (40 categories) on an 8-taxon protein alignment with ambiguity
     codes and a random tree, float64 on the CPU."""

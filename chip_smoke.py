@@ -116,13 +116,43 @@ Phases (any failure exits non-zero; nothing is caught):
      `-s ALN -m C20 -n 2 -ninit 4 -ntop 2 -seed 1 -bb 1000 -wbt`, with the
      launch counts read around it, its score re-evaluated in float64, its
      per-phase profile, its bootstrap outputs checked and its peak device
-     memory.
+     memory;
+ 23. at the DNA bench's shapes (bench_data.npz, GTR+I+R9, +R10 and +R16,
+     weights and rates from numpy seed 23) the four wide walks' DNA
+     instances (S=4, several categories a block: past 8 categories the
+     CS-packed kernels do not serve) and wide_newton's multi-category
+     instance (a block all categories of a tile of patterns) against
+     their twins at the tolerances of phase 15 (the branch-Newton sweep
+     1e-4 relative to its largest entry), two launches bit-equal, timed
+     (three 10-launch means), their registers and spills (ptxas), the
+     choosers' launch at C=10 on the bench tree's slots and at
+     ceil(log2 N)+1; also at an +R10 rate vector from 1e-3 to 20;
+ 24. FreeRate fits through the CLI entry point: `-s ALN -te TREE -m
+     GTR+R4` (C=4: the CS-packed kernels launch, the wide walks do not)
+     and `-m GTR+I+R10` (C=10: the DNA instances of the walks and of
+     wide_newton launch, the CS-packed kernels do not), each with its
+     launch counts, wall time, the written tree and model re-evaluated in
+     float64, and once more under torch.profiler; then the search `-m
+     GTR+I+R10 -n 1 -ninit 2 -ntop 1 -seed 1` on the bench's first 100
+     taxa (the outside-partial store's DNA instance serves its NNI
+     evaluator), its launches, wall time and score re-evaluated;
+ 25. `-s ALN -m LG+R4 -n 2 -ninit 4 -ntop 2 -seed 1 -bb 1000 -wbt` on the
+     protein bench (phase 12's flags): launches of the wide kernels and
+     the parsimony scorer, the score re-evaluated in float64, the UFBoot
+     outputs, the per-phase profile, and the search under torch.profiler;
+ 26. `-s ALN -te TREE -m LG4X` on the protein bench (the mixture fused with
+     FreeRate, C=4): its lnL re-evaluated in float64 with the fit's class
+     weights (FreeRate's) and, for information, with the mixture's defined
+     ones (what ModelArrays.from_mixture takes after the fit, as the JAX
+     package does), its launches, wall time and profile.
 Prints the kernels' JSON line (the DNA kernels' launches from the DNA
 search, the wide kernels' and the 32-bit parsimony scorer's from the
 protein search, the multi-tree and ablation kernels' from phases 13 and
 14, which no CLI path reaches, the codon instances' and the 64-bit
 parsimony scorer's from the codon search of phase 19, the C=80 instances'
-from the C20 search of phase 22), then as its last line {"ok": true,
+from the C20 search of phase 22, the DNA instances' from the GTR+I+R10 fit
+of phase 24 and the outside store's from its R10 search), then as its last
+line {"ok": true,
 "device": {...}}.
 """
 
@@ -952,6 +982,7 @@ def main():
     codon_phases(dev, card, record, results, cli_main, bdir)
     codon_search_phases(dev, card, record, results, cli_main, bdir, sm_mhz)
     mixture_phases(dev, card, record, results, cli_main, bdir)
+    freerate_phases(dev, card, record, results, cli_main, bdir)
 
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
@@ -2310,6 +2341,422 @@ def mixture_phases(dev, card, record, results, cli_main, bdir):
         results[f"{k}_c80"]["launches"] = launches[k]
     for k in ("wide_newton", "forward", "store", "tbar", "newton", "down_store"):
         check(launches[k] == 0, f"kernel {k} stays off the C20 search")
+
+
+def freerate_phases(dev, card, record, results, cli_main, bdir):
+    """Phase 23: the wide walks' DNA instances past 8 categories (S = 4) on
+    the DNA bench; then phases 24-26 (freerate_cli_phases)."""
+    import numpy as np
+    import torch
+    from iqtree_torch.engine.kernels import build
+    from iqtree_torch.engine.kernels import cs_kernels as csk
+    from iqtree_torch.engine.kernels import pruning as pk
+    from iqtree_torch.engine.kernels.probe import ptxas_lines
+    from iqtree_torch.engine.likelihood import (ModelArrays, SiteData, TreeArrays,
+                                                branch_transition_mats, ptn_invar,
+                                                tip_partials)
+    from iqtree_torch.io.alignment import Alignment
+    from iqtree_torch.models.factory import parse_model_string
+    from iqtree_torch.trees.tree import PhyloTree
+
+    phase("23. the wide walks' and wide_newton's DNA instances past 8 categories (S=4) "
+          "against their plain twins (1000 taxa x 10k sites, GTR+I+R9/R10/R16)")
+    walks = ("wide_forward", "wide_store", "wide_tbar", "wide_down_store")
+    for n in walks:
+        regs = ptxas_lines((bdir / f"{n}.log").read_text(), "ILi4ELi1ELb1E")
+        print(f"  {n} S=4 instance, several categories a block (ptxas): {'; '.join(regs)}")
+        check(bool(regs), f"ptxas reports the DNA instance of {n}")
+        check(not ptxas_lines((bdir / f"{n}.log").read_text(), "ILi4ELi1ELb0E"),
+              f"{n} has no one-category DNA instance (the CS-packed kernels serve C <= 8)")
+    regs = ptxas_lines((bdir / "wide_newton.log").read_text(), "wide_newton_multi_kernel")
+    print(f"  wide_newton S=4 instance, all categories a block (ptxas): {'; '.join(regs)}")
+    check(bool(regs), "ptxas reports the DNA instance of wide_newton")
+    names, seqs, tree_nwk = load_bench()
+    aln = Alignment.from_sequences(names, seqs, "DNA")
+    tree = PhyloTree.from_newick(tree_nwk, aln.names)
+    site = SiteData.from_alignment(aln, dev, torch.float32)
+    ta = TreeArrays.from_tree(tree, dev)
+    steps_np, n_slots = pk.device_slot_schedule(tree, ta)
+    steps = torch.as_tensor(steps_np, device=dev)
+    N, P, S, R = aln.n_taxa, aln.n_patterns, 4, 2 * aln.n_taxa
+    tips = tip_partials(site).contiguous()
+    inner = slice(N, R - 1)
+    print(f"{N} taxa, {P} patterns, {n_slots} slots (at most {build.max_slots(N)} for "
+          f"{N} taxa)")
+    for slots in sorted({n_slots, build.max_slots(N)}):  # what the choosers pick at C=10
+        K, cb = build.wide_layout(10)
+        for n in walks:
+            lay = build.walk_launch(n, 10, S, slots, 16)
+            upward = n in walks[:2]
+            w = (pk.wide_forward_warps(S, 10, 16, slots) if upward else
+                 csk.wide_reverse_teams(S, 10, 16, slots, sums=n == "wide_tbar"))
+            smem = (pk.wide_forward_smem(S, 10, 16, slots, warps=w) if upward else
+                    csk.wide_tbar_smem(S, 10, 16, slots, warps=w) if n == "wide_tbar" else
+                    csk.wide_down_store_smem(S, 10, 16, slots, warps=w))
+            print(f"  C=10 at {slots} slots, {n}: {lay['warps']} category "
+                  f"{'warps' if upward else 'teams'} ({cb} categories a block on {K}-block "
+                  f"clusters, {-(-cb // lay['warps'])} units a "
+                  f"{'step' if upward else 'phase'}), {lay['threads']} threads, "
+                  f"{lay['smem']} B of shared memory a block (of {SMEM_BLOCK}), at most "
+                  f"{lay['clusters']} clusters at once ({-(-P // 16)} clusters)")
+            check(lay["warps"] == w and lay["smem"] == smem <= SMEM_BLOCK
+                  and lay["clusters"] > 0, f"{n}'s launch at C=10 is its chooser's")
+    rng = np.random.default_rng(23)
+
+    def s4_case(C, rates=None):
+        """GTR+I+R{C} with exchangeabilities, weights and rates from the seed
+        (or `rates`), and its edge matrices at the bench tree's lengths."""
+        subst, rate = parse_model_string(f"GTR+I+R{C}", aln)
+        subst.set_rate_param_vector(rng.uniform(0.5, 3.0, 5))
+        rate.p_invar = 0.1
+        rate.free_rates = (np.sort(rng.gamma(0.7, 1.0 / 0.7, C)) if rates is None
+                           else np.asarray(rates, float))
+        rate.free_props = rng.dirichlet(np.ones(C))
+        model = ModelArrays.from_model(subst, rate, dev)
+        if rates is not None:  # the rates as given, not renormalized to mean 1
+            model.rates = torch.as_tensor(rate.free_rates, device=dev)
+        return (model, branch_transition_mats(model, ta.blen).float().contiguous(),
+                ptn_invar(model, site).float().contiguous())
+
+    def means(name, fn):  # three 10-launch means, and their mean
+        ms = [cuda_ms(fn, 10) for _ in range(3)]
+        print(f"  {name}: three 10-launch means {', '.join(f'{m:.3f}' for m in ms)} ms")
+        return sum(ms) / len(ms)
+
+    cases = [(9, None), (10, None), (16, None), (10, np.geomspace(1e-3, 20.0, 10))]
+    for C, rates in cases:
+        extreme = rates is not None
+        tag = f"C={C}" + (" (rates 1e-3 .. 20)" if extreme else "")
+        model, trans, invar = s4_case(C, rates)
+        print(f"{tag}: rates {np.array2string(model.rates.cpu().numpy(), precision=4)}")
+        props, freq = model.props.float(), model.state_freq.float()
+        CS, CSS = C * S, C * S * S
+        check(not build.packed(C, S), f"{tag} is past the CS-packed kernels")
+        rec = C == 10 and not extreme  # +R10: the kernels line's S=4 rows
+        fwd_flops = (N - 1) * P * (4 * CSS + 3 * CS) + 2 * CS * P
+        # the forward kernel, through the engine's wrapper
+        before = pk.wide_site_lnl.launches
+        k_out = pk.fused_site_lnl(steps, n_slots, trans, tips, props, freq, invar)
+        check(pk.wide_site_lnl.launches == before + 1, f"{tag}: forward runs the wide walk")
+        bit_equal(f"wide_forward S=4 {tag}", [k_out],
+                  [pk.fused_site_lnl(steps, n_slots, trans, tips, props, freq, invar)])
+        err = float((k_out - pk._site_lnl_plain(steps, trans, tips, props, freq,
+                                                invar)).abs().max())
+        print(f"wide_forward S=4 {tag}: max_abs_err {err:.3e} (tol 1e-3)")
+        check(err <= 1e-3, f"wide_forward S=4 {tag} against its twin")
+        if rec:
+            record("wide_forward_s4", "iqtree_torch/engine/kernels/csrc/wide_forward.cu",
+                   "iqtree_tpu/engine/kernels/pruning.py:34", err, 1e-3,
+                   means("wide_forward S=4 C=10", lambda: pk.fused_site_lnl(
+                       steps, n_slots, trans, tips, props, freq, invar)),
+                   cuda_ms(lambda: pk._site_lnl_plain(steps, trans, tips, props, freq,
+                                                      invar), 2),
+                   4 * (N * S * P + R * CSS + 6 * (N - 1) + CS + 2 * P), fwd_flops)
+        # the upward store
+        up_k, usc_k = csk.fused_upward_store_cs(steps, n_slots, trans, tips)
+        up2, usc2 = csk.fused_upward_store_cs(steps, n_slots, trans, tips)
+        bit_equal(f"wide_store S=4 {tag}", [up_k[inner], usc_k[inner]],
+                  [up2[inner], usc2[inner]])
+        del up2, usc2
+        up_p, usc_p = pk.upward_plain(steps, trans, tips)
+        err = store_err(up_k, usc_k, up_p, usc_p, inner)
+        del up_p, usc_p
+        print(f"wide_store S=4 {tag}: max_abs_err {err:.3e} (tol 1e-4)")
+        check(err <= 1e-4, f"wide_store S=4 {tag} against its twin")
+        if rec:
+            record("wide_store_s4", "iqtree_torch/engine/kernels/csrc/wide_store.cu",
+                   "iqtree_tpu/engine/kernels/pruning.py:822", err, 1e-4,
+                   means("wide_store S=4 C=10", lambda: csk.fused_upward_store_cs(
+                       steps, n_slots, trans, tips)),
+                   cuda_ms(lambda: pk.upward_plain(steps, trans, tips), 2),
+                   4 * (N * S * P + R * CSS + 6 * (N - 1) + (N - 1) * (CS + 1) * P),
+                   fwd_flops)
+        # the gradient sweep
+        csk.fill_tip_rows_cs(up_k, usc_k, tips, C)
+        lnl, wp = k_out.contiguous(), site.pattern_freq.contiguous()
+        targs = (steps, n_slots, trans, tips, props, freq, lnl, wp)
+        tb_k = csk.fused_tbar_cs(*targs, up=up_k, usc=usc_k)
+        bit_equal(f"wide_tbar S=4 {tag}", [tb_k], [csk.fused_tbar_cs(*targs, up=up_k,
+                                                                     usc=usc_k)])
+        err = tbar_err(tb_k, csk._tbar_plain(steps, trans, props, freq, lnl, wp, up_k,
+                                             usc_k), R)
+        del tb_k
+        print(f"wide_tbar S=4 {tag}: max rel err {err:.3e} (tol 1e-4)")
+        check(err <= 1e-4, f"wide_tbar S=4 {tag} against its twin")
+        if rec:
+            record("wide_tbar_s4", "iqtree_torch/engine/kernels/csrc/wide_tbar.cu",
+                   "iqtree_tpu/engine/kernels/pruning.py:1144", err, 1e-4,
+                   means("wide_tbar S=4 C=10", lambda: csk.fused_tbar_cs(
+                       *targs, up=up_k, usc=usc_k)),
+                   cuda_ms(lambda: csk._tbar_plain(steps, trans, props, freq, lnl, wp, up_k,
+                                                   usc_k), 2),
+                   4 * (R * (CS + 1) * P + 2 * P + 2 * R * CSS), tbar_flops(N, P, CS, CSS))
+        # the outside-partial store
+        dargs = (steps, n_slots, trans, up_k, usc_k, freq)
+        o_k = csk.fused_down_store_cs(*dargs)
+        bit_equal(f"wide_down_store S=4 {tag}", o_k, csk.fused_down_store_cs(*dargs))
+        check(not bool(o_k[0][R - 2:].any()) and not bool(o_k[1][R - 2:].any()),
+              f"root and dummy rows of the outside store are 0 at {tag}")
+        err = outside_err(o_k, csk._down_store_plain(*dargs[:1], *dargs[2:]), R)
+        del o_k
+        print(f"wide_down_store S=4 {tag}: max_abs_err {err:.3e} (tol 1e-4)")
+        check(err <= 1e-4, f"wide_down_store S=4 {tag} against its twin")
+        if rec:
+            record("wide_down_store_s4",
+                   "iqtree_torch/engine/kernels/csrc/wide_down_store.cu",
+                   "iqtree_tpu/engine/kernels/pruning.py:1437", err, 1e-4,
+                   means("wide_down_store S=4 C=10",
+                         lambda: csk.fused_down_store_cs(*dargs)),
+                   cuda_ms(lambda: csk._down_store_plain(*dargs[:1], *dargs[2:]), 2),
+                   4 * (2 * R * (CS + 1) * P + R * CSS + 6 * (N - 1) + CS),
+                   P * (2 * (N - 1) * (2 * CSS + 3 * CS) + (N - 2) * 2 * CSS))
+        # the branch-Newton sweep: wide_newton's multi-category instance
+        mats = csk.stacked_deriv_mats(model, ta.blen).float().contiguous()
+        nargs = (steps, n_slots, mats, props, freq, wp, invar, up_k, usc_k)
+        before = (csk.newton_sweep.launches, csk.wide_newton_sweep.launches)
+        d_k = csk.newton_sweep(*nargs)
+        check((csk.newton_sweep.launches, csk.wide_newton_sweep.launches)
+              == (before[0], before[1] + 1), f"{tag}: the branch-Newton sweep runs "
+              "wide_newton's DNA instance, not the CS-packed newton.cu")
+        bit_equal(f"wide_newton S=4 {tag}", d_k, csk.newton_sweep(*nargs))
+        check(not bool(d_k[0][[ta.root, ta.dummy]].any()),
+              f"root and dummy rows of the branch derivatives are 0 at {tag}")
+        d_p = csk._newton_plain(*nargs[:1], *nargs[2:])
+        err = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(d_k, d_p))
+        del d_k, d_p
+        print(f"wide_newton S=4 {tag}: max rel err {err:.3e} (tol 1e-4), "
+              f"{csk.WIDE_NEWTON_MULTI_TILE} patterns a block")
+        check(err <= 1e-4, f"wide_newton S=4 {tag} against its twin")
+        if rec:
+            record("wide_newton_s4", "iqtree_torch/engine/kernels/csrc/wide_newton.cu",
+                   "iqtree_tpu/engine/kernels/cs_kernels.py:300", err, 1e-4,
+                   means("wide_newton S=4 C=10", lambda: csk.newton_sweep(*nargs)),
+                   cuda_ms(lambda: csk._newton_plain(*nargs[:1], *nargs[2:]), 2),
+                   4 * (R * (CS + 1) * P + 3 * P + 3 * R * CSS + 2 * R),
+                   newton_flops(N, P, CS, CSS))
+            print("  C=10 wide_newton at 8 / 16 / 32 patterns a block ("
+                  f"{csk.WIDE_NEWTON_MULTI_TILE} is the wrapper's): " + ", ".join(
+                      f"{cuda_ms(lambda: csk.wide_newton_sweep(*nargs, tile=t), 10):.3f} ms"
+                      for t in (8, 16, 32)))
+        elif not extreme:
+            means(f"wide_newton S=4 {tag}", lambda: csk.newton_sweep(*nargs))
+        del mats, nargs
+        if rec:  # for information: more patterns a cluster, fewer waves
+            for t in (32, 64):
+                got = [pk.wide_site_lnl(steps, n_slots, trans, tips, props, freq, invar,
+                                        tile=t),
+                       pk.fused_upward_store(steps, n_slots, trans, tips, tile=t)[0][inner],
+                       csk.fused_downward_tbar(*targs, up=up_k, usc=usc_k, tile=t),
+                       csk.fused_down_store(*dargs, tile=t)[0]]
+                want = [k_out, csk.fused_upward_store_cs(steps, n_slots, trans,
+                                                         tips)[0][inner],
+                        csk.fused_tbar_cs(*targs, up=up_k, usc=usc_k),
+                        csk.fused_down_store_cs(*dargs)[0]]
+                same = [torch.equal(g, w) for g, w in zip(got, want)]
+                del got, want
+                ms = [cuda_ms(lambda: pk.wide_site_lnl(steps, n_slots, trans, tips, props,
+                                                       freq, invar, tile=t), 10),
+                      cuda_ms(lambda: pk.fused_upward_store(steps, n_slots, trans, tips,
+                                                            tile=t), 10),
+                      cuda_ms(lambda: csk.fused_downward_tbar(*targs, up=up_k, usc=usc_k,
+                                                              tile=t), 10),
+                      cuda_ms(lambda: csk.fused_down_store(*dargs, tile=t), 10)]
+                print(f"  C=10 at {t} patterns a cluster (16 is the wrappers'): "
+                      + ", ".join(f"{n} {m:.3f} ms (16's bits: {b})"
+                                  for n, m, b in zip(walks, ms, same)))
+        elif not extreme:
+            for n, fn in (("wide_forward", lambda: pk.fused_site_lnl(
+                              steps, n_slots, trans, tips, props, freq, invar)),
+                          ("wide_store", lambda: csk.fused_upward_store_cs(
+                              steps, n_slots, trans, tips)),
+                          ("wide_tbar", lambda: csk.fused_tbar_cs(*targs, up=up_k,
+                                                                  usc=usc_k)),
+                          ("wide_down_store", lambda: csk.fused_down_store_cs(*dargs))):
+                means(f"{n} S=4 {tag}", fn)
+        del up_k, usc_k, dargs, targs, model, trans, invar
+        torch.cuda.empty_cache()
+    for k in walks + ("wide_newton",):
+        r_ = results[f"{k}_s4"]
+        print(f"{k} S=4 C=10: {r_['ms']:.3f} ms, {r_['bound_ms'] / r_['ms']:.1%} of its "
+              f"bound ({r_['bound_by']}); the CS-packed kernel at C=4 "
+              f"{results[k[5:]]['ms']:.3f} ms")
+    del site, ta, tips
+    torch.cuda.empty_cache()
+    freerate_cli_phases(dev, card, results, cli_main)
+
+
+def freerate_cli_phases(dev, card, results, cli_main):
+    """Phases 24-26: FreeRate through the CLI -- the GTR+R4 and GTR+I+R10
+    fits on the DNA bench, the LG+R4 search with its bootstrap and the LG4X
+    fit on the protein bench."""
+    import numpy as np
+    import torch
+    from iqtree_torch.engine import parsimony as pars
+    from iqtree_torch.engine.kernels import cs_kernels as csk
+    from iqtree_torch.engine.kernels import pruning as pk
+    from iqtree_torch.engine.likelihood import (ModelArrays, SiteData, TreeArrays,
+                                                compute_loglik)
+    from iqtree_torch.io.alignment import Alignment
+    from iqtree_torch.models.factory import parse_model_string
+    from iqtree_torch.trees.tree import PhyloTree
+
+    walks = ("wide_forward", "wide_store", "wide_tbar", "wide_down_store")
+    names, seqs, tree_nwk = load_bench()
+    aln = Alignment.from_sequences(names, seqs, "DNA")
+
+    phase("24. FreeRate fits through the CLI on cuda: -te GTR+R4 and -te GTR+I+R10 "
+          "(1000 taxa x 10k sites)")
+    counters = {"wide_forward": pk.wide_site_lnl, "wide_store": pk.fused_upward_store,
+                "wide_tbar": csk.fused_downward_tbar,
+                "wide_down_store": csk.fused_down_store,
+                "wide_newton": csk.wide_newton_sweep, "forward": pk.fused_site_lnl,
+                "store": csk.fused_upward_store_cs, "tbar": csk.fused_tbar_cs,
+                "newton": csk.newton_sweep, "down_store": csk.fused_down_store_cs}
+    packed = ("forward", "store", "tbar", "newton", "down_store")
+    for model_name in ("GTR+R4", "GTR+I+R10"):
+        with tempfile.TemporaryDirectory() as tmp:
+            args = write_inputs(tmp, names, seqs, tree_nwk, model=model_name)[0]
+            wall, launches, log, nwk = run_cli(cli_main, args, counters)
+            for line in log:
+                if line.startswith(("Likelihood engine", "Branch optimization", "Memory")):
+                    print(line)
+            fit_lnl = float(logged(log, "Optimal log-likelihood:"))
+            model_str = logged(log, "Best-fit model parameters:")
+            lnl64, _, _ = reevaluate(nwk, model_str, aln, dev, grad=False)
+            print(f"fitted model {model_str}")
+            print(f"-te {model_name} fit lnL {fit_lnl:.4f}; the written tree and model "
+                  f"re-evaluated in float64 (plain pass) {lnl64:.4f}; for information, "
+                  f"the binary's GTR+G4 fit of the same tree {REF_OPTIMUM}")
+            print(f"-te {model_name} fit wall time {wall:.2f} s on {card}")
+            print(f"-te {model_name} fit launches: {launches}")
+            check(abs(lnl64 - fit_lnl) < 1.0, f"{model_name} fit lnL vs its float64 "
+                  "re-evaluation")
+            if model_name == "GTR+R4":  # C = 4: the CS-packed kernels (a -te fit
+                # runs no outside store)
+                for k in packed[:4]:
+                    check(launches[k] > 0, f"kernel {k} launched on the GTR+R4 fit")
+                for k in walks + ("wide_newton",):
+                    check(launches[k] == 0, f"kernel {k} stays off the GTR+R4 fit")
+            else:  # C = 10: the DNA instances of the wide walks and of wide_newton
+                check("Branch optimization: branch-Newton sweep kernel" in "\n".join(log),
+                      "R10's branch lengths take the branch-Newton sweep kernel")
+                for k in walks[:3] + ("wide_newton",):
+                    check(launches[k] > 0, f"kernel {k} launched on the GTR+I+R10 fit")
+                    results[f"{k}_s4"]["launches"] = launches[k]
+                for k in packed + ("wide_down_store",):  # a -te fit: no outside store
+                    check(launches[k] == 0, f"kernel {k} stays off the GTR+I+R10 fit")
+                k_ms = sum(results[f"{k}_s4"]["ms"] * launches[k]
+                           for k in walks[:3] + ("wide_newton",))
+                print(f"kernel time of the R10 fit, estimated as launches x phase-23 "
+                      f"kernel ms: {k_ms / 1e3:.3f} s of {wall:.2f} s wall")
+            args = write_inputs(tmp, names, seqs, tree_nwk, model=model_name)[0]
+            profile_run(lambda: check(cli_main(args) == 0, "profiled CLI run"), wall,
+                        f"{model_name} fit")
+    # a search at C = 10: the NNI evaluator runs the outside store's DNA instance
+    n_cut = 100
+    cut = Alignment.from_sequences(names[:n_cut], seqs[:n_cut], "DNA")
+    flags = ["-m", "GTR+I+R10", "-n", "1", "-ninit", "2", "-ntop", "1", "-seed", "1"]
+    with tempfile.TemporaryDirectory() as tmp:
+        args = write_inputs(tmp, names[:n_cut], seqs[:n_cut], tree_nwk, search=flags)[0]
+        wall, launches, log, nwk = run_cli(cli_main, args, counters)
+        best = float(logged(log, "BEST SCORE FOUND :"))
+        lnl64, _, _ = reevaluate(nwk, logged(log, "Best-fit model parameters:"), cut, dev,
+                                 grad=False)
+        print(f"iqtree-torch {' '.join(flags)} on the first {n_cut} taxa "
+              f"({cut.n_patterns} patterns): {wall:.2f} s wall on {card}; BEST SCORE FOUND "
+              f"{best:.4f}; float64 re-evaluation of the written tree and model "
+              f"{lnl64:.4f}")
+        print(f"GTR+I+R10 search launches: {launches}")
+        check(abs(lnl64 - best) < 1.0, "GTR+I+R10 search lnL vs its float64 re-evaluation")
+        for k in walks + ("wide_newton",):
+            check(launches[k] > 0, f"kernel {k} launched on the GTR+I+R10 search")
+        for k in packed:
+            check(launches[k] == 0, f"the CS-packed kernel {k} stays off the R10 search")
+        results["wide_down_store_s4"]["launches"] = launches["wide_down_store"]
+    del aln, cut
+
+    phase("25. the LG+R4 search with ultrafast bootstrap through the CLI on cuda")
+    names, seqs, tree_nwk = load_bench("bench_data_protein.npz")
+    aln = Alignment.from_sequences(names, seqs, "AA")
+    N = aln.n_taxa
+    counters["pars_insert_s20"] = pars.insertion_costs
+    flags = ["-m", "LG+R4", "-n", "2", "-ninit", "4", "-ntop", "2", "-seed", "1", "-bb",
+             "1000", "-wbt"]
+    with tempfile.TemporaryDirectory() as tmp:
+        args, prefix = write_inputs(tmp, names, seqs, tree_nwk, search=flags)
+        print("iqtree-torch " + " ".join(flags))
+        wall, launches, log, nwk = run_cli(cli_main, args, counters)
+        with open(prefix + ".ufboot") as f:
+            boot = f.read().splitlines()
+        sizes = {ext: os.path.getsize(prefix + ext) for ext in (".contree", ".splits.nex")}
+        best = float(logged(log, "BEST SCORE FOUND :"))
+        model_str = logged(log, "Best-fit model parameters:")
+        lnl64, _, _ = reevaluate(nwk, model_str, aln, dev, grad=False)
+        out_tree = PhyloTree.from_newick(nwk, aln.names)
+        supports = [int(x) for x in re.findall(r"\)(\d+):", nwk)]
+        print(f"fitted model ...{model_str[-90:]}")
+        print(f"LG+R4 search: {wall:.2f} s wall on {card}; BEST SCORE FOUND {best:.4f}; "
+              f"float64 re-evaluation of the written tree and model {lnl64:.4f}; for "
+              f"information, the binary's -te LG+G4 fit of the true tree {REF_PROTEIN_LNL}")
+        print(f"UFBoot: {len(boot)} sample trees, {len(supports)} supports on the treefile "
+              f"(min {min(supports)}, median {int(np.median(supports))}); files {sizes}; "
+              f"summaries and outputs {logged(log, 'UFBoot summaries and outputs:')}")
+        for line in log[[i for i, l in enumerate(log)
+                         if l.startswith("search profile")][-1]:]:
+            if not line.startswith(("search profile", " ")):
+                break
+            print(line)
+        print(f"LG+R4 search launches: {launches}")
+        check(abs(lnl64 - best) < 1.0, "LG+R4 search lnL vs its float64 re-evaluation")
+        check(bool(np.all(np.isfinite(out_tree.blen))) and out_tree.n_taxa == N,
+              "a written 300-taxon tree with finite lengths")
+        check(len(boot) == 1000 and all(l.strip().endswith(";") for l in boot),
+              "every one of the 1000 UFBoot samples holds a tree")
+        check(len(supports) == N - 3 and all(0 <= x <= 100 for x in supports),
+              "the treefile carries N-3 supports in 0-100")
+        check(all(v > 0 for v in sizes.values()), ".contree and .splits.nex written")
+        for k in ("wide_forward", "wide_store", "wide_tbar", "wide_newton",
+                  "wide_down_store", "pars_insert_s20"):
+            check(launches[k] > 0, f"kernel {k} launched on the LG+R4 search")
+        for k in packed:
+            check(launches[k] == 0, f"the CS-packed kernel {k} stays off the S=20 path")
+        args, prefix = write_inputs(tmp, names, seqs, tree_nwk, search=flags)
+        profile_run(lambda: check(cli_main(args) == 0, "profiled CLI run"), wall,
+                    "LG+R4 search")
+
+    phase("26. the fused FreeRate mixture: -te LG4X through the CLI on cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        args = write_inputs(tmp, names, seqs, tree_nwk, model="LG4X")[0]
+        wall, launches, log, nwk = run_cli(cli_main, args, counters)
+        fit_lnl = float(logged(log, "Optimal log-likelihood:"))
+        model_str = logged(log, "Best-fit model parameters:")
+        print(f"fitted model {model_str[:60]}...{model_str[-80:]}")
+        # the fit's classes weigh by the FreeRate weights; the written string's
+        # evaluation (ModelArrays.from_mixture) by the mixture's defined ones,
+        # as in the JAX package (ROADMAP Queue 3)
+        s64, r64 = parse_model_string(model_str, aln)
+        fit_model = ModelArrays.from_model(s64, r64, dev)
+        fit_model.props = torch.as_tensor(r64.category_rates()[1], device=dev)
+        ta64 = TreeArrays.from_tree(PhyloTree.from_newick(nwk, aln.names), dev)
+        site64 = SiteData.from_alignment(aln, dev, torch.float64)
+        with torch.no_grad():
+            lnl64 = float(compute_loglik(ta64, fit_model, site64)[0])
+        defined, _, _ = reevaluate(nwk, model_str, aln, dev, grad=False)
+        print(f"-te LG4X fit lnL {fit_lnl:.4f}; the written tree and model re-evaluated "
+              f"in float64 (plain pass) with the fit's class weights (FreeRate's "
+              f"{np.array2string(r64.category_rates()[1], precision=4)}) {lnl64:.4f}, "
+              f"with the mixture's defined weights (ModelArrays.from_mixture) "
+              f"{defined:.4f}; for information, the binary's LG+G4 fit {REF_PROTEIN_LNL}")
+        print(f"-te LG4X fit wall time {wall:.2f} s on {card}")
+        print(f"-te LG4X fit launches: {launches}")
+        check(abs(lnl64 - fit_lnl) < 1.0, "LG4X fit lnL vs its float64 re-evaluation")
+        for k in ("wide_forward", "wide_store", "wide_tbar", "wide_newton"):
+            check(launches[k] > 0, f"kernel {k} launched on the LG4X fit")
+        for k in packed:
+            check(launches[k] == 0, f"the CS-packed kernel {k} stays off the LG4X fit")
+        args = write_inputs(tmp, names, seqs, tree_nwk, model="LG4X")[0]
+        profile_run(lambda: check(cli_main(args) == 0, "profiled CLI run"), wall,
+                    "LG4X fit")
 
 
 if __name__ == "__main__":

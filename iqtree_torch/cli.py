@@ -1,10 +1,12 @@
 """Command-line entry: the default tree search, with the ultrafast
 bootstrap under -bb, or the fixed-topology (-te) model and branch fit;
-DNA, protein and codons (-st CODON[n]), and the mixture models (-m C10..
-C60, EX2+G, LG4M, MIX{...}, BASE+FMIX{...}; -mwopt frees their pinned
-class weights).
+DNA, protein and codons (-st CODON[n]), the mixture models (-m C10..
+C60, EX2+G, LG4M, LG4X, MIX{...}, BASE+FMIX{...}; -mwopt frees their
+pinned class weights) and the rate models +G, +GM, +I, +R, +K (-a, -i
+and -gmedian write into the model string).
 
     python -m iqtree_torch -s ALN [-st DNA|AA|CODON[n]] [-m MODEL] [-mwopt]
+                           [-a ALPHA] [-i PINV] [-gmedian]
                            [-t TREE | -starttree BIONJ|PARS]
                            [-n N] [-nstop N] [-ninit N] [-ntop N] [-pers X]
                            [-maxtime MIN] [-keep-ident] [-pre P] [-seed N]
@@ -127,13 +129,21 @@ def write_ufboot_outputs(cfg, prefix: str, aln, ufboot, log) -> None:
 
 def model_name(subst, rate) -> str:
     """The fitted model as a model string with every parameter pinned (a
-    mixture: its classes' rates and weights)."""
+    mixture: its classes' rates and weights; FreeRate: +Rk{w1,r1,...}, its
+    weights and rates, which parse back as the start; +K: no values, as
+    the model string takes none)."""
     from .models.mixture import MixtureModel
 
-    suffix = (f"+I{{{rate.p_invar:.6f}}}" if rate.has_invar else "") + \
-        (f"+G{rate.ncat}{{{rate.alpha:.6f}}}" if rate.has_gamma else "")
+    suffix = f"+I{{{rate.p_invar:.6f}}}" if rate.has_invar else ""
+    if rate.has_gamma:
+        suffix += f"+G{'M' if rate.gamma_median else ''}{rate.ncat}{{{rate.alpha:.6f}}}"
+    if rate.is_free_rate:  # the weights and rates, which parse back as the start
+        r, w = rate.category_rates()
+        suffix += f"+R{rate.ncat}{{" + ",".join(f"{a:.6g},{b:.6g}" for a, b in zip(w, r)) + "}"
+    if rate.is_kategory:  # +K takes no values
+        suffix += f"+K{rate.ncat}"
     if isinstance(subst, MixtureModel):
-        return subst.model_string(suffix)
+        return subst.model_string(suffix, "R" if rate.is_free_rate else "G")
     name = subst.name
     if getattr(subst, "kappa", None) is not None:  # codon: {kappa,omega}
         name += f"{{{subst.kappa:.6f},{subst.omega:.6f}}}"

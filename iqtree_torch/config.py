@@ -1,18 +1,20 @@
 """Command-line configuration of the port: the fixed-topology fit (-te)
 and the default tree search with its ultrafast bootstrap (-bb), for DNA,
 protein and codons (-st CODON[n]) and the mixture models (-m C10..C60,
-EX2, LG4M, MIX{...}, +FMIX{...}; -mwopt frees pinned class weights)."""
+EX2, LG4M, LG4X, MIX{...}, +FMIX{...}; -mwopt frees pinned class weights);
+-i, -a and -gmedian pin or change the rate model through the model string."""
 
 from __future__ import annotations
 
 import argparse
+import re
 from dataclasses import dataclass
 from typing import Optional
 
 PORTED_FLAGS = ("-s", "-st", "-te", "-t", "-m", "-pre", "-seed", "-blfix", "-redo",
                 "-device", "-n", "-nstop", "-ninit", "-ntop", "-pers", "-maxtime",
                 "-starttree", "-keep-ident", "-keep_ident", "-bb", "-beps", "-bcor",
-                "-nstep", "-wbt", "-wbtl", "-mwopt")
+                "-nstep", "-wbt", "-wbtl", "-mwopt", "-i", "-a", "-gmedian")
 
 
 @dataclass
@@ -119,6 +121,12 @@ def parse_args(argv) -> RunConfig:
     p.add_argument("-mwopt", dest="mwopt", action="store_true",
                    help="optimize mixture class weights even where the model "
                         "pins them (C10..C60)")
+    p.add_argument("-i", dest="p_invar_fix", type=float, default=None,
+                   help="fix the proportion of invariable sites (+I)")
+    p.add_argument("-a", dest="alpha_fix", type=float, default=None,
+                   help="fix the Gamma shape parameter (+G)")
+    p.add_argument("-gmedian", dest="gmedian", action="store_true",
+                   help="median (not mean) discrete-Gamma category rates")
     a = p.parse_args(argv)
     if a.fixed_tree and a.start_tree:
         p.error("-te and -t exclude each other")
@@ -140,7 +148,7 @@ def parse_args(argv) -> RunConfig:
             "reads DNA, AA and CODON (binary and morphology come with later "
             "slices)")
     return RunConfig(
-        a.aln_file, a.fixed_tree, a.start_tree, a.model, a.prefix, a.seed,
+        a.aln_file, a.fixed_tree, a.start_tree, rate_flags_model(a), a.prefix, a.seed,
         a.fix_branch_lengths, a.redo, a.device, n_iterations=a.n_iterations,
         unsuccess_iteration=a.unsuccess, n_init_trees=a.ninit, n_top_init=a.ntop,
         pers=a.pers, max_seconds=a.maxtime * 60 if a.maxtime else None,
@@ -149,6 +157,22 @@ def parse_args(argv) -> RunConfig:
         ufboot_epsilon=a.beps, min_correlation=a.bcor, step_iterations=a.nstep,
         write_boot_trees=a.wbt or a.wbtl, write_boot_tree_blens=a.wbtl,
         optimize_mixmodel_weight=a.mwopt)
+
+
+def rate_flags_model(a) -> Optional[str]:
+    """The model string with -a, -i and -gmedian written into it: the
+    first +G takes {alpha}, the first +I {p_invar}, and -gmedian turns the
+    first +G into +GM (as the JAX package's CLI rewrites it)."""
+    model = a.model
+    if model:
+        if a.alpha_fix is not None:
+            model = re.sub(r"\+G(\d*)(?!\{|\d)",
+                           lambda m: f"+G{m.group(1)}{{{a.alpha_fix}}}", model, count=1)
+        if a.p_invar_fix is not None:
+            model = re.sub(r"\+I(?!\{)", f"+I{{{a.p_invar_fix}}}", model, count=1)
+        if a.gmedian:
+            model = re.sub(r"\+G(\d*)(?!M)", r"+GM\1", model, count=1)
+    return model
 
 
 def _is_number(s: str) -> bool:

@@ -95,12 +95,13 @@ def decide_engine(n_taxa: int, ncat: int, num_states: int, n_patterns: int,
 def engine_banner(dec: EngineDecision, n_taxa: int, ncat: int, num_states: int,
                   n_patterns: int, search: bool = False) -> str:
     """Human-readable engine/memory report (logged at startup)."""
-    theta = not newton_serves(ncat, num_states)  # codon, or past 8 categories
+    theta = not newton_serves(ncat, num_states)  # codon, protein past 8, DNA past 32
     if dec.kernels:
         name = torch.cuda.get_device_name(dec.device)
         padded = build.instance_states(num_states)
         K, cb = build.wide_layout(ncat)
-        shape = ("CS-packed" if num_states == 4 else
+        wide = not build.packed(ncat, num_states)
+        shape = ("CS-packed" if not wide else
                  f"wide [C,S,S] x [C,S,tile], S={num_states}"
                  + (f" (padded {padded})" if padded != num_states else "")
                  + (f", {cb} categories a block on {K}-block clusters" if cb > 1 else ""))
@@ -119,7 +120,7 @@ def engine_banner(dec: EngineDecision, n_taxa: int, ncat: int, num_states: int,
     if search:
         lines.append(
             "Tree search: batched NNI evaluator on the upward store and the "
-            + (("wide " if num_states != 4 else "") + "outside-partial store kernel"
+            + (("wide " if wide else "") + "outside-partial store kernel"
                if dec.kernels else "plain twin of the outside-partial store")
             + f", {dec.nni_chunk} edges per evaluator chunk "
             f"(of {n_taxa - 3} internal edges)")

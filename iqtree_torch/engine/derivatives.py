@@ -7,7 +7,7 @@ d lnL/dt and d2 lnL/dt2 for all 2N-3 branches come from one of two paths
   (kernels/cs_kernels.py fused_newton_derivs: the CS-packed kernels for
   DNA, the wide ones for protein, the plain twins on the CPU);
 * the theta path, where no branch-Newton kernel serves the shape (the
-  codon spaces and the mixtures past 8 categories, as in the JAX
+  codon spaces, protein past 8 categories and DNA past 32, as in the JAX
   package): the upward store and the outside-partial store
   (fused_nni_passes_cs, the wide kernels), then every branch's theta
   buffer theta[v,c,j,p] = (V^T O_v)_j (V^-1 U_v)_j and its derivatives
@@ -126,10 +126,10 @@ def theta_derivs(m: LocalModel, th: Thetas, t: torch.Tensor):
 
 def newton_serves(C: int, S: int) -> bool:
     """Whether a branch-Newton sweep kernel serves C categories x S states
-    (DNA and protein, up to 8 categories); the codon spaces and the
-    mixtures past 8 categories take the theta path."""
-    return (S in build.PACKED_STATES + build.WIDE_NEWTON_STATES
-            and C <= build.MAX_CATEGORIES)
+    (DNA up to 32 categories, protein up to 8); the codon spaces and the
+    shapes past those take the theta path."""
+    return (build.packed(C, S) or build.wide_newton_multi(C, S)
+            or (S in build.WIDE_NEWTON_STATES and C <= build.MAX_CATEGORIES))
 
 
 # Bytes the theta path's per-branch buffers may take at once: the theta

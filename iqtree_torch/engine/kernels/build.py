@@ -61,17 +61,24 @@ SIGNATURES = {
 # the wide kernels (S=20, protein; S=64, codons).
 PACKED_STATES = (4,)
 WIDE_STATES = (20, 64)
-# csrc/wide_newton.cu's: protein only (codon branch lengths take the theta
-# path, engine/derivatives.py)
+# csrc/wide_newton.cu's cluster instance: protein up to MAX_CATEGORIES (codon
+# branch lengths take the theta path, engine/derivatives.py)
 WIDE_NEWTON_STATES = (20,)
 # Categories of the CS-packed kernels (a lane a pattern and category) and of
-# csrc/wide_newton.cu (a cluster block a category): 1..8.  The four wide
-# walks (csrc/wide_common.cuh) hold several categories a block past 8, at
-# the S=20 instance, as far as their shared memory allows (wide_layout,
-# wide_walk_smem).
+# csrc/wide_newton.cu's cluster instance (a cluster block a category): 1..8.
+# The four wide walks (csrc/wide_common.cuh) hold several categories a block
+# past 8, at the S=20 and S=4 instances, as far as their shared memory
+# allows (wide_layout, wide_walk_smem).
 MAX_CATEGORIES = 8
-# Wide instances that hold several categories a block (MULTI): protein.
-MULTI_CATEGORY_STATES = (20,)
+# Wide instances that hold several categories a block (MULTI): protein and
+# DNA (S=4, one row a thread).
+MULTI_CATEGORY_STATES = (4, 20)
+# csrc/wide_newton.cu's multi-category instance (a block all categories of a
+# tile of patterns): DNA past MAX_CATEGORIES up to C*S = 128 rows a pattern,
+# the bound of the JAX package's streamed sweep (newton_kernel_serves);
+# further on the theta path serves.
+MULTI_NEWTON_STATES = (4,)
+MULTI_NEWTON_ROWS = 128
 # The portable thread-block cluster size: a wide walk's cluster has at most
 # 8 blocks (MAX_CLUSTER_BLOCKS of csrc/wide_common.cuh).
 MAX_CLUSTER_BLOCKS = 8
@@ -93,7 +100,7 @@ PADDED_STATES = {S: 64 for S in range(60, 64)}
 LATER_SLICES = {2: "the binary/morphology slice"}
 # the slice that brings a state count's kernels past MAX_CATEGORIES
 LATER_CATEGORY_SLICES = {
-    4: "the DNA mixture slice (no S=4 instance holds more than 8 categories)",
+    4: "a later slice (a wide walk whose slot pool outgrows shared memory)",
     64: "the codon mixture slice (the S=64 instance keeps one category a block)",
     20: "a later slice (a wide walk whose slot pool outgrows shared memory)",
 }
@@ -217,6 +224,20 @@ def walk_launch(name: str, C: int, S: int, n_slots: int, tile: int) -> Dict[str,
     return dict(zip(("warps", "threads", "smem", "clusters"), info))
 
 
+def packed(C: int, S: int) -> bool:
+    """Whether the CS-packed kernels serve C categories x S states (S=4, C <=
+    8); every other shape runs the wide kernels."""
+    return S in PACKED_STATES and C <= MAX_CATEGORIES
+
+
+def wide_newton_multi(C: int, S: int) -> bool:
+    """Whether csrc/wide_newton.cu's multi-category instance serves C
+    categories x S states (DNA past the CS-packed kernels, C*S <=
+    MULTI_NEWTON_ROWS)."""
+    return (S in MULTI_NEWTON_STATES and not packed(C, S)
+            and C * S <= MULTI_NEWTON_ROWS)
+
+
 def instance_states(S: int) -> int:
     """The state count of the kernel instance that serves S states: S, or
     the padded instance of a codon space."""
@@ -251,14 +272,21 @@ def wide_walk_smem(C: int, S: int, n_slots: int) -> int:
 
 
 def check_shape(C: int, S: int, states=PACKED_STATES + WIDE_STATES,
-                n_slots: int = None, multi: bool = True) -> None:
+                n_slots: int = None, multi: bool = True, walk: bool = False) -> None:
     """Raise NotImplementedError unless a kernel of `states` (default: any
-    kernel of the port) serves C categories x S states (S padded, for a
-    codon space).  Past MAX_CATEGORIES only the wide walks serve (multi:
-    the caller is one; csrc/wide_newton.cu is not), at the S=20 instance,
-    when their shared memory at `n_slots` slots fits a block
-    (MAX_BLOCK_SMEM; n_slots None: no slot count to check yet)."""
+    kernel of the port) serves C categories x S states (S padded, for a codon
+    space).  Past MAX_CATEGORIES only the wide walks serve (multi: the caller
+    is one, or any kernel; csrc/wide_newton.cu's cluster instance is not),
+    at the S=20 and S=4 instances, when their shared memory at `n_slots`
+    slots fits a block (MAX_BLOCK_SMEM; n_slots None: no slot count to check
+    yet).  walk: the caller is one of the four wide walks
+    (csrc/wide_forward.cu, wide_store.cu, wide_tbar.cu, wide_down_store.cu),
+    which have an instance at every S of the port (IQT_DISPATCH_WIDE_S of
+    wide_common.cuh) but serve no shape that `packed` gives the CS-packed
+    kernels."""
     S = instance_states(S)
+    if walk:
+        states, multi = PACKED_STATES + WIDE_STATES, True
     if S not in PACKED_STATES + WIDE_STATES:
         raise NotImplementedError(
             f"no CUDA kernel for C={C} categories x S={S} states: the port serves "
@@ -267,6 +295,10 @@ def check_shape(C: int, S: int, states=PACKED_STATES + WIDE_STATES,
     if S not in states:
         raise NotImplementedError(
             f"this kernel has instances for S in {states}, got S={S}")
+    if walk and packed(C, S):
+        raise NotImplementedError(
+            f"the wide walks' S={S} instance serves past {MAX_CATEGORIES} "
+            f"categories only: the CS-packed kernels serve C={C}")
     if 1 <= C <= MAX_CATEGORIES:
         return
     if S not in MULTI_CATEGORY_STATES:
@@ -290,11 +322,12 @@ def check_shape(C: int, S: int, states=PACKED_STATES + WIDE_STATES,
 
 
 def check_inputs(C: int, S: int, steps: torch.Tensor, *tensors: torch.Tensor,
-                 states=PACKED_STATES, n_slots: int = None, multi: bool = False) -> None:
+                 states=PACKED_STATES, n_slots: int = None, multi: bool = False,
+                 walk: bool = False) -> None:
     """The kernels take contiguous CUDA tensors: an int32 [R, 6] schedule,
     float32 data, S in `states` (the kernel's instances) and the categories
-    check_shape allows (multi: a wide walk, at n_slots slots)."""
-    check_shape(C, S, states, n_slots, multi)
+    check_shape allows (walk: a wide walk, at n_slots slots)."""
+    check_shape(C, S, states, n_slots, multi, walk)
     if steps.dtype != torch.int32 or steps.dim() != 2 or steps.shape[1] != 6:
         raise ValueError("the slot schedule must be an int32 [n_steps, 6] tensor")
     for t in (steps, *tensors):

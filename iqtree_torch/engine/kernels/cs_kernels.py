@@ -26,7 +26,8 @@ makes one call at any shape:
 * `pruning.fused_upward_store` -- the upward store (csrc/wide_store.cu);
 * `fused_downward_tbar` -- the gradient sweep (csrc/wide_tbar.cu);
 * `wide_newton_sweep` -- the branch-Newton sweep (csrc/wide_newton.cu;
-  S=20 only: codon branch lengths take the theta path of
+  S=20 up to 8 categories, and DNA past them up to C*S = 128: codon branch
+  lengths and the shapes past those take the theta path of
   engine/derivatives.py, as the JAX package's do);
 * `fused_down_store` -- the outside-partial store (csrc/wide_down_store.cu),
   so `fused_nni_passes_cs` serves the NNI evaluator at both shapes.
@@ -50,12 +51,13 @@ from ..likelihood import SCALE_TINY, branch_transition_mats, downward_pass
 def fused_upward_store_cs(steps, n_slots, trans, tips):
     """(up [2N, CS, P], usc [2N, P]) -- every internal node's normalized
     partial and log-scale.  Tip rows are left for fill_tip_rows_cs.  The
-    wide shapes (S=20, codon) run pruning.fused_upward_store.  csrc/store.cu runs
+    wide shapes (S=20, codon, DNA past 8 categories) run
+    pruning.fused_upward_store.  csrc/store.cu runs
     pruning.UPWARD_LANES lanes a block."""
     if not trans.is_cuda:
         return upward_plain(steps, trans, tips)
     n_rows, C, S = trans.shape[:3]
-    if S not in build.PACKED_STATES:
+    if not build.packed(C, S):
         return fused_upward_store(steps, n_slots, trans, tips)
     P = tips.shape[2]
     build.check_inputs(C, S, steps, trans, tips)
@@ -95,9 +97,9 @@ def fused_tbar_cs(steps, n_slots, trans, tips, props, state_freq, lnl_raw, w_p,
         tbar[e,c,s,t] = sum_p O_e[c,s,p] U_e[c,t,p] exp(osc+usc-lnl_p) w_p
     with the class weights folded into the root seed.  `up`/`usc` may be
     passed from a prior upward store (tip rows are filled here).  The wide
-    shapes (S=20, codon) run fused_downward_tbar."""
+    shapes (S=20, codon, DNA past 8 categories) run fused_downward_tbar."""
     n_rows, C, S = trans.shape[:3]
-    if S not in build.PACKED_STATES:
+    if not build.packed(C, S):
         return fused_downward_tbar(steps, n_slots, trans, tips, props, state_freq,
                                    lnl_raw, w_p, up, usc)
     if up is None:
@@ -154,8 +156,9 @@ WIDE_TBAR_TILE = 16
 WIDE_TBAR_SUM_PATTERNS = 16
 # Entries a side of a sum lane's block of a child's [S,S] in
 # csrc/wide_tbar.cu (SumShape): 5 x 5 at S=20, through a stage; 8 x 8 at
-# the codon instance S=64, stored straight (rows of whole float4s).
-WIDE_TBAR_LANE_BLOCK = {20: 5, 64: 8}
+# the codon instance S=64, stored straight (rows of whole float4s); one
+# entry at the DNA instance S=4 (32 lanes, one warp, through a stage).
+WIDE_TBAR_LANE_BLOCK = {4: 1, 20: 5, 64: 8}
 # Largest block of csrc/wide_tbar.cu (TBAR_THREADS_MAX): 256 walk threads
 # and 4 sum warps.
 WIDE_TBAR_THREADS_MAX = 384
@@ -237,7 +240,7 @@ def fused_downward_tbar(steps, n_slots, trans, tips, props, state_freq, lnl_raw,
         rootd = pad_states(rootd, SK, 1)
     rootd = rootd.reshape(-1).contiguous()
     build.check_inputs(C, SK, steps, trans, rootd, lnl_raw, w_p, up, usc,
-                       states=build.WIDE_STATES, n_slots=n_slots, multi=True)
+                       n_slots=n_slots, walk=True)
     if wide_tbar_threads(SK, T) > WIDE_TBAR_THREADS_MAX:
         raise ValueError(f"wide_tbar: {T} patterns a cluster need "
                          f"{wide_tbar_threads(SK, T)} threads a block at S={SK}, over "
@@ -287,11 +290,11 @@ def fused_down_store_cs(steps, n_slots, trans, up, usc, state_freq):
     outside partial (at the parent end of its edge) and log-scale, from
     the upward store's up/usc with the tip rows filled.  The root seed is
     the bare state_freq [C, S]; the root and dummy rows are 0.  The wide
-    shapes (S=20, codon) run fused_down_store."""
+    shapes (S=20, codon, DNA past 8 categories) run fused_down_store."""
     if not trans.is_cuda:
         return _down_store_plain(steps, trans, up, usc, state_freq)
     n_rows, C, S = trans.shape[:3]
-    if S not in build.PACKED_STATES:
+    if not build.packed(C, S):
         return fused_down_store(steps, n_slots, trans, up, usc, state_freq)
     P = up.shape[2]
     rootd = state_freq.reshape(-1).float().contiguous()
@@ -345,8 +348,8 @@ def fused_down_store(steps, n_slots, trans, up, usc, state_freq, tile=None):
         trans, up = pad_states(trans, SK, 2, 3), pad_partials(up, C, SK)
         rootd = pad_states(rootd, SK, 1)
     rootd = rootd.reshape(-1).contiguous()
-    build.check_inputs(C, SK, steps, trans, rootd, up, usc, states=build.WIDE_STATES,
-                       n_slots=n_slots, multi=True)
+    build.check_inputs(C, SK, steps, trans, rootd, up, usc, n_slots=n_slots,
+                       walk=True)
     out, osc = _zeroed_outside(n_rows, C * SK, P, trans.device)
     build.launch("wide_down_store", steps, steps.shape[0], trans, rootd, up, usc, P,
                  out, osc, C, SK, n_slots, tile or WIDE_DOWN_STORE_TILE)
@@ -397,11 +400,11 @@ def _newton_plain(steps, mats, props, state_freq, wp, invar, up, usc):
 def newton_sweep(steps, n_slots, mats, props, state_freq, wp, invar, up, usc):
     """(d1 [2N], d2 [2N]) from the stored partials (tip rows filled) and the
     stacked derivative matrices mats [2N, 3, C, S, S].  The wide shapes
-    (S=20) run wide_newton_sweep."""
+    (S=20, and DNA past 8 categories) run wide_newton_sweep."""
     if not mats.is_cuda:
         return _newton_plain(steps, mats, props, state_freq, wp, invar, up, usc)
     n_rows, _, C, S = mats.shape[:4]
-    if S not in build.PACKED_STATES:
+    if not build.packed(C, S):
         return wide_newton_sweep(steps, n_slots, mats, props, state_freq, wp, invar,
                                  up, usc)
     P = up.shape[2]
@@ -434,6 +437,12 @@ def category_lanes(C: int) -> int:
 # 32 gives 62 clusters of 4 blocks of 64 threads at 1 958 patterns, C=4
 # (measured fastest at C=4 and C=8).
 WIDE_NEWTON_TILE = 32
+# Patterns a block of its multi-category instance (DNA past 8 categories, a
+# thread a category and pattern): 16 ran 7.705 ms at C = 10 on the DNA bench,
+# 8 7.790 and 32 8.197 (PERF.md); at C = 32, 512 threads.
+WIDE_NEWTON_MULTI_TILE = 16
+# Its largest block (MULTI_NEWTON_THREADS_MAX of the source).
+WIDE_NEWTON_MULTI_THREADS_MAX = 512
 # Patterns whose edge terms csrc/wide_newton.cu adds in order into one row
 # of its sums (the earlier design's tile, whose bits it keeps).
 WIDE_NEWTON_SUM_PATTERNS = 16
@@ -463,18 +472,30 @@ def wide_newton_smem(S: int, C: int, tile: int, n_slots: int, groups: int = 4,
 
 def wide_newton_sweep(steps, n_slots, mats, props, state_freq, wp, invar, up, usc,
                       tile=None):
-    """newton_sweep at the wide shapes (S=20): csrc/wide_newton.cu for CUDA
-    tensors, the plain twin _newton_plain for CPU tensors.  A cluster of C
+    """newton_sweep at the wide shapes: csrc/wide_newton.cu for CUDA tensors,
+    the plain twin _newton_plain for CPU tensors.  At S=20 a cluster of C
     blocks (one a rate category) holds `tile` patterns (default
-    WIDE_NEWTON_TILE; for measuring the kernel)."""
+    WIDE_NEWTON_TILE); DNA past 8 categories runs the multi-category
+    instance, a block all C categories of `tile` patterns (default
+    WIDE_NEWTON_MULTI_TILE).  `tile` is for measuring the kernel."""
     if not mats.is_cuda:
         return _newton_plain(steps, mats, props, state_freq, wp, invar, up, usc)
     n_rows, _, C, S = mats.shape[:4]
     P = up.shape[2]
-    T = tile or WIDE_NEWTON_TILE
     rootd = (props[:, None] * state_freq).reshape(-1).float().contiguous()
-    build.check_inputs(C, S, steps, mats, rootd, wp, invar, up, usc,
-                       states=build.WIDE_NEWTON_STATES)
+    if S in build.MULTI_NEWTON_STATES:
+        if not build.wide_newton_multi(C, S):
+            raise NotImplementedError(
+                f"wide_newton: the S={S} instance serves {build.MAX_CATEGORIES} < C <= "
+                f"{build.MULTI_NEWTON_ROWS // S} categories (the CS-packed newton "
+                f"kernel below, the theta path above), got C={C}")
+        T = tile or WIDE_NEWTON_MULTI_TILE
+        build.check_inputs(C, S, steps, mats, rootd, wp, invar, up, usc,
+                           states=build.MULTI_NEWTON_STATES, multi=True)
+    else:
+        T = tile or WIDE_NEWTON_TILE
+        build.check_inputs(C, S, steps, mats, rootd, wp, invar, up, usc,
+                           states=build.WIDE_NEWTON_STATES)
     part = torch.zeros(wide_newton_part_rows(P, T), n_rows, 2, dtype=torch.float32,
                        device=mats.device)
     d12 = torch.empty(n_rows, 2, dtype=torch.float32, device=mats.device)
@@ -490,8 +511,9 @@ wide_newton_sweep.launches = 0
 def fused_newton_derivs(steps, n_slots, model, blen, tips, pattern_freq, invar):
     """(d1 [2N], d2 [2N]): d lnL/dt and d2 lnL/dt2 of every edge (entry v =
     the edge above v; root and dummy rows are 0) from one upward store and
-    one reverse sweep -- the CS-packed kernels at S=4, the wide store and
-    sweep at S=20.  The denominator includes the invariant class."""
+    one reverse sweep -- the CS-packed kernels at S=4 up to 8 categories,
+    the wide store and sweep at S=20 and at S=4 past 8.  The denominator
+    includes the invariant class."""
     dt = tips.dtype
     trans = branch_transition_mats(model, blen).to(dt).contiguous()
     up, usc = fused_upward_store_cs(steps, n_slots, trans, tips)

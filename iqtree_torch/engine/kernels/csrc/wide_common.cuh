@@ -15,16 +15,19 @@
 // (build.wide_layout).  Two walks of the slot schedule run on that layout:
 // the upward walk (wide_forward.cu, wide_store.cu) and the reverse walk
 // (wide_down_store.cu, wide_tbar.cu; wide_newton.cu keeps its own copy,
-// whose step carries three matrices a child, at C <= 8).
+// whose step carries three matrices a child, at C <= 8, and a kernel of
+// its own for DNA past 8).
 //
 // Each cluster walks the whole slot schedule for its tile, as a TPU grid
 // step walks it (schedule rows: left child, right child, left slot,
 // right slot (-1 = tip), output slot, output node; see cs_common.cuh).
-// The kernels are templates on S and RPT with two instances
-// (IQT_DISPATCH_WIDE_S): S = 20 (RPT = 5) and S = 64 (RPT = CODON_RPT),
-// and on MULTI (CB > 1), instanced at S = 20 only: the codon instance
-// keeps CB = 1 (C <= 8).  The CB = 1 instances run the one-category walks
-// (cluster_upward_walk, cluster_reverse_walk).
+// The kernels are templates on S and RPT with three instances
+// (IQT_DISPATCH_WIDE_S): S = 20 (RPT = 5), S = 64 (RPT = CODON_RPT) and
+// S = 4 (RPT = DNA_RPT), and on MULTI (CB > 1), instanced at S = 20 and
+// S = 4: the codon instance keeps CB = 1 (C <= 8), and the DNA instance
+// has MULTI only (multi_only: up to 8 categories the CS-packed kernels of
+// cs_common.cuh serve DNA).  The CB = 1 instances run the one-category
+// walks (cluster_upward_walk, cluster_reverse_walk).
 // What differs at S = 64 is compile-time (`if constexpr (S > 32)`), so the
 // S = 20 instance compiles as before:
 //   * a message reads the child's rows from shared memory as it goes
@@ -128,6 +131,18 @@ namespace cg = cooperative_groups;
 // carry the step's chain; only wide_down_store and wide_tbar at C=8 run
 // 6-12% faster at 16.
 constexpr int CODON_RPT = 8;
+
+// State rows a thread at S = 4 (DNA past 8 categories): G = 4 row groups a
+// pattern, so that a category warp of the upward walk is tile / 2 x 4
+// threads and a team of the reverse walk tile x 4, as at S = 20: whole
+// warps at the wrappers' 16 patterns a cluster.  A category's row is one
+// float4 of its [S,S] block.
+constexpr int DNA_RPT = 1;
+
+// Whether the instance at S serves several categories a block only (the
+// DNA instance: up to 8 categories the CS-packed kernels serve).
+template <int S>
+inline constexpr bool multi_only = S == 4;
 
 // A walk thread's row group g (rows g RPT ..) and pattern-group index pq:
 // a pattern's G lanes consecutive at S <= 32 (g = tid % G), GS = 32 / G
@@ -1113,7 +1128,7 @@ __device__ __forceinline__ void cluster_reverse_walk_multi(
     const float* __restrict__ usc, int P, int p0, int tile, int n_slots, int C, int CB, int W,
     int NS, float* smem, Hook hook) {
   constexpr int G = S / RPT, SS = S * S, QT = REVERSE_QT;
-  static_assert(S <= 32 && QT == 1, "the multi-category walk is the S = 20 instance's");
+  static_assert(S <= 32 && QT == 1, "the multi-category walk is the register-column instances'");
   cg::cluster_group cluster = cg::this_cluster();
   const int K = (int)cluster.num_blocks(), kb = (int)cluster.block_rank();
   const int T = tile / QT * G;  // a team's threads
@@ -1407,7 +1422,8 @@ struct UpwardLaunch {
 }  // namespace iqtw
 
 // Dispatch over the state count (template arguments S, RPT): the protein
-// instance S = 20 (4 row groups of 5 states), wide_newton.cu's only one.
+// instance S = 20 (4 row groups of 5 states), wide_newton.cu's only
+// cluster instance.
 #define IQT_DISPATCH_S(S_RT, CALL)               \
   switch (S_RT) {                                \
     case 20: CALL(20, 5); break;                 \
@@ -1415,11 +1431,12 @@ struct UpwardLaunch {
   }
 
 // The walks' kernels (wide_forward.cu, wide_store.cu, wide_down_store.cu,
-// wide_tbar.cu): S = 20 and the codon instance S = 64 (CODON_RPT rows a
-// thread).
+// wide_tbar.cu): S = 20, the codon instance S = 64 (CODON_RPT rows a
+// thread) and the DNA instance S = 4 past 8 categories (DNA_RPT).
 #define IQT_DISPATCH_WIDE_S(S_RT, CALL)                      \
   switch (S_RT) {                                            \
     case 20: CALL(20, 5); break;                             \
     case 64: CALL(64, iqtw::CODON_RPT); break;               \
+    case 4: CALL(4, iqtw::DNA_RPT); break;                   \
     default: return (int)cudaErrorInvalidValue;              \
   }

@@ -67,6 +67,8 @@
 // patterns, C = 4, the work at S = 61): reads up and writes out, 2 x 160 x
 // 245 rows x 457 x 4 B = 153 MB (0.046 ms); 3.3 GFLOP by the count above
 // (0.049 ms): bound by operations.
+// The DNA instance (S = 4, DNA_RPT = 1 row a thread) runs past 8 categories
+// only (MULTI; up to 8 the CS-packed csrc/down_store.cu serves), as wide_forward.cu's.
 #include "wide_common.cuh"
 
 using namespace iqtw;
@@ -162,18 +164,19 @@ struct DownStoreLaunch {
     W = CB > 1 && T ? least_units(CB, 1, T, REVERSE_MULTI_THREADS_MAX, bytes) : 1;
     threads = W * T;
     smem = bytes(W);
-    kernel = wide_down_store_kernel<S, RPT, false>;
-    if constexpr (S <= 32) {
-      if (CB > 1) kernel = wide_down_store_kernel<S, RPT, true>;
-    } else if (CB > 1) {
-      kernel = nullptr;
-    }
+    if constexpr (multi_only<S>)
+      kernel = CB > 1 ? wide_down_store_kernel<S, RPT, true> : nullptr;
+    else if constexpr (S <= 32)
+      kernel = CB > 1 ? wide_down_store_kernel<S, RPT, true> : wide_down_store_kernel<S, RPT, false>;
+    else
+      kernel = CB > 1 ? nullptr : wide_down_store_kernel<S, RPT, false>;
   }
 };
 
 // tile: patterns a cluster, a multiple of 8 (a team has tile x 4 threads,
 // whole warps) up to 64.  C categories on wide_k(C) blocks a cluster,
-// wide_cb(C) a block (past 8 the S = 20 instance only) on
+// wide_cb(C) a block (past 8 the S = 20 and S = 4 instances; S = 4 only
+// past 8) on
 // DownStoreLaunch's W category teams.
 extern "C" int iqt_wide_down_store(const int* steps, int n_steps, const float* trans,
                                    const float* rootd, const float* up,

@@ -44,6 +44,16 @@
 // x 1 958 patterns): 20x the work above, 74 GFLOP (1.1 ms at 67 TFLOP/s),
 // bound by operations.
 //
+// The DNA instance (S = 4, DNA_RPT = 1 row a thread) runs past 8 categories
+// only (MULTI; up to 8 the CS-packed csrc/forward.cu serves): +R9/+R10 and
+// DNA mixtures such as MIX{JC,HKY,GTR}+G4 (C = 12).  At C = 10 a cluster
+// is 5 blocks of 2 categories, each on 2 category warps of 32 threads at
+// 16 patterns a cluster, one unit a step.  Bound on an H100 (GTR+R10, 1 000
+// taxa x 9 962 patterns): 2 x 10 x 16 multiply-adds a step and pattern,
+// 2 x 2 x 160 x 999 x 9 962 = 6.4 GFLOP (0.095 ms at 67 TFLOP/s) against
+// 160 MB of tip rows (0.048 ms): bound by operations; the walk is a chain
+// of 999 steps.
+//
 // Shared memory: ClusterSmem (wide_common.cuh; pruning.wide_forward_smem).
 #include "wide_common.cuh"
 
@@ -99,17 +109,21 @@ wide_forward_kernel(const int* __restrict__ steps, int n_steps,
 }
 
 // The instance <S, RPT> at CB categories a block (MULTI past one; the
-// codon instance has none), or nullptr.
+// codon instance has none; the DNA instance has MULTI only), or nullptr.
 template <int S, int RPT>
 auto wide_forward_instance(int CB) {
-  if constexpr (S <= 32)
+  if constexpr (multi_only<S>)
+    return CB > 1 ? wide_forward_kernel<S, RPT, true> : nullptr;
+  else if constexpr (S <= 32)
     return CB > 1 ? wide_forward_kernel<S, RPT, true> : wide_forward_kernel<S, RPT, false>;
-  return CB > 1 ? nullptr : wide_forward_kernel<S, RPT, false>;
+  else
+    return CB > 1 ? nullptr : wide_forward_kernel<S, RPT, false>;
 }
 
 // tile: patterns a cluster, a multiple of 16 (a category warp has tile / 2
 // x 4 threads, whole warps) up to 128.  C categories on wide_k(C) blocks a
-// cluster, wide_cb(C) a block (past 8 the S = 20 instance only) on
+// cluster, wide_cb(C) a block (past 8 the S = 20 and S = 4 instances; S = 4
+// only past 8) on
 // UpwardLaunch's W category warps.
 extern "C" int iqt_wide_forward(const int* steps, int n_steps, const float* trans,
                                 const float* tips, int P, const float* rootw,

@@ -1,6 +1,7 @@
 // Wide branch-Newton sweep: first and second derivatives of lnL with
 // respect to every branch length at once, at the general [C,S,S] layout
-// (protein, S = 20).
+// (protein, S = 20, up to 8 categories; DNA, S = 4, past 8 categories:
+// wide_newton_multi_kernel below).
 //
 // Replaces the TPU kernel _kernel_newton_cs_stream / _newton_body
 // (iqtree_tpu/engine/kernels/cs_kernels.py), which streams each child's
@@ -12,9 +13,9 @@
 // where den = f0 + the invariant-site term in the scaled frame.  The root
 // and dummy rows stay 0.
 //
-// Work layout: a thread-block cluster of C blocks, one a rate category,
-// owns a tile of `tile` consecutive patterns.  A block stages only its
-// category's (P, P', P'') blocks of the step's two children, so its
+// Work layout at S = 20: a thread-block cluster of C blocks, one a rate
+// category, owns a tile of `tile` consecutive patterns.  A block stages its
+// category's (P, P', P'') blocks of the step's two children only, so its
 // shared memory barely grows with C.  Thread (pq, g) of a block holds
 // QT consecutive patterns (q = pq QT + qq) and the RPT state rows
 // g RPT .. g RPT + RPT - 1 of the category (G = S / RPT row groups, G
@@ -420,6 +421,181 @@ wide_newton_kernel(const int* __restrict__ steps, int n_steps,
   cluster.sync();  // no block leaves while another may read its buffers
 }
 
+// ---------------------------------------------------------------------------
+// Past 8 categories at S = 4 (DNA FreeRate +R9 .., a DNA mixture of more
+// than 8 classes), up to C S = 128 rows a pattern (MULTI_ROWS_MAX: the JAX
+// package's streamed sweep serves C S <= 128): one block, no cluster, owns
+// a tile of patterns and all C categories.  Thread (c, q) = (tid / tile,
+// tid % tile) holds pattern q's S rows of category c, so a category's
+// message, its O rows and its push P^T O are the thread's own and only the
+// per-pattern max and the f0, f1, f2 sums cross categories, through shared
+// memory: every thread writes its value into [c][...][q], a block barrier,
+// and each thread takes the max of the C values of its pattern in category
+// order; threads (side, q) of the first 2 tile add the C sums of child
+// `side` in category order, form the edge terms as above, and the first
+// 4 groups threads add each group of SUM_PATTERNS patterns in order into
+// its row of part.  A step's matrices (P, P', P'': 3 S float4 rows a child
+// and category) and the children's S rows come straight from global
+// memory (__ldg; a warp reads tile / 32 categories' rows, the tile's
+// patterns of a row coalesced).  Four block barriers a step order the
+// pool's scale rows, the max buffer, the sums and the edge terms.
+//
+// Shared memory a block (floats): n_slots (C S + 1) tile (the pool) +
+// 2 C tile (the maxima) + 6 C tile (the sums) + 4 tile (the edge terms).
+// C = 10, tile 16, 11 slots: 8 560 floats (34 240 bytes); C = 32: 26 864
+// floats (107 456 bytes).
+// ---------------------------------------------------------------------------
+
+// The most rows a pattern (C S) and the largest block of the multi-category
+// instance (tile x C threads, rounded up to whole warps).
+constexpr int MULTI_ROWS_MAX = 128;
+constexpr int MULTI_NEWTON_THREADS_MAX = 512;
+
+inline size_t wide_newton_multi_smem(int C, int S, int tile, int n_slots) {
+  return ((size_t)n_slots * (C * S + 1) + 8 * (size_t)C + 4) * tile * sizeof(float);
+}
+
+template <int S>
+__global__ void __launch_bounds__(MULTI_NEWTON_THREADS_MAX)
+wide_newton_multi_kernel(const int* __restrict__ steps, int n_steps,
+                         const float* __restrict__ mats,  // [2N][3][C][S][S]
+                         const float* __restrict__ rootd, const float* __restrict__ wp,
+                         const float* __restrict__ invar, const float* __restrict__ up,
+                         const float* __restrict__ usc, int P, int n_nodes,
+                         float* __restrict__ part, int n_slots, int tile, int C) {
+  static_assert(S == 4, "a category's rows are one float4 each");
+  constexpr int SS = S * S;
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, c = tid / tile, q = tid % tile;
+  const bool real = c < C;  // the last warp's other threads only join the barriers
+  const int CR = C * S;     // a slot's rows
+  const int group = min(tile, SUM_PATTERNS), groups = tile / group;
+  const int p0 = blockIdx.x * tile, p = min(p0 + q, P - 1);
+  float* pool = smem;                                    // [n_slots][CR+1][tile]
+  float* xmax = pool + (size_t)n_slots * (CR + 1) * tile;  // [C][2][tile]
+  float* xsum = xmax + 2 * (size_t)C * tile;             // [C][2][3][tile]
+  float* vsum = xsum + 6 * (size_t)C * tile;             // [2][2][tile]
+  const float w_p = p0 + q < P ? __ldg(wp + p) : 0.f;    // a ragged tail adds 0
+  const float inv_p = __ldg(invar + p);
+
+  for (int i = n_steps - 1; i >= 0; --i) {
+    const Step st = load_step(steps, i);
+    __syncthreads();  // the last step's scale rows, sums and edge terms are read
+    float d[S], dsc = 0.f, sc[2] = {0.f, 0.f}, mx[2] = {0.f, 0.f}, esc = 0.f;
+    float m[2][3][S], o[2][S];  // the children's (P, P', P'') U; o = d * m_sib
+    if (real) {
+      if (i == n_steps - 1) {
+#pragma unroll
+        for (int j = 0; j < S; ++j) d[j] = __ldg(rootd + c * S + j);
+      } else {
+        const float* col = pool + (size_t)st.out * (CR + 1) * tile + q;
+#pragma unroll
+        for (int j = 0; j < S; ++j) d[j] = col[(c * S + j) * tile];
+        dsc = col[CR * tile];
+      }
+#pragma unroll
+      for (int side = 0; side < 2; ++side) {
+        const int node = side ? st.r : st.l;
+        const float* u = up + ((size_t)node * C + c) * S * P + p;
+        float x[S];
+#pragma unroll
+        for (int t = 0; t < S; ++t) x[t] = __ldg(u + (size_t)t * P);
+        sc[side] = __ldg(usc + (size_t)node * P + p);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          const float4* M = reinterpret_cast<const float4*>(
+              mats + (((size_t)node * 3 + k) * C + c) * SS);
+#pragma unroll
+          for (int j = 0; j < S; ++j) {
+            const float4 w = __ldg(M + j);
+            float acc = 0.f;
+            acc += w.x * x[0];
+            acc += w.y * x[1];
+            acc += w.z * x[2];
+            acc += w.w * x[3];
+            m[side][k][j] = acc;
+          }
+        }
+      }
+#pragma unroll
+      for (int side = 0; side < 2; ++side) {
+#pragma unroll
+        for (int j = 0; j < S; ++j) {
+          o[side][j] = d[j] * m[1 - side][0][j];
+          mx[side] = fmaxf(mx[side], o[side][j]);
+        }
+        xmax[(c * 2 + side) * tile + q] = mx[side];
+      }
+    }
+    __syncthreads();  // every category's maxima of step i are written
+    if (real) {
+#pragma unroll
+      for (int side = 0; side < 2; ++side) {
+        float v = 0.f;
+        for (int r = 0; r < C; ++r) v = fmaxf(v, xmax[(r * 2 + side) * tile + q]);
+        mx[side] = fmaxf(v, SCALE_TINY);
+      }
+      float os[2];  // the children's outside scales
+      os[0] = dsc + sc[1] + logf(mx[0]);
+      os[1] = dsc + sc[0] + logf(mx[1]);
+#pragma unroll
+      for (int side = 0; side < 2; ++side) {
+        float f[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < S; ++j) {
+          o[side][j] = iqt::div_rn(o[side][j], mx[side]);
+#pragma unroll
+          for (int k = 0; k < 3; ++k) f[k] += o[side][j] * m[side][k][j];
+        }
+#pragma unroll
+        for (int k = 0; k < 3; ++k) xsum[((c * 2 + side) * 3 + k) * tile + q] = f[k];
+        // the child's outside partial, pushed through its edge (P^T O), waits
+        // in the pool for its own step (d is read: a child may reuse st.out)
+        const int cslot = side ? st.rs : st.ls;
+        if (cslot >= 0) {
+          const float4* M = reinterpret_cast<const float4*>(
+              mats + (((size_t)(side ? st.r : st.l) * 3) * C + c) * SS);
+          float dd[S] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int s = 0; s < S; ++s) {
+            const float4 w = __ldg(M + s);
+            dd[0] += w.x * o[side][s];
+            dd[1] += w.y * o[side][s];
+            dd[2] += w.z * o[side][s];
+            dd[3] += w.w * o[side][s];
+          }
+          float* col = pool + (size_t)cslot * (CR + 1) * tile + q;
+#pragma unroll
+          for (int j = 0; j < S; ++j) col[(c * S + j) * tile] = dd[j];
+          if (c == 0) col[CR * tile] = os[side];
+        }
+      }
+      esc = c == 0 ? os[0] + sc[0] : os[1] + sc[1];  // edge c's scale (read at c < 2)
+    }
+    __syncthreads();  // every category's sums of step i are written
+    if (tid < 2 * tile) {  // (side = c, pattern q)
+      float fk[3] = {0.f, 0.f, 0.f};
+      for (int r = 0; r < C; ++r)
+#pragma unroll
+        for (int k = 0; k < 3; ++k) fk[k] += xsum[((r * 2 + c) * 3 + k) * tile + q];
+      const float inv_t = inv_p > 0.f ? inv_p * expf(fminf(-esc, 80.f)) : 0.f;
+      const float den = fmaxf(fk[0], SCALE_TINY) + inv_t;
+      const float r1 = iqt::div_rn(fk[1], den), r2 = iqt::div_rn(fk[2], den);
+      vsum[(2 * c) * tile + q] = w_p * r1;
+      vsum[(2 * c + 1) * tile + q] = w_p * (r2 - r1 * r1);
+    }
+    __syncthreads();  // the edge terms are written
+    if (tid < 4 * groups) {  // (group, side, term)
+      const int grp = tid >> 2, w = tid & 3;
+      const float* vp = vsum + w * tile + grp * group;
+      float acc = 0.f;
+      for (int u = 0; u < group; ++u) acc += vp[u];
+      part[((size_t)blockIdx.x * groups + grp) * n_nodes * 2 + 2 * (w < 2 ? st.l : st.r) +
+           (w & 1)] = acc;
+    }
+  }
+}
+
 // tile: patterns a cluster (a multiple of 16, or 8); a block has tile / QT
 // x G threads (a multiple of 32), and part must have ceil(P / tile) x
 // tile / min(tile, 16) rows of [n_nodes][2] (a row a group of 16 patterns;
@@ -430,10 +606,22 @@ extern "C" int iqt_wide_newton(const int* steps, int n_steps, const float* mats,
                                float* part, float* d12, int C, int S, int n_slots,
                                int tile, void* stream) {
   const int group = tile < SUM_PATTERNS ? tile : SUM_PATTERNS;
-  if (C < 1 || C > 8 || tile <= 0 || tile % QT || tile % group)
-    return (int)cudaErrorInvalidValue;
+  if (tile <= 0 || tile % QT || tile % group) return (int)cudaErrorInvalidValue;
   const int clusters = (P + tile - 1) / tile;
   cudaError_t e = cudaSuccess;
+  if (S == 4) {  // past 8 categories only: up to 8 the CS-packed newton.cu serves DNA
+    const int threads = (C * tile + 31) / 32 * 32;
+    const size_t smem = wide_newton_multi_smem(C, S, tile, n_slots);
+    if (C <= 8 || C * S > MULTI_ROWS_MAX || threads > MULTI_NEWTON_THREADS_MAX ||
+        smem > MAX_BLOCK_SMEM)
+      return (int)cudaErrorInvalidValue;
+    e = iqt::allow_smem(wide_newton_multi_kernel<4>, smem);
+    if (e == cudaSuccess)
+      wide_newton_multi_kernel<4><<<clusters, threads, smem, (cudaStream_t)stream>>>(
+          steps, n_steps, mats, rootd, wp, invar, up, usc, P, n_nodes, part, n_slots, tile,
+          C);
+  } else {
+    if (C < 1 || C > 8) return (int)cudaErrorInvalidValue;
 #define IQT_LAUNCH(SS_, RPT_)                                                       \
   {                                                                                 \
     constexpr int G = SS_ / RPT_;                                                   \
@@ -460,7 +648,8 @@ extern "C" int iqt_wide_newton(const int* steps, int n_steps, const float* mats,
                              n_slots, tile);                                        \
     }                                                                               \
   }
-  IQT_DISPATCH_S(S, IQT_LAUNCH)
+    IQT_DISPATCH_S(S, IQT_LAUNCH)
+  }
 #undef IQT_LAUNCH
   if (e != cudaSuccess) return (int)e;
   e = cudaGetLastError();

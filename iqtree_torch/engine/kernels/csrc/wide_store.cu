@@ -47,6 +47,8 @@
 // 80 taxa x 457 patterns, C = 4, the work at S = 61): the forward kernel's
 // 2.2 GFLOP (0.032 ms) against 79 x 245 rows x 457 x 4 B = 35 MB stored
 // and 18 MB read (0.016 ms): bound by operations.
+// The DNA instance (S = 4, DNA_RPT = 1 row a thread) runs past 8 categories
+// only (MULTI; up to 8 the CS-packed csrc/store.cu serves), as wide_forward.cu's.
 #include "wide_common.cuh"
 
 using namespace iqtw;
@@ -98,17 +100,21 @@ wide_store_kernel(const int* __restrict__ steps, int n_steps,
 }
 
 // The instance <S, RPT> at CB categories a block (MULTI past one; the
-// codon instance has none), or nullptr.
+// codon instance has none; the DNA instance has MULTI only), or nullptr.
 template <int S, int RPT>
 auto wide_store_instance(int CB) {
-  if constexpr (S <= 32)
+  if constexpr (multi_only<S>)
+    return CB > 1 ? wide_store_kernel<S, RPT, true> : nullptr;
+  else if constexpr (S <= 32)
     return CB > 1 ? wide_store_kernel<S, RPT, true> : wide_store_kernel<S, RPT, false>;
-  return CB > 1 ? nullptr : wide_store_kernel<S, RPT, false>;
+  else
+    return CB > 1 ? nullptr : wide_store_kernel<S, RPT, false>;
 }
 
 // tile: patterns a cluster, a multiple of 16 (a category warp has tile / 2
 // x 4 threads, whole warps) up to 128.  C categories on wide_k(C) blocks a
-// cluster, wide_cb(C) a block (past 8 the S = 20 instance only) on
+// cluster, wide_cb(C) a block (past 8 the S = 20 and S = 4 instances; S = 4
+// only past 8) on
 // UpwardLaunch's W category warps.
 extern "C" int iqt_wide_store(const int* steps, int n_steps, const float* trans,
                               const float* tips, int P, float* up, float* usc, int C,

@@ -82,6 +82,12 @@
 // part rows of 600 x 80 x 20 x 20 floats (9.45 GB) and reads them back,
 // ~18.9 GB: ~5.6 ms at 3.35 TB/s.
 //
+// The DNA instance (S = 4, past 8 categories only: MULTI; up to 8 the
+// CS-packed csrc/tbar.cu serves): a walk thread holds one row (DNA_RPT), a
+// sum lane one entry of a child's [4,4] block, so a 16-pattern group's 32
+// lanes are one sum warp, through the stage; at C = 10 and 16 patterns a
+// cluster 2 teams of 64 walk threads and a sum warp, one unit a phase.
+//
 // The codon instance (S = 64): a lane's block of a child's [S,S] is 8 x 8
 // entries (SumShape), so a group of 16 patterns has 2 x 8 x 8 = 128 lanes,
 // four sum warps, whose lanes store their entries straight to the part row
@@ -119,6 +125,10 @@ struct SumShape<20> {
 template <>
 struct SumShape<64> {
   static constexpr int SB = 8;
+};
+template <>
+struct SumShape<4> {
+  static constexpr int SB = 1;
 };
 template <int S>
 struct SumLanes {
@@ -372,20 +382,20 @@ struct TbarLaunch {
     W = CB > 1 && T ? least_units(CB, 1, T + sums, TBAR_MULTI_THREADS_MAX, bytes) : 1;
     threads = W * (T + sums);
     smem = bytes(W);
-    kernel = wide_tbar_kernel<S, RPT, false>;
-    if constexpr (S <= 32) {
-      if (CB > 1) kernel = wide_tbar_kernel<S, RPT, true>;
-    } else if (CB > 1) {
-      kernel = nullptr;
-    }
+    if constexpr (multi_only<S>)
+      kernel = CB > 1 ? wide_tbar_kernel<S, RPT, true> : nullptr;
+    else if constexpr (S <= 32)
+      kernel = CB > 1 ? wide_tbar_kernel<S, RPT, true> : wide_tbar_kernel<S, RPT, false>;
+    else
+      kernel = CB > 1 ? nullptr : wide_tbar_kernel<S, RPT, false>;
   }
 };
 
 // tile: patterns a cluster, a multiple of 16 up to 64 (a team has tile x
 // 4 walk threads and a sum warp for each 16 patterns); part holds
 // part_blocks rows of 16 patterns, at least tile / 16.  C categories on
-// wide_k(C) blocks a cluster, wide_cb(C) a block (past 8 the S = 20
-// instance only) on TbarLaunch's W category teams.
+// wide_k(C) blocks a cluster, wide_cb(C) a block (past 8 the S = 20 and
+// S = 4 instances; S = 4 only past 8) on TbarLaunch's W category teams.
 extern "C" int iqt_wide_tbar(const int* steps, int n_steps, const float* trans,
                              const float* rootd, const float* lnl, const float* wp,
                              const float* up, const float* usc, int P, int n_nodes,

@@ -68,8 +68,8 @@ WIDE_STORE_TILE = 16
 # The cluster walk's ring depth (CLUSTER_STAGES of csrc/wide_common.cuh).
 CLUSTER_STAGES = 2
 # State rows a thread of each wide instance (RPT; csrc/wide_common.cuh
-# IQT_DISPATCH_WIDE_S, CODON_RPT at S=64).
-WIDE_RPT = {20: 5, 64: 8}
+# IQT_DISPATCH_WIDE_S, CODON_RPT at S=64, DNA_RPT at S=4).
+WIDE_RPT = {4: 1, 20: 5, 64: 8}
 
 
 def pad_states(x: torch.Tensor, S_pad: int, *axes: int) -> torch.Tensor:
@@ -160,14 +160,14 @@ def fused_site_lnl(steps, n_slots, trans, tips, props, state_freq, invar,
 
     steps [N-1, 6] int32, trans [2N, C, S, S], tips [N, S, P],
     props [C], state_freq [C, S], invar [P] (the invariant-class
-    likelihood).  CUDA tensors launch csrc/forward.cu at S=4 and
-    csrc/wide_forward.cu (wide_site_lnl) at S=20 and the codon spaces; CPU
-    tensors run the plain twin.  `tile` (patterns a cluster) is for measuring the wide
+    likelihood).  CUDA tensors launch csrc/forward.cu at S=4 up to 8
+    categories and csrc/wide_forward.cu (wide_site_lnl) at S=20, the codon
+    spaces and S=4 past 8 categories; CPU tensors run the plain twin.  `tile` (patterns a cluster) is for measuring the wide
     kernel; forward.cu runs UPWARD_LANES lanes a block."""
     if not trans.is_cuda:
         return _site_lnl_plain(steps, trans, tips, props, state_freq, invar)
     C, S = trans.shape[1], trans.shape[2]
-    if S not in build.PACKED_STATES:
+    if not build.packed(C, S):
         return wide_site_lnl(steps, n_slots, trans, tips, props, state_freq, invar,
                              tile)
     P = tips.shape[2]
@@ -224,8 +224,8 @@ def wide_site_lnl(steps, n_slots, trans, tips, props, state_freq, invar,
         trans, tips = pad_states(trans, SK, 2, 3), pad_states(tips, SK, 1)
         rootw = pad_states(rootw, SK, 1)
     rootw = rootw.reshape(-1).contiguous()
-    build.check_inputs(C, SK, steps, trans, tips, rootw, invar,
-                       states=build.WIDE_STATES, n_slots=n_slots, multi=True)
+    build.check_inputs(C, SK, steps, trans, tips, rootw, invar, n_slots=n_slots,
+                       walk=True)
     out = torch.empty(P, dtype=torch.float32, device=trans.device)
     build.launch("wide_forward", steps, steps.shape[0], trans, tips, P, rootw,
                  invar, out, C, SK, n_slots, tile or WIDE_FORWARD_TILE)
@@ -251,8 +251,7 @@ def fused_upward_store(steps, n_slots, trans, tips, tile=None):
     P, SK = tips.shape[2], build.instance_states(S)
     if SK != S:
         trans, tips = pad_states(trans, SK, 2, 3), pad_states(tips, SK, 1)
-    build.check_inputs(C, SK, steps, trans, tips, states=build.WIDE_STATES,
-                       n_slots=n_slots, multi=True)
+    build.check_inputs(C, SK, steps, trans, tips, n_slots=n_slots, walk=True)
     up = torch.empty(n_rows, C * SK, P, dtype=torch.float32, device=trans.device)
     usc = torch.zeros(n_rows, P, dtype=torch.float32, device=trans.device)
     build.launch("wide_store", steps, steps.shape[0], trans, tips, P, up, usc, C, SK,

@@ -1,7 +1,9 @@
 """The .iqtree analysis report for DNA, protein and codon models and the
 mixtures: alignment summary, the substitution model (a mixture's classes
-with their rates and weights), rate heterogeneity, the maximum-likelihood
-tree and run information, in the reference report's sections."""
+with their rates and weights), rate heterogeneity (Gamma, invariable
+sites, FreeRate, with each category's rate and proportion), the
+maximum-likelihood tree and run information, in the reference report's
+sections."""
 
 from __future__ import annotations
 
@@ -27,10 +29,6 @@ FREQ_DESC = {
 }
 
 
-def rate_name_suffix(rate) -> str:
-    return ("+I" if rate.has_invar else "") + (f"+G{rate.ncat}" if rate.has_gamma else "")
-
-
 def write_report(path: str, aln, subst, rate, tree, lnl: float, command: str,
                  wall_time: float, iterations: int = 0) -> None:
     L: List[str] = [
@@ -52,7 +50,7 @@ def write_report(path: str, aln, subst, rate, tree, lnl: float, command: str,
         "",
         "SUBSTITUTION PROCESS",
         "--------------------",
-        f"Model of substitution: {subst.name}{rate_name_suffix(rate)}",
+        f"Model of substitution: {subst.name}{rate.name_suffix()}",
         "",
     ]
     codon = aln.states.seq_type == SEQ_CODON
@@ -71,6 +69,8 @@ def write_report(path: str, aln, subst, rate, tree, lnl: float, command: str,
         L.append(f"Model of rate heterogeneity: "
                  f"{'Invar+' if rate.has_invar else ''}Gamma with {rate.ncat} categories")
         L.append(f"Gamma shape alpha: {rate.alpha:.4g}")
+    elif rate.is_free_rate:
+        L.append(f"Model of rate heterogeneity: FreeRate with {rate.ncat} categories")
     elif rate.has_invar:
         L.append("Model of rate heterogeneity: Invariable sites")
     else:

@@ -2,7 +2,8 @@
 
 Parses IQ-TREE-style model strings like "GTR+G4+I", "HKY+F{.3,.2,.2,.3}",
 "GTR{1.5,2,0.8,1.2,3}+G{0.5}", "LG+F+I+G", "C20", "EX2+G", "LG4M" or
-"MIX{WAG,LG}+G" into a (ReversibleModel | MixtureModel, RateModel) pair.
+"MIX{WAG,LG}+G", "HKY+I+R3" or "LG4X" into a (ReversibleModel |
+MixtureModel, RateModel) pair.
 The protein names are the empirical matrices of models/protein.py, with
 their published frequencies unless a +F suffix says otherwise.  The codon
 names (models/codon.py) are GY (the default, counted codon frequencies),
@@ -19,8 +20,12 @@ Supported suffixes:
   +F1X4, +F3X4  codon frequencies from the pooled / per-position
                 nucleotide frequencies
   +I[{p}]       invariable sites
-  +G[n][{a}]    discrete Gamma (default n=4)
+  +G[n][{a}]    discrete Gamma (default n=4); +GM[n][{a}] with median rates
+  +R[n][{w1,r1,...}]  FreeRate (default n=4), with or without +I
+  +K[n]         free rates of equal weight (RateKategory; no +G, +R or +I)
   +FMIX{f1:r:w,...}  frequency-mixture classes (CF4/C10..C60 style)
+  MIX{...}*Rn   a mixture fused with FreeRate, its weights the FreeRate
+                weights (LG4X)
 Model parameters may be pinned inline: GTR{1.5,2.0,...}, GY{kappa,omega}.  Other families
 and suffixes raise NotImplementedError naming the slice that ports them.
 """
@@ -156,18 +161,16 @@ def parse_model_string(model_str: str, aln: Alignment):
             _not_ported("mixture models", "the codon mixture slice")
         subst, mix_star = build_mixture(base_tok, fmix_body, aln, defs,
                                         lambda n: _resolve_base(n, aln, defs))
-        if mix_star is not None and mix_star.upper().startswith("R"):
-            _not_ported(f"a mixture fused with FreeRate rates (*{mix_star})",
-                        "the FreeRate slice")
     elif "*" in base_tok:
         raise ModelParseError(f"bad model token {base_tok!r}")
     else:
         subst = _resolve_base(base_tok, aln, defs)
 
-    gamma_cats = 0
-    invar = False
+    gamma_cats = free_cats = kat_cats = 0
+    invar = gamma_median = False
     alpha, p_invar = 1.0, 0.0
     fix_alpha = fix_pinv = False
+    free_init = None
     freq_set = False
     for tok in suffixes:
         name, vals = _parse_braces(tok)
@@ -205,24 +208,38 @@ def parse_model_string(model_str: str, aln: Alignment):
             invar = True
             if vals:
                 p_invar, fix_pinv = vals[0], True
+        elif up.startswith("GM") and (len(up) == 2 or up[2:].isdigit()):
+            gamma_median = True
+            gamma_cats = int(up[2:]) if len(up) > 2 else (gamma_cats or 4)
+            if vals:
+                alpha, fix_alpha = vals[0], True
         elif up.startswith("G") and (len(up) == 1 or up[1:].isdigit()):
             gamma_cats = int(up[1:]) if len(up) > 1 else 4
             if vals:
                 alpha, fix_alpha = vals[0], True
-        elif up.startswith(("R", "K")) and (len(up) == 1 or up[1:].isdigit()):
-            _not_ported(f"+{name}", "the FreeRate slice")
+        elif up.startswith("R") and (len(up) == 1 or up[1:].isdigit()):
+            free_cats = int(up[1:]) if len(up) > 1 else 4
+            if vals:
+                free_init = np.asarray(vals)
+        elif up.startswith("K") and (len(up) == 1 or up[1:].isdigit()):
+            kat_cats = int(up[1:]) if len(up) > 1 else 4
         elif up == "ASC":
             _not_ported("+ASC", "the ascertainment-bias slice")
-        elif up.startswith("GM"):
-            _not_ported(f"+{name}", "a later slice: median Gamma rates")
         else:
             raise ModelParseError(f"unknown model suffix +{name}")
 
     if is_mix and subst.fused_with_rate:
-        # `MIX{..}*G4` pairs class m with Gamma rate class m (LG4M)
-        if gamma_cats and gamma_cats != subst.n_mix:
-            raise ModelParseError(f"fused mixture {subst.name} needs G{subst.n_mix}")
-        gamma_cats = gamma_cats or subst.n_mix
+        # `MIX{..}*G4` pairs class m with Gamma rate class m (LG4M); `MIX{..}*R4`
+        # with FreeRate class m, whose free weights are the class weights (LG4X)
+        if mix_star.upper().startswith("R"):
+            free_cats, gamma_cats = subst.n_mix, 0
+            subst.fix_weights = True  # tied to the FreeRate weights
+        else:
+            if gamma_cats and gamma_cats != subst.n_mix:
+                raise ModelParseError(f"fused mixture {subst.name} needs G{subst.n_mix}")
+            gamma_cats = gamma_cats or subst.n_mix
+    if kat_cats and (gamma_cats or free_cats or invar):
+        raise ModelParseError("+K cannot combine with +G/+R/+I")
     # a model's FREQ_ESTIMATE default means empirical counts unless +FO
     if not is_mix and not freq_set and subst.freq_type == FREQ_ESTIMATE:
         subst.freq_type = FREQ_EMPIRICAL
@@ -230,9 +247,16 @@ def parse_model_string(model_str: str, aln: Alignment):
         subst.state_freq = aln.state_frequencies()
     if isinstance(subst, CodonModel):  # MG's factors follow the frequencies
         subst.refresh_exchange()
-    rate = RateModel.make(gamma_cats=gamma_cats, invar=invar, alpha=alpha,
-                          p_invar=p_invar, fix_alpha=fix_alpha,
+    rate = RateModel.make(gamma_cats=gamma_cats, invar=invar, free_cats=free_cats,
+                          kat_cats=kat_cats, alpha=alpha, p_invar=p_invar,
+                          gamma_median=gamma_median, fix_alpha=fix_alpha,
                           fix_p_invar=fix_pinv)
+    if free_init is not None:  # +Rk{w1,r1,...}: the start weights and rates
+        if len(free_init) != 2 * free_cats:
+            raise ModelParseError(f"+R{free_cats} expects {2 * free_cats} values "
+                                  "(w1,r1,...)")
+        rate.free_props = free_init[0::2].copy()
+        rate.free_rates = free_init[1::2].copy()
     return subst, rate
 
 

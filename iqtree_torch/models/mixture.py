@@ -13,6 +13,8 @@ Supported forms (built-in definitions in models/data/builtin_mixmodels.nex):
                                (CF4, CAT C10..C60; `empirical` = counted)
   MIX{...}*G4                  rate-fused mixtures (LG4M: class m pairs
                                with Gamma rate class m)
+  MIX{...}*R4                  fused with FreeRate (LG4X: the FreeRate
+                               weights are the class weights in the fit)
 Weights given in the definition are fixed (unless -mwopt); omitted weights
 start equal and are ML-optimized (softmax logits in models/optimize.py).
 """
@@ -66,16 +68,17 @@ class MixtureModel:
                 np.stack([e[2] for e in eig]),
                 np.stack([np.asarray(c.state_freq) for c in self.components]))
 
-    def model_string(self, rate_suffix: str) -> str:
+    def model_string(self, rate_suffix: str, fused_rate: str = "G") -> str:
         """The mixture as a model string with its rates and weights pinned,
-        which parse_model_string reads back: MIX{a:r:w,...}[*G4] or
-        BASE+FMIX{f:r:w,...}, then `rate_suffix` (+I{..}+G4{..})."""
+        which parse_model_string reads back: MIX{a:r:w,...}[*G4 | *R4] (the
+        fused rate model `fused_rate`) or BASE+FMIX{f:r:w,...}, then
+        `rate_suffix` (+I{..}+G4{..}, +R4{..})."""
         toks = self.class_tokens or [c.name for c in self.components]
         body = ",".join(f"{t}:{r:.10g}:{w:.10g}"
                         for t, r, w in zip(toks, self.comp_rates, self.weights))
         if self.base is not None:
             return f"{self.base}+FMIX{{{body}}}{rate_suffix}"
-        star = f"*G{self.n_mix}" if self.fused_with_rate else ""
+        star = f"*{fused_rate}{self.n_mix}" if self.fused_with_rate else ""
         return f"MIX{{{body}}}{star}{rate_suffix}"
 
 

@@ -13,6 +13,13 @@ Unconstrained parameterization:
   frequencies        pi = softmax(x) floored at MIN_FREQ (+FO only)
   gamma shape        alpha = MIN + (MAX-MIN) * sigmoid(x)
   p_invar            p = sigmoid(x) * max_pinv
+  free rates (+R)    r = exp(x), w = softmax(y) * (1 - p), renormalized so
+                     that sum w r = 1
+  +K rates           r = K * softmax([0, x]) (sum r = K), weight 1.0 each
+
+The optimizer's +GM rates are the mean quadrature, as the JAX package's
+optimizer builds them; RateModel.category_rates (the evaluation after the
+fit) gives the median one.
 """
 
 from __future__ import annotations
@@ -53,6 +60,8 @@ class ModelOptimizer:
         s, r = self.subst, self.rate
         self.opt_alpha = r.has_gamma and not r.fix_alpha
         self.opt_pinv = r.has_invar and not r.fix_p_invar
+        self.opt_free = r.is_free_rate
+        self.opt_kat = r.is_kategory
         self.max_pinv = 0.999
         self.is_mixture = isinstance(s, MixtureModel)
         if self.is_mixture:
@@ -114,6 +123,13 @@ class ModelOptimizer:
             pv = self.rate.p_invar if self.rate.p_invar > 0 else 0.5 * self.max_pinv
             p0 = np.clip(pv / self.max_pinv, 1e-4, 1 - 1e-4)
             p["logit_pinv"] = self._t(np.log(p0 / (1 - p0)))
+        if self.opt_free:
+            p["log_free_rates"] = self._t(np.log(np.maximum(self.rate.free_rates, 1e-6)))
+            p["free_logits"] = self._t(np.log(np.maximum(self.rate.free_props, 1e-6)))
+        if self.opt_kat and self.rate.ncat > 1:
+            # K - 1 logits against the first rate's: sum(rates) == K smoothly
+            logit = np.log(np.maximum(np.asarray(self.rate.free_rates), 1e-6))
+            p["kat_logits"] = self._t(logit[1:] - logit[0])
         return p
 
     def _freq(self, params) -> torch.Tensor:
@@ -154,12 +170,22 @@ class ModelOptimizer:
         """(rates [R], props [R], p_invar) of the rate model."""
         pinv = self._pinv(params)
         C = self.rate.ncat
+        ones = torch.ones(C, dtype=torch.float64, device=self.device)
+        if self.opt_free:
+            r = torch.exp(params["log_free_rates"])
+            w = torch.softmax(params["free_logits"], 0) * (1.0 - pinv)
+            return r / torch.clamp((r * w).sum(), min=1e-8), w, pinv
+        if self.opt_kat:
+            # weight 1.0 a category (the reference's RateKategory)
+            if C == 1:
+                return ones, ones, pinv
+            logits = torch.cat([self._t([0.0]), params["kat_logits"]])
+            return torch.softmax(logits, 0) * C, ones, pinv
         if self.rate.has_gamma:
             rates = discrete_gamma_rates(self._alpha(params), C, pinv)
         else:
             rates = torch.ones(1, dtype=torch.float64, device=self.device)
-        props = torch.ones(C, dtype=torch.float64, device=self.device) * (1.0 - pinv) / C
-        return rates, props, pinv
+        return rates, ones * (1.0 - pinv) / C, pinv
 
     def _build_mixture(self, params) -> ModelArrays:
         """The fused (mixture x rate) ModelArrays (likelihood.py
@@ -172,7 +198,9 @@ class ModelOptimizer:
              else self._t(mix.weights))
         comp_rate = self._t(mix.comp_rates)
         if mix.fused_with_rate:
-            rates, props = rates_r * comp_rate, w * props_r.sum()
+            # LG4X (*R): the FreeRate weights are the class weights
+            rates = rates_r * comp_rate
+            props = props_r if self.opt_free else w * props_r.sum()
         else:
             rates = (comp_rate[:, None] * rates_r[None, :]).reshape(-1)
             props = (w[:, None] * props_r[None, :]).reshape(-1)
@@ -219,6 +247,12 @@ class ModelOptimizer:
                 r.alpha = float(self._alpha(params))
             if self.opt_pinv:
                 r.p_invar = float(self._pinv(params))
+            if self.opt_free:
+                r.free_rates = torch.exp(params["log_free_rates"]).cpu().numpy()
+                r.free_props = torch.softmax(params["free_logits"], 0).cpu().numpy()
+            if self.opt_kat and r.ncat > 1:
+                logits = torch.cat([self._t([0.0]), params["kat_logits"]])
+                r.free_rates = (torch.softmax(logits, 0) * r.ncat).cpu().numpy()
         return s, r
 
 

@@ -11,9 +11,11 @@ Without a CUDA device they skip.  Inputs: a random 40-taxon DNA alignment
 instances (S=64) a random 24-taxon codon alignment (101 codons) under
 genetic codes 1, 2 and 6, GY+F3X4+I+G (the parsimony kernel's 64-bit
 instance: 36 taxa x 150 codons).  Tolerances are float32 ones: the
-kernels and the twins sum in different orders.  Eleven tests hold
+kernels and the twins sum in different orders.  Fourteen tests hold
 kernels' bits against their earlier designs, built from the csrc/ directory
-that IQT_EARLIER_CSRC names; they skip without it.
+that IQT_EARLIER_CSRC names; they skip without it.  The wide walks' DNA
+instances past 8 categories (S=4) run on the 33-taxon DNA alignments of
+_lane_case at C = 9, 10, 16 and 32.
 """
 
 import contextlib
@@ -1086,7 +1088,7 @@ def _wide_launch_raw(kernel, k, fill):
     return a, b
 
 
-def _upward_warp_counts(C, n_slots):
+def _upward_warp_counts(C, n_slots, S=20):
     """(slots, W): from the tree's n_slots up, the first slot count at which
     the upward walk's chooser takes each of its category warp counts W, as
     far as its block fits (a larger slot pool is valid: the walk leaves the
@@ -1095,8 +1097,8 @@ def _upward_warp_counts(C, n_slots):
 
     out, seen = [], set()
     while True:
-        w = pruning.wide_forward_warps(20, C, pruning.WIDE_FORWARD_TILE, n_slots)
-        if pruning.wide_forward_smem(20, C, pruning.WIDE_FORWARD_TILE, n_slots,
+        w = pruning.wide_forward_warps(S, C, pruning.WIDE_FORWARD_TILE, n_slots)
+        if pruning.wide_forward_smem(S, C, pruning.WIDE_FORWARD_TILE, n_slots,
                                      warps=w) > build.MAX_BLOCK_SMEM:
             return out
         if w not in seen:
@@ -1130,7 +1132,7 @@ def _upward_raw(kernel, k, n_slots):
     return (out,)
 
 
-def _reverse_team_counts(C, n_slots, sums):
+def _reverse_team_counts(C, n_slots, sums, S=20):
     """(slots, W): from the tree's n_slots up, the first slot count at which
     the reverse walk's chooser takes each of its category team counts W for
     wide_down_store (wide_tbar with `sums`), as far as the kernel's block
@@ -1141,8 +1143,8 @@ def _reverse_team_counts(C, n_slots, sums):
     smem = cs_kernels.wide_tbar_smem if sums else cs_kernels.wide_down_store_smem
     out, seen = [], set()
     while True:
-        w = cs_kernels.wide_reverse_teams(20, C, 16, n_slots, sums=sums)
-        if smem(20, C, 16, n_slots, warps=w) > build.MAX_BLOCK_SMEM:
+        w = cs_kernels.wide_reverse_teams(S, C, 16, n_slots, sums=sums)
+        if smem(S, C, 16, n_slots, warps=w) > build.MAX_BLOCK_SMEM:
             return out
         if w not in seen:
             seen.add(w)
@@ -1336,3 +1338,216 @@ def test_wide_walks_refuse_what_their_shared_memory_cannot_hold():
     tips = tip_partials(k["site"]).contiguous()
     with pytest.raises(NotImplementedError, match="shared memory"):
         pruning.fused_upward_store(k["steps"], k["n_slots"], trans, tips)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [9, 10, 16, 32, 40])
+def test_dna_walks_past_eight_categories_match_twins(C):
+    """The four wide walks' DNA instances (S = 4, one row a thread, several
+    categories a block; none up to 8, where build.packed serves) at C = 9
+    and 10 (+R9, +R10; a padding category in the last block at 9), 16, 32
+    and 40 (past the branch-Newton kernels: the theta path), on a 33-taxon
+    DNA alignment at an odd pattern count: the engine's wrappers route them
+    there (build.packed is False past 8), the forward lnL within 1e-3 of the
+    twin, the store, the outside store and the gradient sweep within 1e-4,
+    two launches of each bit-equal, and no write outside the real rows; at
+    every count of category warps (teams) the choosers take as the slot
+    pool grows, each count's launch as the C entry makes it, the same bits
+    twice.  The forward also at a FreeRate vector from 1e-3 to 20."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from iqtree_torch.engine.kernels import build
+
+    assert not build.packed(C, 4) and build.wide_layout(C)[1] > 1
+    k = _lane_case(C, 500 + C)
+    model, site = k["model"], k["site"]
+    tips = tip_partials(site).contiguous()
+    N = k["ta"].n_taxa
+    R = 2 * N
+    inv = ptn_invar(model, site).float().contiguous()
+    args = (k["steps"], k["n_slots"], k["trans"], tips, model.props.float(), k["freq"], inv)
+    before = pruning.wide_site_lnl.launches
+    got = pruning.fused_site_lnl(*args)
+    assert pruning.wide_site_lnl.launches == before + 1  # the wide walk, not forward.cu
+    assert torch.equal(got, pruning.wide_site_lnl(*args))
+    assert float((got - pruning._site_lnl_plain(*args[:1], *args[2:])).abs().max()) <= 1e-3
+    # rates from 1e-3 to 20: the clamp, the floor and the renormalization
+    rates = torch.tensor(np.geomspace(1e-3, 20.0, C), device="cuda")
+    extreme = ModelArrays(model.eigenvalues, model.eigvec, model.inv_eigvec,
+                          model.state_freq, rates, model.props, model.p_invar)
+    trans_x = branch_transition_mats(extreme, k["ta"].blen).float().contiguous()
+    xargs = (k["steps"], k["n_slots"], trans_x, *args[3:])
+    got_x = pruning.wide_site_lnl(*xargs)
+    assert torch.equal(got_x, pruning.wide_site_lnl(*xargs))
+    assert float((got_x - pruning._site_lnl_plain(*xargs[:1], *xargs[2:])).abs().max()) <= 1e-3
+    # upward store
+    up_p, usc_p = pruning.upward_plain(k["steps"], k["trans"], tips)
+    up, usc = _wide_launch_raw("wide_store", k, float("nan"))
+    inner = slice(N, R - 1)
+    assert torch.equal(up[inner], k["up"][inner]) and torch.equal(usc[inner], k["usc"][inner])
+    assert float((up[inner] - up_p[inner]).abs().max()) <= 1e-4
+    assert float((usc[inner] - usc_p[inner]).abs().max() / usc_p[inner].abs().max()) <= 1e-4
+    assert bool(up[:N].isnan().all()) and bool(up[R - 1].isnan().all())
+    counts = _upward_warp_counts(C, k["n_slots"], S=4)
+    assert counts[0] == (k["n_slots"], pruning.wide_forward_warps(4, C, 16, k["n_slots"]))
+    for n_slots, w in counts:
+        for kernel in ("wide_forward", "wide_store"):
+            lay = build.walk_launch(kernel, C, 4, n_slots, 16)
+            assert lay["warps"] == w and lay["threads"] == 32 * w and lay["clusters"] > 0
+            assert lay["smem"] == pruning.wide_forward_smem(4, C, 16, n_slots, warps=w)
+        for _ in range(2):
+            assert torch.equal(_upward_raw("wide_forward", k, n_slots)[0], got)
+            up_w, usc_w = _upward_raw("wide_store", k, n_slots)
+            assert torch.equal(up_w[inner], up[inner]) and torch.equal(usc_w[inner], usc[inner])
+    # outside-partial store
+    dargs = (k["steps"], k["n_slots"], k["trans"], k["up"], k["usc"], k["freq"])
+    out, osc = cs_kernels.fused_down_store_cs(*dargs)
+    out2, osc2 = cs_kernels.fused_down_store(*dargs)
+    assert torch.equal(out, out2) and torch.equal(osc, osc2)
+    out_p, osc_p = cs_kernels._down_store_plain(k["steps"], k["trans"], k["up"], k["usc"],
+                                                k["freq"])
+    rows = [v for v in range(R - 1) if v != k["ta"].root]
+    assert float((out[rows] - out_p[rows]).abs().max()) <= 1e-4
+    assert float((osc[rows] - osc_p[rows]).abs().max() / osc_p[rows].abs().max()) <= 1e-4
+    raw, raw_sc = _wide_launch_raw("wide_down_store", k, float("nan"))
+    assert torch.equal(raw[rows], out[rows]) and torch.equal(raw_sc[rows], osc[rows])
+    assert bool(raw[R - 2:].isnan().all()) and bool(raw_sc[R - 2:].isnan().all())
+    # gradient sweep
+    targs = _tbar_args(k)
+    tb = cs_kernels.fused_tbar_cs(*targs, up=k["up"], usc=k["usc"])
+    assert torch.equal(tb, cs_kernels.fused_downward_tbar(*targs, up=k["up"], usc=k["usc"]))
+    tb_p = cs_kernels._tbar_plain(k["steps"], k["trans"], *targs[4:], k["up"], k["usc"])
+    edges = R - 2
+    assert not bool(tb[edges:].any())
+    assert float((tb[:edges] - tb_p[:edges]).abs().max() / tb_p[:edges].abs().max()) <= 1e-4
+    for kernel, sums in (("wide_down_store", False), ("wide_tbar", True)):
+        counts = _reverse_team_counts(C, k["n_slots"], sums, S=4)
+        assert counts[0] == (k["n_slots"],
+                             cs_kernels.wide_reverse_teams(4, C, 16, k["n_slots"], sums=sums))
+        for n_slots, w in counts:
+            lay = build.walk_launch(kernel, C, 4, n_slots, 16)
+            smem = (cs_kernels.wide_tbar_smem if sums else cs_kernels.wide_down_store_smem)(
+                4, C, 16, n_slots, warps=w)
+            threads = cs_kernels.wide_tbar_threads(4, 16, w) if sums else 64 * w
+            assert lay["warps"] == w and lay["threads"] == threads and lay["clusters"] > 0
+            assert lay["smem"] == smem
+            for _ in range(2):
+                res = _reverse_raw(kernel, k, n_slots, targs)
+                if sums:
+                    assert torch.equal(res[0], tb), (kernel, n_slots, w)
+                else:
+                    assert torch.equal(res[0][rows], out[rows]), (kernel, n_slots, w)
+                    assert torch.equal(res[1][rows], osc[rows]), (kernel, n_slots, w)
+
+
+@pytest.mark.cuda
+def test_dna_walks_refuse_what_the_packed_kernels_serve():
+    """Up to 8 categories the wide walks and the multi-category branch-Newton
+    sweep have no DNA instance: the wrappers refuse C = 4 at S = 4 (the
+    CS-packed kernels serve it); past 32 categories no branch-Newton kernel
+    serves DNA (the theta path does, as in the JAX package)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    k = _lane_case(4, 540)
+    model, site = k["model"], k["site"]
+    tips = tip_partials(site).contiguous()
+    with pytest.raises(NotImplementedError, match="CS-packed kernels serve C=4"):
+        pruning.fused_upward_store(k["steps"], k["n_slots"], k["trans"], tips)
+    mats = cs_kernels.stacked_deriv_mats(model, k["ta"].blen).float().contiguous()
+    freq = model.state_freq.float()
+    rest = (site.pattern_freq.contiguous(), ptn_invar(model, site).float().contiguous(),
+            k["up"], k["usc"])
+    with pytest.raises(NotImplementedError, match="the CS-packed newton kernel below"):
+        cs_kernels.wide_newton_sweep(k["steps"], k["n_slots"], mats, model.props.float(),
+                                     freq, *rest)
+    mats40 = mats.repeat(1, 1, 10, 1, 1).contiguous()  # 40 categories
+    props40 = model.props.float().repeat(10) / 10
+    with pytest.raises(NotImplementedError, match="the theta path above"):
+        cs_kernels.wide_newton_sweep(k["steps"], k["n_slots"], mats40, props40,
+                                     freq.repeat(10, 1), *rest)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [9, 10, 16, 32])
+def test_dna_newton_past_eight_categories_matches_twin(C):
+    """csrc/wide_newton.cu's multi-category instance (S = 4, a block all C
+    categories of a tile of patterns) at C = 9, 10, 16 and 32 on a 33-taxon
+    DNA alignment at an odd pattern count: newton_sweep routes there (not to
+    the CS-packed newton.cu), within 1e-4 of the twin (relative to the
+    largest entry) at every tile of 8, 16 and 32 patterns whose block fits,
+    two launches bit-equal, the root and dummy rows 0; at GTR+I+G and at a
+    FreeRate vector from 1e-3 to 20 (the clamp, the floor and the
+    renormalization)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from iqtree_torch.engine import derivatives
+    from iqtree_torch.engine.kernels import build
+
+    assert derivatives.newton_serves(C, 4) and build.wide_newton_multi(C, 4)
+    k = _lane_case(C, 580 + C)
+    model, site, ta = k["model"], k["site"], k["ta"]
+    tips = tip_partials(site).contiguous()
+    extreme = torch.tensor(np.geomspace(1e-3, 20.0, C), device="cuda")
+    for rates in (model.rates, extreme):
+        m = ModelArrays(model.eigenvalues, model.eigvec, model.inv_eigvec,
+                        model.state_freq, rates, model.props, model.p_invar)
+        trans = branch_transition_mats(m, ta.blen).float().contiguous()
+        up, usc = cs_kernels.fused_upward_store_cs(k["steps"], k["n_slots"], trans, tips)
+        cs_kernels.fill_tip_rows_cs(up, usc, tips, C)
+        mats = cs_kernels.stacked_deriv_mats(m, ta.blen).float().contiguous()
+        args = (k["steps"], k["n_slots"], mats, m.props.float(), k["freq"],
+                site.pattern_freq.contiguous(), ptn_invar(m, site).float().contiguous(),
+                up, usc)
+        want = cs_kernels._newton_plain(*args[:1], *args[2:])
+        before = (cs_kernels.newton_sweep.launches, cs_kernels.wide_newton_sweep.launches)
+        got = cs_kernels.newton_sweep(*args)
+        again = cs_kernels.wide_newton_sweep(*args)
+        assert (cs_kernels.newton_sweep.launches,
+                cs_kernels.wide_newton_sweep.launches) == (before[0], before[1] + 2)
+        for g, a, w in zip(got, again, want):
+            assert torch.equal(g, a)
+            assert not bool(g[[ta.root, ta.dummy]].any())
+            assert float((g - w).abs().max() / w.abs().max()) <= 1e-4
+        for tile in (8, 16, 32):
+            if -(-tile * C // 32) * 32 > cs_kernels.WIDE_NEWTON_MULTI_THREADS_MAX:
+                continue
+            for g, w in zip(cs_kernels.wide_newton_sweep(*args, tile=tile), want):
+                assert float((g - w).abs().max() / w.abs().max()) <= 1e-4, tile
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 4, 8])
+def test_dna_packed_kernels_keep_the_earlier_bits(C):
+    """Up to 8 categories DNA stays on the CS-packed kernels (forward, store,
+    gradient sweep, branch-Newton sweep, outside-partial store) with the
+    bits of the earlier build from IQT_EARLIER_CSRC, through the engine's
+    wrappers."""
+    earlier = _earlier_csrc()
+    k = _lane_case(C, 560 + C)
+    model, site = k["model"], k["site"]
+    tips = tip_partials(site).contiguous()
+    inv = ptn_invar(model, site).float().contiguous()
+    props = model.props.float()
+    targs = _tbar_args(k)
+    mats = cs_kernels.stacked_deriv_mats(model, k["ta"].blen).float().contiguous()
+    calls = {
+        "forward": lambda: (pruning.fused_site_lnl(k["steps"], k["n_slots"], k["trans"], tips,
+                                                   props, k["freq"], inv),),
+        "store": lambda: cs_kernels.fused_upward_store_cs(k["steps"], k["n_slots"],
+                                                          k["trans"], tips),
+        "tbar": lambda: (cs_kernels.fused_tbar_cs(*targs, up=k["up"], usc=k["usc"]),),
+        "newton": lambda: cs_kernels.newton_sweep(
+            k["steps"], k["n_slots"], mats, props, k["freq"], site.pattern_freq.contiguous(),
+            inv, k["up"], k["usc"]),
+        "down_store": lambda: cs_kernels.fused_down_store_cs(
+            k["steps"], k["n_slots"], k["trans"], k["up"], k["usc"], k["freq"]),
+    }
+    inner = slice(k["ta"].n_taxa, 2 * k["ta"].n_taxa - 1)  # the store leaves tip rows
+    for kernel, fn in calls.items():
+        got = fn()
+        with _earlier_design(kernel, earlier):
+            want = fn()
+        for g, w in zip(got, want):
+            if kernel == "store":
+                g, w = g[inner], w[inner]
+            assert torch.equal(g, w), (kernel, C)

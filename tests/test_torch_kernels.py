@@ -302,19 +302,35 @@ def test_wide_walks_shared_memory_past_eight_categories(C, K, CB):
 
 
 def test_check_shape_past_eight_categories():
-    """The wide walks serve S=20 past 8 categories as far as their shared
-    memory allows; the branch-Newton kernel, the CS-packed kernels and the
-    codon instance stop at 8, each naming what serves or will serve."""
+    """The wide walks serve S=20 and S=4 past 8 categories as far as their
+    shared memory allows (and S=4 only there: up to 8 the CS-packed kernels
+    serve DNA, as build.packed says); the branch-Newton kernel's cluster
+    instance, the CS-packed kernels and the codon instance stop at 8, each
+    naming what serves or will serve; wide_newton's DNA instance serves 9
+    to 32 categories (C*S <= 128)."""
     from iqtree_torch.engine.kernels import build
 
     build.check_shape(80, 20, n_slots=10)
     build.check_shape(80, 20, build.WIDE_STATES, 10)
+    for C, S in ((4, 20), (80, 20), (4, 61), (12, 4)):  # the walks' wrappers' call
+        build.check_shape(C, S, build.PACKED_STATES, 10, multi=False, walk=True)
     with pytest.raises(NotImplementedError, match="the theta path serve"):
         build.check_shape(80, 20, build.WIDE_NEWTON_STATES, multi=False)
     with pytest.raises(NotImplementedError, match="the codon mixture slice"):
         build.check_shape(12, 64)
-    with pytest.raises(NotImplementedError, match="the DNA mixture slice"):
-        build.check_shape(12, 4)
+    for C in (9, 12, 32, 40):
+        build.check_shape(C, 4, n_slots=11)
+        build.check_shape(C, 4, n_slots=11, walk=True)
+        assert not build.packed(C, 4)
+        assert build.wide_newton_multi(C, 4) == (C <= 32)
+    assert not build.wide_newton_multi(8, 4) and not build.wide_newton_multi(12, 20)
+    with pytest.raises(NotImplementedError, match="the CS-packed kernels serve C=8"):
+        build.check_shape(8, 4, n_slots=11, walk=True)
+    with pytest.raises(NotImplementedError, match="serves at most 8 categories"):
+        build.check_shape(12, 4, build.PACKED_STATES, multi=False)
+    assert build.wide_walk_smem(544, 4, 11) <= build.MAX_BLOCK_SMEM
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        build.check_shape(545, 4, n_slots=11)
     with pytest.raises(NotImplementedError, match="shared memory"):
         build.check_shape(240, 20, n_slots=10)
 

@@ -79,12 +79,13 @@ def test_builtin_mixtures_have_the_jax_packages_categories(name, ncat):
 
 
 def test_lg4x_and_frequency_suffixes_are_refused():
-    """LG4X fuses its classes with FreeRate (*R4), which the FreeRate slice
-    ports; a +F suffix does not apply to a mixture (the JAX package's
-    message); codon mixtures wait for their own slice."""
-    aln = read_alignment(PROT)
-    with pytest.raises(NotImplementedError, match=r"not ported yet \(the FreeRate slice\)"):
-        parse_model_string("LG4X", aln)
+    """LG4X fuses its classes with FreeRate (*R4; tests/test_torch_freerate.py),
+    so a +K suffix cannot join it; a +F suffix does not apply to a mixture
+    (the JAX package's messages, both)."""
+    aln, jaln = read_alignment(PROT), jax_read_alignment(PROT)
+    for parse, a in ((parse_model_string, aln), (jax_parse_model, jaln)):
+        with pytest.raises(ValueError, match=r"\+K cannot combine with \+G/\+R/\+I"):
+            parse("LG4X+K4", a)
     with pytest.raises(ValueError, match="frequency suffixes don't apply to mixture"):
         parse_model_string("C10+F", aln)
 

@@ -1,18 +1,19 @@
 """Command-line entry: the default tree search, with the ultrafast
 bootstrap under -bb, or the fixed-topology (-te) model and branch fit;
-DNA, protein and codons (-st CODON[n]), the mixture models (-m C10..
+DNA, protein, codons (-st CODON[n]), binary and morphological data
+(-st BIN, -st MORPH: JC2, GTR2, MK, ORDERED), the mixture models (-m C10..
 C60, EX2+G, LG4M, LG4X, MIX{...}, BASE+FMIX{...}; -mwopt frees their
-pinned class weights) and the rate models +G, +GM, +I, +R, +K (-a, -i
-and -gmedian write into the model string).
+pinned class weights), the rate models +G, +GM, +I, +R, +K (-a, -i
+and -gmedian write into the model string) and +ASC.
 
-    python -m iqtree_torch -s ALN [-st DNA|AA|CODON[n]] [-m MODEL] [-mwopt]
+    python -m iqtree_torch -s ALN [-st DNA|AA|BIN|MORPH|CODON[n]] [-m MODEL] [-mwopt]
                            [-a ALPHA] [-i PINV] [-gmedian]
                            [-t TREE | -starttree BIONJ|PARS]
                            [-n N] [-nstop N] [-ninit N] [-ntop N] [-pers X]
                            [-maxtime MIN] [-keep-ident] [-pre P] [-seed N]
                            [-bb B [-beps X] [-bcor X] [-nstep N] [-wbt | -wbtl]]
                            [-redo] [-device cuda|cpu]
-    python -m iqtree_torch -s ALN [-st DNA|AA|CODON[n]] -te TREE -m MODEL [-blfix] ...
+    python -m iqtree_torch -s ALN [-st DNA|AA|BIN|MORPH|CODON[n]] -te TREE -m MODEL [-blfix] ...
 
 With -te, -bb is accepted and ignored: the fit writes no supports (as the
 JAX CLI does).  Writes PREFIX.treefile (the best tree, with UFBoot supports under -bb),
@@ -142,6 +143,8 @@ def model_name(subst, rate) -> str:
         suffix += f"+R{rate.ncat}{{" + ",".join(f"{a:.6g},{b:.6g}" for a, b in zip(w, r)) + "}"
     if rate.is_kategory:  # +K takes no values
         suffix += f"+K{rate.ncat}"
+    if subst.asc:
+        suffix += "+ASC"
     if isinstance(subst, MixtureModel):
         return subst.model_string(suffix, "R" if rate.is_free_rate else "G")
     name = subst.name
@@ -207,12 +210,13 @@ def run_fixed_topology(cfg, aln, model_str: str, device: torch.device, log):
         tree = PhyloTree.from_newick(f.read(), aln.names, rng=rng)
     subst, rate = parse_model_string(model_str, aln)
     dt = work_dtype(device)
-    site = SiteData.from_alignment(aln, device, dt)
+    site = SiteData.from_alignment(aln, device, dt, asc=subst.asc)
     ta = TreeArrays.from_tree(tree, device)
     C = category_count(subst, rate)
-    dec = decide_engine(aln.n_taxa, C, subst.num_states, aln.n_patterns, device, dt)
-    for line in engine_banner(dec, aln.n_taxa, C, subst.num_states,
-                              aln.n_patterns).splitlines():
+    P = site.tip_codes.shape[1]  # +ASC's unobservable patterns included
+    dec = decide_engine(aln.n_taxa, C, subst.num_states, P, device, dt, has_asc=subst.asc)
+    for line in engine_banner(dec, aln.n_taxa, C, subst.num_states, P,
+                              has_asc=subst.asc).splitlines():
         log(line)
     steps, n_slots = device_slot_schedule(tree, ta)
     steps = torch.as_tensor(steps, device=device)

@@ -1,6 +1,7 @@
 """Command-line configuration of the port: the fixed-topology fit (-te)
 and the default tree search with its ultrafast bootstrap (-bb), for DNA,
-protein and codons (-st CODON[n]) and the mixture models (-m C10..C60,
+protein, codons (-st CODON[n]), binary and morphological data (-st BIN,
+-st MORPH) and the mixture models (-m C10..C60,
 EX2, LG4M, LG4X, MIX{...}, +FMIX{...}; -mwopt frees pinned class weights);
 -i, -a and -gmedian pin or change the rate model through the model string."""
 
@@ -36,7 +37,7 @@ class RunConfig:
     max_seconds: Optional[float] = None
     start_tree_mode: str = "BIONJ"
     keep_identical: bool = False
-    seq_type: Optional[str] = None  # -st DNA|AA|CODON; None = detected
+    seq_type: Optional[str] = None  # -st DNA|AA|BIN|MORPH|CODON; None = detected
     genetic_code: int = 1  # -st CODONn: NCBI genetic code n
     ufboot: int = 0  # -bb: ultrafast bootstrap samples
     ufboot_epsilon: float = 0.5  # -beps
@@ -63,15 +64,16 @@ def parse_args(argv) -> RunConfig:
             raise SystemExit(
                 f"iqtree-torch: option {a} is not ported yet; this version runs "
                 f"the fixed-topology fit and the default search with its bootstrap, "
-                f"for DNA, protein, codon and mixture models ({' '.join(PORTED_FLAGS)})")
+                f"for DNA, protein, codon, binary, morphology and mixture models "
+                f"({' '.join(PORTED_FLAGS)})")
     p = _Parser(prog="iqtree-torch",
                 description="IQ-TREE tree search and fixed-topology fit on "
                             "PyTorch and hand-written CUDA kernels")
     p.add_argument("-s", dest="aln_file", required=True, help="alignment file")
     p.add_argument("-st", dest="seq_type", default=None, type=str.upper,
-                   help="sequence type DNA, AA or CODON[n] (codons under NCBI "
-                        "genetic code n, default 1; default: DNA or AA detected "
-                        "from the characters)")
+                   help="sequence type DNA, AA, BIN, MORPH or CODON[n] (codons "
+                        "under NCBI genetic code n, default 1; default: DNA, AA, "
+                        "BIN or MORPH detected from the characters)")
     p.add_argument("-te", dest="fixed_tree", default=None,
                    help="user tree file: fit on this fixed topology, no search")
     p.add_argument("-t", dest="start_tree", default=None,
@@ -142,11 +144,10 @@ def parse_args(argv) -> RunConfig:
                     f"{', '.join(map(str, GENETIC_CODES))})")
         genetic_code = int(code) if code else 1
         a.seq_type = "CODON"
-    if a.seq_type not in (None, "DNA", "AA", "CODON"):
+    if a.seq_type not in (None, "DNA", "AA", "BIN", "MORPH", "CODON"):
         raise SystemExit(
-            f"iqtree-torch: -st {a.seq_type} is not ported yet; this version "
-            "reads DNA, AA and CODON (binary and morphology come with later "
-            "slices)")
+            f"iqtree-torch: -st {a.seq_type}: unsupported sequence type (DNA, AA, "
+            "BIN, MORPH or CODON[n])")
     return RunConfig(
         a.aln_file, a.fixed_tree, a.start_tree, rate_flags_model(a), a.prefix, a.seed,
         a.fix_branch_lengths, a.redo, a.device, n_iterations=a.n_iterations,

@@ -42,8 +42,8 @@ def tree_arrays(src, device, dtype=torch.float64) -> TreeArrays:
 
 def model_arrays(src, device, dtype=torch.float64) -> ModelArrays:
     """From an object with eigenvalues, eigvec, inv_eigvec, state_freq,
-    rates, props and p_invar fields, at any state count (DNA S=4, protein
-    S=20; reversible models only)."""
+    rates, props and p_invar fields, at any state count (binary S=2, DNA
+    S=4, protein S=20, morphology, codons; reversible models only)."""
     if getattr(src, "qmat", None) is not None:
         raise NotImplementedError("non-reversible models are not ported yet")
     t = lambda a: torch.tensor(_np(a).astype(np.float64), dtype=dtype,
@@ -56,20 +56,21 @@ def model_arrays(src, device, dtype=torch.float64) -> ModelArrays:
 def codon_model(src) -> CodonModel:
     """The port's CodonModel from an object with the fields of one (name,
     num_states, freq_type, state_freq, code_id, kappa, omega, mg, nt_freq,
-    fix_kappa, fix_omega): its exchangeabilities follow from them."""
+    fix_kappa, fix_omega, asc): its exchangeabilities follow from them."""
     nt = getattr(src, "nt_freq", None)
     return CodonModel(str(src.name), int(src.num_states), freq_type=str(src.freq_type),
                       state_freq=_np(src.state_freq).astype(np.float64).copy(),
                       code_id=int(src.code_id), kappa=float(src.kappa),
                       omega=float(src.omega), mg=bool(src.mg),
                       nt_freq=None if nt is None else _np(nt).astype(np.float64).copy(),
-                      fix_kappa=bool(src.fix_kappa), fix_omega=bool(src.fix_omega))
+                      fix_kappa=bool(src.fix_kappa), fix_omega=bool(src.fix_omega),
+                      asc=bool(getattr(src, "asc", False)))
 
 
 def reversible_model(src) -> ReversibleModel:
     """The port's ReversibleModel from an object with the fields of one
     (name, num_states, rate_groups, group_rates, exchange, freq_type,
-    state_freq, fixed_rates)."""
+    state_freq, fixed_rates, asc)."""
     copy = lambda a, t: None if a is None else _np(a).astype(t).copy()
     return ReversibleModel(str(src.name), int(src.num_states),
                            rate_groups=copy(src.rate_groups, np.int32),
@@ -77,18 +78,20 @@ def reversible_model(src) -> ReversibleModel:
                            exchange=copy(src.exchange, np.float64),
                            freq_type=str(src.freq_type),
                            state_freq=copy(src.state_freq, np.float64),
-                           fixed_rates=bool(src.fixed_rates))
+                           fixed_rates=bool(src.fixed_rates),
+                           asc=bool(getattr(src, "asc", False)))
 
 
 def mixture_model(src) -> MixtureModel:
     """The port's MixtureModel from an object with the fields of one (name,
-    components, weights, comp_rates, fix_weights, fused_with_rate): each
+    components, weights, comp_rates, fix_weights, fused_with_rate, asc): each
     component's matrix and frequencies, the weights and the rates."""
     return MixtureModel(str(src.name), [reversible_model(c) for c in src.components],
                         _np(src.weights).astype(np.float64).copy(),
                         _np(src.comp_rates).astype(np.float64).copy(),
                         fix_weights=bool(src.fix_weights),
-                        fused_with_rate=bool(src.fused_with_rate))
+                        fused_with_rate=bool(src.fused_with_rate),
+                        asc=bool(getattr(src, "asc", False)))
 
 
 def site_data(src, device, dtype=torch.float64) -> SiteData:

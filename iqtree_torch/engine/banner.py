@@ -4,7 +4,7 @@ Names the path the run really takes -- the CUDA kernels on the card, or
 the kernels' plain PyTorch twins on the CPU -- and checks the stored
 partials the reverse sweeps need against the card's free memory before
 anything is allocated.  A tree search, and the branch Newton's theta
-path (the codon spaces, the mixtures past 8 categories), also hold the
+path (the codon spaces, the mixtures past 8 categories, +ASC), also hold the
 outside partials, and the theta path a chunk of branches' theta buffers;
 a search sizes the NNI evaluator's edge chunks from what is left.
 """
@@ -60,20 +60,21 @@ def memory_capacity(device: torch.device) -> int:
 
 def decide_engine(n_taxa: int, ncat: int, num_states: int, n_patterns: int,
                   device: torch.device, dtype: torch.dtype,
-                  search: bool = False) -> EngineDecision:
-    """The path for this problem and its device-memory footprint.  Raises
-    when the card cannot hold the stored partials, or the shape has no
-    kernel yet; never falls back to the CPU or to another engine."""
+                  search: bool = False, has_asc: bool = False) -> EngineDecision:
+    """The path for this problem and its device-memory footprint
+    (n_patterns: the device's, +ASC's unobservable patterns included).
+    Raises when the card cannot hold the stored partials, or the shape has
+    no kernel yet; never falls back to the CPU or to another engine."""
     n_rows = 2 * n_taxa
     item = torch.finfo(dtype).bits // 8
     CS = ncat * num_states
     kernels = device.type == "cuda"
     # up [2N, C*S, P] + usc [2N, P]; a search and the theta path also store
-    # out + osc.  The kernels write a codon space's rows at the padded width
-    # (S=64) and the wrappers slice them, so on the card a pass holds its
-    # rows at that width
-    width = ncat * build.instance_states(num_states) if kernels else CS
-    theta = not newton_serves(ncat, num_states)
+    # out + osc.  The kernels write a padded state space's rows at the
+    # instance's width (build.instance_states) and the wrappers slice them,
+    # so on the card a pass holds its rows at that width
+    width = ncat * build.instance_states(num_states, ncat) if kernels else CS
+    theta = not newton_serves(ncat, num_states, has_asc)
     store = n_rows * (width + 1) * n_patterns * item * (2 if search or theta else 1)
     # the theta path's buffers, a chunk of branches at a time (derivatives.py)
     theta_bytes = (theta_chunk_edges(n_rows, CS, n_patterns, item) * THETA_LIVE * CS
@@ -93,28 +94,35 @@ def decide_engine(n_taxa: int, ncat: int, num_states: int, n_patterns: int,
 
 
 def engine_banner(dec: EngineDecision, n_taxa: int, ncat: int, num_states: int,
-                  n_patterns: int, search: bool = False) -> str:
+                  n_patterns: int, search: bool = False, has_asc: bool = False) -> str:
     """Human-readable engine/memory report (logged at startup)."""
-    theta = not newton_serves(ncat, num_states)  # codon, protein past 8, DNA past 32
+    # codon, protein past 8, DNA past 32, +ASC
+    theta = not newton_serves(ncat, num_states, has_asc)
     if dec.kernels:
         name = torch.cuda.get_device_name(dec.device)
-        padded = build.instance_states(num_states)
+        padded = build.instance_states(num_states, ncat)
         K, cb = build.wide_layout(ncat)
         wide = not build.packed(ncat, num_states)
-        shape = ("CS-packed" if not wide else
-                 f"wide [C,S,S] x [C,S,tile], S={num_states}"
-                 + (f" (padded {padded})" if padded != num_states else "")
-                 + (f", {cb} categories a block on {K}-block clusters" if cb > 1 else ""))
+        states = f"S={num_states}" + (f" (padded {padded})" if padded != num_states else "")
+        if not wide:
+            shape = "CS-packed" + (f", {states}" if num_states != 4 else "")
+        else:
+            shape = (f"wide [C,S,S] x [C,S,tile], {states}"
+                     + (f", {cb} categories a block on {K}-block clusters" if cb > 1 else ""))
         last = "outside-partial store" if theta else "branch-Newton sweep"
         path = (f"CUDA kernels on {name} ({shape} forward, upward store, "
                 f"gradient sweep, {last}; CS={ncat * num_states})")
         newton = ("theta path on the upward-store and outside-partial-store kernels"
                   if theta else "branch-Newton sweep kernel")
+        if theta and has_asc:
+            newton += " (+ASC's terms)"
         budget = f"budget {dec.mem_cap / 2**30:.1f} GB"
     else:
         path = "plain PyTorch twins of the kernels on the CPU (float64)"
         newton = ("theta path on the plain twins of the upward and outside-partial "
                   "stores" if theta else "plain twin of the branch-Newton sweep")
+        if theta and has_asc:
+            newton += " (+ASC's terms)"
         budget = "host memory"
     lines = [f"Likelihood engine: {path}", f"Branch optimization: {newton}"]
     if search:

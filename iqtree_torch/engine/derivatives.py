@@ -8,7 +8,8 @@ d lnL/dt and d2 lnL/dt2 for all 2N-3 branches come from one of two paths
   DNA, the wide ones for protein, the plain twins on the CPU);
 * the theta path, where no branch-Newton kernel serves the shape (the
   codon spaces, protein past 8 categories and DNA past 32, as in the JAX
-  package): the upward store and the outside-partial store
+  package) and under +ASC, whose per-branch terms the sweep does not
+  carry (as in the JAX package): the upward store and the outside-partial store
   (fused_nni_passes_cs, the wide kernels), then every branch's theta
   buffer theta[v,c,j,p] = (V^T O_v)_j (V^-1 U_v)_j and its derivatives
   f_k = sum_cj w_c (lam_j r_c)^k e^{lam_j r_c t} theta in plain PyTorch
@@ -24,7 +25,7 @@ joint step until the lnL does not drop.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -78,6 +79,12 @@ class LocalModel(NamedTuple):
     props_cs: torch.Tensor  # [CS]
     pfreq: torch.Tensor  # [P]
     invar: torch.Tensor  # [P]
+    asc: Optional[torch.Tensor] = None  # [P] the +ASC patterns (None: no +ASC)
+
+
+def has_asc(site: SiteData) -> bool:
+    """Whether the site data carry +ASC's unobservable constant patterns."""
+    return bool((site.asc_mask != 0).any())
 
 
 def local_model(model: ModelArrays, site: SiteData, dt) -> LocalModel:
@@ -88,7 +95,8 @@ def local_model(model: ModelArrays, site: SiteData, dt) -> LocalModel:
         eigvec=to(model.eigvec), inv_eigvec=to(model.inv_eigvec), lam=lam,
         rates=rates, lam_r=(lam * rates[:, None]).reshape(C * S),
         props_cs=to(model.props)[:, None].expand(C, S).reshape(C * S),
-        pfreq=site.pattern_freq.to(dt), invar=to(ptn_invar(model, site)))
+        pfreq=site.pattern_freq.to(dt), invar=to(ptn_invar(model, site)),
+        asc=site.asc_mask.to(dt) if has_asc(site) else None)
 
 
 class Thetas(NamedTuple):
@@ -115,21 +123,41 @@ def theta_derivs(m: LocalModel, th: Thetas, t: torch.Tensor):
     """(d1 [K], d2 [K], denom [K, P]) at branch lengths t [K]: d lnL/dt and
     d2 lnL/dt2 of each branch and its scaled site likelihoods, from
     f_k = sum_cj w_c (lam_j r_c)^k e^{lam_j r_c t} theta (the JAX package's
-    branch_lnl_derivs)."""
+    branch_lnl_derivs).  Under +ASC the total also holds -n log(1 - q),
+    q = sum of the unobservable patterns' likelihoods: with q' = sum L r1
+    and q'' = sum L r2 over them, d1 gains n q' / (1 - q) and d2
+    n (q'' / (1 - q) + (q' / (1 - q))^2), 1 - q clamped at 1e-10."""
     e = m.props_cs[None] * torch.exp(m.lam_r[None] * t[:, None])  # [K, CS]
     w = torch.stack([e, e * m.lam_r, e * m.lam_r * m.lam_r], dim=1)
     f = torch.bmm(w, th.theta)  # [K, 3, P]
     denom = torch.clamp(f[:, 0], min=SCALE_TINY) + th.invar
     r1, r2 = f[:, 1] / denom, f[:, 2] / denom
-    return (m.pfreq * r1).sum(-1), (m.pfreq * (r2 - r1 * r1)).sum(-1), denom
+    d1, d2 = (m.pfreq * r1).sum(-1), (m.pfreq * (r2 - r1 * r1)).sum(-1)
+    if m.asc is not None:
+        L = m.asc * torch.exp(torch.clamp(th.scale + torch.log(denom), max=0.0))
+        one_m_q = torch.clamp(1.0 - L.sum(-1), min=1e-10)
+        n = m.pfreq.sum()
+        q1, q2 = (L * r1).sum(-1) / one_m_q, (L * r2).sum(-1) / one_m_q
+        d1, d2 = d1 + n * q1, d2 + n * (q2 + q1 * q1)
+    return d1, d2, denom
 
 
-def newton_serves(C: int, S: int) -> bool:
+def asc_corrections(m: LocalModel, site_lnl: torch.Tensor) -> torch.Tensor:
+    """[K] log(1 - q) of K candidates' uncorrected site lnl [K, P]
+    (likelihood.asc_correction a row each); 0 without +ASC."""
+    if m.asc is None:
+        return torch.zeros_like(site_lnl[:, 0])
+    q = (m.asc * torch.exp(torch.clamp(site_lnl, max=0.0))).sum(-1)
+    return torch.log1p(-torch.clamp(q, max=1.0 - 1e-10))
+
+
+def newton_serves(C: int, S: int, asc: bool = False) -> bool:
     """Whether a branch-Newton sweep kernel serves C categories x S states
-    (DNA up to 32 categories, protein up to 8); the codon spaces and the
-    shapes past those take the theta path."""
-    return (build.packed(C, S) or build.wide_newton_multi(C, S)
-            or (S in build.WIDE_NEWTON_STATES and C <= build.MAX_CATEGORIES))
+    (DNA and binary up to 32 categories, 3 to 20 states up to 8); the codon
+    spaces, the shapes past those and +ASC (`asc`) take the theta path."""
+    SK = build.instance_states(S, C)
+    return not asc and (build.packed(C, S) or build.wide_newton_multi(C, SK)
+                        or (SK in build.WIDE_NEWTON_STATES and C <= build.MAX_CATEGORIES))
 
 
 # Bytes the theta path's per-branch buffers may take at once: the theta
@@ -151,9 +179,9 @@ def branch_derivs(steps, n_slots: int, model: ModelArrays, site: SiteData,
                   blen: torch.Tensor, tips, invar):
     """(d1 [2N], d2 [2N]) of every edge (entry v = the edge above v; the
     root and dummy rows carry no edge): the branch-Newton sweep where a
-    kernel serves the shape, else the theta path on the upward store and
-    the outside-partial store."""
-    if newton_serves(model.ncat, model.num_states):
+    kernel serves the shape, else (and under +ASC) the theta path on the
+    upward store and the outside-partial store."""
+    if newton_serves(model.ncat, model.num_states, has_asc(site)):
         return fused_newton_derivs(steps, n_slots, model, blen, tips,
                                    site.pattern_freq.contiguous(), invar)
     dt = tips.dtype
@@ -192,9 +220,6 @@ def optimize_all_branches(
     most `max_backtracks` times) while the lnL is below the last one;
     a sweep whose smallest step still loses stays put and ends the loop.
     Returns (tree with the new blen, lnL)."""
-    if bool((site.asc_mask != 0).any()):
-        raise NotImplementedError(
-            "branch Newton with +ASC is not ported yet (the ascertainment-bias slice)")
     mask = optimize_branch_mask(tree)
     dt = site.code_masks.dtype
     tips = tip_partials(site).contiguous()

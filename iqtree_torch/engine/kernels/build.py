@@ -31,11 +31,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 P_, I_ = ctypes.c_void_p, ctypes.c_int
 # C entry points: (steps, n_steps, ...inputs..., C, n_slots, tile, stream)
 SIGNATURES = {
-    "iqt_forward": [P_, I_, P_, P_, I_, P_, P_, P_, I_, I_, I_, P_],
-    "iqt_store": [P_, I_, P_, P_, I_, P_, P_, I_, I_, I_, P_],
-    "iqt_tbar": [P_, I_, P_, P_, P_, P_, P_, P_, I_, I_, P_, P_, I_, I_, I_, P_],
-    "iqt_newton": [P_, I_, P_, P_, P_, P_, P_, P_, I_, I_, P_, P_, I_, I_, I_, P_],
-    "iqt_down_store": [P_, I_, P_, P_, P_, P_, I_, P_, P_, I_, I_, I_, P_],
+    # the CS-packed kernels: (..., C, S, n_slots, lanes or tile, stream)
+    "iqt_forward": [P_, I_, P_, P_, I_, P_, P_, P_, I_, I_, I_, I_, P_],
+    "iqt_store": [P_, I_, P_, P_, I_, P_, P_, I_, I_, I_, I_, P_],
+    "iqt_tbar": [P_, I_, P_, P_, P_, P_, P_, P_, I_, I_, P_, P_, I_, I_, I_, I_, P_],
+    "iqt_newton": [P_, I_, P_, P_, P_, P_, P_, P_, I_, I_, P_, P_, I_, I_, I_, I_, P_],
+    "iqt_down_store": [P_, I_, P_, P_, P_, P_, I_, P_, P_, I_, I_, I_, I_, P_],
     # (rows, n_post, n_pre, tips, n_taxa, leaf, weights, n_words, miss, cost,
     #  lane bits 4 / 32 / 64, stream)
     "iqt_pars_insert": [P_, I_, I_, P_, I_, I_, P_, I_, P_, P_, I_, P_],
@@ -56,10 +57,15 @@ SIGNATURES = {
     # (variant, steps, n_steps, trans, tips, P, out, C, n_slots, tile, stream)
     "iqt_forward_ablate": [I_, P_, I_, P_, P_, I_, P_, I_, I_, I_, P_],
 }
+# Where the CS-packed kernels' C entries take S (after C): their earlier
+# builds, before the S = 2 instances, take no S there (probe.py loads them).
+STATE_ARGUMENT = {"iqt_forward": 9, "iqt_store": 8, "iqt_tbar": 13, "iqt_newton": 13,
+                  "iqt_down_store": 10}
 
-# State counts with a kernel instance: the CS-packed DNA kernels (S=4) and
-# the wide kernels (S=20, protein; S=64, codons).
-PACKED_STATES = (4,)
+# State counts with a kernel instance: the CS-packed kernels (S=2, binary;
+# S=4, DNA) and the wide kernels (S=20, protein; S=64, codons); every other
+# state count runs zero-padded on one of them (instance_states).
+PACKED_STATES = (2, 4)
 WIDE_STATES = (20, 64)
 # csrc/wide_newton.cu's cluster instance: protein up to MAX_CATEGORIES (codon
 # branch lengths take the theta path, engine/derivatives.py)
@@ -93,15 +99,11 @@ BLOCK_SMEM_RESERVED = 1024
 # past 8 categories (W category teams; REVERSE_MULTI_THREADS_MAX).
 MULTI_THREADS_MAX = 320
 REVERSE_MULTI_THREADS_MAX = 320
-# State counts a wider instance serves with its padded rows and columns
-# zero: the codon spaces of the genetic codes (60 to 63 sense codons).
-PADDED_STATES = {S: 64 for S in range(60, 64)}
-# the slice of the port that brings the kernels of a state count not served
-LATER_SLICES = {2: "the binary/morphology slice"}
 # the slice that brings a state count's kernels past MAX_CATEGORIES
 LATER_CATEGORY_SLICES = {
     4: "a later slice (a wide walk whose slot pool outgrows shared memory)",
-    64: "the codon mixture slice (the S=64 instance keeps one category a block)",
+    64: "the codon mixture slice (the S=64 instance keeps one category a block; "
+        "morphology with 21 to 32 states past 8 categories comes with it)",
     20: "a later slice (a wide walk whose slot pool outgrows shared memory)",
 }
 
@@ -225,9 +227,10 @@ def walk_launch(name: str, C: int, S: int, n_slots: int, tile: int) -> Dict[str,
 
 
 def packed(C: int, S: int) -> bool:
-    """Whether the CS-packed kernels serve C categories x S states (S=4, C <=
-    8); every other shape runs the wide kernels."""
-    return S in PACKED_STATES and C <= MAX_CATEGORIES
+    """Whether the CS-packed kernels serve C categories x S states (S <= 4,
+    C <= 8: the S=2 instance, or S=4 with S=3 padded); every other shape
+    runs the wide kernels."""
+    return instance_states(S, C) in PACKED_STATES and C <= MAX_CATEGORIES
 
 
 def wide_newton_multi(C: int, S: int) -> bool:
@@ -238,10 +241,19 @@ def wide_newton_multi(C: int, S: int) -> bool:
             and C * S <= MULTI_NEWTON_ROWS)
 
 
-def instance_states(S: int) -> int:
-    """The state count of the kernel instance that serves S states: S, or
-    the padded instance of a codon space."""
-    return PADDED_STATES.get(S, S)
+def instance_states(S: int, C: int = 1) -> int:
+    """The state count of the kernel instance that serves S states at C
+    categories, the padding rule of every wrapper: binary (S=2) on the S=2
+    CS-packed instance up to MAX_CATEGORIES, past them on the S=4 walks;
+    S=3 on the S=4 instances; 5 to 20 states (morphology) on the S=20 wide
+    kernels; 21 to 64 (morphology to 32 states, the codon spaces 60 to 63)
+    on the S=64 instance.  The padded rows and columns are zero."""
+    if S == 2 and C <= MAX_CATEGORIES:
+        return 2
+    for SK in (4, 20, 64):
+        if S <= SK:
+            return SK
+    return S
 
 
 def wide_layout(C: int):
@@ -274,9 +286,10 @@ def wide_walk_smem(C: int, S: int, n_slots: int) -> int:
 def check_shape(C: int, S: int, states=PACKED_STATES + WIDE_STATES,
                 n_slots: int = None, multi: bool = True, walk: bool = False) -> None:
     """Raise NotImplementedError unless a kernel of `states` (default: any
-    kernel of the port) serves C categories x S states (S padded, for a codon
-    space).  Past MAX_CATEGORIES only the wide walks serve (multi: the caller
-    is one, or any kernel; csrc/wide_newton.cu's cluster instance is not),
+    kernel of the port) serves C categories x S states (S padded as
+    instance_states says).  Past MAX_CATEGORIES only the wide walks serve
+    (multi: the caller is one, or any kernel; csrc/wide_newton.cu's cluster
+    instance is not),
     at the S=20 and S=4 instances, when their shared memory at `n_slots`
     slots fits a block (MAX_BLOCK_SMEM; n_slots None: no slot count to check
     yet).  walk: the caller is one of the four wide walks
@@ -284,14 +297,13 @@ def check_shape(C: int, S: int, states=PACKED_STATES + WIDE_STATES,
     which have an instance at every S of the port (IQT_DISPATCH_WIDE_S of
     wide_common.cuh) but serve no shape that `packed` gives the CS-packed
     kernels."""
-    S = instance_states(S)
+    S = instance_states(S, C)
     if walk:
         states, multi = PACKED_STATES + WIDE_STATES, True
     if S not in PACKED_STATES + WIDE_STATES:
         raise NotImplementedError(
-            f"no CUDA kernel for C={C} categories x S={S} states: the port serves "
-            f"DNA (S=4), protein (S=20) and codons (S=60..63, padded to 64); this "
-            f"shape is not ported yet ({LATER_SLICES.get(S, 'a later slice')})")
+            f"no CUDA kernel for C={C} categories x S={S} states: the port's "
+            f"kernels serve 2 to 64 states (instances at S = 2, 4, 20 and 64)")
     if S not in states:
         raise NotImplementedError(
             f"this kernel has instances for S in {states}, got S={S}")

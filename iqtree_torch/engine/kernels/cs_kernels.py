@@ -2,7 +2,9 @@
 
 Companions of the forward kernel (pruning.py); the (category x state)
 axes are flattened into one packed row axis CS = C*S for the stored
-partials up [2N, CS, P]:
+partials up [2N, CS, P].  The CS-packed kernels serve S <= 4 up to 8
+categories (instances at S=2 and S=4; S=3 zero-padded to 4 and sliced
+back, as build.instance_states says):
 
 * `fused_upward_store_cs` -- the forward sweep, storing every internal
   node's normalized partial and log-scale (csrc/store.cu); the residuals
@@ -18,8 +20,10 @@ partials up [2N, CS, P]:
   the store and this sweep for the NNI evaluator (engine/nni.py).
 
 The same sweeps at the wide shapes (the general [C,S,S] layout: protein
-S=20, and the codon spaces, S=60..63, zero-padded to the kernels' S=64
-instance and sliced back), on the same plain twins; the wrappers above
+S=20 and morphology with 5 to 20 states zero-padded to it, the codon
+spaces and 21 to 32 morphological states zero-padded to the kernels' S=64
+instance, S <= 4 past 8 categories on the S=4 instance, each sliced
+back), on the same plain twins; the wrappers above
 pass those shapes on to them, as pruning.fused_site_lnl does, so a caller
 makes one call at any shape:
 
@@ -51,7 +55,7 @@ from ..likelihood import SCALE_TINY, branch_transition_mats, downward_pass
 def fused_upward_store_cs(steps, n_slots, trans, tips):
     """(up [2N, CS, P], usc [2N, P]) -- every internal node's normalized
     partial and log-scale.  Tip rows are left for fill_tip_rows_cs.  The
-    wide shapes (S=20, codon, DNA past 8 categories) run
+    shapes build.packed does not give it run
     pruning.fused_upward_store.  csrc/store.cu runs
     pruning.UPWARD_LANES lanes a block."""
     if not trans.is_cuda:
@@ -59,14 +63,16 @@ def fused_upward_store_cs(steps, n_slots, trans, tips):
     n_rows, C, S = trans.shape[:3]
     if not build.packed(C, S):
         return fused_upward_store(steps, n_slots, trans, tips)
-    P = tips.shape[2]
-    build.check_inputs(C, S, steps, trans, tips)
-    up = torch.empty(n_rows, C * S, P, dtype=torch.float32, device=trans.device)
+    P, SK = tips.shape[2], build.instance_states(S, C)
+    if SK != S:
+        trans, tips = pad_states(trans, SK, 2, 3), pad_states(tips, SK, 1)
+    build.check_inputs(C, SK, steps, trans, tips)
+    up = torch.empty(n_rows, C * SK, P, dtype=torch.float32, device=trans.device)
     usc = torch.zeros(n_rows, P, dtype=torch.float32, device=trans.device)
-    build.launch("store", steps, steps.shape[0], trans, tips, P, up, usc, C,
+    build.launch("store", steps, steps.shape[0], trans, tips, P, up, usc, C, SK,
                  n_slots, pruning.UPWARD_LANES)
     fused_upward_store_cs.launches += 1
-    return up, usc
+    return (unpad_partials(up, C, S) if SK != S else up), usc
 
 
 fused_upward_store_cs.launches = 0
@@ -97,7 +103,7 @@ def fused_tbar_cs(steps, n_slots, trans, tips, props, state_freq, lnl_raw, w_p,
         tbar[e,c,s,t] = sum_p O_e[c,s,p] U_e[c,t,p] exp(osc+usc-lnl_p) w_p
     with the class weights folded into the root seed.  `up`/`usc` may be
     passed from a prior upward store (tip rows are filled here).  The wide
-    shapes (S=20, codon, DNA past 8 categories) run fused_downward_tbar."""
+    shapes build.packed does not give it run fused_downward_tbar."""
     n_rows, C, S = trans.shape[:3]
     if not build.packed(C, S):
         return fused_downward_tbar(steps, n_slots, trans, tips, props, state_freq,
@@ -107,17 +113,21 @@ def fused_tbar_cs(steps, n_slots, trans, tips, props, state_freq, lnl_raw, w_p,
     fill_tip_rows_cs(up, usc, tips, C)
     if not trans.is_cuda:
         return _tbar_plain(steps, trans, props, state_freq, lnl_raw, w_p, up, usc)
-    P = tips.shape[2]
-    rootd = (props[:, None] * state_freq).reshape(-1).float().contiguous()
-    build.check_inputs(C, S, steps, trans, rootd, lnl_raw, w_p, up, usc)
+    P, SK = tips.shape[2], build.instance_states(S, C)
+    rootd = (props[:, None] * state_freq).float()
+    if SK != S:
+        trans, up = pad_states(trans, SK, 2, 3), pad_partials(up, C, SK)
+        rootd = pad_states(rootd, SK, 1)
+    rootd = rootd.reshape(-1).contiguous()
+    build.check_inputs(C, SK, steps, trans, rootd, lnl_raw, w_p, up, usc)
     n_blocks = -(-P // TBAR_PATTERNS)
-    part = torch.zeros(n_blocks, n_rows, C, S, S, dtype=torch.float32,
+    part = torch.zeros(n_blocks, n_rows, C, SK, SK, dtype=torch.float32,
                        device=trans.device)
-    tbar = torch.empty(n_rows, C, S, S, dtype=torch.float32, device=trans.device)
+    tbar = torch.empty(n_rows, C, SK, SK, dtype=torch.float32, device=trans.device)
     build.launch("tbar", steps, steps.shape[0], trans, rootd, lnl_raw, w_p, up,
-                 usc, P, n_rows, part, tbar, C, n_slots, TBAR_PATTERNS)
+                 usc, P, n_rows, part, tbar, C, SK, n_slots, TBAR_PATTERNS)
     fused_tbar_cs.launches += 1
-    return tbar
+    return tbar[:, :, :S, :S].contiguous() if SK != S else tbar
 
 
 fused_tbar_cs.launches = 0
@@ -130,14 +140,23 @@ TBAR_PATTERNS = 64
 TBAR_STAGES, TBAR_PAD = 2, 4
 
 
-def tbar_smem(C: int, n_slots: int, stages: int = TBAR_STAGES) -> int:
+def packed_block_words(S: int) -> int:
+    """Words of one category's [S,S] block staged in shared memory by the
+    CS-packed kernels (SSP of csrc/cs_common.cuh): 20 at S=4 (4 words of
+    padding put the rows a warp's categories read at once in distinct
+    banks), 4 at S=2 (a block is one float4; consecutive categories' blocks
+    already are)."""
+    return 4 if S == 2 else S * S + 4
+
+
+def tbar_smem(C: int, n_slots: int, stages: int = TBAR_STAGES, S: int = 4) -> int:
     """Bytes of shared memory a block of csrc/tbar.cu takes (the formula of
-    its header): the walk warps' edge blocks (padded to 20 words) and the
+    its header): the walk warps' edge blocks (packed_block_words) and the
     lanes' ring, the O * fac stage, the pool [slot][S+1][lanes] and the
-    max buffers, at S=4 and C x TBAR_PATTERNS walk lanes."""
-    S, pb = 4, TBAR_PATTERNS
+    max buffers, at C x TBAR_PATTERNS walk lanes."""
+    pb = TBAR_PATTERNS
     lanes = C * pb
-    return 4 * (lanes // 32 * stages * 2 * (S * S + 4)
+    return 4 * (lanes // 32 * stages * 2 * packed_block_words(S)
                 + stages * (2 * S + 2) * (lanes + TBAR_PAD)
                 + C * 2 * S * (pb + TBAR_PAD)
                 + (n_slots * (S + 1) + 4) * lanes)
@@ -211,8 +230,9 @@ def wide_reverse_teams(S: int, C: int, tile: int, n_slots: int, sums: bool = Fal
 
 def fused_downward_tbar(steps, n_slots, trans, tips, props, state_freq, lnl_raw,
                         w_p, up=None, usc=None, tile=None, part_blocks=None):
-    """fused_tbar_cs at the wide shapes (S=20; a codon space through the
-    S=64 instance, padded in and sliced out): [2N, C, S, S] cotangents
+    """fused_tbar_cs at the wide shapes (S=20; S=4 past 8 categories; any
+    other state count through the instance build.instance_states names,
+    padded in and sliced out): [2N, C, S, S] cotangents
     through csrc/wide_tbar.cu for CUDA tensors, the plain twin _tbar_plain
     for CPU tensors.  A cluster of C blocks (one a rate category) holds
     `tile` patterns (default WIDE_TBAR_TILE, a multiple of 16) and writes a
@@ -233,7 +253,7 @@ def fused_downward_tbar(steps, n_slots, trans, tips, props, state_freq, lnl_raw,
         raise ValueError(f"wide_tbar: {T} patterns a cluster is not a multiple of "
                          f"{WIDE_TBAR_SUM_PATTERNS}")
     groups = T // WIDE_TBAR_SUM_PATTERNS  # part rows a cluster
-    SK = build.instance_states(S)
+    SK = build.instance_states(S, C)
     rootd = (props[:, None] * state_freq).float()
     if SK != S:
         trans, up = pad_states(trans, SK, 2, 3), pad_partials(up, C, SK)
@@ -289,21 +309,25 @@ def fused_down_store_cs(steps, n_slots, trans, up, usc, state_freq):
     """(out [2N, CS, P], osc [2N, P]): every non-root node's normalized
     outside partial (at the parent end of its edge) and log-scale, from
     the upward store's up/usc with the tip rows filled.  The root seed is
-    the bare state_freq [C, S]; the root and dummy rows are 0.  The wide
-    shapes (S=20, codon, DNA past 8 categories) run fused_down_store."""
+    the bare state_freq [C, S]; the root and dummy rows are 0.  The
+    shapes build.packed does not give it run fused_down_store."""
     if not trans.is_cuda:
         return _down_store_plain(steps, trans, up, usc, state_freq)
     n_rows, C, S = trans.shape[:3]
     if not build.packed(C, S):
         return fused_down_store(steps, n_slots, trans, up, usc, state_freq)
-    P = up.shape[2]
-    rootd = state_freq.reshape(-1).float().contiguous()
-    build.check_inputs(C, S, steps, trans, rootd, up, usc)
-    out, osc = _zeroed_outside(n_rows, C * S, P, trans.device)
+    P, SK = up.shape[2], build.instance_states(S, C)
+    rootd = state_freq.float()
+    if SK != S:
+        trans, up = pad_states(trans, SK, 2, 3), pad_partials(up, C, SK)
+        rootd = pad_states(rootd, SK, 1)
+    rootd = rootd.reshape(-1).contiguous()
+    build.check_inputs(C, SK, steps, trans, rootd, up, usc)
+    out, osc = _zeroed_outside(n_rows, C * SK, P, trans.device)
     build.launch("down_store", steps, steps.shape[0], trans, rootd, up, usc, P,
-                 out, osc, C, n_slots, DOWN_STORE_PATTERNS)
+                 out, osc, C, SK, n_slots, DOWN_STORE_PATTERNS)
     fused_down_store_cs.launches += 1
-    return out, osc
+    return (unpad_partials(out, C, S) if SK != S else out), osc
 
 
 fused_down_store_cs.launches = 0
@@ -334,15 +358,16 @@ def wide_down_store_smem(S: int, C: int, tile: int, n_slots: int, stages: int = 
 
 
 def fused_down_store(steps, n_slots, trans, up, usc, state_freq, tile=None):
-    """fused_down_store_cs at the wide shapes (S=20; a codon space through
-    the S=64 instance, padded in and sliced out): csrc/wide_down_store.cu
+    """fused_down_store_cs at the wide shapes (S=20; S=4 past 8 categories;
+    any other state count through the instance build.instance_states
+    names, padded in and sliced out): csrc/wide_down_store.cu
     for CUDA tensors, the plain twin _down_store_plain for CPU tensors.  A
     cluster of C blocks (one a rate category) holds `tile` patterns
     (default WIDE_DOWN_STORE_TILE; for measuring the kernel)."""
     if not trans.is_cuda:
         return _down_store_plain(steps, trans, up, usc, state_freq)
     n_rows, C, S = trans.shape[:3]
-    P, SK = up.shape[2], build.instance_states(S)
+    P, SK = up.shape[2], build.instance_states(S, C)
     rootd = state_freq.float()
     if SK != S:
         trans, up = pad_states(trans, SK, 2, 3), pad_partials(up, C, SK)
@@ -363,7 +388,7 @@ fused_down_store.launches = 0
 def fused_nni_passes_cs(steps, n_slots, trans, tips, state_freq):
     """(up, usc, out, osc): the two global passes of the NNI evaluator --
     the upward store (tip rows filled) and the outside-partial store -- at
-    the CS-packed (S=4) and the wide (S=20, codon) shapes alike.  Unlike the TPU's
+    the CS-packed (S <= 4) and the wide shapes alike.  Unlike the TPU's
     general passes nothing is padded: no state axis to 8 rows, no pattern
     axis to 128 lanes."""
     up, usc = fused_upward_store_cs(steps, n_slots, trans, tips)
@@ -400,23 +425,27 @@ def _newton_plain(steps, mats, props, state_freq, wp, invar, up, usc):
 def newton_sweep(steps, n_slots, mats, props, state_freq, wp, invar, up, usc):
     """(d1 [2N], d2 [2N]) from the stored partials (tip rows filled) and the
     stacked derivative matrices mats [2N, 3, C, S, S].  The wide shapes
-    (S=20, and DNA past 8 categories) run wide_newton_sweep."""
+    (S=5 to 20, and S <= 4 past 8 categories) run wide_newton_sweep."""
     if not mats.is_cuda:
         return _newton_plain(steps, mats, props, state_freq, wp, invar, up, usc)
     n_rows, _, C, S = mats.shape[:4]
     if not build.packed(C, S):
         return wide_newton_sweep(steps, n_slots, mats, props, state_freq, wp, invar,
                                  up, usc)
-    P = up.shape[2]
-    rootd = (props[:, None] * state_freq).reshape(-1).float().contiguous()
-    build.check_inputs(C, S, steps, mats, rootd, wp, invar, up, usc)
+    P, SK = up.shape[2], build.instance_states(S, C)
+    rootd = (props[:, None] * state_freq).float()
+    if SK != S:
+        mats, up = pad_states(mats, SK, 3, 4), pad_partials(up, C, SK)
+        rootd = pad_states(rootd, SK, 1)
+    rootd = rootd.reshape(-1).contiguous()
+    build.check_inputs(C, SK, steps, mats, rootd, wp, invar, up, usc)
     # per-warp sums [warps, 2N, 2]: ~20 MB at 1000 taxa x 9 962 patterns, C=4
     per_block = NEWTON_THREADS // category_lanes(C)
     n_warps = -(-P // per_block) * (NEWTON_THREADS // 32)
     part = torch.zeros(n_warps, n_rows, 2, dtype=torch.float32, device=mats.device)
     d12 = torch.empty(n_rows, 2, dtype=torch.float32, device=mats.device)
     build.launch("newton", steps, steps.shape[0], mats, rootd, wp, invar, up, usc,
-                 P, n_rows, part, d12, C, n_slots, NEWTON_THREADS)
+                 P, n_rows, part, d12, C, SK, n_slots, NEWTON_THREADS)
     newton_sweep.launches += 1
     return d12[:, 0], d12[:, 1]
 
@@ -473,16 +502,22 @@ def wide_newton_smem(S: int, C: int, tile: int, n_slots: int, groups: int = 4,
 def wide_newton_sweep(steps, n_slots, mats, props, state_freq, wp, invar, up, usc,
                       tile=None):
     """newton_sweep at the wide shapes: csrc/wide_newton.cu for CUDA tensors,
-    the plain twin _newton_plain for CPU tensors.  At S=20 a cluster of C
-    blocks (one a rate category) holds `tile` patterns (default
-    WIDE_NEWTON_TILE); DNA past 8 categories runs the multi-category
-    instance, a block all C categories of `tile` patterns (default
-    WIDE_NEWTON_MULTI_TILE).  `tile` is for measuring the kernel."""
+    the plain twin _newton_plain for CPU tensors.  At S=20 (5 to 20 states
+    zero-padded to it) a cluster of C blocks (one a rate category) holds
+    `tile` patterns (default WIDE_NEWTON_TILE); S <= 4 past 8 categories
+    runs the multi-category instance, a block all C categories of `tile`
+    patterns (default WIDE_NEWTON_MULTI_TILE).  `tile` is for measuring
+    the kernel."""
     if not mats.is_cuda:
         return _newton_plain(steps, mats, props, state_freq, wp, invar, up, usc)
     n_rows, _, C, S = mats.shape[:4]
-    P = up.shape[2]
-    rootd = (props[:, None] * state_freq).reshape(-1).float().contiguous()
+    P, SK = up.shape[2], build.instance_states(S, C)
+    rootd = (props[:, None] * state_freq).float()
+    if SK != S:
+        mats, up = pad_states(mats, SK, 3, 4), pad_partials(up, C, SK)
+        rootd = pad_states(rootd, SK, 1)
+    rootd = rootd.reshape(-1).contiguous()
+    S = SK
     if S in build.MULTI_NEWTON_STATES:
         if not build.wide_newton_multi(C, S):
             raise NotImplementedError(
@@ -511,8 +546,9 @@ wide_newton_sweep.launches = 0
 def fused_newton_derivs(steps, n_slots, model, blen, tips, pattern_freq, invar):
     """(d1 [2N], d2 [2N]): d lnL/dt and d2 lnL/dt2 of every edge (entry v =
     the edge above v; root and dummy rows are 0) from one upward store and
-    one reverse sweep -- the CS-packed kernels at S=4 up to 8 categories,
-    the wide store and sweep at S=20 and at S=4 past 8.  The denominator
+    one reverse sweep -- the CS-packed kernels at S <= 4 up to 8
+    categories, the wide store and sweep at 5 to 20 states and at S <= 4
+    past 8.  The denominator
     includes the invariant class."""
     dt = tips.dtype
     trans = branch_transition_mats(model, blen).to(dt).contiguous()

@@ -1,18 +1,18 @@
-// Shared pieces of the CS-packed likelihood kernels (DNA shapes: S = 4
-// states, C <= 8 rate categories, float32).
+// Shared pieces of the CS-packed likelihood kernels (S = 2 binary and
+// S = 4 DNA states, C <= 8 rate categories, float32).
 //
 // Two work layouts, both with the pattern axis as the parallel axis and a
 // block walking the whole slot schedule in order (forward) or in reverse
 // (the reverse sweeps), as one TPU grid step walks it for its pattern tile:
 //
-// * a thread a pattern (tbar.cu, stream_forward.cu, forward_ablate.cu):
-//   a block owns a tile of `blockDim.x` consecutive
+// * a thread a pattern (stream_forward.cu, forward_ablate.cu; DNA only,
+//   namespace iqt::dna): a block owns a tile of `blockDim.x` consecutive
 //   patterns; the partials of the live nodes sit in a shared-memory slot
 //   pool laid out [slot][C*S][tile], so each thread reads and writes only
-//   its own column and the sweep needs no barrier; a barrier appears only
-//   where a reverse sweep reduces over the block's patterns;
+//   its own column and the sweep needs no barrier;
 // * a lane a (pattern, rate category) (forward.cu, store.cu, newton.cu,
-//   down_store.cu): the second half of this header.
+//   down_store.cu, tbar.cu): the second half of this header, a template
+//   over the state count S (2 or 4) beside the category count C.
 //
 // Schedule rows (int32 x 6): left child, right child, left slot, right
 // slot (-1 = the child is a tip), output slot, output node.  Node ids are
@@ -27,9 +27,6 @@
 
 namespace iqt {
 
-constexpr int S = 4;
-constexpr int SS = S * S;
-
 struct Step {
   int l, r, ls, rs, out, node;
 };
@@ -39,6 +36,12 @@ __device__ __forceinline__ Step load_step(const int* __restrict__ steps, int i) 
   return Step{__ldg(s), __ldg(s + 1), __ldg(s + 2), __ldg(s + 3), __ldg(s + 4),
               __ldg(s + 5)};
 }
+
+// The thread-a-pattern layout, DNA's states only.
+namespace dna {
+
+constexpr int S = 4;
+constexpr int SS = S * S;
 
 // m[c][s] = sum_t P[c][s][t] * x[c][t]; P points at one node's [C,S,S]
 // block (16-byte aligned: every block is a multiple of 64 bytes).
@@ -165,6 +168,8 @@ __device__ __forceinline__ float root_site_lnl(const float* slots, const float* 
   return lnl;
 }
 
+}  // namespace dna
+
 // x / y for a float x and a normal y > 0, with the bits of the IEEE float
 // division but without its branches (the float division's check and slow
 // path, which a dividend or quotient near the bottom of the float range
@@ -189,7 +194,7 @@ __device__ __forceinline__ float div_rn(float x, float y) {
 // Lane layout: several threads a pattern, one a rate category.
 //
 // P, P' and P'' are block-diagonal over categories, so a category's
-// messages (apply_p, apply_pt, the outside partial) need only its own S
+// messages (apply_p1, apply_pt1, the outside partial) need only its own S
 // states; what crosses categories (the renormalizing max, the sums over c)
 // is a butterfly of __shfl_xor_sync rounds inside a group of CL = C
 // rounded up to a power of two lanes.  Lane (pattern q, category c) of a block is
@@ -200,6 +205,11 @@ __device__ __forceinline__ float div_rn(float x, float y) {
 // the max, and it adds 0 to the sums.  Butterfly rounds leave every lane
 // of a group the same bits (each round adds or maxes a pair in both
 // orders, which float addition and fmaxf give alike).
+//
+// Everything below is a template over the state count S (PACKED_STATES of
+// build.py: 2, binary; 4, DNA, and S = 3 zero-padded to it by the
+// wrappers).  S = 4 compiles to the arithmetic of the earlier S = 4-only
+// code in the same order.
 // ---------------------------------------------------------------------------
 
 template <int C>
@@ -207,36 +217,66 @@ struct Lanes {
   static constexpr int CL = C <= 1 ? 1 : C <= 2 ? 2 : C <= 4 ? 4 : 8;
 };
 
+// A category's [S,S] block as the walks stage it in shared memory: SS
+// words and ROWS 16-byte copies (a row at S = 4, the whole block at S = 2;
+// ROW_SHIFT = log2 ROWS), at a stride of SSP words.  At S = 4 the 4 words
+// of padding put the float4 rows that the categories of a warp read at
+// once in distinct banks; at S = 2 a block is one float4 and the CL <= 8
+// consecutive blocks of a warp's categories already cover distinct
+// 16-byte bank groups, so none is added.
+template <int S>
+struct Block {
+  static_assert(S == 2 || S == 4, "the CS-packed kernels have S = 2 and S = 4 instances");
+  static constexpr int SS = S * S;
+  static constexpr int ROWS = SS / 4;
+  static constexpr int ROW_SHIFT = S == 2 ? 0 : 2;
+  static constexpr int SSP = S == 2 ? SS : SS + 4;
+};
+
 // m[s] = sum_t P[s][t] x[t] for one category's [S,S] block staged in
-// shared memory (16-byte aligned rows).
+// shared memory (16-byte aligned).
+template <int S>
 __device__ __forceinline__ void apply_p1(const float* P, const float (&x)[S], float (&m)[S]) {
   const float4* P4 = reinterpret_cast<const float4*>(P);
+  if constexpr (S == 4) {
 #pragma unroll
-  for (int s = 0; s < S; ++s) {
-    const float4 row = P4[s];
-    m[s] = row.x * x[0] + row.y * x[1] + row.z * x[2] + row.w * x[3];
+    for (int s = 0; s < S; ++s) {
+      const float4 row = P4[s];
+      m[s] = row.x * x[0] + row.y * x[1] + row.z * x[2] + row.w * x[3];
+    }
+  } else {  // the block's rows are (x, y) and (z, w)
+    const float4 b = P4[0];
+    m[0] = b.x * x[0] + b.y * x[1];
+    m[1] = b.z * x[0] + b.w * x[1];
   }
 }
 
 // dd[t] = sum_s P[s][t] o[s] for one category's staged [S,S] block.
+template <int S>
 __device__ __forceinline__ void apply_pt1(const float* P, const float (&o)[S],
                                           float (&dd)[S]) {
   const float4* P4 = reinterpret_cast<const float4*>(P);
-  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+  if constexpr (S == 4) {
+    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
 #pragma unroll
-  for (int s = 0; s < S; ++s) {
-    const float4 row = P4[s];
-    a0 += row.x * o[s];
-    a1 += row.y * o[s];
-    a2 += row.z * o[s];
-    a3 += row.w * o[s];
+    for (int s = 0; s < S; ++s) {
+      const float4 row = P4[s];
+      a0 += row.x * o[s];
+      a1 += row.y * o[s];
+      a2 += row.z * o[s];
+      a3 += row.w * o[s];
+    }
+    dd[0] = a0; dd[1] = a1; dd[2] = a2; dd[3] = a3;
+  } else {
+    const float4 b = P4[0];
+    float a0 = 0.f, a1 = 0.f;
+    a0 += b.x * o[0];
+    a1 += b.y * o[0];
+    a0 += b.z * o[1];
+    a1 += b.w * o[1];
+    dd[0] = a0; dd[1] = a1;
   }
-  dd[0] = a0; dd[1] = a1; dd[2] = a2; dd[3] = a3;
 }
-
-// A category's [S,S] block staged with 4 words of padding, so the float4
-// rows that the categories of a warp read at once fall in distinct banks.
-constexpr int SSP = SS + 4;
 
 // Shuffle rounds over the categories of a group, over the K values of v at
 // once so that their latencies overlap.
@@ -267,10 +307,10 @@ __device__ __forceinline__ float group_max(float v) {
 // slot child is already in the pool; a step's other inputs -- a tip
 // child's S words for the lane's pattern (tips [N,S,P]) into the lane's
 // column of a stage, and both children's [C,S,S] edge blocks (16-byte
-// rows shared out over the warp's lanes) into the warp's padded stage --
-// are cp.async copies issued UP_STAGES - 1 steps ahead.  A step waits for
-// its own group and a __syncwarp, never for the block; the schedule rows
-// are read a step ahead of the copies that need them.
+// copies shared out over the warp's lanes) into the warp's stage, SSP words a
+// category -- are cp.async copies issued UP_STAGES - 1 steps ahead.  A
+// step waits for its own group and a __syncwarp, never for the block; the
+// schedule rows are read a step ahead of the copies that need them.
 //
 // The step is the thread-a-pattern step's arithmetic for one category:
 // the same products in the same order (apply_p1 is apply_p's row), the
@@ -280,39 +320,40 @@ __device__ __forceinline__ float group_max(float v) {
 
 // Steps whose inputs are in flight at once (a cp.async ring).
 constexpr int UP_STAGES = 2;
-// A lane's words in one stage: the two children's tip rows.
-constexpr int UP_STAGE_WORDS = 2 * S;
 
-// A warp's words in one stage: both children's padded [C] blocks.
-template <int C>
+// A lane's words in one stage (the two children's tip rows), and a warp's
+// (both children's [C] blocks).
+template <int C, int S>
 struct UpStage {
-  static constexpr int CSSP = C * SSP;
+  static constexpr int LANE_WORDS = 2 * S;
+  static constexpr int CSSP = C * Block<S>::SSP;
   static constexpr int WORDS = 2 * CSSP;
 };
 
 // Shared memory of an upward launch: the pool and the lanes' stages, then
 // the warps' stages (16-byte aligned: lanes % 32 == 0).
-template <int C>
+template <int C, int S>
 inline size_t upward_smem(int n_slots, int lanes) {
-  return (((size_t)n_slots * (S + 1) + UP_STAGES * UP_STAGE_WORDS) * lanes +
-          (size_t)(lanes / 32) * UP_STAGES * UpStage<C>::WORDS) *
+  return (((size_t)n_slots * (S + 1) + UP_STAGES * UpStage<C, S>::LANE_WORDS) * lanes +
+          (size_t)(lanes / 32) * UP_STAGES * UpStage<C, S>::WORDS) *
          sizeof(float);
 }
 
 // Step j's inputs into stage k: the warp's share of both edge blocks,
 // and this lane's tip words of a tip child.
-template <int C>
+template <int C, int S>
 __device__ __forceinline__ void fetch_upward(const Step& sj, float* stage_k, float* warp_k,
                                              int T, int lane,
                                              const float* __restrict__ trans,
                                              const float* __restrict__ tips, int P, int p) {
-  constexpr int CSSP = UpStage<C>::CSSP;
-  // 16-byte rows: (child, category, state), 2 C S of them
-  for (int q = lane; q < 2 * C * S; q += 32) {
-    const int child = q / (C * S), rem = q - child * C * S;
+  constexpr int SS = Block<S>::SS, SSP = Block<S>::SSP, R = Block<S>::ROWS;
+  constexpr int CSSP = UpStage<C, S>::CSSP;
+  // 16-byte copies: (child, category, copy), 2 C R of them
+  for (int q = lane; q < 2 * C * R; q += 32) {
+    const int child = q / (C * R), rem = q - child * C * R;
     const int node = child ? sj.r : sj.l;
-    __pipeline_memcpy_async(warp_k + child * CSSP + (rem / S) * SSP + (rem % S) * S,
-                            trans + (size_t)node * C * SS + rem * S, 16);
+    __pipeline_memcpy_async(warp_k + child * CSSP + (rem / R) * SSP + (rem % R) * 4,
+                            trans + (size_t)node * C * SS + rem * 4, 16);
   }
   if (sj.ls < 0)
 #pragma unroll
@@ -329,13 +370,15 @@ __device__ __forceinline__ void fetch_upward(const Step& sj, float* stage_k, flo
 // each step emit(step, y, scale) sees the normalized partial and its
 // log-scale.  Leaves the root's in y and sc.  All lanes of a warp run it
 // (a ragged tail computes a copy of pattern P - 1).
-template <int C, typename Emit>
+template <int C, int S, typename Emit>
 __device__ __forceinline__ void upward_lanes(const int* __restrict__ steps, int n_steps,
                                              const float* __restrict__ trans,
                                              const float* __restrict__ tips, int P, int p,
                                              float* smem, int n_slots, Emit emit,
                                              float (&y)[S], float& sc) {
-  constexpr int CL = Lanes<C>::CL, CSSP = UpStage<C>::CSSP, WS = UpStage<C>::WORDS;
+  constexpr int CL = Lanes<C>::CL, SSP = Block<S>::SSP;
+  constexpr int CSSP = UpStage<C, S>::CSSP, WS = UpStage<C, S>::WORDS;
+  constexpr int UP_STAGE_WORDS = UpStage<C, S>::LANE_WORDS;
   const int T = blockDim.x, tid = threadIdx.x, lane = tid & 31;
   const int c = min(tid & (CL - 1), C - 1);
   float* col = smem + tid;  // this lane's column of the pool [slot][S+1][T]
@@ -346,8 +389,8 @@ __device__ __forceinline__ void upward_lanes(const int* __restrict__ steps, int 
 #pragma unroll
   for (int k = 0; k < UP_STAGES - 1; ++k) {
     if (k < n_steps)
-      fetch_upward<C>(load_step(steps, k), stage + k * UP_STAGE_WORDS * T, wstage + k * WS,
-                      T, lane, trans, tips, P, p);
+      fetch_upward<C, S>(load_step(steps, k), stage + k * UP_STAGE_WORDS * T,
+                         wstage + k * WS, T, lane, trans, tips, P, p);
     __pipeline_commit();
   }
   int j = UP_STAGES - 1;  // the next step to fetch
@@ -358,8 +401,8 @@ __device__ __forceinline__ void upward_lanes(const int* __restrict__ steps, int 
     const int k_free = k == 0 ? UP_STAGES - 1 : k - 1;  // held step i - 1
     __syncwarp();  // every lane has read the warp's stage of step i - 1
     if (j < n_steps)
-      fetch_upward<C>(st_j, stage + k_free * UP_STAGE_WORDS * T, wstage + k_free * WS, T,
-                      lane, trans, tips, P, p);
+      fetch_upward<C, S>(st_j, stage + k_free * UP_STAGE_WORDS * T, wstage + k_free * WS, T,
+                         lane, trans, tips, P, p);
     __pipeline_commit();
     if (++j < n_steps) st_j = load_step(steps, j);
     const Step st_next = i + 1 < n_steps ? load_step(steps, i + 1) : st;
@@ -386,8 +429,8 @@ __device__ __forceinline__ void upward_lanes(const int* __restrict__ steps, int 
     }
     const float* Ml = wstage + k * WS + c * SSP;  // this category's block of the left edge
     float mr[S];
-    apply_p1(Ml, xl, y);
-    apply_p1(Ml + CSSP, xr, mr);
+    apply_p1<S>(Ml, xl, y);
+    apply_p1<S>(Ml + CSSP, xr, mr);
     float mx = 0.f;
 #pragma unroll
     for (int s = 0; s < S; ++s) {
@@ -411,7 +454,7 @@ __device__ __forceinline__ void upward_lanes(const int* __restrict__ steps, int 
 // log-likelihood, mixed with rootw = props * pi [C*S] in root_site_lnl's
 // order from the root slot's columns of the group (lanes g0 .. g0 + C - 1),
 // the invariant class `inv` log-added.  Every lane of the group returns it.
-template <int C>
+template <int C, int S>
 __device__ __forceinline__ float lane_root_lnl(const float* smem, int root_slot, int T,
                                                int g0, const float* __restrict__ rootw,
                                                float sc, float inv) {
@@ -471,6 +514,30 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
     case 7: CALL(7); break;        \
     case 8: CALL(8); break;        \
     default: return (int)cudaErrorInvalidValue; \
+  }
+
+// C dispatch over the category count for 1..8 at the state count SV
+// (template arguments CALL(C, SV)).
+#define IQT_DISPATCH_C_AT(C_RT, SV, CALL) \
+  switch (C_RT) {                         \
+    case 1: CALL(1, SV); break;           \
+    case 2: CALL(2, SV); break;           \
+    case 3: CALL(3, SV); break;           \
+    case 4: CALL(4, SV); break;           \
+    case 5: CALL(5, SV); break;           \
+    case 6: CALL(6, SV); break;           \
+    case 7: CALL(7, SV); break;           \
+    case 8: CALL(8, SV); break;           \
+    default: return (int)cudaErrorInvalidValue; \
+  }
+
+// The lane layout's dispatch over the state count (2 or 4) and the
+// category count (1..8).
+#define IQT_DISPATCH_CS(C_RT, S_RT, CALL)          \
+  switch (S_RT) {                                  \
+    case 2: IQT_DISPATCH_C_AT(C_RT, 2, CALL) break; \
+    case 4: IQT_DISPATCH_C_AT(C_RT, 4, CALL) break; \
+    default: return (int)cudaErrorInvalidValue;    \
   }
 
 extern "C" const char* iqt_error_string(int e) {

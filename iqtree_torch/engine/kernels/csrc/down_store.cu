@@ -43,6 +43,9 @@
 // design.  The division is div_rn: the float division's bits without its
 // branches.
 //
+// Instances: S = 4 (DNA; S = 3 zero-padded by the wrapper) and S = 2
+// (binary), C = 1..8 each (IQT_DISPATCH_CS).
+//
 // Bound on an H100 (DNA+G4, 1000 taxa x 9 962 patterns): reads up and usc
 // and writes out and osc once, 2 x 2000 x 17 rows x 9 962 x 4 B = 2.7 GB
 // (3.35 TB/s: 0.81 ms); the work is 2 x 64 (messages) + 2 x 64 (push) FMA
@@ -51,7 +54,8 @@
 //
 // Shared memory (floats), with T lanes and W = T / 32 warps of NCW =
 // max(1, 32 / pb) categories each: (n_slots (S + 1) + STAGES (2 S + 2) + 4)
-// T + W STAGES 2 NCW SSP; 23 744 (94 976 bytes) at C = 4, pb = 64, 11 slots.
+// T + W STAGES 2 NCW SSP; 23 744 (94 976 bytes) at S = 4, C = 4, pb = 64,
+// 11 slots.
 #include "cs_common.cuh"
 
 using namespace iqt;
@@ -60,7 +64,10 @@ using namespace iqt;
 // (a cp.async ring; three deep measured 7% faster than two at C = 4).
 constexpr int STAGES = 3;
 // A lane's words in one stage: the two children's S rows, then their scales.
-constexpr int STAGE_WORDS = 2 * S + 2;
+template <int S>
+__host__ __device__ constexpr int stage_words() {
+  return 2 * S + 2;
+}
 
 // Categories (whole warps of pb lanes each) of a block of pb patterns.
 template <int C>
@@ -68,29 +75,30 @@ inline int down_categories(int pb) {
   return pb >= 32 ? C : Lanes<C>::CL;
 }
 
-template <int C>
+template <int C, int S>
 inline size_t down_smem(int pb, int n_slots) {
   const int T = pb * down_categories<C>(pb), ncw = pb >= 32 ? 1 : 32 / pb;
-  return (((size_t)n_slots * (S + 1) + STAGES * STAGE_WORDS + 4) * T +
-          (size_t)(T / 32) * STAGES * 2 * ncw * SSP) *
+  return (((size_t)n_slots * (S + 1) + STAGES * stage_words<S>() + 4) * T +
+          (size_t)(T / 32) * STAGES * 2 * ncw * Block<S>::SSP) *
          sizeof(float);
 }
 
 // Step j's children into stage k: this lane's rows of their partials and
 // their scales into its column, and the [S,S] blocks of the warp's NCW
 // categories (from cw0) of both edges into the warp's stage.
-template <int C>
+template <int C, int S>
 __device__ __forceinline__ void fetch_down(const Step& sj, float* stage_k, float* warp_k,
                                            int T, int c, int cw0, int ncw, int lane,
                                            const float* __restrict__ trans,
                                            const float* __restrict__ up,
                                            const float* __restrict__ usc, int P, int p) {
-  // 16-byte rows: (child, the warp's category, state), 2 NCW S of them
-  for (int q = lane; q < 2 * ncw * S; q += 32) {
-    const int child = q / (ncw * S), rem = q - child * ncw * S;
-    const int node = child ? sj.r : sj.l, cat = min(cw0 + rem / S, C - 1);
-    __pipeline_memcpy_async(warp_k + (child * ncw + rem / S) * SSP + (rem % S) * S,
-                            trans + ((size_t)node * C + cat) * SS + (rem % S) * S, 16);
+  constexpr int SS = Block<S>::SS, SSP = Block<S>::SSP, R = Block<S>::ROWS;
+  // 16-byte copies: (child, the warp's category, copy), 2 NCW R of them
+  for (int q = lane; q < 2 * ncw * R; q += 32) {
+    const int child = q / (ncw * R), rem = q - child * ncw * R;
+    const int node = child ? sj.r : sj.l, cat = min(cw0 + rem / R, C - 1);
+    __pipeline_memcpy_async(warp_k + (child * ncw + rem / R) * SSP + (rem % R) * 4,
+                            trans + ((size_t)node * C + cat) * SS + (rem % R) * 4, 16);
   }
   const float* ul = up + ((size_t)sj.l * C + c) * S * P + p;
   const float* ur = up + ((size_t)sj.r * C + c) * S * P + p;
@@ -103,7 +111,7 @@ __device__ __forceinline__ void fetch_down(const Step& sj, float* stage_k, float
   __pipeline_memcpy_async(stage_k + (2 * S + 1) * T, usc + (size_t)sj.r * P + p, 4);
 }
 
-template <int C>
+template <int C, int S>
 __global__ void down_store_kernel(const int* __restrict__ steps, int n_steps,
                                   const float* __restrict__ trans,
                                   const float* __restrict__ rootd,
@@ -112,6 +120,7 @@ __global__ void down_store_kernel(const int* __restrict__ steps, int n_steps,
                                   float* __restrict__ out, float* __restrict__ osc,
                                   int n_slots, int pb) {
   extern __shared__ float smem[];
+  constexpr int SSP = Block<S>::SSP, STAGE_WORDS = stage_words<S>();
   const int T = blockDim.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int c_raw = tid / pb, q = tid - c_raw * pb;
   const int c = min(c_raw, C - 1);  // a lane past C computes a copy of C - 1
@@ -132,8 +141,8 @@ __global__ void down_store_kernel(const int* __restrict__ steps, int n_steps,
 #pragma unroll
   for (int k = 0; k < STAGES - 1; ++k) {
     if (n_steps - 1 - k >= 0)
-      fetch_down<C>(load_step(steps, n_steps - 1 - k), stage + k * STAGE_WORDS * T,
-                    wstage + k * ws, T, c, cw0, ncw, lane, trans, up, usc, P, p);
+      fetch_down<C, S>(load_step(steps, n_steps - 1 - k), stage + k * STAGE_WORDS * T,
+                       wstage + k * ws, T, c, cw0, ncw, lane, trans, up, usc, P, p);
     __pipeline_commit();
   }
   int j = n_steps - STAGES;  // the next step to fetch
@@ -145,8 +154,8 @@ __global__ void down_store_kernel(const int* __restrict__ steps, int n_steps,
     const int k_free = k == 0 ? STAGES - 1 : k - 1;  // held step i + 1
     __syncwarp();  // every lane has read the warp's stage of step i + 1
     if (j >= 0)
-      fetch_down<C>(st_j, stage + k_free * STAGE_WORDS * T, wstage + k_free * ws, T, c, cw0,
-                    ncw, lane, trans, up, usc, P, p);
+      fetch_down<C, S>(st_j, stage + k_free * STAGE_WORDS * T, wstage + k_free * ws, T, c,
+                       cw0, ncw, lane, trans, up, usc, P, p);
     __pipeline_commit();
     if (--j >= 0) st_j = load_step(steps, j);
     const Step st_next = i > 0 ? load_step(steps, i - 1) : st;
@@ -169,10 +178,10 @@ __global__ void down_store_kernel(const int* __restrict__ steps, int n_steps,
     }
 #pragma unroll
     for (int s = 0; s < S; ++s) u[s] = sk[s * T];
-    apply_p1(Ml, u, ml);
+    apply_p1<S>(Ml, u, ml);
 #pragma unroll
     for (int s = 0; s < S; ++s) u[s] = sk[(S + s) * T];
-    apply_p1(Mr, u, mr);
+    apply_p1<S>(Mr, u, mr);
 
     // both child edges at once: O = d * m_sib over the pattern's max, which
     // crosses the categories' warps through xm
@@ -221,14 +230,14 @@ __global__ void down_store_kernel(const int* __restrict__ steps, int n_steps,
     // the pool for their own steps (d is read: a child may reuse st.out)
     if (st.ls >= 0) {
       float dd[S];
-      apply_pt1(Ml, ol, dd);
+      apply_pt1<S>(Ml, ol, dd);
 #pragma unroll
       for (int s = 0; s < S; ++s) col[(st.ls * (S + 1) + s) * T] = dd[s];
       col[(st.ls * (S + 1) + S) * T] = oscl;
     }
     if (st.rs >= 0) {
       float dd[S];
-      apply_pt1(Mr, orr, dd);
+      apply_pt1<S>(Mr, orr, dd);
 #pragma unroll
       for (int s = 0; s < S; ++s) col[(st.rs * (S + 1) + s) * T] = dd[s];
       col[(st.rs * (S + 1) + S) * T] = oscr;
@@ -242,23 +251,23 @@ __global__ void down_store_kernel(const int* __restrict__ steps, int n_steps,
 // that leaves whole warps (down_categories x pb lanes a block).
 extern "C" int iqt_down_store(const int* steps, int n_steps, const float* trans,
                               const float* rootd, const float* up, const float* usc,
-                              int P, float* out, float* osc, int C, int n_slots,
+                              int P, float* out, float* osc, int C, int S, int n_slots,
                               int patterns, void* stream) {
   if (patterns <= 0 || (patterns < 32 ? 32 % patterns : patterns % 32))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSuccess;
-#define IQT_LAUNCH(CC)                                                          \
+#define IQT_LAUNCH(CC, SV)                                                      \
   {                                                                             \
     const int threads = patterns * down_categories<CC>(patterns);               \
     if (threads % 32 || threads > 1024) return (int)cudaErrorInvalidValue;      \
-    const size_t smem = down_smem<CC>(patterns, n_slots);                       \
-    e = allow_smem(down_store_kernel<CC>, smem);                                \
+    const size_t smem = down_smem<CC, SV>(patterns, n_slots);                   \
+    e = allow_smem(down_store_kernel<CC, SV>, smem);                            \
     if (e == cudaSuccess)                                                       \
-      down_store_kernel<CC><<<(P + patterns - 1) / patterns, threads, smem,     \
-                              (cudaStream_t)stream>>>(                          \
+      down_store_kernel<CC, SV><<<(P + patterns - 1) / patterns, threads, smem, \
+                                  (cudaStream_t)stream>>>(                      \
           steps, n_steps, trans, rootd, up, usc, P, out, osc, n_slots, patterns); \
   }
-  IQT_DISPATCH_C(C, IQT_LAUNCH)
+  IQT_DISPATCH_CS(C, S, IQT_LAUNCH)
 #undef IQT_LAUNCH
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

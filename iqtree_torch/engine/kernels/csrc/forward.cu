@@ -14,6 +14,10 @@
 // block barrier.  The root's mix runs in the order of the thread-a-pattern
 // step, so the kernel gives the bits of that design (PERF.md).
 //
+// Instances: S = 4 (DNA; S = 3 zero-padded by the wrapper) and S = 2
+// (binary), C = 1..8 each (IQT_DISPATCH_CS).  At S = 2 a category's block
+// is one float4 and a lane's step is 2 x 4 multiply-adds.
+//
 // Bound on an H100 (DNA+G4, 1000 taxa x 10k patterns): the needed work is
 // 2 children x C*S*S multiply-adds per step and pattern, about
 // 2*2*64*999*1e4 = 2.6 GFLOP of float32 FMA (67 TFLOP/s: 0.04 ms), against
@@ -26,7 +30,7 @@
 
 using namespace iqt;
 
-template <int C>
+template <int C, int S>
 __global__ void forward_kernel(const int* __restrict__ steps, int n_steps,
                                const float* __restrict__ trans,
                                const float* __restrict__ tips, int P,
@@ -40,31 +44,31 @@ __global__ void forward_kernel(const int* __restrict__ steps, int n_steps,
   const int p = min(p_raw, P - 1);  // ragged tail computes a copy, writes nothing
   auto emit = [](const Step&, const float (&)[S], float) {};
   float y[S], sc;
-  upward_lanes<C>(steps, n_steps, trans, tips, P, p, smem, n_slots, emit, y, sc);
+  upward_lanes<C, S>(steps, n_steps, trans, tips, P, p, smem, n_slots, emit, y, sc);
   const int root_slot = load_step(steps, n_steps - 1).out;
-  const float lnl = lane_root_lnl<C>(smem, root_slot, T, tid & ~(CL - 1), rootw, sc,
-                                     __ldg(invar + p));
+  const float lnl = lane_root_lnl<C, S>(smem, root_slot, T, tid & ~(CL - 1), rootw, sc,
+                                        __ldg(invar + p));
   if ((tid & (CL - 1)) == 0 && p_raw < P) out[p_raw] = lnl;
 }
 
 // lanes: threads a block (a multiple of 32); a block holds lanes / CL patterns.
 extern "C" int iqt_forward(const int* steps, int n_steps, const float* trans,
                            const float* tips, int P, const float* rootw,
-                           const float* invar, float* out, int C, int n_slots,
+                           const float* invar, float* out, int C, int S, int n_slots,
                            int lanes, void* stream) {
   if (lanes <= 0 || lanes > 1024 || lanes % 32) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSuccess;
-#define IQT_LAUNCH(CC)                                                        \
+#define IQT_LAUNCH(CC, SV)                                                    \
   {                                                                           \
-    const size_t smem = upward_smem<CC>(n_slots, lanes);                      \
+    const size_t smem = upward_smem<CC, SV>(n_slots, lanes);                  \
     const int per_block = lanes / Lanes<CC>::CL;                              \
-    e = allow_smem(forward_kernel<CC>, smem);                                 \
+    e = allow_smem(forward_kernel<CC, SV>, smem);                             \
     if (e == cudaSuccess)                                                     \
-      forward_kernel<CC><<<(P + per_block - 1) / per_block, lanes, smem,      \
-                           (cudaStream_t)stream>>>(                           \
+      forward_kernel<CC, SV><<<(P + per_block - 1) / per_block, lanes, smem,  \
+                               (cudaStream_t)stream>>>(                       \
           steps, n_steps, trans, tips, P, rootw, invar, out, n_slots);        \
   }
-  IQT_DISPATCH_C(C, IQT_LAUNCH)
+  IQT_DISPATCH_CS(C, S, IQT_LAUNCH)
 #undef IQT_LAUNCH
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

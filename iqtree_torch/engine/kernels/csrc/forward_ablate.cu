@@ -42,6 +42,7 @@
 #include "cs_common.cuh"
 
 using namespace iqt;
+using namespace iqt::dna;
 
 enum Variant { FULL, NOMATMUL, NORESCALE, NOSTAGE, NOSCALE, EMPTY, HIGHPREC3, DEFPREC };
 

@@ -40,6 +40,10 @@
 // from L1 cost ~0.6 ms of a 2.6 ms sweep and the partials read a step
 // ahead into registers ~3.6 ms of 6.2 (PERF.md).
 //
+// Instances: S = 4 (DNA; S = 3 zero-padded by the wrapper) and S = 2
+// (binary), C = 1..8 each (IQT_DISPATCH_CS).  At S = 2 a category's three
+// matrices are three float4s, one 16-byte copy each.
+//
 // Bound on an H100 (DNA+G4, 1000 taxa x 10k patterns): reads the stored
 // partials once, 1.36 GB (3.35 TB/s: 0.4 ms); the work is
 // 2 x 3 x 64 + 64 FMA per edge and pattern, about 11 GFLOP (67 TFLOP/s:
@@ -52,12 +56,12 @@ using namespace iqt;
 // Steps whose children's partials and edge matrices are in flight at
 // once (a cp.async ring).
 constexpr int STAGES = 2;
-// A lane's words in one stage: the two children's S rows, then their scales.
-constexpr int STAGE_WORDS = 2 * S + 2;
-// A warp's words in one stage: both children's (P, P', P'') [C] blocks.
-template <int C>
+// A lane's words in one stage (the two children's S rows, then their
+// scales), and a warp's (both children's (P, P', P'') [C] blocks).
+template <int C, int S>
 struct WarpStage {
-  static constexpr int MATP = C * SSP;
+  static constexpr int STAGE_WORDS = 2 * S + 2;
+  static constexpr int MATP = C * Block<S>::SSP;
   static constexpr int WORDS = 2 * 3 * MATP;
 };
 
@@ -74,21 +78,23 @@ __device__ __forceinline__ void warp_group_sums(float (&v)[K]) {
 // scales into its column, and the warp's share of their edge matrices
 // into the warp's stage.  cp.async, so the copies run while the steps
 // before j are computed.
-template <int C>
+template <int C, int S>
 __device__ __forceinline__ void fetch_children(const Step& sj, float* stage_k, float* warp_k,
                                                int T, int c, int lane,
                                                const float* __restrict__ mats,
                                                const float* __restrict__ up,
                                                const float* __restrict__ usc, int P,
                                                int p) {
-  constexpr int MAT = C * SS, MATP = WarpStage<C>::MATP;
-  // 16-byte rows: (child, matrix, category, state), 24 C of them
-  for (int q = lane; q < 24 * C; q += 32) {
-    const int child = q / (12 * C), rem = q - child * 12 * C;
-    const int m = rem / (4 * C), cc = (rem >> 2) % C, s = rem & 3;
+  constexpr int SS = Block<S>::SS, SSP = Block<S>::SSP, R = Block<S>::ROWS;
+  constexpr int MAT = C * SS, MATP = WarpStage<C, S>::MATP;
+  // 16-byte copies: (child, matrix, category, copy), 6 C R of them; a copy's
+  // index by shift and mask (signed / and % cost 7% of the sweep at S = 4)
+  for (int q = lane; q < 6 * C * R; q += 32) {
+    const int child = q / (3 * C * R), rem = q - child * 3 * C * R;
+    const int m = rem / (C * R), cc = (rem >> Block<S>::ROW_SHIFT) % C, s = rem & (R - 1);
     const int node = child ? sj.r : sj.l;
-    __pipeline_memcpy_async(warp_k + (child * 3 + m) * MATP + cc * SSP + s * S,
-                            mats + ((size_t)node * 3 + m) * MAT + cc * SS + s * S, 16);
+    __pipeline_memcpy_async(warp_k + (child * 3 + m) * MATP + cc * SSP + s * 4,
+                            mats + ((size_t)node * 3 + m) * MAT + cc * SS + s * 4, 16);
   }
   const float* ul = up + ((size_t)sj.l * C + c) * S * P + p;
   const float* ur = up + ((size_t)sj.r * C + c) * S * P + p;
@@ -101,7 +107,7 @@ __device__ __forceinline__ void fetch_children(const Step& sj, float* stage_k, f
   __pipeline_memcpy_async(stage_k + (2 * S + 1) * T, usc + (size_t)sj.r * P + p, 4);
 }
 
-template <int C>
+template <int C, int S>
 __global__ void newton_kernel(const int* __restrict__ steps, int n_steps,
                               const float* __restrict__ mats,  // [2N][3][C][S][S]
                               const float* __restrict__ rootd,
@@ -111,8 +117,9 @@ __global__ void newton_kernel(const int* __restrict__ steps, int n_steps,
                               const float* __restrict__ usc, int P, int n_nodes,
                               float* __restrict__ part, int n_slots) {
   extern __shared__ float smem[];
-  constexpr int CL = Lanes<C>::CL;
-  constexpr int MATP = WarpStage<C>::MATP, WS = WarpStage<C>::WORDS;
+  constexpr int CL = Lanes<C>::CL, SSP = Block<S>::SSP;
+  constexpr int MATP = WarpStage<C, S>::MATP, WS = WarpStage<C, S>::WORDS;
+  constexpr int STAGE_WORDS = WarpStage<C, S>::STAGE_WORDS;
   const int T = blockDim.x, tid = threadIdx.x, lane = tid & 31;
   const int cl = tid & (CL - 1);
   const float act = cl < C ? 1.f : 0.f;
@@ -134,8 +141,8 @@ __global__ void newton_kernel(const int* __restrict__ steps, int n_steps,
 #pragma unroll
   for (int k = 0; k < STAGES - 1; ++k) {
     if (n_steps - 1 - k >= 0)
-      fetch_children<C>(load_step(steps, n_steps - 1 - k), stage + k * STAGE_WORDS * T,
-                        wstage + k * WS, T, c, lane, mats, up, usc, P, p);
+      fetch_children<C, S>(load_step(steps, n_steps - 1 - k), stage + k * STAGE_WORDS * T,
+                           wstage + k * WS, T, c, lane, mats, up, usc, P, p);
     __pipeline_commit();
   }
   int j = n_steps - STAGES;  // the next step to fetch
@@ -146,8 +153,8 @@ __global__ void newton_kernel(const int* __restrict__ steps, int n_steps,
     const int k_free = k == 0 ? STAGES - 1 : k - 1;  // held step i + 1
     __syncwarp();  // every lane has read the warp's stage of step i + 1
     if (j >= 0)
-      fetch_children<C>(st_j, stage + k_free * STAGE_WORDS * T, wstage + k_free * WS, T, c,
-                        lane, mats, up, usc, P, p);
+      fetch_children<C, S>(st_j, stage + k_free * STAGE_WORDS * T, wstage + k_free * WS, T,
+                           c, lane, mats, up, usc, P, p);
     __pipeline_commit();
     if (--j >= 0) st_j = load_step(steps, j);
     const Step st_next = i > 0 ? load_step(steps, i - 1) : st;
@@ -175,12 +182,12 @@ __global__ void newton_kernel(const int* __restrict__ steps, int n_steps,
     const float* Ml = wstage + k * WS + c * SSP;  // this category's P of the left edge
     const float* Mr = Ml + 3 * MATP;
     float ml[S], mr[S], m1l[S], m2l[S], m1r[S], m2r[S];
-    apply_p1(Ml, ul, ml);
-    apply_p1(Mr, ur, mr);
-    apply_p1(Ml + MATP, ul, m1l);
-    apply_p1(Ml + 2 * MATP, ul, m2l);
-    apply_p1(Mr + MATP, ur, m1r);
-    apply_p1(Mr + 2 * MATP, ur, m2r);
+    apply_p1<S>(Ml, ul, ml);
+    apply_p1<S>(Mr, ur, mr);
+    apply_p1<S>(Ml + MATP, ul, m1l);
+    apply_p1<S>(Ml + 2 * MATP, ul, m2l);
+    apply_p1<S>(Mr + MATP, ur, m1r);
+    apply_p1<S>(Mr + 2 * MATP, ur, m2r);
 
     // both child edges at once: the outside partials o = d * m_sib,
     // renormalized by their group max
@@ -235,14 +242,14 @@ __global__ void newton_kernel(const int* __restrict__ steps, int n_steps,
     // the pool for their own steps (d is read: a child may reuse st.out)
     if (st.ls >= 0) {
       float dd[S];
-      apply_pt1(Ml, ol, dd);
+      apply_pt1<S>(Ml, ol, dd);
 #pragma unroll
       for (int s = 0; s < S; ++s) col[(st.ls * (S + 1) + s) * T] = dd[s];
       col[(st.ls * (S + 1) + S) * T] = oscl;
     }
     if (st.rs >= 0) {
       float dd[S];
-      apply_pt1(Mr, orr, dd);
+      apply_pt1<S>(Mr, orr, dd);
 #pragma unroll
       for (int s = 0; s < S; ++s) col[(st.rs * (S + 1) + s) * T] = dd[s];
       col[(st.rs * (S + 1) + S) * T] = oscr;
@@ -258,25 +265,26 @@ __global__ void newton_kernel(const int* __restrict__ steps, int n_steps,
 extern "C" int iqt_newton(const int* steps, int n_steps, const float* mats,
                           const float* rootd, const float* wp, const float* invar,
                           const float* up, const float* usc, int P, int n_nodes,
-                          float* part, float* d12, int C, int n_slots, int threads,
+                          float* part, float* d12, int C, int S, int n_slots, int threads,
                           void* stream) {
   if (threads <= 0 || threads > 1024 || threads % 32) return (int)cudaErrorInvalidValue;
   int n_blocks = 0;
   cudaError_t e = cudaSuccess;
-#define IQT_LAUNCH(CC)                                                          \
+#define IQT_LAUNCH(CC, SV)                                                      \
   {                                                                             \
-    const size_t smem = (((size_t)n_slots * (S + 1) + STAGES * STAGE_WORDS) * threads + \
-                         (size_t)(threads / 32) * STAGES * WarpStage<CC>::WORDS) *  \
+    const size_t smem = (((size_t)n_slots * (SV + 1) +                          \
+                          STAGES * WarpStage<CC, SV>::STAGE_WORDS) * threads +  \
+                         (size_t)(threads / 32) * STAGES * WarpStage<CC, SV>::WORDS) * \
                         sizeof(float);                                          \
     const int per_block = threads / Lanes<CC>::CL;                              \
     n_blocks = (P + per_block - 1) / per_block;                                 \
-    e = allow_smem(newton_kernel<CC>, smem);                                    \
+    e = allow_smem(newton_kernel<CC, SV>, smem);                                \
     if (e == cudaSuccess)                                                       \
-      newton_kernel<CC><<<n_blocks, threads, smem, (cudaStream_t)stream>>>(     \
+      newton_kernel<CC, SV><<<n_blocks, threads, smem, (cudaStream_t)stream>>>( \
           steps, n_steps, mats, rootd, wp, invar, up, usc, P, n_nodes, part,    \
           n_slots);                                                             \
   }
-  IQT_DISPATCH_C(C, IQT_LAUNCH)
+  IQT_DISPATCH_CS(C, S, IQT_LAUNCH)
 #undef IQT_LAUNCH
   if (e != cudaSuccess) return (int)e;
   e = cudaGetLastError();

@@ -9,6 +9,9 @@
 // step) and to up[node] [C*S, P] / usc[node] [P] in device memory.  The
 // TPU's 8-row replicated scale rows are not carried over.
 //
+// Instances: S = 4 (DNA; S = 3 zero-padded by the wrapper) and S = 2
+// (binary), C = 1..8 each (IQT_DISPATCH_CS).
+//
 // Bound on an H100 (DNA+G4, 1000 taxa x 10k patterns): the same 2.6 GFLOP
 // as the forward kernel, plus the stored partials, 999 x 17 rows x 10k
 // patterns x 4 B = 0.68 GB written (3.35 TB/s: 0.2 ms): byte-bound.  A
@@ -22,7 +25,7 @@
 
 using namespace iqt;
 
-template <int C>
+template <int C, int S>
 __global__ void store_kernel(const int* __restrict__ steps, int n_steps,
                              const float* __restrict__ trans,
                              const float* __restrict__ tips, int P,
@@ -42,26 +45,26 @@ __global__ void store_kernel(const int* __restrict__ steps, int n_steps,
     if (cl == 0) usc[(size_t)st.node * P + p_raw] = s_node;
   };
   float y[S], sc;
-  upward_lanes<C>(steps, n_steps, trans, tips, P, p, smem, n_slots, emit, y, sc);
+  upward_lanes<C, S>(steps, n_steps, trans, tips, P, p, smem, n_slots, emit, y, sc);
 }
 
 // lanes: threads a block (a multiple of 32); a block holds lanes / CL patterns.
 extern "C" int iqt_store(const int* steps, int n_steps, const float* trans,
-                         const float* tips, int P, float* up, float* usc, int C,
+                         const float* tips, int P, float* up, float* usc, int C, int S,
                          int n_slots, int lanes, void* stream) {
   if (lanes <= 0 || lanes > 1024 || lanes % 32) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSuccess;
-#define IQT_LAUNCH(CC)                                                        \
+#define IQT_LAUNCH(CC, SV)                                                    \
   {                                                                           \
-    const size_t smem = upward_smem<CC>(n_slots, lanes);                      \
+    const size_t smem = upward_smem<CC, SV>(n_slots, lanes);                  \
     const int per_block = lanes / Lanes<CC>::CL;                              \
-    e = allow_smem(store_kernel<CC>, smem);                                   \
+    e = allow_smem(store_kernel<CC, SV>, smem);                               \
     if (e == cudaSuccess)                                                     \
-      store_kernel<CC><<<(P + per_block - 1) / per_block, lanes, smem,        \
-                         (cudaStream_t)stream>>>(                             \
+      store_kernel<CC, SV><<<(P + per_block - 1) / per_block, lanes, smem,    \
+                             (cudaStream_t)stream>>>(                         \
           steps, n_steps, trans, tips, P, up, usc, n_slots);                  \
   }
-  IQT_DISPATCH_C(C, IQT_LAUNCH)
+  IQT_DISPATCH_CS(C, S, IQT_LAUNCH)
 #undef IQT_LAUNCH
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

@@ -34,6 +34,7 @@
 #include "cs_common.cuh"
 
 using namespace iqt;
+using namespace iqt::dna;
 
 template <int C>
 __global__ void stream_forward_kernel(const int* __restrict__ steps,

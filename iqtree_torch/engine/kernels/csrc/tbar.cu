@@ -45,6 +45,11 @@
 // warp joins the next step's block barrier when its sums are written, so
 // the stage and the ring slot are free before they are written again.
 //
+// Instances: S = 4 (DNA; S = 3 zero-padded by the wrapper) and S = 2
+// (binary), C = 1..8 each (IQT_DISPATCH_CS).  At S = 2 an edge's entries
+// (side, s, t) are 2 x 2 x 2 = 8: a sum warp's lanes past them repeat an
+// entry's sums and store the same bits to the same place.
+//
 // Bound on an H100 (DNA+G4, 1000 taxa x 9 962 patterns): reads the stored
 // partials once, 2N x 17 rows x 9 962 x 4 B = 1.36 GB (3.35 TB/s: 0.40 ms);
 // the work is 2 x 64 (messages) + 64 (cotangent) + 64 (push) FMA per edge
@@ -53,8 +58,8 @@
 // Shared memory (floats), T = C PB walk lanes, TS = T + 4, W = T / 32:
 //   W STAGES 2 SSP + STAGES (2 S + 2) TS + C 2 S (PB + 4)
 //   + n_slots (S + 1) T + 4 T       (cs_kernels.tbar_smem);
-// 23 120 floats (92 480 bytes) at C = 4 and 11 slots; 225 600 bytes
-// at C = 8 and 15 slots (a 16 384-taxon tree's).
+// 23 120 floats (92 480 bytes) at S = 4, C = 4 and 11 slots; 225 600 bytes
+// at S = 4, C = 8 and 15 slots (a 16 384-taxon tree's).
 #include "cs_common.cuh"
 
 using namespace iqt;
@@ -64,7 +69,10 @@ using namespace iqt;
 // 5% faster at C = 3).
 constexpr int STAGES = 2;
 // A lane's words in one stage: the two children's S rows, then their scales.
-constexpr int STAGE_WORDS = 2 * S + 2;
+template <int S>
+__host__ __device__ constexpr int stage_words() {
+  return 2 * S + 2;
+}
 // Padding of the ring's and the O stage's rows (words).
 constexpr int PAD = 4;
 // Patterns a block: the thread-a-pattern design's block, whose sum order
@@ -81,10 +89,10 @@ __host__ __device__ constexpr int sum_warps() {
 // Largest block: 8 categories x PB patterns and their sum warps.
 constexpr int TBAR_THREADS_MAX = 8 * PB + 32 * sum_warps<8>();
 
-template <int C>
+template <int C, int S>
 inline size_t tbar_smem(int n_slots) {
   const size_t T = (size_t)C * PB;
-  return ((T / 32) * STAGES * 2 * SSP + STAGES * STAGE_WORDS * (T + PAD) +
+  return ((T / 32) * STAGES * 2 * Block<S>::SSP + STAGES * stage_words<S>() * (T + PAD) +
           (size_t)C * 2 * S * (PB + PAD) + (n_slots * (S + 1) + 4) * T) *
          sizeof(float);
 }
@@ -124,15 +132,18 @@ __device__ __forceinline__ void sums_wait(int threads) {
   asm volatile("bar.sync 1, %0;" ::"r"(threads) : "memory");
 }
 
-// Sum warp w: lane (side, s, t) of each step's two edges, over categories
-// c0 = w SUM_CATEGORIES .. (a category past C is a copy of C - 1, not
-// written); one block barrier and one wait a step in step with the walk.
-template <int C>
+// Sum warp w: lane (side, s, t) of each step's two edges (lane e + 2 S S
+// repeats lane e's entry), over categories c0 = w SUM_CATEGORIES .. (a
+// category past C is a copy of C - 1, not written); one block barrier and
+// one wait a step in step with the walk.
+template <int C, int S>
 __device__ __forceinline__ void sum_warp(const int* __restrict__ steps, int n_steps,
                                          const float* ring, const float* ost, int TS,
                                          int w, float* part_b) {
   constexpr int OS = PB + PAD, N = C < SUM_CATEGORIES ? C : SUM_CATEGORIES;
-  const int lane = threadIdx.x & 31, side = lane / SS, s = (lane / S) % S, t = lane % S;
+  constexpr int SS = S * S, STAGE_WORDS = stage_words<S>();
+  const int lane = (threadIdx.x & 31) % (2 * SS);
+  const int side = lane / SS, s = (lane / S) % S, t = lane % S;
   const int c0 = w * SUM_CATEGORIES, dc = c0 + N - 1 < C ? 1 : 0;  // categories apart
   int k = 0;  // the ring stage of step i
   for (int i = n_steps - 1; i >= 0; --i) {
@@ -153,18 +164,19 @@ __device__ __forceinline__ void sum_warp(const int* __restrict__ steps, int n_st
 // Step j's children into stage k: this lane's rows of their partials and
 // their scales into its column (rows TS apart), and the [S,S] blocks of
 // the warp's category of both edges into the warp's stage.
-template <int C>
+template <int C, int S>
 __device__ __forceinline__ void fetch_tbar(const Step& sj, float* stage_k, float* warp_k,
                                            int TS, int c, int lane,
                                            const float* __restrict__ trans,
                                            const float* __restrict__ up,
                                            const float* __restrict__ usc, int P, int p) {
-  // 16-byte rows: (child, state), 2 S of them
-  if (lane < 2 * S) {
-    const int child = lane / S, s = lane - child * S;
+  constexpr int SS = Block<S>::SS, SSP = Block<S>::SSP, R = Block<S>::ROWS;
+  // 16-byte copies: (child, copy), 2 R of them
+  if (lane < 2 * R) {
+    const int child = lane / R, s = lane - child * R;
     const int node = child ? sj.r : sj.l;
-    __pipeline_memcpy_async(warp_k + child * SSP + s * S,
-                            trans + ((size_t)node * C + c) * SS + s * S, 16);
+    __pipeline_memcpy_async(warp_k + child * SSP + s * 4,
+                            trans + ((size_t)node * C + c) * SS + s * 4, 16);
   }
   const float* ul = up + ((size_t)sj.l * C + c) * S * P + p;
   const float* ur = up + ((size_t)sj.r * C + c) * S * P + p;
@@ -177,7 +189,7 @@ __device__ __forceinline__ void fetch_tbar(const Step& sj, float* stage_k, float
   __pipeline_memcpy_async(stage_k + (2 * S + 1) * TS, usc + (size_t)sj.r * P + p, 4);
 }
 
-template <int C>
+template <int C, int S>
 __global__ void __launch_bounds__(TBAR_THREADS_MAX)
 tbar_kernel(const int* __restrict__ steps, int n_steps, const float* __restrict__ trans,
             const float* __restrict__ rootd, const float* __restrict__ lnl,
@@ -186,6 +198,7 @@ tbar_kernel(const int* __restrict__ steps, int n_steps, const float* __restrict_
             int n_slots) {
   extern __shared__ __align__(16) float smem[];
   constexpr int T = C * PB, TS = T + PAD, OS = PB + PAD;  // T walk lanes, then the sum warp
+  constexpr int SS = S * S, SSP = Block<S>::SSP, STAGE_WORDS = stage_words<S>();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int c = tid / PB, q = tid - c * PB;
   const int p_raw = blockIdx.x * PB + q;
@@ -202,7 +215,7 @@ tbar_kernel(const int* __restrict__ steps, int n_steps, const float* __restrict_
   float* xm = ost + (size_t)C * 2 * S * OS + (size_t)n_slots * (S + 1) * T;
   float* part_b = part + (size_t)blockIdx.x * n_nodes * C * SS;
   if (tid >= T) {
-    sum_warp<C>(steps, n_steps, ring, ost, TS, warp - T / 32, part_b);
+    sum_warp<C, S>(steps, n_steps, ring, ost, TS, warp - T / 32, part_b);
     return;
   }
 
@@ -211,8 +224,8 @@ tbar_kernel(const int* __restrict__ steps, int n_steps, const float* __restrict_
 #pragma unroll
   for (int k = 0; k < STAGES - 1; ++k) {
     if (n_steps - 1 - k >= 0)
-      fetch_tbar<C>(load_step(steps, n_steps - 1 - k), ring + tid + k * STAGE_WORDS * TS,
-                    wstage + k * 2 * SSP, TS, c, lane, trans, up, usc, P, p);
+      fetch_tbar<C, S>(load_step(steps, n_steps - 1 - k), ring + tid + k * STAGE_WORDS * TS,
+                       wstage + k * 2 * SSP, TS, c, lane, trans, up, usc, P, p);
     __pipeline_commit();
   }
   int j = n_steps - STAGES;  // the next step to fetch
@@ -245,8 +258,8 @@ tbar_kernel(const int* __restrict__ steps, int n_steps, const float* __restrict_
       ul[s] = sk[s * TS + tid];
       ur[s] = sk[(S + s) * TS + tid];
     }
-    apply_p1(Ml, ul, ml);
-    apply_p1(Mr, ur, mr);
+    apply_p1<S>(Ml, ul, ml);
+    apply_p1<S>(Mr, ur, mr);
 
     // both child edges at once: O = d * m_sib over the pattern's max, which
     // crosses the categories' warps through xm
@@ -270,8 +283,8 @@ tbar_kernel(const int* __restrict__ steps, int n_steps, const float* __restrict_
     par ^= 1;
     // every lane is done with step i + 1: its stage takes step j
     if (j >= 0)
-      fetch_tbar<C>(st_j, ring + tid + k_free * STAGE_WORDS * TS, wstage + k_free * 2 * SSP,
-                    TS, c, lane, trans, up, usc, P, p);
+      fetch_tbar<C, S>(st_j, ring + tid + k_free * STAGE_WORDS * TS,
+                       wstage + k_free * 2 * SSP, TS, c, lane, trans, up, usc, P, p);
     __pipeline_commit();
     if (--j >= 0) st_j = load_step(steps, j);
     mx[0] = fmaxf(mx[0], SCALE_TINY);
@@ -298,14 +311,14 @@ tbar_kernel(const int* __restrict__ steps, int n_steps, const float* __restrict_
     // the pool for their own steps (d is read: a child may reuse st.out)
     if (st.ls >= 0) {
       float dd[S];
-      apply_pt1(Ml, ol, dd);
+      apply_pt1<S>(Ml, ol, dd);
 #pragma unroll
       for (int s = 0; s < S; ++s) col[(st.ls * (S + 1) + s) * T] = dd[s];
       col[(st.ls * (S + 1) + S) * T] = oscl;
     }
     if (st.rs >= 0) {
       float dd[S];
-      apply_pt1(Mr, orr, dd);
+      apply_pt1<S>(Mr, orr, dd);
 #pragma unroll
       for (int s = 0; s < S; ++s) col[(st.rs * (S + 1) + s) * T] = dd[s];
       col[(st.rs * (S + 1) + S) * T] = oscr;
@@ -320,26 +333,26 @@ tbar_kernel(const int* __restrict__ steps, int n_steps, const float* __restrict_
 extern "C" int iqt_tbar(const int* steps, int n_steps, const float* trans,
                         const float* rootd, const float* lnl, const float* wp,
                         const float* up, const float* usc, int P, int n_nodes,
-                        float* part, float* tbar, int C, int n_slots, int tile,
+                        float* part, float* tbar, int C, int S, int n_slots, int tile,
                         void* stream) {
   if (tile != PB) return (int)cudaErrorInvalidValue;
   const int n_blocks = (P + PB - 1) / PB;
   cudaError_t e = cudaSuccess;
-#define IQT_LAUNCH(CC)                                                             \
+#define IQT_LAUNCH(CC, SV)                                                         \
   {                                                                                \
-    const size_t smem = tbar_smem<CC>(n_slots);                                    \
+    const size_t smem = tbar_smem<CC, SV>(n_slots);                                \
     const int threads = CC * PB + 32 * sum_warps<CC>();                            \
-    e = allow_smem(tbar_kernel<CC>, smem);                                         \
+    e = allow_smem(tbar_kernel<CC, SV>, smem);                                     \
     if (e == cudaSuccess)                                                          \
-      tbar_kernel<CC><<<n_blocks, threads, smem, (cudaStream_t)stream>>>(          \
+      tbar_kernel<CC, SV><<<n_blocks, threads, smem, (cudaStream_t)stream>>>(      \
           steps, n_steps, trans, rootd, lnl, wp, up, usc, P, n_nodes, part,        \
           n_slots);                                                                \
   }
-  IQT_DISPATCH_C(C, IQT_LAUNCH)
+  IQT_DISPATCH_CS(C, S, IQT_LAUNCH)
 #undef IQT_LAUNCH
   if (e != cudaSuccess) return (int)e;
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  return (int)launch_reduce(part, tbar, n_blocks, n_nodes * C * SS, 0,
+  return (int)launch_reduce(part, tbar, n_blocks, n_nodes * C * S * S, 0,
                             (cudaStream_t)stream);
 }

@@ -34,7 +34,9 @@ the most clusters at once).
 
 --base DIR adds the variant `base`: <kernel>.cu and its headers taken
 whole from DIR, e.g. an earlier commit's csrc/ (`git archive COMMIT
-iqtree_torch/engine/kernels/csrc`), with the same C entry point.  It is
+iqtree_torch/engine/kernels/csrc`), with the same C entry point (an
+earlier CS-packed kernel's, before the S = 2 instances, is called without
+the S argument: load_library).  It is
 timed first and last, `as built` second and second to last, so that the
 two designs are compared in one process on one card, and the probe says
 whether the two give the same bits.  The earlier thread-a-pattern
@@ -477,8 +479,8 @@ KERNELS: Dict[str, Dict[str, Tuple[Tuple[str, str], ...]]] = {
                             ("up + ((size_t)sj.r * C + c)", "up + ((size_t)0 * C + c)"),
                             ("usc + (size_t)sj.l * P", "usc"),
                             ("usc + (size_t)sj.r * P", "usc")),
-        "matrices cached": (("trans + ((size_t)node * C + c) * SS + s * S, 16);",
-                             "trans + ((size_t)0 * C + c) * SS + s * S, 16);"),),
+        "matrices cached": (("trans + ((size_t)node * C + c) * SS + s * 4, 16);",
+                             "trans + ((size_t)0 * C + c) * SS + s * 4, 16);"),),
         "no barriers": (("    __syncthreads();  // every category's max of step i is written",
                          "    __syncwarp();  // every category's max of step i is written"),
                         ("    __syncthreads();                               // the walk's max",
@@ -574,14 +576,42 @@ def variant_libraries(kernel: str, base=None, names=None,
         lib.with_name("ptxas.log").write_text(log)
         if proc.returncode != 0:
             raise RuntimeError(f"variant {name!r} of {kernel} failed to build:\n{log}")
-        dll = ctypes.CDLL(str(lib))
-        fn = getattr(dll, f"iqt_{kernel}")
-        fn.argtypes = build.SIGNATURES[f"iqt_{kernel}"]
-        fn.restype = ctypes.c_int
-        dll.iqt_error_string.argtypes = [ctypes.c_int]
-        dll.iqt_error_string.restype = ctypes.c_char_p
-        libs[name] = dll
+        libs[name] = load_library(kernel, lib, lib.with_name(f"{kernel}.cu").read_text())
     return libs
+
+
+class _EarlierEntry:
+    """A library whose C entry iqt_<kernel> predates the CS-packed kernels'
+    S argument: the launch's arguments with S (build.STATE_ARGUMENT) left
+    out; every other symbol as the library has it."""
+
+    def __init__(self, dll: ctypes.CDLL, kernel: str):
+        self._dll, self._name = dll, f"iqt_{kernel}"
+        self._at = build.STATE_ARGUMENT[self._name]
+
+    def __getattr__(self, attr):
+        if attr != self._name:
+            return getattr(self._dll, attr)
+        fn, at = getattr(self._dll, attr), self._at
+        return lambda *args: fn(*args[:at], *args[at + 1:])
+
+
+def load_library(kernel: str, path, source: str):
+    """The library built from csrc/<kernel>.cu's `source` at `path`, loaded
+    as build.library loads the kernel's: an earlier CS-packed kernel's,
+    whose C entry takes no S (an S = 4 instance only), through
+    _EarlierEntry."""
+    dll = ctypes.CDLL(str(path))
+    fn = getattr(dll, f"iqt_{kernel}")
+    sig = list(build.SIGNATURES[f"iqt_{kernel}"])
+    earlier = f"iqt_{kernel}" in build.STATE_ARGUMENT and "int C, int S," not in source
+    if earlier:
+        del sig[build.STATE_ARGUMENT[f"iqt_{kernel}"]]
+    fn.argtypes = sig
+    fn.restype = ctypes.c_int
+    dll.iqt_error_string.argtypes = [ctypes.c_int]
+    dll.iqt_error_string.restype = ctypes.c_char_p
+    return _EarlierEntry(dll, kernel) if earlier else dll
 
 
 def bench_calls(device, categories=4, protein=False, codon=False, slots=0):

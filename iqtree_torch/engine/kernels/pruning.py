@@ -1,9 +1,12 @@
 """Fused forward likelihood: whole-tree site log-likelihoods in one kernel.
 
 `fused_site_lnl` launches a hand-written CUDA kernel for a CUDA tensor --
-csrc/forward.cu at the CS-packed DNA shapes (S=4), csrc/wide_forward.cu
-(`wide_site_lnl`) at the wide shapes (protein S=20; codons, S=60..63
-padded to the S=64 instance by `pad_states`) -- and runs its plain twin
+csrc/forward.cu at the CS-packed shapes (S=2 binary, S=4 DNA, S=3 padded
+to 4; C <= 8), csrc/wide_forward.cu (`wide_site_lnl`) at the wide shapes
+(protein S=20, morphology with 5 to 20 states padded to it; codons and 21
+to 32 morphological states padded to the S=64 instance; S <= 4 past 8
+categories on the S=4 instance), every padding by `pad_states` as
+build.instance_states says -- and runs its plain twin
 for a CPU tensor.  `fused_upward_store` is the wide upward store
 (csrc/wide_store.cu): the same sweep on the same clusters, storing every
 internal partial for the reverse sweeps.  The kernels evaluate the entire
@@ -67,6 +70,9 @@ WIDE_FORWARD_TILE = 16
 WIDE_STORE_TILE = 16
 # The cluster walk's ring depth (CLUSTER_STAGES of csrc/wide_common.cuh).
 CLUSTER_STAGES = 2
+# The states of csrc/stream_forward.cu's instance (the thread-a-pattern
+# layout of cs_common.cuh, DNA only).
+STREAM_STATES = 4
 # State rows a thread of each wide instance (RPT; csrc/wide_common.cuh
 # IQT_DISPATCH_WIDE_S, CODON_RPT at S=64, DNA_RPT at S=4).
 WIDE_RPT = {4: 1, 20: 5, 64: 8}
@@ -74,8 +80,8 @@ WIDE_RPT = {4: 1, 20: 5, 64: 8}
 
 def pad_states(x: torch.Tensor, S_pad: int, *axes: int) -> torch.Tensor:
     """x with each state axis in `axes` zero-padded at its end to S_pad
-    entries, contiguous: the codon spaces' way into the S=64 kernel
-    instance.  A padded row or column of a transition matrix, a tip row or
+    entries, contiguous: a state space's way into a wider kernel instance
+    (build.instance_states).  A padded row or column of a transition matrix, a tip row or
     a root weight is 0, so every padded partial row stays 0 and the real
     rows, maxima and scales are the unpadded arithmetic's."""
     pad = [0] * (2 * x.dim())
@@ -160,22 +166,27 @@ def fused_site_lnl(steps, n_slots, trans, tips, props, state_freq, invar,
 
     steps [N-1, 6] int32, trans [2N, C, S, S], tips [N, S, P],
     props [C], state_freq [C, S], invar [P] (the invariant-class
-    likelihood).  CUDA tensors launch csrc/forward.cu at S=4 up to 8
-    categories and csrc/wide_forward.cu (wide_site_lnl) at S=20, the codon
-    spaces and S=4 past 8 categories; CPU tensors run the plain twin.  `tile` (patterns a cluster) is for measuring the wide
-    kernel; forward.cu runs UPWARD_LANES lanes a block."""
+    likelihood).  CUDA tensors launch csrc/forward.cu at S <= 4 up to 8
+    categories (S=2 and S=4 instances, S=3 padded) and csrc/wide_forward.cu
+    (wide_site_lnl) at every other shape; CPU tensors run the plain twin.
+    `tile` (patterns a cluster) is for measuring the wide kernel;
+    forward.cu runs UPWARD_LANES lanes a block."""
     if not trans.is_cuda:
         return _site_lnl_plain(steps, trans, tips, props, state_freq, invar)
     C, S = trans.shape[1], trans.shape[2]
     if not build.packed(C, S):
         return wide_site_lnl(steps, n_slots, trans, tips, props, state_freq, invar,
                              tile)
-    P = tips.shape[2]
-    rootw = (props[:, None] * state_freq).reshape(-1).float().contiguous()
-    build.check_inputs(C, S, steps, trans, tips, rootw, invar)
+    P, SK = tips.shape[2], build.instance_states(S, C)
+    rootw = (props[:, None] * state_freq).float()
+    if SK != S:
+        trans, tips = pad_states(trans, SK, 2, 3), pad_states(tips, SK, 1)
+        rootw = pad_states(rootw, SK, 1)
+    rootw = rootw.reshape(-1).contiguous()
+    build.check_inputs(C, SK, steps, trans, tips, rootw, invar)
     out = torch.empty(P, dtype=torch.float32, device=trans.device)
     build.launch("forward", steps, steps.shape[0], trans, tips, P, rootw,
-                 invar, out, C, n_slots, UPWARD_LANES)
+                 invar, out, C, SK, n_slots, UPWARD_LANES)
     fused_site_lnl.launches += 1
     return out
 
@@ -210,15 +221,16 @@ def wide_forward_warps(S: int, C: int, tile: int, n_slots: int) -> int:
 
 def wide_site_lnl(steps, n_slots, trans, tips, props, state_freq, invar,
                   tile=None) -> torch.Tensor:
-    """fused_site_lnl at the wide shapes (S=20; a codon space through the
-    S=64 instance, its inputs zero-padded): csrc/wide_forward.cu for CUDA
-    tensors, the plain twin for CPU tensors.  A cluster of C blocks (one a
+    """fused_site_lnl at the wide shapes (S=20; S=4 past 8 categories; any
+    other state count through the instance build.instance_states names, its
+    inputs zero-padded): csrc/wide_forward.cu for CUDA tensors, the plain
+    twin for CPU tensors.  A cluster of C blocks (one a
     rate category) holds `tile` patterns (default WIDE_FORWARD_TILE; for
     measuring the kernel)."""
     if not trans.is_cuda:
         return _site_lnl_plain(steps, trans, tips, props, state_freq, invar)
     C, S = trans.shape[1], trans.shape[2]
-    P, SK = tips.shape[2], build.instance_states(S)
+    P, SK = tips.shape[2], build.instance_states(S, C)
     rootw = (props[:, None] * state_freq).float()
     if SK != S:
         trans, tips = pad_states(trans, SK, 2, 3), pad_states(tips, SK, 1)
@@ -237,8 +249,9 @@ wide_site_lnl.launches = 0
 
 
 def fused_upward_store(steps, n_slots, trans, tips, tile=None):
-    """(up [2N, CS, P], usc [2N, P]) at the wide shapes (S=20; a codon
-    space through the S=64 instance, padded in and sliced out): every
+    """(up [2N, CS, P], usc [2N, P]) at the wide shapes (S=20; S=4 past 8
+    categories; any other state count through the instance
+    build.instance_states names, padded in and sliced out): every
     internal node's normalized partial and log-scale, through
     csrc/wide_store.cu for CUDA tensors and the plain twin upward_plain
     for CPU tensors.  Tip rows are left for fill_tip_rows_cs.  A cluster
@@ -248,7 +261,7 @@ def fused_upward_store(steps, n_slots, trans, tips, tile=None):
     if not trans.is_cuda:
         return upward_plain(steps, trans, tips)
     n_rows, C, S = trans.shape[:3]
-    P, SK = tips.shape[2], build.instance_states(S)
+    P, SK = tips.shape[2], build.instance_states(S, C)
     if SK != S:
         trans, tips = pad_states(trans, SK, 2, 3), pad_states(tips, SK, 1)
     build.check_inputs(C, SK, steps, trans, tips, n_slots=n_slots, walk=True)
@@ -345,16 +358,16 @@ def fused_site_lnl_cs_stream(steps, n_slots, trans, tips, props, state_freq,
 
     steps [R, 6] int32, trans [K*2N, C, S, S] (the K trees' arrays
     concatenated), tips [N, S, P], props [C], state_freq [C, S], ptn_invar
-    [P] or [K, P].  CS-packed shapes only (S=4, C<=8; ValueError
+    [P] or [K, P].  DNA's CS-packed shapes only (S=4, C<=8; ValueError
     otherwise).  CUDA tensors launch csrc/stream_forward.cu, CPU tensors
     run the plain twin.  `tree_slots` is pool_slots(steps, K), the
     kernel's shared-memory pool, as n_slots is for one tree: a caller that
     built the schedule on the host passes it, otherwise it is read from
     the device.  `tile` (patterns per block) is for measuring the kernel."""
     C, S = trans.shape[1], trans.shape[2]
-    if S not in build.PACKED_STATES or not 1 <= C <= build.MAX_CATEGORIES:
-        raise ValueError(f"the multi-tree kernel serves the CS-packed shapes (S in "
-                         f"{build.PACKED_STATES}, C <= {build.MAX_CATEGORIES}), got "
+    if S != STREAM_STATES or not 1 <= C <= build.MAX_CATEGORIES:
+        raise ValueError(f"the multi-tree kernel serves DNA's CS-packed shapes (S="
+                         f"{STREAM_STATES}, C <= {build.MAX_CATEGORIES}), got "
                          f"C={C}, S={S}")
     single = roots is None
     if single:
@@ -389,9 +402,9 @@ def fused_multi_tree_lnl(trees_and_arrays, model, site, tile=None) -> torch.Tens
     """[K] float64 total log-likelihoods of K topologies that share the
     model and the alignment, through one launch of the multi-tree kernel
     (the plain twin for CPU tensors)."""
-    if model.num_states not in build.PACKED_STATES:
-        raise ValueError(f"multi-tree evaluation needs a CS-packed shape (S in "
-                         f"{build.PACKED_STATES}), got S={model.num_states}")
+    if model.num_states != STREAM_STATES:
+        raise ValueError(f"multi-tree evaluation needs DNA's CS-packed shape (S="
+                         f"{STREAM_STATES}), got S={model.num_states}")
     sk, sg, n_slots, roots = multi_tree_schedule(trees_and_arrays)
     dt, dev = site.code_masks.dtype, site.code_masks.device
     trans = torch.cat([branch_transition_mats(model, ta.blen)

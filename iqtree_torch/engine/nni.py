@@ -17,7 +17,8 @@ in float32 the shared messages carry per-edge lnL biases far larger than
 a marginal NNI's gain, and they cancel in lnl - base_lnl.
 
 Reversible models only; the local work runs in the partials' type, the
-totals in float64.
+totals in float64.  Under +ASC the local Newton and the scores carry the
+correction's terms (derivatives.theta_derivs, asc_corrections).
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .derivatives import LocalModel, local_model, newton_target, theta_derivs, thetas
+from .derivatives import (LocalModel, asc_corrections, local_model, newton_target,
+                          theta_derivs, thetas)
 from .kernels.cs_kernels import fused_nni_passes_cs
 from .likelihood import (
     SCALE_TINY,
@@ -68,8 +70,8 @@ def _rescale(x, scale):
 
 def _theta_lnl_newton(m: LocalModel, inside, in_scale, outside, out_scale, t0,
                       newton_iters: int):
-    """1-D Newton on each candidate's branch from its theta buffer;
-    returns (t* [K], lnl(t*) [K] float64)."""
+    """1-D Newton on each candidate's branch from its theta buffer (with
+    +ASC's terms); returns (t* [K], lnl(t*) [K] float64, +ASC-corrected)."""
     th = thetas(m, inside, in_scale, outside, out_scale)
     t = t0
     for _ in range(newton_iters):
@@ -77,6 +79,7 @@ def _theta_lnl_newton(m: LocalModel, inside, in_scale, outside, out_scale, t0,
         t = newton_target(d1, d2, t)
     _, _, denom = theta_derivs(m, th, t)
     site_lnl = th.scale + torch.log(denom)
+    site_lnl = site_lnl - asc_corrections(m, site_lnl)[:, None]
     return t, (m.pfreq.double() * site_lnl.double()).sum(-1)
 
 
@@ -125,9 +128,6 @@ def evaluate_nnis(
     candidates are live at once (0: all).  `passes` = (up, usc, out, osc)
     replaces the two global passes (the comparison of the kernels with
     their plain twins)."""
-    if bool((site.asc_mask != 0).any()):
-        raise NotImplementedError(
-            "NNI evaluation with +ASC is not ported yet (the ascertainment-bias slice)")
     if passes is None:
         passes = nni_passes(tree, model, site, steps, n_slots)
     up, usc, out, osc = passes

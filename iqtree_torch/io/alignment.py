@@ -5,9 +5,10 @@ patterns; ambiguity codes are kept as integer codes >= num_states with a
 code -> state indicator table, so a tip partial is one gather of that
 table by the tip codes.
 
-The port reads DNA (4 states), protein (20 states) and codons (a genetic
-code's sense codons: 61 states for the standard code); binary and
-morphology data are not ported yet.
+The port reads DNA (4 states), protein (20 states), codons (a genetic
+code's sense codons: 61 states for the standard code), binary data (0/1)
+and morphology (states 0-9, A-V: up to 32, the count taken from the
+highest symbol the data use).
 """
 
 from __future__ import annotations
@@ -23,9 +24,6 @@ SEQ_PROTEIN = "AA"
 SEQ_BINARY = "BIN"
 SEQ_MORPH = "MORPH"
 SEQ_CODON = "CODON"
-# the slice of the port that reads each type not read yet
-NOT_PORTED = {SEQ_BINARY: "the binary/morphology slice",
-              SEQ_MORPH: "the binary/morphology slice"}
 
 # DNA: states 0..3 = A,C,G,T; ambiguity codes are extra integer codes
 # (R=A|G, Y=C|T, W=A|T, S=C|G, M=A|C, K=G|T, B/H/D/V, N/?/-=any).
@@ -49,7 +47,26 @@ _AA_CODES.update({
     "U": (AA_ORDER.index("C"),),
     **{c: tuple(range(20)) for c in "X*?-.~"},
 })
-_TABLES = {SEQ_DNA: (_DNA_CODES, 4), SEQ_PROTEIN: (_AA_CODES, 20)}
+_BIN_CODES: Dict[str, Tuple[int, ...]] = {
+    "0": (0,), "1": (1,), **{c: (0, 1) for c in "?-.~"},
+}
+_TABLES = {SEQ_DNA: (_DNA_CODES, 4), SEQ_PROTEIN: (_AA_CODES, 20),
+           SEQ_BINARY: (_BIN_CODES, 2)}
+# morphology: state i is the i-th symbol; gaps and unknowns allow every state
+MORPH_SYMBOLS = "0123456789ABCDEFGHIJKLMNOPQRSTUV"
+
+
+def _morph_codes(num_states: int) -> Dict[str, Tuple[int, ...]]:
+    codes: Dict[str, Tuple[int, ...]] = {MORPH_SYMBOLS[i]: (i,) for i in range(num_states)}
+    codes.update({c: tuple(range(num_states)) for c in "?-.~"})
+    return codes
+
+
+def morph_state_count(seqs: List[str]) -> int:
+    """States of a morphology alignment: the highest symbol used + 1, at
+    least 2 (binary)."""
+    used = [MORPH_SYMBOLS.find(ch.upper()) for s in seqs for ch in set(s)]
+    return max([1, *used]) + 1
 
 
 @dataclass
@@ -70,15 +87,19 @@ class StateSpace:
     codon_to_state: Optional[np.ndarray] = None  # [64]; -1 = stop codon
 
     @classmethod
-    def make(cls, seq_type: str, genetic_code: int = 1) -> "StateSpace":
+    def make(cls, seq_type: str, genetic_code: int = 1,
+             num_states: Optional[int] = None) -> "StateSpace":
+        """The state space of a sequence type; morphology takes its state
+        count (default 2)."""
         if seq_type == SEQ_CODON:
             return cls._make_codon(genetic_code)
-        if seq_type not in _TABLES:
-            raise NotImplementedError(
-                f"sequence type {seq_type} is not ported yet (the port reads "
-                f"DNA, protein and codons; {seq_type} comes with "
-                f"{NOT_PORTED.get(seq_type, 'a later slice')})")
-        table, ns = _TABLES[seq_type]
+        if seq_type == SEQ_MORPH:
+            ns = num_states or 2
+            table = _morph_codes(ns)
+        elif seq_type in _TABLES:
+            table, ns = _TABLES[seq_type]
+        else:
+            raise ValueError(f"unsupported seq type {seq_type}")
         # definite states first, then one code per distinct ambiguity set
         set_to_code: Dict[Tuple[int, ...], int] = {(i,): i for i in range(ns)}
         masks: List[Tuple[int, ...]] = [(i,) for i in range(ns)]
@@ -310,7 +331,8 @@ class Alignment:
             raise ValueError(f"sequences have unequal lengths: {lens}")
         if seq_type is None:
             seq_type = detect_seq_type(seqs)
-        states = StateSpace.make(seq_type, genetic_code)
+        num_states = morph_state_count(seqs) if seq_type == SEQ_MORPH else None
+        states = StateSpace.make(seq_type, genetic_code, num_states)
         mat = np.stack([states.encode(s) for s in seqs])  # [taxa, sites]
         uniq, site_to_pattern, counts = np.unique(
             np.ascontiguousarray(mat.T), axis=0,

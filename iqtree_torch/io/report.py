@@ -1,5 +1,5 @@
-"""The .iqtree analysis report for DNA, protein and codon models and the
-mixtures: alignment summary, the substitution model (a mixture's classes
+"""The .iqtree analysis report for DNA, protein, codon, binary and
+morphology models and the mixtures: alignment summary, the substitution model (a mixture's classes
 with their rates and weights), rate heterogeneity (Gamma, invariable
 sites, FreeRate, with each category's rate and proportion), the
 maximum-likelihood tree and run information, in the reference report's
@@ -13,14 +13,15 @@ from typing import List
 import numpy as np
 
 from .. import __version__
-from ..io.alignment import AA_ORDER, SEQ_CODON, SEQ_DNA, SEQ_PROTEIN
+from ..io.alignment import AA_ORDER, SEQ_BINARY, SEQ_CODON, SEQ_DNA, SEQ_MORPH, SEQ_PROTEIN
 from ..models.codon import codon_strings
 from ..models.mixture import MixtureModel
 from ..models.subst import (FREQ_EMPIRICAL, FREQ_EQUAL, FREQ_ESTIMATE,
                             FREQ_USER, pair_index)
 
 STATE_NAMES = {SEQ_DNA: "ACGT", SEQ_PROTEIN: AA_ORDER}
-SITE_KIND = {SEQ_DNA: "nucleotide", SEQ_PROTEIN: "amino-acid", SEQ_CODON: "codon"}
+SITE_KIND = {SEQ_DNA: "nucleotide", SEQ_PROTEIN: "amino-acid", SEQ_CODON: "codon",
+             SEQ_BINARY: "binary", SEQ_MORPH: "morphological"}
 FREQ_DESC = {
     FREQ_EMPIRICAL: "empirical counts from alignment",
     FREQ_EQUAL: "equal frequencies",
@@ -50,12 +51,14 @@ def write_report(path: str, aln, subst, rate, tree, lnl: float, command: str,
         "",
         "SUBSTITUTION PROCESS",
         "--------------------",
-        f"Model of substitution: {subst.name}{rate.name_suffix()}",
+        f"Model of substitution: {subst.name}{rate.name_suffix()}"
+        + ("+ASC" if subst.asc else ""),
         "",
     ]
     codon = aln.states.seq_type == SEQ_CODON
+    # binary and morphological states by their numbers, as the JAX report
     names = codon_strings(aln.states.genetic_code) if codon else \
-        STATE_NAMES[aln.states.seq_type]
+        STATE_NAMES.get(aln.states.seq_type, [str(i) for i in range(aln.num_states)])
     if isinstance(subst, MixtureModel):
         L += ["Mixture model of substitution (class, rate, weight):", ""]
         L += [f"  {c.name:<16} {rr:.4f}  {ww:.4f}"
@@ -104,7 +107,7 @@ def _substitution_lines(subst, names, codon: bool) -> List[str]:
     if getattr(subst, "kappa", None) is not None:  # a parametric codon model
         L += [f"Transition/transversion ratio kappa: {subst.kappa:.4f}",
               f"Nonsynonymous/synonymous ratio omega: {subst.omega:.4f}", ""]
-    if subst.rate_groups is not None:  # group-coded (DNA) exchangeabilities
+    if subst.rate_groups is not None and S == 4:  # group-coded (DNA) exchangeabilities
         r = subst.sym_rates()
         L += ["Rate parameter R:", ""]
         L += [f"  {names[i]}-{names[j]}: {r[i, j]:.4f}" for i, j in pair_index(S)]

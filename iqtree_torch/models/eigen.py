@@ -29,11 +29,20 @@ class SafeEigh(torch.autograd.Function):
     which is the starting point of every GTR fit.  Downstream only
     V diag(f(lam)) V^-1 is used, which is invariant under rotations
     inside an eigenspace, so zeroing the degenerate cross-terms gives the
-    correct gradient."""
+    correct gradient.
+
+    The forward runs LAPACK on the host, as the reference pass (numpy)
+    does, whatever the device: the problem is S x S, and on the card
+    cuSOLVER's eigenvectors put P(t)'s small entries (a change across
+    several states on a short branch, which ORDERED's banded Q makes
+    O(t^k)) at another round-off level, which a fit then exploits: the
+    ORDERED+ASC+G fit of the Dayhoff-6 protein bench (chip_smoke.py phase
+    30) ended 8.9 lnL above its written result's float64 evaluation
+    through numpy's eigenvectors, 1.6 with the host's."""
 
     @staticmethod
     def forward(ctx, b):
-        lam, u = torch.linalg.eigh(b)
+        lam, u = (x.to(b.device) for x in torch.linalg.eigh(b.cpu()))
         ctx.save_for_backward(lam, u)
         return lam, u
 

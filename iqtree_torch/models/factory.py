@@ -1,4 +1,5 @@
-"""Model-string parsing for the DNA, protein and codon models the port serves.
+"""Model-string parsing for the DNA, protein, codon, binary and morphology
+models the port serves.
 
 Parses IQ-TREE-style model strings like "GTR+G4+I", "HKY+F{.3,.2,.2,.3}",
 "GTR{1.5,2,0.8,1.2,3}+G{0.5}", "LG+F+I+G", "C20", "EX2+G", "LG4M" or
@@ -8,7 +9,10 @@ The protein names are the empirical matrices of models/protein.py, with
 their published frequencies unless a +F suffix says otherwise.  The codon
 names (models/codon.py) are GY (the default, counted codon frequencies),
 MG (F3X4 product frequencies) and the empirical KOSI07/ECM, ECMREST and
-SCHN05, with their own frequencies.  Mixture names (EX2, EX3, EHO, UL2,
+SCHN05, with their own frequencies.  Binary data take JC2 (equal
+frequencies, the default) and GTR2 (counted frequencies); morphology MK
+(equal rates and frequencies, the default) and ORDERED (changes between
+neighbouring states only, equal frequencies).  Mixture names (EX2, EX3, EHO, UL2,
 UL3, EX_EHO, LG4M, CF4, C10..C60) resolve from the built-in NEXUS
 definitions (io/modelsblock.py) into a MixtureModel (models/mixture.py).
 
@@ -26,6 +30,8 @@ Supported suffixes:
   +FMIX{f1:r:w,...}  frequency-mixture classes (CF4/C10..C60 style)
   MIX{...}*Rn   a mixture fused with FreeRate, its weights the FreeRate
                 weights (LG4X)
+  +ASC          Lewis's ascertainment-bias correction (no +I, and an
+                alignment without constant sites)
 Model parameters may be pinned inline: GTR{1.5,2.0,...}, GY{kappa,omega}.  Other families
 and suffixes raise NotImplementedError naming the slice that ports them.
 """
@@ -37,7 +43,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from ..io.alignment import SEQ_CODON, SEQ_DNA, SEQ_PROTEIN, Alignment
+from ..io.alignment import (SEQ_BINARY, SEQ_CODON, SEQ_DNA, SEQ_MORPH, SEQ_PROTEIN,
+                            Alignment)
 from ..io.modelsblock import ExprDef, MatrixDef, builtin_mixture_defs
 from .codon import (EMPIRICAL_CODON, CodonModel, empirical_codon_model,
                     product_codon_freqs)
@@ -86,13 +93,39 @@ def _not_ported(what: str, slice_name: str):
     raise NotImplementedError(f"{what} is not ported yet ({slice_name})")
 
 
-DEFAULT_MODELS = {SEQ_DNA: "HKY+G", SEQ_PROTEIN: "LG+G", SEQ_CODON: "GY+G"}
+DEFAULT_MODELS = {SEQ_DNA: "HKY+G", SEQ_PROTEIN: "LG+G", SEQ_CODON: "GY+G",
+                  SEQ_BINARY: "JC2+G", SEQ_MORPH: "MK+G"}
 
 
 def default_model(aln: Alignment) -> str:
     """The model when -m is omitted: HKY+G for DNA, LG+G for protein, GY+G
-    for codons."""
+    for codons, JC2+G for binary and MK+G for morphological data."""
     return DEFAULT_MODELS[aln.states.seq_type]
+
+
+def _binmorph_model(name: str, aln: Alignment) -> ReversibleModel:
+    """JC2 and GTR2 (binary), MK and ORDERED (morphology, the alignment's
+    state count)."""
+    upper = name.upper()
+    ns = aln.num_states
+    if aln.states.seq_type == SEQ_BINARY:
+        if upper in ("JC2", ""):
+            return ReversibleModel("JC2", 2, rate_groups=np.array([0]),
+                                   freq_type=FREQ_EQUAL)
+        if upper == "GTR2":
+            return ReversibleModel("GTR2", 2, rate_groups=np.array([0]),
+                                   freq_type=FREQ_ESTIMATE)
+        raise ModelParseError(f"unknown binary model {name!r}")
+    if upper in ("MK", ""):
+        return ReversibleModel("MK", ns, rate_groups=np.zeros(ns * (ns - 1) // 2, int),
+                               freq_type=FREQ_EQUAL)
+    if upper == "ORDERED":  # a change moves to a neighbouring state only
+        band = np.zeros((ns, ns))
+        i = np.arange(ns - 1)
+        band[i, i + 1] = band[i + 1, i] = 1.0
+        return ReversibleModel("ORDERED", ns, exchange=band, freq_type=FREQ_EQUAL,
+                               fixed_rates=True)
+    raise ModelParseError(f"unknown morphology model {name!r}")
 
 
 def _resolve_base(name: str, aln: Alignment, defs) -> ReversibleModel:
@@ -125,8 +158,11 @@ def _resolve_base(name: str, aln: Alignment, defs) -> ReversibleModel:
             subst.kappa, subst.omega = bparams
             subst.fix_kappa = subst.fix_omega = True
     else:
-        subst = create_dna_model(bname)
+        subst = (create_dna_model(bname) if aln.states.seq_type == SEQ_DNA
+                 else _binmorph_model(bname, aln))
         if bparams is not None:
+            if subst.rate_groups is None:
+                raise ModelParseError(f"{bname} takes no rate parameters")
             ngroups = int(subst.rate_groups.max()) + 1
             if len(bparams) != ngroups - 1:
                 raise ModelParseError(
@@ -224,10 +260,17 @@ def parse_model_string(model_str: str, aln: Alignment):
         elif up.startswith("K") and (len(up) == 1 or up[1:].isdigit()):
             kat_cats = int(up[1:]) if len(up) > 1 else 4
         elif up == "ASC":
-            _not_ported("+ASC", "the ascertainment-bias slice")
+            subst.asc = True
         else:
             raise ModelParseError(f"unknown model suffix +{name}")
 
+    # the correction conditions on variable sites: no invariable class, and
+    # no constant site in the data
+    if subst.asc:
+        if invar:
+            raise ModelParseError("+ASC is incompatible with +I")
+        if aln.frac_const_sites() > 0:
+            raise ModelParseError("+ASC requires an alignment without constant sites")
     if is_mix and subst.fused_with_rate:
         # `MIX{..}*G4` pairs class m with Gamma rate class m (LG4M); `MIX{..}*R4`
         # with FreeRate class m, whose free weights are the class weights (LG4X)

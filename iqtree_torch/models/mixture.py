@@ -45,6 +45,7 @@ class MixtureModel:
     # +FMIX{...} frequency vectors over `base`): model_string's
     class_tokens: Optional[List[str]] = None
     base: Optional[str] = None  # a frequency mixture's matrix
+    asc: bool = False  # +ASC: Lewis's ascertainment-bias correction
 
     @property
     def n_mix(self) -> int:

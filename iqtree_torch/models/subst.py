@@ -5,7 +5,8 @@ A reversible model is defined by:
     order: (0,1),(0,2)... so DNA order is AC,AG,AT,CG,CT,GT), an integer
     group id.  All pairs in a group share one exchangeability; group 0 is
     pinned to 1.0 (IQ-TREE's rate-code strings like "010010" for HKY);
-  * or a fixed `exchange` matrix [S, S] (the empirical protein models);
+  * or a fixed `exchange` matrix [S, S] (the empirical protein models, and
+    the banded matrix of the ORDERED morphology model);
   * state frequencies with a frequency policy (equal/empirical/estimated/
     user).
 
@@ -40,6 +41,7 @@ class ReversibleModel:
     freq_type: str = FREQ_EQUAL
     state_freq: Optional[np.ndarray] = None  # [S]
     fixed_rates: bool = False  # rates pinned (model string or empirical matrix)
+    asc: bool = False  # +ASC: Lewis's ascertainment-bias correction
 
     def __post_init__(self):
         S = self.num_states

@@ -99,13 +99,14 @@ def run_search(aln: Alignment, params: SearchParams) -> SearchResult:
 
     subst, rate = parse_model_string(params.model, aln)
     opt = ModelOptimizer(subst, rate, device)
-    site = SiteData.from_alignment(aln, device, dt)
+    site = SiteData.from_alignment(aln, device, dt, asc=subst.asc)
     mparams = opt.init_params()
     C = category_count(subst, rate)
-    dec = decide_engine(aln.n_taxa, C, subst.num_states, aln.n_patterns, device, dt,
-                        search=True)
-    for line in engine_banner(dec, aln.n_taxa, C, subst.num_states,
-                              aln.n_patterns, search=True).splitlines():
+    P = site.tip_codes.shape[1]  # +ASC's unobservable patterns included
+    dec = decide_engine(aln.n_taxa, C, subst.num_states, P, device, dt,
+                        search=True, has_asc=subst.asc)
+    for line in engine_banner(dec, aln.n_taxa, C, subst.num_states, P,
+                              search=True, has_asc=subst.asc).splitlines():
         log(line)
     engine = NNIEngine(opt.build(mparams), site, edge_chunk=dec.nni_chunk)
     phase = engine.phase

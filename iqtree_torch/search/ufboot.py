@@ -48,8 +48,11 @@ class UFBoot:
 
     def save_tree(self, tree: PhyloTree, pattern_lnl) -> None:
         """RELL-rescore one visited tree (pattern_lnl [P], a tensor on any
-        device or an array) against every sample; one uniform draw a call."""
-        lnl = torch.as_tensor(pattern_lnl, device=self.boot_freqs.device)
+        device or an array; +ASC's unobservable patterns after the
+        alignment's are left out) against every sample; one uniform draw a
+        call."""
+        P = self.boot_freqs.shape[1]
+        lnl = torch.as_tensor(pattern_lnl, device=self.boot_freqs.device)[:P]
         rell = (self.boot_freqs @ lnl.to(torch.float64)).cpu().numpy()
         better = rell > self.boot_logl + self.epsilon
         near = (~better) & (rell > self.boot_logl - self.epsilon)

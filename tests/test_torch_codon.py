@@ -354,8 +354,9 @@ def test_shapes_and_banner_name_the_codon_instance():
         build.check_shape(8, S, build.WIDE_STATES)
         with pytest.raises(NotImplementedError, match="instances for S in"):
             build.check_shape(4, S, build.WIDE_NEWTON_STATES)
-    with pytest.raises(NotImplementedError, match="binary/morphology slice"):
-        build.check_shape(4, 2)
+    # 21 to 32 morphological states share the S=64 instance, and its limit
+    with pytest.raises(NotImplementedError, match="the codon mixture slice"):
+        build.check_shape(12, 25)
     dec = decide_engine(80, 4, 61, 457, CPU, torch.float64)
     assert dec.store_bytes == 2 * 160 * 245 * 457 * 8  # up and out: the theta path
     text = engine_banner(dec, 80, 4, 61, 457)
@@ -404,8 +405,8 @@ def test_cli_codon_fit(tmp_path):
     assert parse_args(["-s", "x", "-st", "CODON", "-te", "t"]).seq_type == "CODON"
     search = parse_args(["-s", CODON_ALN, "-st", "CODON", "-device", "cpu"])
     assert (search.seq_type, search.fixed_tree) == ("CODON", None)
-    with pytest.raises(SystemExit, match="-st MORPH is not ported yet"):
-        cli_main(["-s", CODON_ALN, "-st", "MORPH", "-device", "cpu",
+    with pytest.raises(SystemExit, match="-st NT2AA: unsupported sequence type"):
+        cli_main(["-s", CODON_ALN, "-st", "NT2AA", "-device", "cpu",
                   "-pre", str(tmp_path / "s")])
     with pytest.raises(SystemExit, match="unknown genetic code"):
         parse_args(["-s", "x", "-st", "CODON7", "-te", "t"])

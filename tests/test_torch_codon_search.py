@@ -313,13 +313,14 @@ def test_codon_search_banner_and_engine(monkeypatch):
 
 
 @pytest.mark.parametrize("model,what", [("MIX{GY,MG}*R2", "mixture models"),
-                                        ("GY+ASC", r"\+ASC"),
+                                        ("MIX{GY,MG}+G4", "mixture models"),
                                         ("MIX{GY,MG}", "mixture models"),
                                         ("MIX{GY+G,MG}", "mixture models")])
 def test_codon_search_refuses_unported_models(model, what):
     """The codon search takes the codon models (FreeRate too:
-    tests/test_torch_freerate.py); +ASC and mixtures (a mixture's braces
-    included, and one fused with FreeRate) still refuse by name."""
+    tests/test_torch_freerate.py; +ASC: tests/test_torch_asc.py); mixtures
+    (a mixture's braces included, one with a rate model, and one fused
+    with FreeRate) still refuse by name."""
     aln, _ = alignments()
     with pytest.raises(NotImplementedError, match=what + " is not ported yet"):
         parse_model_string(model, aln)

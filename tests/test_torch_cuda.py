@@ -15,7 +15,10 @@ kernels and the twins sum in different orders.  Fourteen tests hold
 kernels' bits against their earlier designs, built from the csrc/ directory
 that IQT_EARLIER_CSRC names; they skip without it.  The wide walks' DNA
 instances past 8 categories (S=4) run on the 33-taxon DNA alignments of
-_lane_case at C = 9, 10, 16 and 32.
+_lane_case at C = 9, 10, 16 and 32.  Binary data (S=2: the CS-packed
+kernels' S=2 instances, and the S=4 walks past 8 categories) and
+morphology (3, 6 and 21 states, zero-padded to the S=4, S=20 and S=64
+instances) run on random 33-taxon alignments (_states_case).
 """
 
 import contextlib
@@ -1551,3 +1554,157 @@ def test_dna_packed_kernels_keep_the_earlier_bits(C):
             if kernel == "store":
                 g, w = g[inner], w[inner]
             assert torch.equal(g, w), (kernel, C)
+
+
+def _states_case(S, C, seed, n=33, sites=301):
+    """A random binary (S = 2) or morphological (S states, symbols 0..)
+    alignment with gaps and unknowns, a random tree and GTR2+I+GC (MK+I+GC
+    for morphology) on the card."""
+    from iqtree_torch.io.alignment import MORPH_SYMBOLS
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    alphabet = "01-" if S == 2 else MORPH_SYMBOLS[:S] + "?"
+    seqs = ["".join(rng.choice(list(alphabet), sites)) for _ in range(n)]
+    aln = Alignment.from_sequences([f"t{i}" for i in range(n)], seqs,
+                                   "BIN" if S == 2 else "MORPH")
+    assert aln.num_states == S
+    name = "GTR2" if S == 2 else "MK"
+    subst, rate = parse_model_string(f"{name}+I" + (f"+G{C}" if C > 1 else ""), aln)
+    rate.p_invar = 0.1
+    tree = random_tree(n, rng)
+    ta = TreeArrays.from_tree(tree, dev)
+    model = ModelArrays.from_model(subst, rate, dev)
+    site = SiteData.from_alignment(aln, dev, torch.float32)
+    steps, n_slots = pruning.device_slot_schedule(tree, ta)
+    return dict(ta=ta, model=model, site=site, steps=torch.as_tensor(steps, device=dev),
+                n_slots=n_slots, trans=branch_transition_mats(model, ta.blen).float().contiguous(),
+                tips=tip_partials(site).contiguous(), freq=model.state_freq.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,C", [(2, 1), (2, 3), (2, 4), (2, 8), (2, 10), (3, 4), (3, 1),
+                                 (6, 4), (6, 12), (21, 4)])
+def test_state_spaces_match_twins(S, C):
+    """Binary data on the S = 2 instances of the five CS-packed kernels up to
+    8 categories (past them on the S = 4 wide walks and wide_newton's
+    multi-category instance), morphology padded to the instance
+    build.instance_states names (S = 3 on the S = 4 CS-packed kernels,
+    6 on the S = 20 wide kernels, 21 on the S = 64 walks), through the
+    engine's wrappers: forward 1e-3 absolute, the stores 1e-4 (partials
+    absolutely, scales relative to the largest), the gradient and
+    branch-Newton sweeps 1e-4 relative to their largest entry; two
+    launches bit-equal; the launches counted on the wrappers of the
+    kernels that serve the shape.  No branch-Newton kernel serves 21
+    states (the theta path does)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from iqtree_torch.engine.derivatives import newton_serves
+    from iqtree_torch.engine.kernels import build
+
+    k = _states_case(S, C, 700 + 10 * S + C)
+    steps, n_slots, trans, tips, freq = (k[x] for x in ("steps", "n_slots", "trans", "tips",
+                                                         "freq"))
+    model, site = k["model"], k["site"]
+    N, R = k["ta"].n_taxa, 2 * k["ta"].n_taxa
+    inner = slice(N, 2 * N - 1)
+    props, invar = model.props.float(), ptn_invar(model, site).float().contiguous()
+    packed = build.packed(C, S)
+    assert packed == (S <= 4 and C <= 8)
+    if packed:
+        counted = (pruning.fused_site_lnl, cs_kernels.fused_upward_store_cs,
+                   cs_kernels.fused_down_store_cs, cs_kernels.fused_tbar_cs,
+                   cs_kernels.newton_sweep)
+    else:
+        counted = (pruning.wide_site_lnl, pruning.fused_upward_store,
+                   cs_kernels.fused_down_store, cs_kernels.fused_downward_tbar,
+                   cs_kernels.wide_newton_sweep)
+    newton = newton_serves(C, S)
+    assert newton == (S < 21 and (C <= 8 or S <= 4))
+    before = [w.launches for w in counted]
+
+    f_args = (steps, n_slots, trans, tips, props, freq, invar)
+    lnl = pruning.fused_site_lnl(*f_args)
+    assert torch.equal(lnl, pruning.fused_site_lnl(*f_args))
+    assert float((lnl - pruning._site_lnl_plain(*f_args[:1], *f_args[2:])).abs().max()) <= 1e-3
+
+    up, usc = cs_kernels.fused_upward_store_cs(steps, n_slots, trans, tips)
+    up2, usc2 = cs_kernels.fused_upward_store_cs(steps, n_slots, trans, tips)
+    assert up.shape == (R, C * S, tips.shape[2])
+    assert torch.equal(up[inner], up2[inner]) and torch.equal(usc[inner], usc2[inner])
+    up_p, usc_p = pruning.upward_plain(steps, trans, tips)
+    assert float((up[inner] - up_p[inner]).abs().max()) <= 1e-4
+    assert float((usc[inner] - usc_p[inner]).abs().max() / usc_p[inner].abs().max()) <= 1e-4
+
+    cs_kernels.fill_tip_rows_cs(up, usc, tips, C)
+    d_args = (steps, n_slots, trans, up, usc, freq)
+    out, osc = cs_kernels.fused_down_store_cs(*d_args)
+    out2, osc2 = cs_kernels.fused_down_store_cs(*d_args)
+    assert torch.equal(out, out2) and torch.equal(osc, osc2)
+    out_p, osc_p = cs_kernels._down_store_plain(steps, trans, up, usc, freq)
+    rows = [v for v in range(R - 1) if v != k["ta"].root]
+    assert float((out[rows] - out_p[rows]).abs().max()) <= 1e-4
+    assert float((osc[rows] - osc_p[rows]).abs().max() / osc_p[rows].abs().max()) <= 1e-4
+
+    wp = site.pattern_freq.contiguous()
+    t_args = (steps, n_slots, trans, tips, props, freq, lnl, wp)
+    tb = cs_kernels.fused_tbar_cs(*t_args, up=up, usc=usc)
+    assert torch.equal(tb, cs_kernels.fused_tbar_cs(*t_args, up=up, usc=usc))
+    want = cs_kernels._tbar_plain(steps, trans, props, freq, lnl, wp, up, usc)
+    assert tb.shape == (R, C, S, S)
+    assert float((tb[:R - 2] - want[:R - 2]).abs().max() / want[:R - 2].abs().max()) <= 1e-4
+
+    if newton:
+        mats = cs_kernels.stacked_deriv_mats(model, k["ta"].blen).float().contiguous()
+        n_args = (steps, n_slots, mats, props, freq, wp, invar, up, usc)
+        got = cs_kernels.newton_sweep(*n_args)
+        again = cs_kernels.newton_sweep(*n_args)
+        for g, a, w in zip(got, again, cs_kernels._newton_plain(*n_args[:1], *n_args[2:])):
+            assert torch.equal(g, a)
+            assert float((g - w).abs().max() / w.abs().max()) <= 1e-4
+    assert [w.launches for w in counted] == \
+        [b + 2 for b in before[:4]] + [before[4] + (2 if newton else 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,C", [(2, 4), (6, 4)])
+def test_asc_gradient_on_card_matches_plain_autograd(S, C):
+    """+ASC on the kernels' path: the custom autograd.Function (whose
+    gradient sweep's pattern weights carry the correction's terms) against
+    autograd through the plain pass, both with float32 partials on the
+    card, on the variable columns of a binary (S = 2, CS-packed) and a
+    6-state (padded to the S = 20 wide kernels) alignment."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from iqtree_torch.io.alignment import MORPH_SYMBOLS
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(900 + S)
+    n, sites = 33, 301
+    seqs = ["".join(rng.choice(list("01" if S == 2 else MORPH_SYMBOLS[:S]), sites))
+            for _ in range(n)]
+    cols = [j for j in range(sites) if len({s[j] for s in seqs}) > 1]
+    seqs = ["".join(s[j] for j in cols) for s in seqs]
+    aln = Alignment.from_sequences([f"t{i}" for i in range(n)], seqs,
+                                   "BIN" if S == 2 else "MORPH")
+    subst, rate = parse_model_string(("GTR2" if S == 2 else "MK") + f"+G{C}+ASC", aln)
+    rate.alpha = 0.6
+    tree = random_tree(n, rng)
+    ta = TreeArrays.from_tree(tree, dev)
+    model = ModelArrays.from_model(subst, rate, dev)
+    site = SiteData.from_alignment(aln, dev, torch.float32, asc=True)
+    steps, n_slots = pruning.device_slot_schedule(tree, ta)
+    steps = torch.as_tensor(steps, device=dev)
+    fields = ("eigenvalues", "eigvec", "inv_eigvec", "state_freq", "rates", "props",
+              "p_invar")
+
+    def grads(fn):
+        leaves = [ta.blen.clone().requires_grad_()]
+        leaves += [getattr(model, f).clone().requires_grad_() for f in fields]
+        total, _ = fn(ta.with_blen(leaves[0]), ModelArrays(*leaves[1:]))
+        return torch.autograd.grad(total, leaves)
+
+    got = grads(lambda t, m: loglik(t, m, site, steps, n_slots))
+    want = grads(lambda t, m: compute_loglik(t, m, site))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-3 * float(w.abs().max()))

@@ -276,8 +276,8 @@ def test_golden_lg_fit():
 def test_cli_protein_fit_and_search(tmp_path, capsys):
     """`-te ... -m LG+G -device cpu` through the CLI: the golden optimum, a
     report naming LG+G4; the protein search runs (its candidate set cut to
-    one tree for time) and writes its tree; the codon search exits "not
-    ported yet"."""
+    one tree for time) and writes its tree; `-st BIN` on protein data
+    refuses its characters."""
     prefix = str(tmp_path / "lg")
     assert cli_main(["-s", PROT, "-st", "AA", "-te", PROT_TREE, "-m", "LG+G",
                      "-device", "cpu", "-pre", prefix]) == 0
@@ -300,7 +300,7 @@ def test_cli_protein_fit_and_search(tmp_path, capsys):
     assert float(re.search(r"BEST SCORE FOUND : (\S+)", log).group(1)) > GOLDEN_LG_LNL
     with open(search + ".treefile") as f:
         assert f.read().count(",") == 26
-    with pytest.raises(SystemExit, match="-st BIN is not ported yet"):
+    with pytest.raises(ValueError, match="invalid character .* for BIN"):
         cli_main(["-s", PROT, "-st", "BIN", "-device", "cpu"])
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -308,14 +308,15 @@ def test_cli_protein_fit_and_search(tmp_path, capsys):
 
 
 def test_shapes_served_and_cpu_twins():
-    """The kernels serve S=4, S=20 and the codon spaces; another state count
-    names the slice that ports it, and the search serves S=20 with up and
-    out stored.  CPU tensors take the twins: no wide kernel launch is
-    counted."""
+    """The kernels serve S=2, S=4, S=20 and the codon spaces (and what pads
+    to them); a shape past them names the slice that ports it, and the
+    search serves S=20 with up and out stored.  CPU tensors take the twins:
+    no wide kernel launch is counted."""
     build.check_shape(4, 20)
     build.check_shape(4, 61)
-    with pytest.raises(NotImplementedError, match="binary/morphology slice"):
-        build.check_shape(4, 2)
+    build.check_shape(4, 2)
+    with pytest.raises(NotImplementedError, match="the codon mixture slice"):
+        build.check_shape(12, 30)
     assert decide_engine(27, 4, 20, 184, CPU, torch.float64,
                          search=True).store_bytes == 2 * 54 * 81 * 184 * 8
     assert decide_engine(27, 4, 20, 184, CPU, torch.float64).store_bytes == \
